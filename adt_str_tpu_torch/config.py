@@ -6,7 +6,7 @@ the experiment YAML, `${oc.env:VAR}` / `${VAR}` substitution, YAML 1.2
 floats (`8e-4` is a float), unknown keys and sections dropped.
 
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
-`model`, `inference`, `serving`); every other section stays readable in
+`model`, `inference`, `serving`, `training`); every other section stays readable in
 `FrameworkConfig.raw`. PyYAML is imported inside `from_yaml` only: the
 machine with the card has no PyYAML, and `FrameworkConfig.from_dict` needs
 none.
@@ -200,6 +200,25 @@ class ServingConfig:
 
 
 @dataclass
+class TrainingConfig:
+    """The `training:` fields that the optimizer and train step read
+    (`adt_str_tpu/config.py:TrainingConfig`); the mesh and trainer fields
+    come with the slices that use them."""
+
+    learning_rate: float = 1e-4
+    min_learning_rate: Optional[float] = None
+    warmup_ratio: float = 0.1
+    weight_decay: float = 1e-5
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 1
+    optim: str = "adamw"
+    lr_scheduler_type: str = "cosine"
+    # N > 0: a step whose gradients hold NaN/Inf leaves params and optimizer
+    # state untouched, until N consecutive such steps let one through
+    skip_nonfinite_updates: int = 0
+
+
+@dataclass
 class FrameworkConfig:
     """Typed view over the merged YAML dict (untyped sections stay in `raw`)."""
 
@@ -208,6 +227,7 @@ class FrameworkConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -233,6 +253,7 @@ class FrameworkConfig:
             model=make_dataclass_from(ModelConfig, model_d, shared_d),
             inference=_coerce(InferenceConfig, "inference"),
             serving=_coerce(ServingConfig, "serving"),
+            training=_coerce(TrainingConfig, "training"),
             raw=cfg,
         )
 

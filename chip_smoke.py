@@ -1,23 +1,39 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's serving path (`adt_str_tpu_torch`) at full width and holds
-its hand-written CUDA kernels against their plain PyTorch versions. Imports
-no JAX and nothing of the JAX package. Phases, each printing one JSON line:
+Drives the port's serving path and its training step (`adt_str_tpu_torch`)
+at full width and holds its hand-written CUDA kernels against their plain
+PyTorch versions. Imports no JAX and nothing of the JAX package. Phases,
+each printing one JSON line:
 
 1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
 2. the kernel build (`csrc/*.cu`, one nvcc each, in parallel) and its time;
-3. each kernel at the serving shapes (B = 1, the bucket the serving phase
-   fills, and the largest bucket, 64) against its plain version on the
-   card: max/mean abs error against the stated tolerance,
-   kernel/plain/library medians over 12 timed calls (each on other inputs,
-   after warm-up) and the least time the card could take (`bound_ms`);
-4. the slice: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
+3. each kernel against its plain version on the card, at the shapes the
+   main paths give it: K1 log-mel and K5f attention at the serving batches
+   (B = 1, the bucket the serving phase fills, 64); K5f, K5b (attention
+   backward) at the training shapes (B = 64: encoder 246 x 246, decoder
+   self 511 x 511 with the causal + padding mask, cross 511 x 246); K4
+   (fused FFN + dropout) at N = 64 * 246 and 64 * 511 rows. Each line:
+   max/mean abs error against the stated tolerance, kernel/plain/library
+   medians over 12 timed calls (each on other inputs, after warm-up) and
+   the least time the card could take (`bound_ms`, `bound_by`);
+4. training, one phase per configuration (`TRAIN_CONFIGS`: TMIDT at full
+   width, batch 64, with K4 or with K5): 5 steps of the port's
+   `make_train_step` on one seeded batch of random 2.56 s waves and random
+   512-token sequences, at a constant learning rate of 1e-4 with no warmup
+   (so every update applies). It fails unless every loss is finite, the
+   last loss is below the first, the slice's kernels launched exactly as
+   often as the model calls them, and the first step's loss and grad_norm
+   agree with the same step through the plain versions on the card. It
+   reports the median step time, the device-busy share of one profiled
+   step and where that step's device time goes;
+5. serving: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
    from seeded random weights, served by the port's HTTP server on
    127.0.0.1; 3 concurrent POSTs of 10 s of seeded raw f32 PCM must answer
-   200 with well-formed notes, both kernels' launch counters must rise, and
-   the kernel-path encoder memory must agree with the port's CPU path
-   (which the tests hold against the JAX package);
-5. one `{"kernels": [...]}` line, at the serving phase's batch shape.
+   200 with well-formed notes, both serving kernels' launch counters must
+   rise, and the kernel-path encoder memory must agree with the port's CPU
+   path (which the tests hold against the JAX package);
+6. one `{"kernels": [...]}` line: each kernel at the main-path shape named
+   in its entry, with its launches in every main-path run.
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
@@ -25,6 +41,7 @@ Any failed phase raises: no `ok` line and a nonzero exit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -38,11 +55,15 @@ import urllib.request
 import numpy as np
 import torch
 
-from adt_str_tpu_torch.config import FrameworkConfig
-from adt_str_tpu_torch.models.adt import ADTModel, mel_params
+from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
+from adt_str_tpu_torch.models import transformer as T
+from adt_str_tpu_torch.models.adt import ADTModel, collate_token_lengths, draw_site_keys, mel_params
 from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
-from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_mel
+from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, ffn
+from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
+from adt_str_tpu_torch.parallel.train_step import init_train_state, make_train_step
 from adt_str_tpu_torch.serve import build_engine
+from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
 
 # configs/serve/ENSTserving.yaml merged over configs/config_default.yaml, as
@@ -61,6 +82,29 @@ SERVING_CONFIG = {
     "serving": {"buckets": [1, 2, 4, 8, 16, 32, 64], "max_wait_ms": 2.0, "host": "127.0.0.1",
                 "port": 8321, "precompile": True},
 }
+
+# configs/train/TMIDT-{fused-ffn,flash}.yaml merged over configs/config_default.yaml
+# (the sections the step reads; a test checks each against its YAML)
+_TMIDT_MODEL = {
+    "enc_layers": 4, "dec_layers": 4, "nhead": 6, "d_query": 128, "tgt_vocab_size": 1400, "plain": True,
+    "n_mels": 128, "param_dtype": "float32", "compute_dtype": "bfloat16", "use_pallas_mel": True,
+}
+_TMIDT = {
+    "shared": {"input_sec": 2.56, "time_res": 0.01, "win_length": 2048, "sample_rate": 24000},
+    "tokenizer": {"ADTOF_mapping": False, "BOS_token": 2, "EOS_token": 3, "pad_token": 1,
+                  "silence_token": 0, "add_velocity": False},
+    "training": {"learning_rate": 1e-4, "min_learning_rate": 1e-5, "warmup_ratio": 0.1,
+                 "gradient_accumulation_steps": 1, "weight_decay": 1e-5, "max_grad_norm": 1.0, "optim": "adamw",
+                 "lr_scheduler_type": "cosine"},
+}
+TRAIN_CONFIGS = {
+    "fused-ffn": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.1, "use_pallas_ffn": True}},
+    "flash": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.0, "use_flash_attention": True}},
+}
+TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size
+TRAIN_TOKENS = 512  # TrainDatasetConfig.max_tokens: decoder inputs of 511 tokens
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
@@ -92,7 +136,9 @@ def median_ms(fn, inputs) -> float:
 
 
 def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[float, str]:
-    ops_s = sum(f / peak for f, peak in flops_by_peak)
+    """The least time in ms and what sets it: the tensor-core and CUDA-core
+    pipes and the memory run at once, so the slowest of the three binds."""
+    ops_s = max(f / peak for f, peak in flops_by_peak)
     bytes_s = n_bytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
 
@@ -164,13 +210,30 @@ def phase_mel(params, batch: int, gen) -> dict:
     return res
 
 
-def phase_attention(batch: int, gen) -> dict:
-    H, T, D = 6, 246, 128
+def _attention_mask(batch: int, tq: int, tk: int, causal: bool, gen):
+    """None, or the decoder's causal + key-padding mask as (B, Tq, Tk) at
+    random token lengths (Tq == Tk)."""
+    if not causal:
+        return None
+    lengths = torch.randint(tk // 4, tk + 1, (batch,), generator=gen, device="cuda")
+    return (T.causal_mask_additive(tq, device="cuda") + T.padding_mask_additive(lengths, tk))[:, 0].contiguous()
 
-    def qkv():
-        return tuple(torch.randn(batch, H, T, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
 
-    inputs = [qkv() for _ in range(REPS)]
+def _qkv(batch: int, tq: int, tk: int, gen):
+    H, D = 6, 128
+    return tuple(torch.randn(batch, H, t, D, generator=gen, device="cuda").to(torch.bfloat16) for t in (tq, tk, tk))
+
+
+def _sdpa(q, k, v, mask, n_virtual):
+    """One library call for the same function (the virtual keys add 0 here)."""
+    am = None if mask is None else mask[:, None].to(q.dtype)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+
+def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str) -> dict:
+    """K5f at one shape; the keys the JAX caller pads on are counted as the model counts them."""
+    n_virtual = cuda_attention.virtual_keys(tq, tk)
+    inputs = [(*_qkv(batch, tq, tk, gen), _attention_mask(batch, tq, tk, causal, gen), n_virtual) for _ in range(REPS)]
     before = cuda_attention.fused_attention.launches
     out, lse = cuda_attention.fused_attention(*inputs[0])
     ref, ref_lse = cuda_attention.attention_plain(*inputs[0])
@@ -182,13 +245,117 @@ def phase_attention(batch: int, gen) -> dict:
     res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol,
            "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
     if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and res["lse_max_abs_err"] <= 1e-4):
-        raise RuntimeError(f"attention kernel disagrees with its plain version: {res}")
+        raise RuntimeError(f"attention kernel disagrees with its plain version at {shape}: {res}")
     res["ms"] = median_ms(cuda_attention.fused_attention, inputs)
     res["plain_ms"] = median_ms(cuda_attention.attention_plain, inputs)
-    res["library_ms"] = median_ms(torch.nn.functional.scaled_dot_product_attention, inputs)
-    n = batch * H * T * D
-    res["bound_ms"], res["bound_by"] = bound([(4.0 * batch * H * T * T * D, PEAK_BF16)], 4 * n * 2 + batch * H * T * 4)
-    emit({"phase": "kernel", "name": "fused_attention", "batch": batch, **res})
+    res["library_ms"] = median_ms(_sdpa, inputs)
+    bh = batch * 6
+    res["bound_ms"], res["bound_by"] = bound(
+        [(4.0 * bh * tq * tk * 128, PEAK_BF16), (5.0 * bh * tq * tk, PEAK_FP32)],  # products; scale, mask, max, exp, sum
+        2 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
+    )
+    emit({"phase": "kernel", "name": "fused_attention", "shape": shape, "batch": batch, "tq": tq, "tk": tk,
+          "mask": causal, "n_virtual": n_virtual, **res})
+    return res
+
+
+def _sdpa_grads(out, q, k, v, do):
+    return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+
+def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str) -> dict:
+    """K5b at one shape, on the forward kernel's out and lse."""
+    n_virtual = cuda_attention.virtual_keys(tq, tk)
+    inputs = []
+    for _ in range(REPS):
+        q, k, v = _qkv(batch, tq, tk, gen)
+        mask = _attention_mask(batch, tq, tk, causal, gen)
+        out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        inputs.append((q, k, v, mask, out, lse, do))
+    before = cuda_attention.fused_attention_bwd.launches
+    got = cuda_attention.fused_attention_bwd(*inputs[0])
+    refs = cuda_attention.attention_bwd_plain(*inputs[0])
+    torch.cuda.synchronize()
+    if cuda_attention.fused_attention_bwd.launches != before + 1:
+        raise RuntimeError("fused_attention_bwd did not launch its kernels")
+    # p and ds enter the kernel's products as bf16 (relative 2^-9) where the
+    # plain version keeps fp32, and both round dq, dk, dv to bf16 (2^-8)
+    tol_rel = 2.0**-6
+    errs = {n: (g.float() - r.float()).abs() for n, g, r in zip(("dq", "dk", "dv"), got, refs)}
+    scale = {n: r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), refs)}
+    res = {"max_abs_err": max(e.max().item() for e in errs.values()),
+           "mean_abs_err": statistics.mean(e.mean().item() for e in errs.values()),
+           "max_rel_to_largest": {n: errs[n].max().item() / max(scale[n], 1e-30) for n in errs}, "tol_rel": tol_rel}
+    if not (all(torch.isfinite(g.float()).all() for g in got) and max(res["max_rel_to_largest"].values()) <= tol_rel):
+        raise RuntimeError(f"attention backward kernel disagrees with its plain version at {shape}: {res}")
+    res["tol"] = tol_rel * max(scale.values())
+    res["ms"] = median_ms(cuda_attention.fused_attention_bwd, inputs)
+    res["plain_ms"] = median_ms(cuda_attention.attention_bwd_plain, inputs)
+    lib_inputs = []
+    for q, k, v, mask, _, _, do in inputs:
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_inputs.append((_sdpa(q, k, v, mask, n_virtual), q, k, v, do))
+    res["library_ms"] = median_ms(_sdpa_grads, lib_inputs)  # autograd through SDPA, same mask
+    del lib_inputs
+    bh = batch * 6
+    res["bound_ms"], res["bound_by"] = bound(
+        [(10.0 * bh * tq * tk * 128, PEAK_BF16), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
+        4 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
+    )
+    emit({"phase": "kernel", "name": "fused_attention_bwd", "shape": shape, "batch": batch, "tq": tq, "tk": tk,
+          "mask": causal, "n_virtual": n_virtual, **res})
+    return res
+
+
+def _ffn_library(x, w1, b1, w2, b2, *_):
+    """Two cuBLAS GEMMs with F.gelu between, masks excluded: K4's library yardstick."""
+    return torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(x, w1, b1)), w2.T, b2)
+
+
+def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: float = 0.9) -> dict:
+    """K4 at one shape (the training config's dropout 0.1)."""
+    cpu = torch.Generator().manual_seed(SEED + rows)
+
+    def args():
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        w1 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
+        w2 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d_ff)).to(torch.bfloat16)
+        b1 = (torch.randn(d_ff, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        words = torch.randint(0, 2**32, (2, 2), generator=cpu).tolist()
+        return x, w1, b1, w2, b2, seed_from_key(words[0]) + seed_from_key(words[1]), keep, keep
+
+    inputs = [args() for _ in range(REPS)]
+    before = cuda_ffn.ffn_dropout.launches
+    out, pre = cuda_ffn.ffn_dropout(*inputs[0])
+    ref, ref_pre = ffn.ffn_dropout_plain(*inputs[0])
+    torch.cuda.synchronize()
+    if cuda_ffn.ffn_dropout.launches != before + 1:
+        raise RuntimeError("ffn_dropout did not launch its kernel")
+    # the same bf16 operands with fp32 accumulation in another order: pre and
+    # out may each flip one bf16 rounding (<= 2^-7 of the value); pre also
+    # carries the fp32 cancellation error near 0; the masks are the same hash
+    err, pre_err = (out.float() - ref.float()).abs(), (pre.float() - ref_pre.float()).abs()
+    tol = 2.0**-7 * ref.float().abs().max().item()
+    pre_ok = bool((pre_err <= 2.0**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all())
+    res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol,
+           "pre_max_abs_err": pre_err.max().item(), "pre_within_1ulp": pre_ok,
+           "zero_pattern_equal": bool(torch.equal(out == 0, ref == 0)),
+           "dropped_share": (out == 0).float().mean().item()}
+    if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and pre_ok and res["zero_pattern_equal"]):
+        raise RuntimeError(f"FFN kernel disagrees with its plain version at {shape}: {res}")
+    res["ms"] = median_ms(cuda_ffn.ffn_dropout, inputs)
+    res["plain_ms"] = median_ms(ffn.ffn_dropout_plain, inputs)
+    res["library_ms"] = median_ms(_ffn_library, inputs)
+    res["library"] = "two cuBLAS GEMMs + F.gelu, masks excluded"
+    res["bound_ms"], res["bound_by"] = bound(
+        # the two products; ~30 fp32-rate operations per hidden element (A-S
+        # gelu, the hash, scaling) and ~12 per output element
+        [(4.0 * rows * d * d_ff, PEAK_BF16), (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
+        2 * (rows * d * 2 + d * d_ff * 2) + 2 * (d_ff + d) + rows * d_ff * 2,
+    )
+    emit({"phase": "kernel", "name": "ffn_dropout", "shape": shape, "rows": rows, "d": d, "d_ff": d_ff, **res})
     return res
 
 
@@ -254,6 +421,171 @@ def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel wrapper to its plain version, for the reference
+    step: the model code calls the wrappers through their modules."""
+    names = [(cuda_mel, "log_mel", cuda_mel.log_mel_plain),
+             (cuda_attention, "fused_attention", cuda_attention.attention_plain),
+             (cuda_attention, "fused_attention_bwd", cuda_attention.attention_bwd_plain),
+             (cuda_ffn, "ffn_dropout", ffn.ffn_dropout_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in names]
+    try:
+        for mod, name, plain in names:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(names, saved):
+            setattr(mod, name, fn)
+
+
+def kernel_counters() -> dict:
+    return {"log_mel": cuda_mel.log_mel, "fused_attention": cuda_attention.fused_attention,
+            "fused_attention_bwd": cuda_attention.fused_attention_bwd, "ffn_dropout": cuda_ffn.ffn_dropout}
+
+
+def train_batch(cfg: FrameworkConfig, seed: int) -> dict:
+    """TRAIN_BATCH random 2.56 s waves and random token rows: BOS, random
+    tokens, EOS at a random length (one row full), PAD; collated lengths."""
+    g = torch.Generator().manual_seed(seed)
+    tok = cfg.tokenizer
+    wave = torch.randn(TRAIN_BATCH, cfg.shared.chunk_samples, generator=g) * 0.3
+    eos_at = torch.randint(TRAIN_TOKENS // 4, TRAIN_TOKENS, (TRAIN_BATCH,), generator=g)
+    eos_at[0] = TRAIN_TOKENS - 1
+    pos = torch.arange(TRAIN_TOKENS)[None]
+    body = torch.randint(4, cfg.model.tgt_vocab_size, (TRAIN_BATCH, TRAIN_TOKENS), generator=g)
+    tokens = torch.where(pos < eos_at[:, None], body, tok.pad_token)
+    tokens = torch.where(pos == eos_at[:, None], tok.EOS_token, tokens)
+    tokens[:, 0] = tok.BOS_token
+    return {"wavs": wave.cuda(), "tokens": tokens.cuda(), "token_lengths": collate_token_lengths(eos_at + 1).cuda()}
+
+
+def _group(name: str) -> str:
+    """The part of a training step a device kernel belongs to."""
+    for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
+                       ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
+                       ("log_mel_kernel", "K1 log-mel")):
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")):
+        return "GEMM (cuBLAS)"
+    if "<long" in low or "arange" in low:
+        return "int64 elementwise (dropout hash)"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reductions (LayerNorm, sums, norms)"
+    if "indexing_backward" in low or "embedding" in low:
+        return "embedding"
+    if any(k in low for k in ("copy", "memcpy", "memset", "cast")):
+        return "copies, casts"
+    return "other elementwise"
+
+
+def step_profile(fn, label: str) -> dict:
+    """Device time of one call of `fn` under torch.profiler: the busy share
+    (kernel time over host wall time; the profiler's own host cost makes
+    the idle share an upper bound) and the time by kernel group."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    trace = _build.BUILD_DIR.parent / f"train_trace_{label}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    prof.export_chrome_trace(str(trace))
+    kernels = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    groups: dict = {}
+    by_name: dict = {}
+    for e in kernels:
+        dur = float(e.get("dur", 0)) / 1e3
+        groups[_group(e.get("name", ""))] = groups.get(_group(e.get("name", "")), 0.0) + dur
+        by_name[e.get("name", "")[:90]] = by_name.get(e.get("name", "")[:90], 0.0) + dur
+    busy_ms = sum(groups.values())
+    return {"wall_ms": wall_us / 1e3, "device_kernels": len(kernels), "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms * 1e3 / wall_us if kernels else None,  # None: the profiler saw no device
+            "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def phase_training(name: str) -> dict:
+    """TRAIN_STEPS steps of one training configuration through its kernels."""
+    cfg = FrameworkConfig.from_dict(TRAIN_CONFIGS[name])
+    mc = cfg.model
+    per_step = {"log_mel": 1, "fused_attention": 0, "fused_attention_bwd": 0, "ffn_dropout": 0}
+    if mc.use_pallas_ffn and mc.dropout > 0:
+        per_step["ffn_dropout"] = mc.enc_layers + mc.dec_layers
+    if mc.use_flash_attention and mc.dropout == 0:
+        per_step["fused_attention"] = per_step["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
+    # a constant lr with no warmup: every one of the few updates applies
+    tcfg = TrainingConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_scheduler_type="constant",
+                          weight_decay=cfg.training.weight_decay, max_grad_norm=cfg.training.max_grad_norm)
+    batch = train_batch(cfg, SEED + 10)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    keys = [draw_site_keys(mc, gen) for _ in range(TRAIN_STEPS + 1)]
+
+    def fresh():
+        model = ADTModel(mc, seed=SEED, device="cuda")
+        opt, _ = make_optimizer(tcfg, TRAIN_STEPS, model)
+        return make_train_step(mc, opt, device="cuda"), init_train_state(model, opt)
+
+    # the first step through the plain versions, from the same weights and keys
+    step, state = fresh()
+    with plain_kernels():
+        _, m = step(state, batch, keys[0])
+        plain0 = {k: float(v) for k, v in m.items()}
+    del step, state, m
+    torch.cuda.empty_cache()
+
+    step, state = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        state, m = step(state, batch, keys[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expected = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    # bf16 training: the kernel path rounds at other points than the plain
+    # path (K5b's bf16 p and ds, pre and p rounding flips); measured on the
+    # H100, 3e-6 of the loss and 1e-4 of the gradient norm at most
+    tol = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}
+    vs_plain = {"loss": losses[0], "plain_loss": plain0["loss"], "grad_norm": norms[0],
+                "plain_grad_norm": plain0["grad_norm"], **tol}
+    profile = step_profile(lambda: step(state, batch, keys[-1]), name)
+    res = {"phase": "training", "config": name, "batch": TRAIN_BATCH, "tokens": TRAIN_TOKENS,
+           "steps": TRAIN_STEPS, "lr": f"constant {TRAIN_LR}, no warmup (every update applies)",
+           "dropout": mc.dropout, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms), "launches": launches, "expected_launches": expected,
+           "vs_plain_first_step": vs_plain, "peak_mem_gib": peak_gib, "profile_one_step": profile,
+           "model_params": sum(p.numel() for p in state.model.parameters())}
+    emit(res)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"{name}: a loss or gradient norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if launches != expected:
+        raise RuntimeError(f"{name}: kernel launches {launches}, expected {expected}")
+    if not (abs(losses[0] - plain0["loss"]) <= tol["loss_rtol"] * abs(plain0["loss"])
+            and abs(norms[0] - plain0["grad_norm"]) <= tol["grad_norm_rtol"] * plain0["grad_norm"]):
+        raise RuntimeError(f"{name}: the kernel path disagrees with the plain path: {vs_plain}")
+    del step, state
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_serving(cfg: FrameworkConfig) -> dict:
     t0 = time.monotonic()
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
@@ -282,9 +614,10 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
     n = int(REQUEST_SEC * cfg.shared.sample_rate)
     bodies = [(rng.normal(size=n) * 0.3).astype("<f4").tobytes() for _ in range(N_REQUESTS)]
     results: list = [None] * N_REQUESTS
+    counters = kernel_counters()
     try:
-        cuda_mel.log_mel.launches = 0
-        cuda_attention.fused_attention.launches = 0
+        for c in counters.values():
+            c.launches = 0
         t0 = time.monotonic()
         threads = [threading.Thread(target=_post, args=(url, b, results, i)) for i, b in enumerate(bodies)]
         for t in threads:
@@ -292,8 +625,7 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
         for t in threads:
             t.join(timeout=900)
         wall = time.monotonic() - t0
-        launches = {"log_mel": cuda_mel.log_mel.launches,
-                    "fused_attention": cuda_attention.fused_attention.launches}
+        launches = {k: c.launches for k, c in counters.items()}
         stats = engine.stats()
     finally:
         server.shutdown()
@@ -303,7 +635,7 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
         if r is None or r[0] != 200:
             raise RuntimeError(f"request {i} failed: {r}")
         check_notes(json.loads(r[1]), REQUEST_SEC, cfg.model.tgt_vocab_size)
-    if not all(launches.values()):
+    if not (launches["log_mel"] and launches["fused_attention"]):
         raise RuntimeError(f"a kernel of the path was not launched while serving: {launches}")
     breakdown = decode_breakdown(model, cfg, batch=stats["n_requests"])
     res = {
@@ -315,6 +647,11 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
     }
     emit(res)
     return res
+
+
+# the training shapes of K5 at B = 64: (Tq, Tk, causal + padding mask)
+TRAIN_ATTENTION = {"encoder": (246, 246, False), "decoder-self": (511, 511, True), "cross": (511, 246, False)}
+TRAIN_FFN_ROWS = {"encoder": TRAIN_BATCH * 246, "decoder": TRAIN_BATCH * 511}
 
 
 def main() -> int:
@@ -333,17 +670,35 @@ def main() -> int:
     bucket = main_path_bucket(cfg)
     batches = sorted({1, bucket, cfg.serving.buckets[-1]})
     mel = {b: phase_mel(params, b, gen) for b in batches}
-    att = {b: phase_attention(b, gen) for b in batches}
+    att = {b: phase_attention(b, 246, 246, False, gen, "encoder") for b in batches}
+    att_train = {s: phase_attention(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
+    bwd_train = {s: phase_attention_bwd(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
+    ffn_train = {s: phase_ffn(rows, gen, s) for s, rows in TRAIN_FFN_ROWS.items()}
+    training = {c: phase_training(c) for c in TRAIN_CONFIGS}
     serving = phase_serving(cfg)
-    keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()}}
+
+    def entry(kname, source, replaces, shape, res):
+        keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        per_path = {p: n.get(kname, 0) for p, n in by_path.items()}
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(per_path.values()), "launches_by_path": per_path, "shape": shape,
+                **{k: res[k] for k in keys}}
+
     emit({"kernels": [
-        {"name": "log_mel", "route": "cuda", "source": "adt_str_tpu_torch/csrc/log_mel.cu",
-         "replaces": "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
-         "launches": serving["launches"]["log_mel"], "batch": bucket, **{k: mel[bucket][k] for k in keys}},
-        {"name": "fused_attention", "route": "cuda", "source": "adt_str_tpu_torch/csrc/attention.cu",
-         "replaces": "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
-         "launches": serving["launches"]["fused_attention"], "batch": bucket, **{k: att[bucket][k] for k in keys}},
-    ], "total_s": round(time.monotonic() - t_start, 3)})
+        entry("log_mel", "adt_str_tpu_torch/csrc/log_mel.cu", "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
+              f"B={TRAIN_BATCH} chunks of 2.56 s (training; largest serving bucket)", mel[TRAIN_BATCH]),
+        entry("fused_attention", "adt_str_tpu_torch/csrc/attention.cu",
+              "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
+              f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", att_train["decoder-self"]),
+        entry("fused_attention_bwd", "adt_str_tpu_torch/csrc/attention_bwd.cu",
+              "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
+              f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", bwd_train["decoder-self"]),
+        entry("ffn_dropout", "adt_str_tpu_torch/csrc/ffn_dropout.cu",
+              "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
+              f"N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072", ffn_train["decoder"]),
+    ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
+        "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from adt_str_tpu_torch.ops import cuda_attention, cuda_mel
+from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel
+from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
+from adt_str_tpu_torch.ops.ffn import ffn_dropout_plain
 from adt_str_tpu_torch.ops.mel import MelFrontendParams
 
 pytestmark = pytest.mark.cuda
@@ -62,34 +64,132 @@ def test_log_mel_kernel_silence(cuda):
     assert out.abs().max().item() == 0.0
 
 
+def _qkv(B, H, Tq, Tk, cuda, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(B, H, T, 128, generator=g).to(cuda, torch.bfloat16) for T in (Tq, Tk, Tk))
+
+
+def _causal(B, Tq, Tk, cuda, masked_row=None):
+    mask = torch.triu(torch.full((Tq, Tk), -1e4), diagonal=1).expand(B, Tq, Tk).clone()
+    if masked_row is not None:
+        mask[:, masked_row] = -1e4
+    return mask.to(cuda)
+
+
+# (B, H, Tq, Tk, mask): the serving and training shapes of the model (encoder
+# 246, decoder self 511, cross 511 x 246), ragged and limit cases, and a row
+# whose real keys are all masked (where the virtual keys take their share).
+ATTENTION_CASES = {
+    "encoder": (2, 6, 246, 246, None),
+    "ragged-causal": (2, 1, 30, 30, "causal"),
+    "cross": (1, 2, 10, 246, None),
+    "decoder-self": (2, 6, 511, 511, "causal"),
+    "cross-training": (2, 6, 511, 246, None),
+    "max-keys": (1, 1, 256, 512, "causal"),
+    "masked-row": (1, 2, 30, 30, "masked-row"),
+}
+
+
+def _attention_inputs(case, cuda):
+    B, H, Tq, Tk, kind = ATTENTION_CASES[case]
+    q, k, v = _qkv(B, H, Tq, Tk, cuda)
+    mask = None if kind is None else _causal(B, Tq, Tk, cuda, 3 if kind == "masked-row" else None)
+    return q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk)
+
+
 # Tolerances: scores and softmax agree to fp32 rounding; p is rounded to bf16
 # on both sides and a rare ulp flip there moves out by ~1 bf16 ulp of |out|.
-@pytest.mark.parametrize(
-    "B, H, Tq, Tk, with_mask",
-    [(2, 6, 246, 246, False), (2, 1, 30, 30, True), (1, 2, 10, 246, False), (1, 1, 256, 256, True)],
-    ids=["encoder", "ragged-causal", "cross", "max-keys"],
-)
-def test_attention_kernel_matches_plain(cuda, B, H, Tq, Tk, with_mask):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    q, k, v = (
-        torch.randn(B, H, T, 128, generator=g).to(cuda, torch.bfloat16) for T in (Tq, Tk, Tk)
-    )
-    mask = None
-    if with_mask:
-        mask = torch.triu(torch.full((Tq, Tk), -1e4), diagonal=1).expand(B, Tq, Tk).to(cuda)
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernel_matches_plain(cuda, case):
+    q, k, v, mask, n_virtual = _attention_inputs(case, cuda)
     before = cuda_attention.fused_attention.launches
-    out, lse = cuda_attention.fused_attention(q, k, v, mask)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     torch.cuda.synchronize()
     assert cuda_attention.fused_attention.launches == before + 1
-    ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask)
+    ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape and lse.shape == ref_lse.shape
     assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
+# Tolerance: the kernel rounds p and ds to bf16 (relative 2^-9) to enter the
+# p^T do, ds^T q and ds k products, which the plain version takes in fp32,
+# and both round their outputs to bf16 (relative 2^-8): within 2^-6 of the
+# largest gradient of each output.
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_bwd_kernel_matches_plain(cuda, case):
+    q, k, v, mask, n_virtual = _attention_inputs(case, cuda)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
+    before = cuda_attention.fused_attention_bwd.launches
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert cuda_attention.fused_attention_bwd.launches == before + 1
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2**-6 * ref.float().abs().max().item(), (name, err)
+
+
+def test_fused_attention_autograd_launches_both_kernels(cuda):
+    q, k, v, mask, n_virtual = _attention_inputs("ragged-causal", cuda)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches
+    cuda_attention.FusedAttention.apply(q, k, v, mask, n_virtual).float().sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_attention.fused_attention.launches == f0 + 1
+    assert cuda_attention.fused_attention_bwd.launches == b0 + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
 def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
-    q = torch.zeros(1, 1, 300, 128, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(1, 1, 600, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="keys"):
         cuda_attention.fused_attention(q, q, q)
     with pytest.raises(ValueError, match="bf16"):
         cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 128, device=cuda),) * 3)
+
+
+def _ffn_inputs(n, d, d_ff, cuda, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g)
+    w1 = torch.randn(d_ff, d, generator=g) / d**0.5
+    w2 = torch.randn(d_ff, d, generator=g) / d_ff**0.5
+    b1, b2 = torch.randn(d_ff, generator=g) * 0.1, torch.randn(d, generator=g) * 0.1
+    seeds = seed_from_key((seed, 7)) + seed_from_key((seed + 1, 9))
+    return tuple(t.to(cuda, torch.bfloat16) for t in (x, w1, b1, w2, b2)), seeds
+
+
+# Tolerances: the same bf16 operands with fp32 accumulation in another order;
+# pre and out are rounded to bf16 on both sides, so a rounding flip moves an
+# element by 1 bf16 ulp (at most 2^-7 of its size; pre also by the fp32
+# cancellation error near 0), and a flipped pre moves the hidden by as much.
+# The masks are the same hash on both sides: the zero patterns are equal.
+@pytest.mark.parametrize(
+    "n, d, d_ff, keep", [(100, 768, 512, 0.65), (250, 768, 1536, 0.9), (2 * 511, 768, 3072, 0.9)],
+    ids=["small", "mid", "training-width"],
+)
+def test_ffn_dropout_kernel_matches_plain(cuda, n, d, d_ff, keep):
+    args, seeds = _ffn_inputs(n, d, d_ff, cuda)
+    before = cuda_ffn.ffn_dropout.launches
+    out, pre = cuda_ffn.ffn_dropout(*args, seeds, keep, keep)
+    torch.cuda.synchronize()
+    assert cuda_ffn.ffn_dropout.launches == before + 1
+    ref, ref_pre = ffn_dropout_plain(*args, seeds, keep, keep)
+    assert out.shape == ref.shape and pre.shape == ref_pre.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out == 0, ref == 0)
+    assert abs((out == 0).float().mean().item() - (1 - keep)) < 0.02
+    pre_err = (pre.float() - ref_pre.float()).abs()
+    assert (pre_err <= 2**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2**-7 * ref.float().abs().max().item()
+
+
+def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
+    (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 768, 512, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_ffn.ffn_dropout(x.float(), w1, b1, w2, b2, seeds, 0.9, 0.9)
+    (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 384, 512, cuda)
+    with pytest.raises(ValueError, match="d = 768"):
+        cuda_ffn.ffn_dropout(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
