@@ -6,7 +6,8 @@ the experiment YAML, `${oc.env:VAR}` / `${VAR}` substitution, YAML 1.2
 floats (`8e-4` is a float), unknown keys and sections dropped.
 
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
-`model`, `inference`, `serving`, `training`); every other section stays readable in
+`model`, `synthetiser`, `inference`, `serving`, `training`); every other
+section stays readable in
 `FrameworkConfig.raw`. PyYAML is imported inside `from_yaml` only: the
 machine with the card has no PyYAML, and `FrameworkConfig.from_dict` needs
 none.
@@ -169,6 +170,23 @@ class ModelConfig(SharedConfig):
         return int(self.d_model * 4)
 
 
+@dataclass(frozen=True)
+class SynthConfig(SharedConfig):
+    """The on-device drum synthesiser's knobs that the render reads
+    (`adt_str_tpu/config.py:SynthConfig`); the one-shot library path and the
+    dataset's velocity fields come with the dataset slice that reads them."""
+
+    similarity_threshold: float = 0.8
+    ADTOF_mapping: bool = False
+    mixup_range: float = 0.8
+    use_fx_prob: float = 0.3
+    use_reverb_prob: float = 0.5
+    use_limiter_prob: float = 0.5
+    use_compression_prob: float = 0.5
+    max_notes: int = 128  # notes per segment, padded and masked
+    max_oneshot_sec: float = 2.56  # one-shot bank rows padded to this length
+
+
 @dataclass
 class InferenceConfig:
     checkpoint_path: Optional[str] = None
@@ -225,6 +243,7 @@ class FrameworkConfig:
     shared: SharedConfig = field(default_factory=SharedConfig)
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    synthetiser: Optional[SynthConfig] = None
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
@@ -232,10 +251,12 @@ class FrameworkConfig:
 
     @classmethod
     def from_dict(cls, cfg: dict) -> "FrameworkConfig":
-        """`shared` is splatted into the model section, and
-        `training.learning_rate` is copied into model enc_lr/dec_lr, as in
-        the JAX package."""
+        """`shared` is splatted into the model and synthetiser sections, the
+        tokenizer's `ADTOF_mapping` is copied into the synthetiser's, and
+        `training.learning_rate` into model enc_lr/dec_lr, as in the JAX
+        package."""
         shared_d = cfg.get("shared", {}) or {}
+        tok_d = cfg.get("tokenizer", {}) or {}
         training_d = cfg.get("training", {}) or {}
         model_d = dict(cfg.get("model", {}) or {})
         if training_d.get("learning_rate") is not None:
@@ -243,14 +264,21 @@ class FrameworkConfig:
             model_d.setdefault("enc_lr", lr)
             model_d.setdefault("dec_lr", lr)
 
+        synth = None
+        if cfg.get("synthetiser"):
+            synth_d = dict(cfg["synthetiser"])
+            synth_d["ADTOF_mapping"] = tok_d.get("ADTOF_mapping", False)
+            synth = make_dataclass_from(SynthConfig, synth_d, shared_d)
+
         def _coerce(cls_, section):
             d = {k: v for k, v in (cfg.get(section, {}) or {}).items() if v is not None}
             return make_dataclass_from(cls_, d)
 
         return cls(
             shared=make_dataclass_from(SharedConfig, shared_d),
-            tokenizer=make_dataclass_from(TokenizerConfig, cfg.get("tokenizer", {}) or {}),
+            tokenizer=make_dataclass_from(TokenizerConfig, tok_d),
             model=make_dataclass_from(ModelConfig, model_d, shared_d),
+            synthetiser=synth,
             inference=_coerce(InferenceConfig, "inference"),
             serving=_coerce(ServingConfig, "serving"),
             training=_coerce(TrainingConfig, "training"),

@@ -1,11 +1,14 @@
-"""Drum pitch mapping tables the port's tokenizer needs.
+"""Drum pitch mapping tables the port's tokenizer and synthesiser need.
 
 Port of `adt_str_tpu/utils/mappings.py` (its own copy of the data; the other
 tables join when a slice needs them). The tables are data and must match
-the reference byte for byte for token and metric parity.
+the reference byte for byte for token and metric parity. `ADTOF_LUT` is the
+dense 128-entry table of `ADTOF_MAPPING` (-1 where a pitch is unmapped).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 # GM custom (35-61) -> ADTOF 8-class reduction.
 ADTOF_MAPPING = {
@@ -37,3 +40,36 @@ ADTOF_MAPPING = {
     60: 61,  # Triangle -> Other
     61: 61,  # Other
 }
+
+ADTOF_INVERSE_MAPPING = {
+    35: [35, 36],
+    38: [37, 38, 39, 40],
+    41: [41, 45, 47],
+    42: [42, 43, 44, 50],
+    48: [46, 48, 49, 51],
+    52: [52],
+    58: [58],
+    61: [53, 54, 55, 56, 57, 59, 60],
+}
+
+ADTOF_LABEL_MAPPING = {
+    35: "BD",
+    38: "SD",
+    41: "TT",
+    42: "HH",
+    48: "CY + RD",
+    52: "Cowbell",
+    58: "Claves",
+    61: "Other",
+}
+
+
+def _make_lut(mapping: dict[int, int]) -> np.ndarray:
+    """Dense 128-entry int32 lookup table; unmapped pitches -> -1."""
+    lut = np.full(128, -1, dtype=np.int32)
+    for k, v in mapping.items():
+        lut[k] = v
+    return lut
+
+
+ADTOF_LUT = _make_lut(ADTOF_MAPPING)

@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's serving path and its training step (`adt_str_tpu_torch`)
-at full width and holds its hand-written CUDA kernels against their plain
-PyTorch versions. Imports no JAX and nothing of the JAX package. Phases,
-each printing one JSON line:
+Drives the port's serving path, its real-audio training step and its
+synthesis-fused training step (`adt_str_tpu_torch`) at full width and holds
+its hand-written CUDA kernels against their plain PyTorch versions. Imports
+no JAX and nothing of the JAX package. Phases, each printing one JSON line:
 
 1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
 2. the kernel build (`csrc/*.cu`, one nvcc each, in parallel) and its time;
@@ -16,23 +16,35 @@ each printing one JSON line:
    max/mean abs error against the stated tolerance, kernel/plain/library
    medians over 12 timed calls (each on other inputs, after warm-up) and
    the least time the card could take (`bound_ms`, `bound_by`);
-4. training, one phase per configuration (`TRAIN_CONFIGS`: TMIDT at full
-   width, batch 64, with K4 or with K5): 5 steps of the port's
-   `make_train_step` on one seeded batch of random 2.56 s waves and random
-   512-token sequences, at a constant learning rate of 1e-4 with no warmup
-   (so every update applies). It fails unless every loss is finite, the
-   last loss is below the first, the slice's kernels launched exactly as
-   often as the model calls them, and the first step's loss and grad_norm
-   agree with the same step through the plain versions on the card. It
-   reports the median step time, the device-busy share of one profiled
-   step and where that step's device time goes;
-5. serving: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
+4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
+   one-shot bank built on the card from a seed (27 pitches x the 3 bins the
+   similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
+   24 kHz in bf16, 5.72 GiB; the repo has no curated library); K2 (gather +
+   mixup blend) at N = 64 * 27 requests from it and K3 (note placement) at
+   B = 64, 128 notes, each bit-equal to its plain version and timed as in 3;
+   then `render_batch` at B = 64: the kernel-path render must equal the
+   plain-path render on the same draws, a few rows must agree with the
+   port's CPU render, and the median render time is split into draw / K2 /
+   K3 / FX / normalise;
+5. training, one phase per configuration (`TRAIN_CONFIGS`: TMIDT at full
+   width, batch 64, with K4 or with K5; then `synth-setting-1`, the
+   synthesis-fused step of setting-1 on the bank of 4): 5 steps of the
+   port's `make_train_step` / `make_synth_train_step` on one seeded batch
+   (random 2.56 s waves, or random note lists, and random 512-token
+   sequences), at a constant learning rate of 1e-4 with no warmup (so every
+   update applies). It fails unless every loss is finite, the last loss is
+   below the first, the slice's kernels launched exactly as often as the
+   step calls them, and the first step's loss and grad_norm agree with the
+   same step through the plain versions on the card. It reports the median
+   step time, the device-busy share of one profiled step and where that
+   step's device time goes;
+6. serving: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
    from seeded random weights, served by the port's HTTP server on
    127.0.0.1; 3 concurrent POSTs of 10 s of seeded raw f32 PCM must answer
    200 with well-formed notes, both serving kernels' launch counters must
    rise, and the kernel-path encoder memory must agree with the port's CPU
    path (which the tests hold against the JAX package);
-6. one `{"kernels": [...]}` line: each kernel at the main-path shape named
+7. one `{"kernels": [...]}` line: each kernel at the main-path shape named
    in its entry, with its launches in every main-path run.
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
@@ -59,10 +71,13 @@ from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel, collate_token_lengths, draw_site_keys, mel_params
 from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
-from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, ffn
+from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
-from adt_str_tpu_torch.parallel.train_step import init_train_state, make_train_step
+from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
+from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_train_step, make_train_step
 from adt_str_tpu_torch.serve import build_engine
+from adt_str_tpu_torch.synth import render
+from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
 from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
 
@@ -101,6 +116,23 @@ TRAIN_CONFIGS = {
     "fused-ffn": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.1, "use_pallas_ffn": True}},
     "flash": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.0, "use_flash_attention": True}},
 }
+# configs/train/setting-1.yaml merged over configs/config_default.yaml (the
+# sections the synthesis-fused step reads; a test checks it against the
+# YAML). No one-shot library: the bank is built on the card.
+SYNTH_CONFIG = {
+    "shared": {"input_sec": 2.56, "time_res": 0.01, "win_length": 2048, "sample_rate": 24000},
+    "tokenizer": {"ADTOF_mapping": False, "BOS_token": 2, "EOS_token": 3, "pad_token": 1,
+                  "silence_token": 0, "add_velocity": True},
+    "model": {**_TMIDT_MODEL, "dropout": 0.1},
+    "training": {"learning_rate": 1e-4, "warmup_ratio": 0.1, "gradient_accumulation_steps": 1,
+                 "weight_decay": 1e-5, "max_grad_norm": 1.0, "optim": "adamw", "lr_scheduler_type": "cosine"},
+    "synthetiser": {"similarity_threshold": 0.8, "mixup_range": 0.8, "use_fx_prob": 0.3,
+                    "use_reverb_prob": 0.5, "use_compression_prob": 0.5, "use_limiter_prob": 0.5,
+                    "max_notes": 128, "max_oneshot_sec": 1.28},
+}
+SYNTH_NAME = "synth-setting-1"
+BANK_ROWS_PER_BIN = 1235  # 27 pitches x 3 bins x 1,235 = 100,035 rows: the ~100k-one-shot production bank
+BANK_BUILD_ROWS = 4096  # rows generated at once (a 0.5 GB f32 intermediate)
 TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size
 TRAIN_TOKENS = 512  # TrainDatasetConfig.max_tokens: decoder inputs of 511 tokens
 TRAIN_STEPS = 5
@@ -359,6 +391,227 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     return res
 
 
+def build_card_bank(cfg, seed: int) -> OneShotBank:
+    """The production-size bank, generated on the card in chunks: for each
+    of the 27 pitches and each of the 3 bins the threshold allows,
+    BANK_ROWS_PER_BIN exponentially decaying noise bursts (as
+    `synth/bank.py:make_test_bank` makes them) of random length, zero-padded
+    to max_oneshot_sec, stored in bf16."""
+    sr, L = cfg.sample_rate, int(cfg.max_oneshot_sec * cfg.sample_rate)
+    n_bins = n_allowed_bins(cfg.similarity_threshold)
+    pitches = range(render.PITCH_LO, render.PITCH_HI + 1)
+    per_pitch = n_bins * BANK_ROWS_PER_BIN
+    n = len(pitches) * per_pitch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    waves = torch.empty((n, L), dtype=torch.bfloat16, device="cuda")
+    t = torch.arange(L, device="cuda", dtype=torch.float32) / sr
+    for start in range(0, n, BANK_BUILD_ROWS):
+        rows = min(BANK_BUILD_ROWS, n - start)
+        pitch = render.PITCH_LO + torch.arange(start, start + rows, device="cuda") // per_pitch
+        freq = (60 + 40 * (pitch - render.PITCH_LO)).float()[:, None]
+        decay = 5 + 25 * torch.rand(rows, 1, generator=gen, device="cuda")
+        length = torch.randint(L // 4, L, (rows, 1), generator=gen, device="cuda")
+        noise = torch.randn(rows, L, generator=gen, device="cuda")
+        w = torch.exp(-t * decay) * (0.7 * torch.sin(2 * math.pi * freq * t) + 0.3 * noise)
+        waves[start : start + rows] = torch.where(torch.arange(L, device="cuda") < length, w, 0.0).to(torch.bfloat16)
+    bin_offset = np.zeros((128, N_BINS), np.int32)
+    bin_count = np.zeros((128, N_BINS), np.int32)
+    for i, p in enumerate(pitches):
+        bin_offset[p, :n_bins] = i * per_pitch + np.arange(n_bins) * BANK_ROWS_PER_BIN
+        bin_count[p, :n_bins] = BANK_ROWS_PER_BIN
+    return OneShotBank(waveforms=waves, lengths=np.full(n, L, np.int32), bin_offset=bin_offset,
+                       bin_count=bin_count, max_len=L, loaded_bins=n_bins)
+
+
+def random_notes(cfg, batch: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, max_notes, 4) note lists and their mask on the card: 8 to
+    max_notes notes a row (row 0 empty, row 1 full), pitches 35..61,
+    velocities 1..127, onsets uniform in [0, input_sec) s, 0.1 s long."""
+    g = torch.Generator().manual_seed(seed)
+    m = cfg.max_notes
+    count = torch.randint(8, m + 1, (batch,), generator=g)
+    count[0], count[1] = 0, m
+    mask = torch.arange(m)[None] < count[:, None]
+    onset = torch.rand(batch, m, generator=g) * cfg.input_sec
+    pitch = torch.randint(render.PITCH_LO, render.PITCH_HI + 1, (batch, m), generator=g).float()
+    velocity = torch.randint(1, 128, (batch, m), generator=g).float()
+    notes = torch.stack([onset, onset + 0.1, pitch, velocity], -1) * mask[..., None]
+    return notes.cuda(), mask.cuda()
+
+
+def _blend_library(table, idx_main, idx_sub, lam):
+    """index_select x2 + torch.lerp in the table's dtype: K2's library yardstick."""
+    return torch.lerp(table.index_select(0, idx_main), table.index_select(0, idx_sub), lam[:, None].to(table.dtype))
+
+
+def phase_gather_blend(statics: render.SynthStatics, cfg, gen) -> dict:
+    """K2 at the training shape: N = 64 * 27 blends of rows drawn from the
+    production-size bank, each timed call on other draws."""
+    table = statics.waveforms
+    inputs = []
+    for _ in range(REPS):
+        d = render.draw_render(statics, TRAIN_BATCH, cfg, gen)
+        inputs.append((table, d.main_rows.reshape(-1), d.sub_rows.reshape(-1), d.lam.reshape(-1)))
+    before = cuda_place.gather_blend.launches
+    out = cuda_place.gather_blend(*inputs[0])
+    ref = gather_blend_plain(*inputs[0])
+    torch.cuda.synchronize()
+    if cuda_place.gather_blend.launches != before + 1:
+        raise RuntimeError("gather_blend did not launch its kernel")
+    # the same f32 operations, each rounded on its own: bit-equal
+    res = {"max_abs_err": (out.float() - ref.float()).abs().max().item(), "tol": 0.0,
+           "equal": bool(torch.equal(out, ref))}
+    if not (res["equal"] and torch.isfinite(out.float()).all()):
+        raise RuntimeError(f"gather_blend kernel disagrees with its plain version: {res}")
+    res["ms"] = median_ms(cuda_place.gather_blend, inputs)
+    res["plain_ms"] = median_ms(gather_blend_plain, inputs)
+    res["library_ms"] = median_ms(_blend_library, inputs)
+    res["library"] = "index_select x2 + torch.lerp"
+    n, L = inputs[0][1].shape[0], table.shape[1]
+    # each distinct bank row of the draws read once (averaged over the inputs), one row written per request
+    rows_read = statistics.mean(torch.unique(torch.cat([im, isub])).numel() for _, im, isub, _ in inputs)
+    res["bound_ms"], res["bound_by"] = bound(
+        [(3.0 * n * L, PEAK_FP32)],  # (1 - lam) m + lam s
+        (rows_read + n) * L * table.element_size() + n * 12,  # rows read, rows written; ids and lam
+    )
+    emit({"phase": "kernel", "name": "gather_blend", "requests": n, "L": L, "bank_rows": table.shape[0],
+          "bank_gib": table.numel() * table.element_size() / 2**30, "dtype": str(table.dtype), **res})
+    return res
+
+
+def _place_library(blend, slot, onset, gain, chunk):
+    """The rfft convolution of the JAX package's portable path: per-slot
+    impulse trains convolved with the blends in the frequency domain."""
+    B, S, L = blend.shape
+    P = chunk + L
+    imp = torch.zeros(B, S, P, device=blend.device)
+    rows = torch.arange(B, device=blend.device)[:, None].expand_as(slot)
+    imp.index_put_((rows.reshape(-1), slot.reshape(-1).long(), onset.reshape(-1).long()), gain.reshape(-1),
+                   accumulate=True)
+    spec = (torch.fft.rfft(imp, n=P) * torch.fft.rfft(blend.float(), n=P)).sum(1)
+    return torch.fft.irfft(spec, n=P)[:, :chunk]
+
+
+def phase_place_notes(statics: render.SynthStatics, cfg, gen) -> dict:
+    """K3 at the training shape: B = 64 segments of up to 128 notes over
+    27 blend rows of 30720 bf16, chunk 61440; the inputs are those the
+    render gives it (`blend_notes` on random note lists and draws)."""
+    chunk = cfg.chunk_samples
+    inputs = []
+    for r in range(REPS):
+        notes, mask = random_notes(cfg, TRAIN_BATCH, SEED + 40 + r)
+        d = render.draw_render(statics, TRAIN_BATCH, cfg, gen)
+        blend, slot, onset, gain = render.blend_notes(statics, notes, mask, d, chunk, cfg.sample_rate)
+        inputs.append((blend.to(torch.bfloat16), slot, onset, gain, chunk))
+    before = cuda_place.place_notes.launches
+    out = cuda_place.place_notes(*inputs[0])
+    ref = place_notes_plain(*inputs[0])
+    torch.cuda.synchronize()
+    if cuda_place.place_notes.launches != before + 1:
+        raise RuntimeError("place_notes did not launch its kernel")
+    # the same f32 products added in the same order: bit-equal
+    res = {"max_abs_err": (out - ref).abs().max().item(), "tol": 0.0, "equal": bool(torch.equal(out, ref))}
+    if not (res["equal"] and torch.isfinite(out).all() and out.abs().max() > 0):
+        raise RuntimeError(f"place_notes kernel disagrees with its plain version: {res}")
+    res["ms"] = median_ms(cuda_place.place_notes, inputs)
+    res["plain_ms"] = median_ms(place_notes_plain, inputs)
+    res["library_ms"] = median_ms(_place_library, inputs)
+    res["library"] = "rfft convolution of per-slot impulse trains (torch.fft)"
+    blend, slot, onset, gain, _ = inputs[0]
+    B, S, L = blend.shape
+    # what these inputs need, averaged over them: each sounding note puts min(L, chunk - onset) samples in the
+    # chunk (one multiply-add each); a blend row is read once, up to the longest extent of its sounding notes
+    extents = [torch.clamp(chunk - o.long(), max=L) * (g != 0) for _, _, o, g, _ in inputs]
+    macs = statistics.mean(float(e.sum()) for e in extents)
+    row_samples = statistics.mean(
+        float(torch.zeros(B, S, dtype=torch.long, device=e.device).scatter_reduce_(1, s.long(), e, "amax").sum())
+        for e, (_, s, _, _, _) in zip(extents, inputs))
+    res["bound_ms"], res["bound_by"] = bound(
+        [(2.0 * macs, PEAK_FP32)],
+        row_samples * blend.element_size() + B * chunk * 4 + slot.numel() * 12,  # rows read, out once, metadata
+    )
+    emit({"phase": "kernel", "name": "place_notes", "batch": B, "notes": slot.shape[1], "L": L, "chunk": chunk,
+          "stream": str(blend.dtype), "mean_multiply_adds": macs, "mean_row_samples_read": row_samples, **res})
+    return res
+
+
+def _render_on_cpu(statics: render.SynthStatics, notes, mask, draws, cfg, rows: torch.Tensor) -> dict:
+    """The card's render of segments `rows` against the port's CPU render
+    (plain versions, fp32 FX products on the CPU) of the same segments, on
+    the same draws and the same bf16 bank rows."""
+    d = render.RenderDraws(*(x[rows] for x in draws[:5]), draws.fx.take(rows))
+    used = torch.unique(torch.cat([d.main_rows.reshape(-1), d.sub_rows.reshape(-1)]))
+    d = d._replace(main_rows=torch.searchsorted(used, d.main_rows), sub_rows=torch.searchsorted(used, d.sub_rows))
+    small = statics._replace(waveforms=statics.waveforms[used].contiguous())
+    card = render.render_batch(small, notes[rows], mask[rows], d, cfg).cpu()
+    cpu = render.render_batch(
+        render.SynthStatics(*(x.cpu() for x in small[:6]), small.loaded_bins), notes[rows].cpu(), mask[rows].cpu(),
+        render.RenderDraws(*(x.cpu() for x in d[:5]), render.FxParams(*(x.cpu() for x in d.fx))), cfg)
+    err = (card - cpu).abs()
+    # K2 and K3 give the same bits on both devices; the FX products sum in
+    # another order (outputs lie in [-1, 1])
+    out = {"rows": rows.tolist(), "fx_rows": int(d.use_fx.sum()), "max_abs_err": err.max().item(), "tol": 1e-4}
+    if not out["max_abs_err"] <= out["tol"]:
+        raise RuntimeError(f"the card's render disagrees with the CPU render: {out}")
+    return out
+
+
+def phase_render(statics: render.SynthStatics, cfg, gen) -> dict:
+    """`render_batch` at B = 64 with setting-1's FX probabilities: kernel
+    path against plain path, a few rows against the CPU, output checks, and
+    the median render time split by stage (CUDA events)."""
+    chunk, sr = cfg.chunk_samples, cfg.sample_rate
+    runs = [(*random_notes(cfg, TRAIN_BATCH, SEED + 60 + r), render.draw_render(statics, TRAIN_BATCH, cfg, gen))
+            for r in range(REPS)]
+    notes, mask, draws = runs[0]
+    before = {k: c.launches for k, c in kernel_counters().items()}
+    out = render.render_batch(statics, notes, mask, draws, cfg)
+    with plain_kernels():
+        ref = render.render_batch(statics, notes, mask, draws, cfg)
+    torch.cuda.synchronize()
+    after = {k: c.launches for k, c in kernel_counters().items()}
+    if (after["gather_blend"] - before["gather_blend"], after["place_notes"] - before["place_notes"]) != (1, 1):
+        raise RuntimeError(f"the render did not launch K2 and K3 once each: {before} -> {after}")
+    peak = out.abs().amax(1)
+    master = render.vel_to_vol(torch.where(mask, notes[..., 3], 0.0).amax(1))
+    res = {"batch": TRAIN_BATCH, "chunk": chunk, "fx_rows": int(draws.use_fx.sum()),
+           "fx_budget": render.fx_budget(TRAIN_BATCH, cfg.use_fx_prob),
+           "equal_to_plain_path": bool(torch.equal(out, ref)), "max_abs_err_vs_plain": (out - ref).abs().max().item(),
+           "peak_vs_master_max_rel_err": ((peak[1:] - master[1:]).abs() / master[1:]).max().item()}
+    if not (res["equal_to_plain_path"] and out.shape == (TRAIN_BATCH, chunk) and torch.isfinite(out).all()
+            and (out[0] == 0).all() and res["peak_vs_master_max_rel_err"] <= 1e-5):
+        raise RuntimeError(f"render check failed: {res}")
+    fx_rows = torch.nonzero(draws.use_fx[2:])[:2, 0] + 2
+    res["vs_cpu"] = _render_on_cpu(statics, notes, mask, draws, cfg,
+                                   torch.cat([torch.tensor([0, 1], device="cuda"), fx_rows]))
+
+    stages = ("draw", "K2 blend + gains", "K3 place", "FX", "normalise")
+    times = {s: [] for s in (*stages, "total")}
+    for r in range(REPS + 1):  # the first is a warm-up
+        notes, mask, _ = runs[r % REPS]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        d = render.draw_render(statics, TRAIN_BATCH, cfg, gen)
+        ev[1].record()
+        blend, slot, onset, gain = render.blend_notes(statics, notes, mask, d, chunk, sr)
+        ev[2].record()
+        wav = render.place_blend(blend, slot, onset, gain, chunk)
+        ev[3].record()
+        wav = render.apply_fx(wav, d, sr, cfg.use_fx_prob)
+        ev[4].record()
+        render.normalise(wav, notes, mask, gain)
+        ev[5].record()
+        torch.cuda.synchronize()
+        if r:
+            for i, s in enumerate(stages):
+                times[s].append(ev[i].elapsed_time(ev[i + 1]))
+            times["total"].append(ev[0].elapsed_time(ev[-1]))
+    res["median_ms"] = {s: statistics.median(v) for s, v in times.items()}
+    res["render_batch_ms"] = median_ms(lambda n, m, d: render.render_batch(statics, n, m, d, cfg), runs)
+    emit({"phase": "render", **res})
+    return res
+
+
 def _post(url: str, body: bytes, results: list, i: int) -> None:
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": "application/octet-stream"})
@@ -428,7 +681,8 @@ def plain_kernels():
     names = [(cuda_mel, "log_mel", cuda_mel.log_mel_plain),
              (cuda_attention, "fused_attention", cuda_attention.attention_plain),
              (cuda_attention, "fused_attention_bwd", cuda_attention.attention_bwd_plain),
-             (cuda_ffn, "ffn_dropout", ffn.ffn_dropout_plain)]
+             (cuda_ffn, "ffn_dropout", ffn.ffn_dropout_plain),
+             (cuda_place, "gather_blend", gather_blend_plain), (cuda_place, "place_notes", place_notes_plain)]
     saved = [getattr(mod, name) for mod, name, _ in names]
     try:
         for mod, name, plain in names:
@@ -441,15 +695,21 @@ def plain_kernels():
 
 def kernel_counters() -> dict:
     return {"log_mel": cuda_mel.log_mel, "fused_attention": cuda_attention.fused_attention,
-            "fused_attention_bwd": cuda_attention.fused_attention_bwd, "ffn_dropout": cuda_ffn.ffn_dropout}
+            "fused_attention_bwd": cuda_attention.fused_attention_bwd, "ffn_dropout": cuda_ffn.ffn_dropout,
+            "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
 
 
 def train_batch(cfg: FrameworkConfig, seed: int) -> dict:
-    """TRAIN_BATCH random 2.56 s waves and random token rows: BOS, random
-    tokens, EOS at a random length (one row full), PAD; collated lengths."""
+    """TRAIN_BATCH random 2.56 s waves and `token_batch`'s tokens."""
     g = torch.Generator().manual_seed(seed)
-    tok = cfg.tokenizer
     wave = torch.randn(TRAIN_BATCH, cfg.shared.chunk_samples, generator=g) * 0.3
+    return {"wavs": wave.cuda(), **token_batch(cfg, g)}
+
+
+def token_batch(cfg: FrameworkConfig, g: torch.Generator) -> dict:
+    """TRAIN_BATCH random token rows: BOS, random tokens, EOS at a random
+    length (one row full), PAD; collated lengths."""
+    tok = cfg.tokenizer
     eos_at = torch.randint(TRAIN_TOKENS // 4, TRAIN_TOKENS, (TRAIN_BATCH,), generator=g)
     eos_at[0] = TRAIN_TOKENS - 1
     pos = torch.arange(TRAIN_TOKENS)[None]
@@ -457,14 +717,15 @@ def train_batch(cfg: FrameworkConfig, seed: int) -> dict:
     tokens = torch.where(pos < eos_at[:, None], body, tok.pad_token)
     tokens = torch.where(pos == eos_at[:, None], tok.EOS_token, tokens)
     tokens[:, 0] = tok.BOS_token
-    return {"wavs": wave.cuda(), "tokens": tokens.cuda(), "token_lengths": collate_token_lengths(eos_at + 1).cuda()}
+    return {"tokens": tokens.cuda(), "token_lengths": collate_token_lengths(eos_at + 1).cuda()}
 
 
 def _group(name: str) -> str:
     """The part of a training step a device kernel belongs to."""
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
-                       ("log_mel_kernel", "K1 log-mel")):
+                       ("log_mel_kernel", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
+                       ("place_notes_kernel", "K3 note placement")):
         if key in name:
             return group
     low = name.lower()
@@ -474,6 +735,8 @@ def _group(name: str) -> str:
         return "int64 elementwise (dropout hash)"
     if "softmax" in low:
         return "softmax"
+    if "fft" in low:
+        return "FFT"
     if "reduce" in low:
         return "reductions (LayerNorm, sums, norms)"
     if "indexing_backward" in low or "embedding" in low:
@@ -512,31 +775,20 @@ def step_profile(fn, label: str) -> dict:
             "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def phase_training(name: str) -> dict:
-    """TRAIN_STEPS steps of one training configuration through its kernels."""
-    cfg = FrameworkConfig.from_dict(TRAIN_CONFIGS[name])
-    mc = cfg.model
-    per_step = {"log_mel": 1, "fused_attention": 0, "fused_attention_bwd": 0, "ffn_dropout": 0}
-    if mc.use_pallas_ffn and mc.dropout > 0:
-        per_step["ffn_dropout"] = mc.enc_layers + mc.dec_layers
-    if mc.use_flash_attention and mc.dropout == 0:
-        per_step["fused_attention"] = per_step["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
-    # a constant lr with no warmup: every one of the few updates applies
-    tcfg = TrainingConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_scheduler_type="constant",
+def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
+    """A constant lr with no warmup: every one of the few updates applies."""
+    return TrainingConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_scheduler_type="constant",
                           weight_decay=cfg.training.weight_decay, max_grad_norm=cfg.training.max_grad_norm)
-    batch = train_batch(cfg, SEED + 10)
-    gen = torch.Generator().manual_seed(SEED + 11)
-    keys = [draw_site_keys(mc, gen) for _ in range(TRAIN_STEPS + 1)]
 
-    def fresh():
-        model = ADTModel(mc, seed=SEED, device="cuda")
-        opt, _ = make_optimizer(tcfg, TRAIN_STEPS, model)
-        return make_train_step(mc, opt, device="cuda"), init_train_state(model, opt)
 
-    # the first step through the plain versions, from the same weights and keys
+def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dict:
+    """TRAIN_STEPS steps of `call(step, state, i) -> (state, metrics)` from
+    `fresh() -> (step, state)`, checked against the first step through the
+    plain versions (from the same weights and randomness) and the kernels'
+    expected launches."""
     step, state = fresh()
     with plain_kernels():
-        _, m = step(state, batch, keys[0])
+        _, m = call(step, state, 0)
         plain0 = {k: float(v) for k, v in m.items()}
     del step, state, m
     torch.cuda.empty_cache()
@@ -550,24 +802,24 @@ def phase_training(name: str) -> dict:
     losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.monotonic()
-        state, m = step(state, batch, keys[i])
+        state, m = call(step, state, i)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         step_ms.append((time.monotonic() - t0) * 1e3)
     launches = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    expected = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    expected = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counters}
     # bf16 training: the kernel path rounds at other points than the plain
     # path (K5b's bf16 p and ds, pre and p rounding flips); measured on the
     # H100, 3e-6 of the loss and 1e-4 of the gradient norm at most
     tol = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}
     vs_plain = {"loss": losses[0], "plain_loss": plain0["loss"], "grad_norm": norms[0],
                 "plain_grad_norm": plain0["grad_norm"], **tol}
-    profile = step_profile(lambda: step(state, batch, keys[-1]), name)
+    profile = step_profile(lambda: call(step, state, TRAIN_STEPS), name)
     res = {"phase": "training", "config": name, "batch": TRAIN_BATCH, "tokens": TRAIN_TOKENS,
            "steps": TRAIN_STEPS, "lr": f"constant {TRAIN_LR}, no warmup (every update applies)",
-           "dropout": mc.dropout, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "dropout": mc.dropout, **extra, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "median_step_ms": statistics.median(step_ms), "launches": launches, "expected_launches": expected,
            "vs_plain_first_step": vs_plain, "peak_mem_gib": peak_gib, "profile_one_step": profile,
            "model_params": sum(p.numel() for p in state.model.parameters())}
@@ -584,6 +836,54 @@ def phase_training(name: str) -> dict:
     del step, state
     torch.cuda.empty_cache()
     return res
+
+
+def phase_training(name: str) -> dict:
+    """TRAIN_STEPS steps of one real-audio training configuration through its kernels."""
+    cfg = FrameworkConfig.from_dict(TRAIN_CONFIGS[name])
+    mc = cfg.model
+    per_step = {"log_mel": 1}
+    if mc.use_pallas_ffn and mc.dropout > 0:
+        per_step["ffn_dropout"] = mc.enc_layers + mc.dec_layers
+    if mc.use_flash_attention and mc.dropout == 0:
+        per_step["fused_attention"] = per_step["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
+    tcfg = _constant_lr(cfg)
+    batch = train_batch(cfg, SEED + 10)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    keys = [draw_site_keys(mc, gen) for _ in range(TRAIN_STEPS + 1)]
+
+    def fresh():
+        model = ADTModel(mc, seed=SEED, device="cuda")
+        opt, _ = make_optimizer(tcfg, TRAIN_STEPS, model)
+        return make_train_step(mc, opt, device="cuda"), init_train_state(model, opt)
+
+    return run_training(name, mc, per_step, fresh, lambda step, state, i: step(state, batch, keys[i]), {})
+
+
+def phase_synth_training(statics: render.SynthStatics) -> dict:
+    """TRAIN_STEPS synthesis-fused steps of setting-1: render (K2, K3, FX) ->
+    K1 -> the 4+4-layer model with dropout 0.1 -> AdamW."""
+    cfg = FrameworkConfig.from_dict(SYNTH_CONFIG)
+    mc, sc = cfg.model, cfg.synthetiser
+    per_step = {"log_mel": 1, "gather_blend": 1, "place_notes": 1}
+    tcfg = _constant_lr(cfg)
+    notes, mask = random_notes(sc, TRAIN_BATCH, SEED + 12)
+    batch = {"notes": notes, "note_mask": mask, **token_batch(cfg, torch.Generator().manual_seed(SEED + 13))}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    draws = [render.draw_render(statics, TRAIN_BATCH, sc, gen) for _ in range(TRAIN_STEPS + 1)]
+    kgen = torch.Generator().manual_seed(SEED + 15)
+    keys = [draw_site_keys(mc, kgen) for _ in range(TRAIN_STEPS + 1)]
+
+    def fresh():
+        model = ADTModel(mc, seed=SEED, device="cuda")
+        opt, _ = make_optimizer(tcfg, TRAIN_STEPS, model)
+        return make_synth_train_step(mc, sc, statics, opt, device="cuda"), init_train_state(model, opt)
+
+    extra = {"max_notes": sc.max_notes, "notes_per_row": [int(n) for n in mask.sum(1).tolist()][:8],
+             "fx_rows_per_step": [int(d.use_fx.sum()) for d in draws[:TRAIN_STEPS]],
+             "fx_budget": render.fx_budget(TRAIN_BATCH, sc.use_fx_prob)}
+    return run_training(SYNTH_NAME, mc, per_step, fresh,
+                        lambda step, state, i: step(state, batch, draws[i], keys[i]), extra)
 
 
 def phase_serving(cfg: FrameworkConfig) -> dict:
@@ -654,6 +954,24 @@ TRAIN_ATTENTION = {"encoder": (246, 246, False), "decoder-self": (511, 511, True
 TRAIN_FFN_ROWS = {"encoder": TRAIN_BATCH * 246, "decoder": TRAIN_BATCH * 511}
 
 
+def phase_synthesis() -> dict:
+    """Phases 4 and the synthesis-fused training phase, on one bank built on the card."""
+    sc = FrameworkConfig.from_dict(SYNTH_CONFIG).synthetiser
+    t0 = time.monotonic()
+    statics = render.SynthStatics.from_bank(build_card_bank(sc, SEED + 50), device="cuda")
+    torch.cuda.synchronize()
+    table = statics.waveforms
+    emit({"phase": "bank", "rows": table.shape[0], "samples": table.shape[1], "dtype": str(table.dtype),
+          "gib": table.numel() * table.element_size() / 2**30, "loaded_bins": statics.loaded_bins,
+          "build_s": round(time.monotonic() - t0, 3)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    out = {"gather_blend": phase_gather_blend(statics, sc, gen), "place_notes": phase_place_notes(statics, sc, gen),
+           "render": phase_render(statics, sc, gen), "training": phase_synth_training(statics)}
+    del statics, table
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -674,7 +992,9 @@ def main() -> int:
     att_train = {s: phase_attention(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     bwd_train = {s: phase_attention_bwd(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     ffn_train = {s: phase_ffn(rows, gen, s) for s, rows in TRAIN_FFN_ROWS.items()}
+    synth = phase_synthesis()
     training = {c: phase_training(c) for c in TRAIN_CONFIGS}
+    training[SYNTH_NAME] = synth["training"]
     serving = phase_serving(cfg)
     by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()}}
 
@@ -697,6 +1017,13 @@ def main() -> int:
         entry("ffn_dropout", "adt_str_tpu_torch/csrc/ffn_dropout.cu",
               "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
               f"N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072", ffn_train["decoder"]),
+        entry("gather_blend", "adt_str_tpu_torch/csrc/gather_blend.cu",
+              "adt_str_tpu/synth/pallas_place.py:99 gather_blend",
+              f"N={TRAIN_BATCH} x 27 requests of 30720 bf16 from a 100,035-row bank (5.72 GiB)",
+              synth["gather_blend"]),
+        entry("place_notes", "adt_str_tpu_torch/csrc/place_notes.cu",
+              "adt_str_tpu/synth/pallas_place.py:189 place_notes",
+              f"B={TRAIN_BATCH}, 128 note slots, 27 blend rows of 30720 bf16, chunk 61440", synth["place_notes"]),
     ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
         "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel
+from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel, cuda_place
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.ffn import ffn_dropout_plain
 from adt_str_tpu_torch.ops.mel import MelFrontendParams
+from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -193,3 +194,103 @@ def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 384, 512, cuda)
     with pytest.raises(ValueError, match="d = 768"):
         cuda_ffn.ffn_dropout(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
+
+
+# K2 and K3 are bit-equal to their plain versions: the same f32 operations,
+# each rounded on its own, in the same order (torch.equal).
+@pytest.mark.parametrize(
+    "n_rows, L, n, dtype",
+    [(37, 256, 13, torch.float32), (200, 30720, 1727, torch.bfloat16), (50, 1001, 8, torch.bfloat16),
+     (21, 250, 6, torch.float32)],
+    ids=["f32-odd-n", "bf16-training-row", "bf16-scalar-row", "f32-scalar-row"],
+)
+def test_gather_blend_kernel_matches_plain(cuda, n_rows, L, n, dtype):
+    g = torch.Generator().manual_seed(n)
+    table = torch.randn(n_rows, L, generator=g).to(cuda, dtype)
+    im, isub = (torch.randint(0, n_rows, (n,), generator=g).to(cuda) for _ in range(2))
+    lam = (torch.rand(n, generator=g) * 0.8).to(cuda)
+    before = cuda_place.gather_blend.launches
+    out = cuda_place.gather_blend(table, im, isub, lam)
+    torch.cuda.synchronize()
+    assert cuda_place.gather_blend.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, L)
+    assert torch.equal(out, gather_blend_plain(table, im, isub, lam))
+
+
+def test_gather_blend_kernel_reaches_rows_past_2_31_elements(cuda):
+    """Row offsets are 64-bit: a bank of 71,000 rows of 30720 holds more
+    than 2^31 elements (4.4 GB in bf16)."""
+    n_rows, L = 71_000, 30720
+    table = torch.zeros(n_rows, L, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for r in (0, n_rows - 2, n_rows - 1):
+        table[r] = torch.randn(L, generator=g, device=cuda).to(torch.bfloat16)
+    im = torch.tensor([n_rows - 1, 0, n_rows - 2], device=cuda)
+    isub = torch.tensor([0, n_rows - 1, n_rows - 1], device=cuda)
+    lam = torch.tensor([0.25, 0.5, 0.7], device=cuda)
+    out = cuda_place.gather_blend(table, im, isub, lam)
+    ref = gather_blend_plain(table, im, isub, lam)
+    assert torch.equal(out, ref) and out.float().abs().amin(1).max() > 0
+    del table
+
+
+def _notes_case(B, S, L, N, chunk, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    blend = torch.randn(B, S, L, generator=g)
+    slot = torch.randint(0, S, (B, N), generator=g)
+    onset = torch.randint(0, chunk, (B, N), generator=g)
+    gain = torch.rand(B, N, generator=g) + 0.1
+    gain[:, 4::5] = 0.0  # silent notes are skipped
+    onset[:, 0], onset[:, 1], onset[:, 2] = 0, chunk - 1, onset[:, 3]  # first sample, last sample, overlap
+    return blend.to(cuda), slot.to(cuda), onset.to(cuda), gain.to(cuda)
+
+
+@pytest.mark.parametrize(
+    "B, S, L, N, chunk, dtype",
+    [(64, 27, 30720, 128, 61440, torch.bfloat16), (3, 4, 300, 300, 1000, torch.float32),
+     (2, 27, 30720, 128, 61440, torch.float32), (5, 2, 128, 11, 512, torch.bfloat16)],
+    ids=["training-bf16", "many-notes-f32", "training-f32", "small-bf16"],
+)
+def test_place_notes_kernel_matches_plain(cuda, B, S, L, N, chunk, dtype):
+    blend, slot, onset, gain = _notes_case(B, S, L, N, chunk, B + N, cuda)
+    blend = blend.to(dtype)
+    before = cuda_place.place_notes.launches
+    out = cuda_place.place_notes(blend, slot, onset, gain, chunk)
+    torch.cuda.synchronize()
+    assert cuda_place.place_notes.launches == before + 1
+    ref = place_notes_plain(blend, slot, onset, gain, chunk)
+    assert out.dtype == torch.float32 and out.shape == (B, chunk)
+    assert torch.equal(out, ref)
+    assert (out[:, chunk - 1] != 0).all()  # the note at the last sample lands there
+
+
+def test_place_kernels_reject_what_they_cannot_hold(cuda):
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        cuda_place.gather_blend(torch.zeros(4, 8, dtype=torch.float16, device=cuda), *(
+            torch.zeros(2, dtype=torch.int64, device=cuda),) * 2, torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError, match="must lie on"):
+        cuda_place.place_notes(torch.zeros(1, 2, 8, device=cuda), torch.zeros(1, 3, dtype=torch.int64),
+                               torch.zeros(1, 3, dtype=torch.int64), torch.zeros(1, 3), 16)
+
+
+@pytest.mark.parametrize("L, dtype", [(30720, torch.bfloat16), (250, torch.float32)], ids=["bf16-vector", "f32-scalar"])
+def test_place_kernels_clamp_out_of_range_ids(cuda, L, dtype):
+    """A row id >= n_rows (or < 0), a slot outside [0, S) or an onset outside
+    [0, chunk) is clamped into its range, as the plain versions clamp it:
+    nothing is read out of bounds and the two stay bit-equal."""
+    n_rows = 9
+    g = torch.Generator().manual_seed(L)
+    table = torch.randn(n_rows, L, generator=g).to(cuda, dtype)
+    im = torch.tensor([n_rows, n_rows + 1000, -3, 4], device=cuda)
+    isub = torch.tensor([-1, 2, n_rows - 1, 10**6], device=cuda)
+    lam = torch.tensor([0.1, 0.4, 0.5, 0.7], device=cuda)
+    out = cuda_place.gather_blend(table, im, isub, lam)
+    assert torch.equal(out, gather_blend_plain(table, im, isub, lam))
+    assert torch.equal(out, cuda_place.gather_blend(table, im.clamp(0, n_rows - 1), isub.clamp(0, n_rows - 1), lam))
+    blend, slot, onset, gain = _notes_case(2, 3, L, 12, 4 * L, 5, cuda)
+    blend = blend.to(dtype)
+    slot[0, :3] = torch.tensor([3, 50, -1])
+    onset[1, :3] = torch.tensor([-7, 4 * L, 10**7])
+    out = cuda_place.place_notes(blend, slot, onset, gain, 4 * L)
+    assert torch.equal(out, place_notes_plain(blend, slot, onset, gain, 4 * L))
+    assert torch.equal(out, cuda_place.place_notes(blend, slot.clamp(0, 2), onset.clamp(0, 4 * L - 1), gain, 4 * L))
