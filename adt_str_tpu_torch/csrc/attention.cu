@@ -13,189 +13,274 @@
 // in l and lse without being stored.
 //
 // Bound on an H100: at the decoder's training shapes (Tq = Tk = 511, head
-// dim 128, B = 64, 6 heads) the flops are 4*Tq*Tk*128 per head, 51 GFLOP
-// (52 us at 989 TFLOP/s), while q, k, v, out and the fp32 mask are about
-// 270 MB (81 us at 3.35 TB/s): it is bound by memory. The design reads q
-// once, K and V once per 32-row query tile, and keeps scores and
-// probabilities on the SM:
-//   - one block per (32 query rows, head, batch item), 8 warps;
-//   - the block's 32 fp32 score rows for all keys stay in shared memory
-//     (32 x 520 x 4 B = 66.5 KB at Tk = 512) while K is streamed through in
-//     64-key tiles, so the exact two-pass softmax of the TPU kernel applies
-//     (max, exp, sum, divide) with p cast to bf16 before P.V exactly where
-//     the TPU kernel casts it; an online softmax would round elsewhere;
-//   - V is then streamed through the same 64-key tile buffer for P.V;
-//   - Q.K^T and P.V run on bf16 tensor cores (nvcuda::wmma) with fp32
-//     accumulators; p is written as bf16 over its own fp32 score row;
-//   - ragged Tq and Tk are handled here: rows past T are zero-filled in
-//     shared memory and masked out of the softmax, so no caller pads to 8.
-// About 91 KB of shared memory a block, two blocks an SM. No TMA, wgmma or
-// pipelining yet: this is the simple first version.
+// dim 128, B = 64, 6 heads) the products are 4*Tq*Tk*128 flops per head,
+// 51 GFLOP (52 us at 989 TFLOP/s), while q, k, v, out and the fp32 mask are
+// about 270 MB (81 us at 3.35 TB/s): it is bound by memory, the mask (67 MB,
+// shared by the heads) being its largest input. The design:
+//   - one block per 128 query rows of one (batch, head); blocks are ordered
+//     head fastest, so the six blocks of one (batch, query tile) run
+//     together and read their mask tile from HBM once;
+//   - two consumer warpgroups of 64 rows each and one producer thread: Q is
+//     loaded once, then 64-key K and V tiles stream through a 4-slot
+//     shared-memory ring, all by TMA with 3-D tensor maps (128, T, B*H) so
+//     a tile past Tq or Tk lands as zeros instead of the next head's rows;
+//   - exact two-pass softmax, keeping the TPU kernel's (and the plain
+//     version's) rounding points: pass 1 walks the K tiles for the row max
+//     and sum (online, fp32); pass 2 recomputes S = Q K^T for each tile, forms
+//     p = bf16(exp(s - m) / l) in registers and feeds it to P.V as wgmma's
+//     register A operand. An online one-pass form would round
+//     exp(s - m_running) before dividing by l; the second Q K^T costs half
+//     again the tensor work of a kernel bound by bytes. exp is the fast
+//     hardware exp2 (__expf, a few fp32 ulps) and 1/l a multiply: with the
+//     IEEE exp and division the softmax's instructions, not the products,
+//     set the time (2.1x at 511 x 511 on an H100);
+//   - a warpgroup waits for its own Q K^T before its softmax; the two
+//     warpgroups of a block fill each other's gaps. Overlapping the next
+//     tile's Q K^T inside one warpgroup made ptxas serialize the products
+//     (and spill), and was slower;
+//   - S = Q K^T is wgmma m64n64k16 (both K-major in shared memory); P.V is
+//     m64n128k16 with V's (keys, 128) tile read MN-major (transpose-B);
+//   - the mask's row stride (Tk * 4 B) is not a multiple of 16 B, which
+//     TMA refuses: each thread loads its accumulator fragment's mask values
+//     with ordinary loads, issued before it waits for the K tile;
+//   - out leaves through shared memory (the block's own Q rows) by TMA
+//     store, which clips rows past Tq; lse is stored by one thread a row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include <cmath>
 
-#include <cfloat>
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 32;        // query rows per block
-constexpr int BK = 64;        // keys per streamed K/V tile
+using namespace hopper;
+
 constexpr int D = 128;        // head dim
-constexpr int MAX_TK = 512;   // keys whose fp32 scores a block holds
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int LDQ = D + 8;    // bf16 row stride of the Q and K/V tiles
-constexpr int LDO = D + 4;    // fp32 row stride of the output tile
+constexpr int BQ = 128;       // query rows per block (two warpgroups of 64)
+constexpr int BKV = 64;       // keys per K or V tile
+constexpr int SLOTS = 4;      // K/V ring
+constexpr int MAX_TK = 512;   // the shared limit of the forward and backward kernels
+constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; 2: producer
 constexpr float NEG_MASK = -1e4f;
 
-static_assert(BK * LDQ * 2 >= BQ * LDO * 4, "the output tile reuses the K/V tile buffer");
+constexpr int Q_HALF = BQ * 64 * 2;        // 64 head-dim columns of the Q tile (16 KB)
+constexpr int KV_HALF = BKV * 64 * 2;      // 64 head-dim columns of a K or V tile (8 KB)
+constexpr int SLOT_BYTES = 2 * KV_HALF;
+constexpr int SMEM_BYTES = 1024 + 2 * Q_HALF + SLOTS * SLOT_BYTES + (1 + 2 * SLOTS) * 8;
 
-__host__ __device__ inline int pad_keys(int tk) { return (tk + BK - 1) / BK * BK; }
-
-__host__ __device__ inline int smem_bytes(int tk_pad) {
-  return BQ * LDQ * 2 + BK * LDQ * 2 + BQ * (tk_pad + 8) * 4;
-}
-
-// rows row0.. of a (rows, D) bf16 matrix into a (pad_rows, LDQ) tile, zero from row `valid` on
-__device__ inline void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                 int pad_rows, int valid) {
-  for (int i = threadIdx.x; i < pad_rows * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q,   // (B, H, Tq, D)
-    const __nv_bfloat16* __restrict__ k,   // (B, H, Tk, D)
-    const __nv_bfloat16* __restrict__ v,   // (B, H, Tk, D)
-    const float* __restrict__ mask,        // (B, Tq, Tk) or null
-    __nv_bfloat16* __restrict__ out,       // (B, H, Tq, D)
-    float* __restrict__ lse,               // (B, H, Tq)
+__global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // (B*H, Tq, D)
+    const __grid_constant__ CUtensorMap k_map,   // (B*H, Tk, D)
+    const __grid_constant__ CUtensorMap v_map,   // (B*H, Tk, D)
+    const __grid_constant__ CUtensorMap o_map,   // (B*H, Tq, D), stored
+    const float* __restrict__ mask,              // (B, Tq, Tk) or null
+    float* __restrict__ lse,                     // (B, H, Tq)
     int H, int Tq, int Tk, int n_virtual, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tk_pad = pad_keys(Tk);
-  const int lds = tk_pad + 8;  // fp32 row stride of the score rows
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kv = qs + BQ * LDQ;
-  float* sc = reinterpret_cast<float*>(smem + BQ * LDQ * 2 + BK * LDQ * 2);
-  float* os = reinterpret_cast<float*>(kv);  // output tile, after P.V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* qs = smem;                    // [2 halves][128 rows][64]
+  uint8_t* ring = smem + 2 * Q_HALF;     // [SLOTS][2 halves][64 keys][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + SLOTS * SLOT_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int bh = b * H + h;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * Tk * D;
-  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * Tk * D;
+  const int nq = (Tq + BQ - 1) / BQ;
+  const int h = blockIdx.x % H, qt = (blockIdx.x / H) % nq, b = blockIdx.x / (H * nq);
+  const int bh = b * H + h, q0 = qt * BQ;
+  const int nk = (Tk + BKV - 1) / BKV;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
-  load_rows(qs, q + static_cast<size_t>(bh) * Tq * D, q0, BQ, Tq);
-
-  // scores, one 64-key tile at a time: warp -> row tile (warp & 1), key sub-tile (warp >> 1)
-  {
-    const int rt = warp & 1, ct = warp >> 1;
-    for (int k0 = 0; k0 < tk_pad; k0 += BK) {
-      __syncthreads();  // Q is loaded; the previous K tile is no longer read
-      load_rows(kv, kg, k0, BK, Tk);
-      __syncthreads();
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;  // K^T
-        wmma::load_matrix_sync(fa, qs + rt * 16 * LDQ + d0, LDQ);
-        wmma::load_matrix_sync(fb, kv + ct * 16 * LDQ + d0, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sc + rt * 16 * lds + k0 + ct * 16, acc, lds, wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases the slot
     }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // exact softmax, one warp per row; each lane holds up to 16 of the row's scores
-  for (int r = warp; r < BQ; r += WARPS) {
-    const int qi = q0 + r;
-    float* srow = sc + r * lds;
-    const float* mrow = (mask != nullptr && qi < Tq) ? mask + (static_cast<size_t>(b) * Tq + qi) * Tk : nullptr;
-    float vals[MAX_TK / 32];
-    float m = n_virtual > 0 ? NEG_MASK : -FLT_MAX;
-#pragma unroll
-    for (int i = 0; i < MAX_TK / 32; ++i) {
-      const int j = lane + 32 * i;
-      if (j < Tk) {
-        float s = srow[j] * scale;
-        if (mrow != nullptr) s += mrow[j];
-        vals[i] = s;
-        m = fmaxf(m, s);
+  if (wg == 2) {  // producer: Q, then K_0..K_{nk-1} (pass 1), then K_0, V_0, K_1, V_1, ... (pass 2)
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * Q_HALF);
+      tma_load_3d(qs, &q_map, q_full, 0, q0, bh);
+      tma_load_3d(qs + Q_HALF, &q_map, q_full, 64, q0, bh);
+      for (int i = 0; i < 3 * nk; ++i) {
+        const bool is_v = i >= nk && (i - nk) % 2 == 1;
+        const int key0 = (i < nk ? i : (i - nk) / 2) * BKV;
+        const CUtensorMap* map = is_v ? &v_map : &k_map;
+        const int s = i % SLOTS;
+        uint8_t* slot = ring + s * SLOT_BYTES;
+        mbar_wait(&empty[s], ((i / SLOTS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], SLOT_BYTES);
+        tma_load_3d(slot, map, &full[s], 0, key0, bh);
+        tma_load_3d(slot + KV_HALF, map, &full[s], 64, key0, bh);
       }
     }
+  } else {  // consumers: query rows wg * 64 .. + 63 of the tile
+    setmaxnreg_inc<232>();
+    // accumulator element i of thread (warp w, lane l): row 16 w + l / 4
+    // (+ 8 for i % 4 >= 2), column 8 (i / 4) + 2 (l % 4) + i % 2
+    const int w = t / 32, l = t % 32;
+    const int rl = wg * 64 + w * 16 + l / 4;  // row within the tile (and + 8)
+    const float* mrow[2];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_TK / 32; ++i) {
-      const int j = lane + 32 * i;
-      if (j < Tk) {
-        vals[i] = expf(vals[i] - m);
-        sum += vals[i];
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + rl + 8 * r;
+      mrow[r] = (mask != nullptr && qi < Tq) ? mask + (static_cast<size_t>(b) * Tq + qi) * Tk : nullptr;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (n_virtual > 0) sum += static_cast<float>(n_virtual) * expf(NEG_MASK - m);
-    __syncwarp();  // the whole row is read before p overwrites it
-    __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(srow);
-#pragma unroll
-    for (int i = 0; i < MAX_TK / 32; ++i) {
-      const int j = lane + 32 * i;
-      if (j < tk_pad) prow[j] = __float2bfloat16_rn(j < Tk ? vals[i] / sum : 0.f);
-    }
-    if (lane == 0 && qi < Tq) lse[static_cast<size_t>(bh) * Tq + qi] = m + logf(sum);
-  }
+    float m[2], lsum[2] = {0.f, 0.f};
+    m[0] = m[1] = n_virtual > 0 ? NEG_MASK : -INFINITY;
 
-  // out tile 32 x 128: warp owns row tile (warp & 1) and 32 columns from (warp >> 1) * 32
-  const int rt = warp & 1, c0 = (warp >> 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+    // Ring positions: pass 1 reads K_t at t; pass 2 reads K_t at nk + 2t and
+    // V_t at nk + 2t + 1 (the producer's order).
+    auto wait_full = [&](int pos) { mbar_wait(&full[pos % SLOTS], (pos / SLOTS) & 1); };
+    auto release = [&](int pos) { mbar_arrive(&empty[pos % SLOTS]); };
+
+    float S[32] = {};  // each tile's first product overwrites it (scale_d = 0)
+    float mv[32];  // the mask at this thread's score elements of a tile
+    auto load_mask = [&](int key0) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
-  const __nv_bfloat16* ps = reinterpret_cast<const __nv_bfloat16*>(sc);
-  for (int k0 = 0; k0 < tk_pad; k0 += BK) {
-    __syncthreads();  // p is written; the previous V tile is no longer read
-    load_rows(kv, vg, k0, BK, Tk);
-    __syncthreads();
+      for (int i = 0; i < 32; ++i) {
+        const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i & 1);
+        const float* mr = mrow[(i / 2) & 1];
+        mv[i] = (mr != nullptr && key < Tk) ? __ldg(mr + key) : 0.f;
+      }
+    };
+    // S = (q . k) * scale + mask for the K tile at ring position pos, rounded
+    // as the plain version rounds it; -inf past Tk. The mask loads, issued
+    // first, land while the products run.
+    auto scores = [&](int pos, int key0) {
+      load_mask(key0);
+      wait_full(pos);
+      const uint8_t* kt = ring + (pos % SLOTS) * SLOT_BYTES;
+      fence_regs(S);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, ps + rt * 16 * (2 * lds) + k0 + kk, 2 * lds);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_64x64_ss(S, desc_sw128(qs + (kk / 4) * Q_HALF + wg * (Q_HALF / 2) + (kk % 4) * 32, 16, 1024),
+                     desc_sw128(kt + (kk / 4) * KV_HALF + (kk % 4) * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(S);
+      release(pos);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, kv + kk * LDQ + c0 + j * 16, LDQ);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      for (int i = 0; i < 32; ++i) {
+        const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i & 1);
+        S[i] = key < Tk ? __fadd_rn(__fmul_rn(S[i], scale), mv[i]) : -INFINITY;
+      }
+    };
+
+    mbar_wait(q_full, 0);
+
+    // pass 1: row max and sum, online over the K tiles
+    for (int kt = 0; kt < nk; ++kt) {
+      scores(kt, kt * BKV);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i / 2) & 1) == r) mx = fmaxf(mx, S[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // mx is finite: key 0 < Tk scores a finite value in tile 0
+        float sum = m[r] == -INFINITY ? 0.f : lsum[r] * __expf(m[r] - mx);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i / 2) & 1) == r) sum += __expf(S[i] - mx);
+        lsum[r] = sum;
+        m[r] = mx;
       }
     }
-  }
-  __syncthreads();  // every warp is done with V before the output tile overwrites it
+    float inv_l[2], row_lse[2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(os + rt * 16 * LDO + c0 + j * 16, acc[j], LDO, wmma::mem_row_major);
-  __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      float sum = lsum[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (n_virtual > 0) sum += static_cast<float>(n_virtual) * expf(NEG_MASK - m[r]);
+      inv_l[r] = 1.f / sum;
+      row_lse[r] = m[r] + logf(sum);
+    }
 
-  __nv_bfloat16* og = out + static_cast<size_t>(bh) * Tq * D;
-  for (int i = tid; i < BQ * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    if (q0 + r >= Tq) continue;
-    const float* src = os + r * LDO + c;
-    __align__(16) __nv_bfloat16 o8[8];
+    // pass 2: p = bf16(exp(s - m) / l), out += p V
+    float O[64];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o8[e] = __float2bfloat16_rn(src[e]);
-    *reinterpret_cast<uint4*>(og + static_cast<size_t>(q0 + r) * D + c) = *reinterpret_cast<const uint4*>(o8);
+    for (int i = 0; i < 64; ++i) O[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      scores(nk + 2 * kt, kt * BKV);
+      uint32_t P[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = i & 1;  // P[i] packs S[2i], S[2i + 1]: row (i & 1)
+        __nv_bfloat162 pb = __floats2bfloat162_rn(__fmul_rn(__expf(S[2 * i] - m[r]), inv_l[r]),
+                                                  __fmul_rn(__expf(S[2 * i + 1] - m[r]), inv_l[r]));
+        P[i] = *reinterpret_cast<uint32_t*>(&pb);
+      }
+      const int pos_v = nk + 2 * kt + 1;
+      wait_full(pos_v);
+      const uint8_t* vt = ring + (pos_v % SLOTS) * SLOT_BYTES;
+      fence_regs(O);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {P[4 * kk], P[4 * kk + 1], P[4 * kk + 2], P[4 * kk + 3]};
+        // V tile rows 16 kk.. of both 64-column halves: MN blocks KV_HALF apart, 8-key groups 1,024 B apart
+        mma_64x128_rs_tb(O, a, desc_sw128(vt + kk * 16 * 128, KV_HALF, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(O);
+      release(pos_v);
+    }
+
+    // out through this warpgroup's own rows of the Q tile (their products are done)
+    fence_proxy_async();
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * (l % 4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(qs + (c >> 6) * Q_HALF + sw128_offset(rl + 8 * r, c & 63)) =
+            __floats2bfloat162_rn(O[4 * j + 2 * r], O[4 * j + 2 * r + 1]);
+    }
+    if (l % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + rl + 8 * r;
+        if (qi < Tq) lse[static_cast<size_t>(bh) * Tq + qi] = row_lse[r];
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (t == 0 && q0 + 64 * wg < Tq) {
+      tma_store_3d(&o_map, qs + wg * (Q_HALF / 2), 0, q0 + 64 * wg, bh);
+      tma_store_3d(&o_map, qs + Q_HALF + wg * (Q_HALF / 2), 64, q0 + 64 * wg, bh);
+      store_commit();
+      store_wait_read();
+    }
   }
+}
+
+// (B*H, T, D) bf16 read or written in boxes of (64, rows, 1)
+int heads_map(CUtensorMap* map, const void* p, int bh, int T, int rows) {
+  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(T) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return encode_tensor_map(map, p, 3, dims, strides, box);
+}
+
+// The kernel's shared-memory limit set on the current device, once.
+int prepare_device() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && !(dev < 64 && done[dev]))
+    e = cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 64) done[dev] = true;
+  return 0;
 }
 
 }  // namespace
@@ -203,21 +288,22 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
 extern "C" int attention_max_keys() { return MAX_TK; }
 extern "C" int attention_head_dim() { return D; }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
-// checks: bf16 contiguous q, k, v with head dim 128, 1 <= Tk <= 512,
-// n_virtual >= 0, a contiguous fp32 (B, Tq, Tk) mask or null, outputs of
-// the right shapes.
+// Launch on `stream`; returns 0 or a cudaError_t. The caller checks: bf16
+// contiguous q, k, v with head dim 128, 1 <= Tk <= 512, n_virtual >= 0, a
+// contiguous fp32 (B, Tq, Tk) mask or null, outputs of the right shapes.
 extern "C" int launch_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                     void* out, void* lse, int B, int H, int Tq, int Tk,
                                     int n_virtual, float scale, void* stream) {
-  const int smem = smem_bytes(pad_keys(Tk));
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  attention_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, Tq, Tk, n_virtual, scale);
+  if (Tk < 1 || Tk > MAX_TK || Tq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map, o_map;
+  int err = 0;
+  if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&k_map, k, B * H, Tk, BKV)) ||
+      (err = heads_map(&v_map, v, B * H, Tk, BKV)) || (err = heads_map(&o_map, out, B * H, Tq, 64)))
+    return err;
+  if ((err = prepare_device())) return err;
+  const int blocks = B * H * ((Tq + BQ - 1) / BQ);  // head fastest
+  attention_fwd_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, o_map, static_cast<const float*>(mask), static_cast<float*>(lse), H, Tq, Tk,
+      n_virtual, scale);
   return static_cast<int>(cudaGetLastError());
 }

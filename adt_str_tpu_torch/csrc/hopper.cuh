@@ -1,0 +1,268 @@
+// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
+// (ffn_dropout.cu, attention.cu): mbarriers, TMA tile copies, wgmma
+// shared-memory descriptors and products, setmaxnreg, and the host-side
+// tensor-map encoder. Raw PTX and the CUDA runtime only, no library: a
+// kernel that includes it still builds in seconds.
+//
+// Tensor maps are encoded on the host by cuTensorMapEncodeTiled, which the
+// runtime hands out through cudaGetDriverEntryPoint(ByVersion): nothing is
+// linked against libcuda. A kernel takes each map as a
+// `const __grid_constant__ CUtensorMap` parameter.
+//
+// Shared-memory tiles use the 128-byte swizzle throughout: a tile of rows of
+// 64 bf16 (128 B), 8-row groups 1,024 B apart, each 16-byte chunk c of row r
+// stored at chunk c ^ (r % 8). TMA writes and reads that layout
+// (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it through a descriptor of
+// layout type 1. Every tile starts on a 1,024-byte boundary.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1,024-byte boundary at or after p (a dynamic shared buffer is
+// declared 1,024 bytes larger than its tiles need).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// After the inits, before any other thread or the TMA unit uses the barriers.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic still to land.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (the barrier must
+// not be more than one phase behind the one awaited: parity tells only two
+// apart). A wait past 2^20 polls (seconds; a real wait is microseconds)
+// traps, so a broken pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 20)) __trap();
+  }
+}
+
+// ---- TMA
+
+// Box at coordinates (c0 innermost, c1[, c2]) into shared memory; completion
+// is counted in bytes on `bar`. Parts of the box outside the tensor land as 0.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared memory to the tensor; the parts of the box outside the tensor are
+// not written. Issue after fence_proxy_async() and a barrier over the
+// writers; then store_commit() and store_wait_read() before the buffer is
+// reused or the block exits.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void store_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
+
+__device__ __forceinline__ void store_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory"); }
+
+// Orders this thread's ordinary shared-memory accesses before later accesses
+// by the async proxy (TMA, wgmma) and after earlier ones.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// bar.sync over `count` threads (a multiple of 32) on named barrier `id` (1..15).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Row offset (bytes) of element (r, c) in a 128-byte-swizzled tile of rows
+// of 64 bf16: where a thread writes what TMA then stores.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2);
+}
+
+// ---- wgmma
+
+// Descriptor of a 128-byte-swizzled bf16 tile at `p`. `lbo` and `sbo` are in
+// bytes: for a K-major operand (K contiguous) sbo is the stride of 8-row
+// groups (1,024) and lbo is unused; for an MN-major operand lbo is the
+// stride between 64-column blocks of MN and sbo that of 8-row groups of K.
+// A K step of 16 inside the 64-wide swizzle atom adds 32 bytes to `p`.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products (call after wgmma_wait and before a batch).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HOPPER_ACC8(i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+      "+f"(d[i + 7])
+
+// d (64 x 64 fp32, warpgroup fragment) += A (64 x 16, K-major, shared) B^T
+// (B 64 x 16, K-major, shared); scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) += A (64 x 16, K-major, shared) B^T (B 128 x 16, K-major, shared).
+__device__ __forceinline__ void mma_64x128_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+        HOPPER_ACC8(48), HOPPER_ACC8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) += A (64 x 16 bf16 in registers: the accumulator-row layout,
+// two bf16 a register) B (16 x 128, MN-major in shared memory: the
+// transpose-B bit is set).
+__device__ __forceinline__ void mma_64x128_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+        HOPPER_ACC8(48), HOPPER_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+#undef HOPPER_ACC8
+
+// ---- register rebalancing between the producer and consumer warpgroups
+// (all four warps of a warpgroup execute it; the kernel's branches by role
+// never reconverge)
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---- host: tensor maps
+
+// A bf16 tensor map of `rank` dims (innermost first, sizes in elements,
+// strides of dims 1.. in bytes) read or written in boxes of `box`, with the
+// 128-byte swizzle. Returns 0, or a cudaError_t.
+inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hopper

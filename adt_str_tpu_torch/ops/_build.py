@@ -6,8 +6,11 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on its own with
 
 into `build/kernels/lib<name>-<hash>.so` at the repo root (listed in
 `.gitignore`) at first use, then loaded with `ctypes`. The hash covers the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Pointers and the stream go in as `c_void_p`; each C entry
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. The kernels that
+use TMA encode their tensor maps with the driver's `cuTensorMapEncodeTiled`,
+fetched through `cudaGetDriverEntryPointByVersion`, so nothing links
+against libcuda. Pointers and the stream go in as `c_void_p`; each C entry
 point returns `cudaGetLastError()`, which `check` raises on.
 
 Only the sources in the repo are compiled: no PyTorch headers (the build
@@ -43,9 +46,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of `csrc/<name>.cu`, named by a digest of that source,
+    every shared header (`csrc/*.cuh`) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen | None]:

@@ -17,8 +17,8 @@ the XLA path's `dropout` for the same keys. ("bf16" is the compute dtype.)
 products with fp32 results. JAX leaves those products to XLA, so they are
 library matmuls here too (on the card, bf16 cuBLAS products whose outputs
 round to bf16 before the fp32 cast). The weights come in the kernel's layout
-(`ops/cuda_ffn.py`): W1 as `linear1.weight` (d_ff, d) and W2 as JAX's
-(d_ff, d), both already in the compute dtype.
+(`ops/cuda_ffn.py`), the module's own: W1 as `linear1.weight` (d_ff, d) and
+W2 as `linear2.weight` (d, d_ff), both already in the compute dtype.
 """
 
 from __future__ import annotations
@@ -69,13 +69,13 @@ def ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float) -
     h = gelu_as(pre.float())
     mh = hash_mask((n, d_ff), seeds[0:2], keep_h, x2.device)
     hd = torch.where(mh, h * (1.0 / keep_h), 0.0).to(cdt)
-    out = _dot32(hd, w2) + b2.float()
+    out = _dot32(hd, w2.T) + b2.float()
     mo = hash_mask((n, d), seeds[2:4], keep_o, x2.device)
     return torch.where(mo, out * (1.0 / keep_o), 0.0).to(cdt), pre
 
 
 def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: float):
-    """Cotangent g of `out` -> (dW1 (d_ff, d), db1, dW2 (d_ff, d), db2, dx),
+    """Cotangent g of `out` -> (dW1 (d_ff, d), db1, dW2 (d, d_ff), db2, dx),
     the weight gradients in the kernel's layout and fp32, dx in g's dtype."""
     cdt = x2.dtype
     n, d = x2.shape
@@ -85,7 +85,7 @@ def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: floa
     g_out = torch.where(mo, g.float() * (1.0 / keep_o), 0.0)
     g_out_b = g_out.to(cdt)
     db2 = g_out.sum(dim=0)
-    g_hd = _dot_lib(g_out_b, w2.T)  # (n, d_ff)
+    g_hd = _dot_lib(g_out_b, w2)  # (n, d_ff)
     mh = hash_mask((n, d_ff), seeds[0:2], keep_h, g.device)
     inv_kh = torch.where(mh, 1.0 / keep_h, 0.0)
     phi = torch.exp(-0.5 * pre32 * pre32) * _INV_SQRT_2PI
@@ -95,6 +95,6 @@ def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: floa
     hd_b = (pre32 * cdf * inv_kh).to(cdt)
     db1 = g_pre.sum(dim=0)
     dw1 = _dot_lib(g_pre_b.T, x2)
-    dw2 = _dot_lib(hd_b.T, g_out_b)
+    dw2 = _dot_lib(g_out_b.T, hd_b)
     dx = _dot_lib(g_pre_b, w1).to(g.dtype)
     return dw1, db1, dw2, db2, dx

@@ -6,7 +6,9 @@ its hand-written CUDA kernels against their plain PyTorch versions. Imports
 no JAX and nothing of the JAX package. Phases, each printing one JSON line:
 
 1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
-2. the kernel build (`csrc/*.cu`, one nvcc each, in parallel) and its time;
+2. the kernel build (`csrc/*.cu` with the shared `csrc/hopper.cuh`, one
+   nvcc each, in parallel), its time and each kernel's ptxas registers and
+   spills;
 3. each kernel against its plain version on the card, at the shapes the
    main paths give it: K1 log-mel and K5f attention at the serving batches
    (B = 1, the bucket the serving phase fills, 64); K5f, K5b (attention
@@ -15,7 +17,8 @@ no JAX and nothing of the JAX package. Phases, each printing one JSON line:
    (fused FFN + dropout) at N = 64 * 246 and 64 * 511 rows. Each line:
    max/mean abs error against the stated tolerance, kernel/plain/library
    medians over 12 timed calls (each on other inputs, after warm-up) and
-   the least time the card could take (`bound_ms`, `bound_by`);
+   the least time the card could take (`bound_ms`, `bound_by`); for K4 and
+   K5f also each device kernel's own time (`device_ms`, torch.profiler);
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -167,6 +170,24 @@ def median_ms(fn, inputs) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, inputs) -> dict:
+    """Device time of each kernel `fn` launches, per call, over the staged
+    inputs under torch.profiler: the kernel alone, without the host's launch
+    cost that `median_ms` includes when one call cannot fill the card."""
+    fn(*inputs[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + e.device_time_total / len(inputs) / 1e3
+    return out
+
+
 def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[float, str]:
     """The least time in ms and what sets it: the tensor-core and CUDA-core
     pipes and the memory run at once, so the slowest of the three binds."""
@@ -192,7 +213,7 @@ def phase_build() -> None:
     secs = time.monotonic() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "serialized")):
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     emit({"phase": "build", "kernels": sorted(reports), "seconds": round(secs, 3)})
 
@@ -279,6 +300,7 @@ def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str)
     if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and res["lse_max_abs_err"] <= 1e-4):
         raise RuntimeError(f"attention kernel disagrees with its plain version at {shape}: {res}")
     res["ms"] = median_ms(cuda_attention.fused_attention, inputs)
+    res["device_ms"] = device_ms(cuda_attention.fused_attention, inputs)
     res["plain_ms"] = median_ms(cuda_attention.attention_plain, inputs)
     res["library_ms"] = median_ms(_sdpa, inputs)
     bh = batch * 6
@@ -342,7 +364,7 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
 
 def _ffn_library(x, w1, b1, w2, b2, *_):
     """Two cuBLAS GEMMs with F.gelu between, masks excluded: K4's library yardstick."""
-    return torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(x, w1, b1)), w2.T, b2)
+    return torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(x, w1, b1)), w2, b2)
 
 
 def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: float = 0.9) -> dict:
@@ -352,7 +374,7 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     def args():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
         w1 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
-        w2 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d_ff)).to(torch.bfloat16)
+        w2 = (torch.randn(d, d_ff, generator=gen, device="cuda") / math.sqrt(d_ff)).to(torch.bfloat16)
         b1 = (torch.randn(d_ff, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         words = torch.randint(0, 2**32, (2, 2), generator=cpu).tolist()
@@ -378,6 +400,7 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and pre_ok and res["zero_pattern_equal"]):
         raise RuntimeError(f"FFN kernel disagrees with its plain version at {shape}: {res}")
     res["ms"] = median_ms(cuda_ffn.ffn_dropout, inputs)
+    res["device_ms"] = device_ms(cuda_ffn.ffn_dropout, inputs)  # GEMM 1 and GEMM 2
     res["plain_ms"] = median_ms(ffn.ffn_dropout_plain, inputs)
     res["library_ms"] = median_ms(_ffn_library, inputs)
     res["library"] = "two cuBLAS GEMMs + F.gelu, masks excluded"
@@ -721,7 +744,9 @@ def token_batch(cfg: FrameworkConfig, g: torch.Generator) -> dict:
 
 
 def _group(name: str) -> str:
-    """The part of a training step a device kernel belongs to."""
+    """The part of a training step a device kernel belongs to. The port's
+    own kernels come first: K4's `ffn_dropout_kernel_gemm1/2` are GEMMs
+    that the library rule below would file under cuBLAS."""
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
                        ("log_mel_kernel", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),

@@ -100,17 +100,46 @@ def _attention_inputs(case, cuda):
 
 # Tolerances: scores and softmax agree to fp32 rounding; p is rounded to bf16
 # on both sides and a rare ulp flip there moves out by ~1 bf16 ulp of |out|.
-@pytest.mark.parametrize("case", list(ATTENTION_CASES))
-def test_attention_kernel_matches_plain(cuda, case):
-    q, k, v, mask, n_virtual = _attention_inputs(case, cuda)
+def _assert_attention_matches_plain(q, k, v, mask, n_virtual):
     before = cuda_attention.fused_attention.launches
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     torch.cuda.synchronize()
     assert cuda_attention.fused_attention.launches == before + 1
     ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape and lse.shape == ref_lse.shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernel_matches_plain(cuda, case):
+    _assert_attention_matches_plain(*_attention_inputs(case, cuda))
+
+
+# The forward's tiles are 128 query rows and 64 keys: lengths below, at and
+# past a tile's edge, one query or one key, at B = 1 (a causal mask where
+# Tq == Tk).
+EDGE_LENGTHS = (1, 30, 65, 246, 511)
+
+
+@pytest.mark.parametrize("tk", EDGE_LENGTHS)
+@pytest.mark.parametrize("tq", EDGE_LENGTHS)
+def test_attention_kernel_tile_edges(cuda, tq, tk):
+    q, k, v = _qkv(1, 2, tq, tk, cuda, seed=1000 * tq + tk)
+    mask = _causal(1, tq, tk, cuda) if tq == tk else None
+    _assert_attention_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(tq, tk))
+
+
+@pytest.mark.parametrize("tk", (65, 511))
+def test_attention_kernel_row_whose_only_key_is_the_last(cuda, tk):
+    """Row 7 sees only key Tk - 1 (in the last, ragged key tile); row 3
+    sees none, and the virtual keys take their share."""
+    q, k, v = _qkv(1, 2, 30, tk, cuda, seed=tk)
+    mask = torch.zeros(1, 30, tk)
+    mask[:, 7, : tk - 1] = -1e4
+    mask[:, 3] = -1e4
+    _assert_attention_matches_plain(q, k, v, mask.to(cuda), cuda_attention.virtual_keys(30, tk))
 
 
 # Tolerance: the kernel rounds p and ds to bf16 (relative 2^-9) to enter the
@@ -157,7 +186,7 @@ def _ffn_inputs(n, d, d_ff, cuda, seed=0):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(n, d, generator=g)
     w1 = torch.randn(d_ff, d, generator=g) / d**0.5
-    w2 = torch.randn(d_ff, d, generator=g) / d_ff**0.5
+    w2 = torch.randn(d, d_ff, generator=g) / d_ff**0.5
     b1, b2 = torch.randn(d_ff, generator=g) * 0.1, torch.randn(d, generator=g) * 0.1
     seeds = seed_from_key((seed, 7)) + seed_from_key((seed + 1, 9))
     return tuple(t.to(cuda, torch.bfloat16) for t in (x, w1, b1, w2, b2)), seeds
@@ -168,9 +197,14 @@ def _ffn_inputs(n, d, d_ff, cuda, seed=0):
 # element by 1 bf16 ulp (at most 2^-7 of its size; pre also by the fp32
 # cancellation error near 0), and a flipped pre moves the hidden by as much.
 # The masks are the same hash on both sides: the zero patterns are equal.
+# The GEMM tiles are 128 x 128: N below, at and past a tile's edge, d_ff an
+# odd count of tiles, and the widths other than the model's 768.
 @pytest.mark.parametrize(
-    "n, d, d_ff, keep", [(100, 768, 512, 0.65), (250, 768, 1536, 0.9), (2 * 511, 768, 3072, 0.9)],
-    ids=["small", "mid", "training-width"],
+    "n, d, d_ff, keep",
+    [(100, 768, 512, 0.65), (250, 768, 1536, 0.9), (2 * 511, 768, 3072, 0.9), (37, 768, 512, 0.9),
+     (64 * 246 + 1, 768, 3072, 0.9), (300, 768, 640, 0.8), (200, 512, 2048, 0.9), (130, 1024, 384, 0.7)],
+    ids=["small", "mid", "training-width", "under-64-rows", "encoder-rows-plus-1", "odd-tiles-d_ff", "d512",
+         "d1024"],
 )
 def test_ffn_dropout_kernel_matches_plain(cuda, n, d, d_ff, keep):
     args, seeds = _ffn_inputs(n, d, d_ff, cuda)
@@ -191,8 +225,8 @@ def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 768, 512, cuda)
     with pytest.raises(ValueError, match="bf16"):
         cuda_ffn.ffn_dropout(x.float(), w1, b1, w2, b2, seeds, 0.9, 0.9)
-    (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 384, 512, cuda)
-    with pytest.raises(ValueError, match="d = 768"):
+    (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 200, 512, cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
         cuda_ffn.ffn_dropout(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
 
 

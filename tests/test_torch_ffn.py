@@ -79,7 +79,7 @@ def test_plain_k4_pre_matches_pallas_interpret():
     b = {k: torch.from_numpy(np.array(p[k]["b"])) for k in ("linear1", "linear2")}
     tseeds = seed_from_key(_words(kh)) + seed_from_key(_words(ko))
     _, pre = cuda_ffn.ffn_dropout(torch.from_numpy(np.array(x2)), w["linear1"].T.contiguous(), b["linear1"],
-                                  w["linear2"], b["linear2"], tseeds, 1 - RATE, 1 - RATE)
+                                  w["linear2"].T.contiguous(), b["linear2"], tseeds, 1 - RATE, 1 - RATE)
     np.testing.assert_allclose(pre.numpy(), np.asarray(ref_pre)[: B * T_LEN], rtol=2e-5, atol=2e-5)
 
 
