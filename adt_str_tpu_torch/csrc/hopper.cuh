@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (ffn_dropout.cu, attention.cu): mbarriers, TMA tile copies, wgmma
-// shared-memory descriptors and products, setmaxnreg, and the host-side
-// tensor-map encoder. Raw PTX and the CUDA runtime only, no library: a
+// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu): mbarriers,
+// TMA tile copies, wgmma shared-memory descriptors and products, ldmatrix,
+// setmaxnreg, and the host-side tensor-map encoder. Raw PTX and the CUDA runtime only, no library: a
 // kernel that includes it still builds in seconds.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, which the
@@ -57,10 +57,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 // Wait until the phase of parity `parity` has completed (the barrier must
 // not be more than one phase behind the one awaited: parity tells only two
-// apart). A wait past 2^20 polls (seconds; a real wait is microseconds)
+// apart). A wait past 2 s of the global timer (a real wait is microseconds)
 // traps, so a broken pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
+  uint64_t start = 0;
   for (uint32_t polls = 0;; ++polls) {
     uint32_t done;
     asm volatile(
@@ -73,7 +80,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
-    if (polls == (1u << 20)) __trap();
+    if (polls % 1024 == 0) {
+      const uint64_t now = global_ns();
+      if (polls == 0) start = now;
+      else if (now - start > 2000000000ull) __trap();
+    }
   }
 }
 
@@ -119,6 +130,18 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
 __device__ __forceinline__ void store_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
 
 __device__ __forceinline__ void store_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory"); }
+
+// 4 bytes from global to shared memory, asynchronously (for rows whose
+// stride TMA refuses); cp_async_arrive then counts one arrival on `bar` once
+// all of this thread's earlier cp.async copies have landed (the arrival is
+// not added to the barrier's expected count: its init count includes it).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
 
 // Orders this thread's ordinary shared-memory accesses before later accesses
 // by the async proxy (TMA, wgmma) and after earlier ones.
@@ -220,7 +243,54 @@ __device__ __forceinline__ void mma_64x128_rs_tb(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 64) += A (64 x 16 bf16 in registers, as for mma_64x128_rs_tb)
+// B (16 x 64, MN-major in shared memory: the transpose-B bit).
+__device__ __forceinline__ void mma_64x64_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, MN-major in shared memory: M contiguous, the
+// transpose-A bit) B (16 x 64, MN-major in shared memory: the transpose-B bit).
+__device__ __forceinline__ void mma_64x64_ss_tt(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef HOPPER_ACC8
+
+// ---- ldmatrix
+
+// Four 8 x 8 bf16 matrices from shared memory, one 16-byte row address a
+// lane (lanes 8j..8j+7 give the rows of matrix j); register j of lane l
+// holds row l / 4, columns 2 (l % 4), +1 of matrix j. With matrices (rows
+// 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
+// of a warp's 16 rows, the four registers are that warp's part of a wgmma
+// register A operand (64 x 16).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
 
 // ---- register rebalancing between the producer and consumer warpgroups
 // (all four warps of a warpgroup execute it; the kernel's branches by role

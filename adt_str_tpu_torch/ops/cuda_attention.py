@@ -42,6 +42,7 @@ import torch
 from adt_str_tpu_torch.ops import _build
 
 HEAD_DIM = 128  # `D` in csrc/attention.cu and csrc/attention_bwd.cu
+BWD_KEY_TILE = 128  # `BK` in csrc/attention_bwd.cu: past one key tile dq is summed in an fp32 scratch
 MAX_KEYS = 512  # `MAX_TK` in csrc/attention.cu: the fp32 score rows of a block fit in shared memory
 NEG_MASK = -1e4  # the score of a virtual (padded) key
 
@@ -107,11 +108,11 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("attention_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.launch_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
     lib.launch_attention_bwd.restype = ctypes.c_int
-    lib.attention_bwd_head_dim.restype = ctypes.c_int
-    if lib.attention_bwd_head_dim() != HEAD_DIM:
-        raise RuntimeError("csrc/attention_bwd.cu head dim differs from cuda_attention's")
+    lib.attention_bwd_head_dim.restype = lib.attention_bwd_key_tile.restype = ctypes.c_int
+    if lib.attention_bwd_head_dim() != HEAD_DIM or lib.attention_bwd_key_tile() != BWD_KEY_TILE:
+        raise RuntimeError("csrc/attention_bwd.cu limits differ from cuda_attention's")
     return lib
 
 
@@ -169,7 +170,9 @@ fused_attention.launches = 0
 def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5b: (dq, dk, dv) of `fused_attention` for the output cotangent `do`,
     through the CUDA kernels for CUDA tensors and `attention_bwd_plain` for
-    CPU tensors."""
+    CPU tensors. Deterministic: two calls on the same inputs give the same
+    bits (no atomics; dq's partial sums over key tiles meet in a fixed order
+    in an fp32 scratch)."""
     B, H, Tq, Tk, D = _check(q, k, v, mask, 0)
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, 1, Tq):
         raise ValueError(f"out/do must be {tuple(q.shape)} and lse {(B, H, 1, Tq)}")
@@ -182,11 +185,12 @@ def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
     mask = _mask_arg(mask, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device) if Tk > BWD_KEY_TILE else None
     with torch.cuda.device(q.device):
         err = lib.launch_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, Tq, Tk, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "attention_bwd")

@@ -22,9 +22,13 @@ import torch
 from adt_str_tpu_torch.ops import _build
 from adt_str_tpu_torch.ops.mel import MelFrontendParams, frame_signal, hann_window_periodic, mel_filterbank
 
-# Frequency tile of the CUDA kernel (`FT` in csrc/log_mel.cu): the bases are
-# zero-padded to a multiple of it.
-FREQ_TILE = 64
+# The bases are zero-padded to a multiple of FREQ_PAD bins (the kernel's
+# TMA rows must be 16-byte multiples). The CUDA kernel computes tiles of
+# FREQ_TILE bins for TILE_FRAMES frames a block (`FT`, `TILE_F` in
+# csrc/log_mel.cu).
+FREQ_PAD = 64
+FREQ_TILE = 128
+TILE_FRAMES = 128
 _LN10 = np.float32(np.log(10.0))
 
 
@@ -35,7 +39,7 @@ def _constants(params: MelFrontendParams) -> tuple[torch.Tensor, torch.Tensor, t
     frequency axis. float64 cos/sin times the float64 window, then float32,
     then bf16 with round-to-nearest-even: the Pallas kernel's exact values."""
     n_fft, k = params.n_fft, params.n_freqs
-    k_pad = -(-k // FREQ_TILE) * FREQ_TILE
+    k_pad = -(-k // FREQ_PAD) * FREQ_PAD
     window = hann_window_periodic(n_fft).astype(np.float64)
     angle = 2.0 * np.pi * np.arange(k)[None, :] * np.arange(n_fft)[:, None] / n_fft
     C = np.zeros((n_fft, k_pad), np.float32)
@@ -51,6 +55,54 @@ def _constants(params: MelFrontendParams) -> tuple[torch.Tensor, torch.Tensor, t
 @functools.lru_cache(maxsize=8)
 def _device_constants(params: MelFrontendParams, device: torch.device):
     return tuple(x.to(device) for x in _constants(params))
+
+
+@functools.lru_cache(maxsize=4)
+def mel_table(params: MelFrontendParams) -> torch.Tensor:
+    """The kernel's sparse form of the mel filterbank: an (n_tiles * 128, 4)
+    fp32 table whose row j holds (w0, w1, m0, 0), bin j's weights in bands
+    m0 and m0 + 1 (m0 stored as int32 bits, 0 <= m0 <= n_mels - 2), the
+    only bands where an HTK triangular filterbank can weigh it. Bins past
+    the last weight above 1e-10 of the largest are dropped (their power adds
+    exact zeros or, for the bin at f_max, a rounding residue: 6.5e-15 at the
+    model's frontend, where it would cost a ninth tile of 128 bins for one
+    bin); the table is padded to whole tiles with zero weights. Raises if a
+    bin weighs bands other than two adjacent ones or m0 decreases: the
+    kernel's in-order band sums need both."""
+    n_mels = params.n_mels
+    if n_mels < 2:
+        raise ValueError(f"the log-mel kernel needs n_mels >= 2, got {n_mels}")
+    M = mel_filterbank(params.n_freqs, n_mels, params.sample_rate, params.f_min, params.f_max)
+    used = np.flatnonzero((M > 1e-10 * M.max()).any(axis=1))
+    k_used = int(used[-1]) + 1 if used.size else 1
+    n_tiles = -(-k_used // FREQ_TILE)
+    w = np.zeros((n_tiles * FREQ_TILE, 2), np.float32)
+    m0 = np.zeros(n_tiles * FREQ_TILE, np.int64)
+    prev = 0
+    for j in range(n_tiles * FREQ_TILE):
+        nz = np.flatnonzero(M[j]) if j < k_used else np.zeros(0, np.int64)
+        if nz.size > 2 or (nz.size == 2 and nz[1] != nz[0] + 1):
+            raise ValueError(f"mel bin {j} weighs bands {nz.tolist()}: not two adjacent bands")
+        first = prev if nz.size == 0 else min(int(nz[0]), n_mels - 2)
+        if first < prev:
+            raise ValueError(f"mel bin {j}'s first band {first} is below bin {j - 1}'s {prev}")
+        m0[j] = prev = first
+        for m in nz:
+            w[j, m - first] = M[j, m]
+    table = np.zeros((n_tiles * FREQ_TILE, 4), np.float32)
+    table[:, :2] = w
+    table[:, 2] = m0.astype(np.int32).view(np.float32)
+    return torch.from_numpy(table)
+
+
+def freq_split(blocks: int, n_tiles: int, sms: int) -> int:
+    """Blocks that share one frame tile's frequency tiles: the largest power
+    of two (at most n_tiles) that keeps the grid within one wave of `sms`
+    SMs. B = 64 serving chunks (128 frame tiles) -> 1; B = 16 -> 4; B = 1 -> 8."""
+    split = 1
+    while 2 * split <= n_tiles and blocks * 2 * split <= sms:
+        split *= 2
+    return split
 
 
 def _frame_range(params: MelFrontendParams, n_samples: int, trim: bool) -> tuple[int, int]:
@@ -84,15 +136,20 @@ def log_mel_plain(wave: torch.Tensor, params: MelFrontendParams, trim: bool = Tr
     return _tail(mel, params).reshape(B, n_out, params.n_mels)
 
 
+@functools.lru_cache(maxsize=8)
+def _device_table(params: MelFrontendParams, device: torch.device) -> torch.Tensor:
+    return mel_table(params).to(device)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("log_mel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.launch_log_mel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.launch_log_mel.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
     lib.launch_log_mel.restype = ctypes.c_int
-    lib.log_mel_freq_tile.restype = ctypes.c_int
-    if lib.log_mel_freq_tile() != FREQ_TILE:
-        raise RuntimeError("csrc/log_mel.cu FT differs from cuda_mel.FREQ_TILE")
+    lib.log_mel_freq_tile.restype = lib.log_mel_frame_tile.restype = ctypes.c_int
+    if lib.log_mel_freq_tile() != FREQ_TILE or lib.log_mel_frame_tile() != TILE_FRAMES:
+        raise RuntimeError("csrc/log_mel.cu tiles differ from cuda_mel's")
     return lib
 
 
@@ -107,23 +164,28 @@ def log_mel(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) ->
         raise ValueError(f"log_mel runs on cpu or cuda tensors, not {wave.device}")
     B, T = wave.shape
     n_fft, hop = params.n_fft, params.hop_length
-    if hop % 8 or n_fft % 64 or params.n_mels % 8 or params.n_mels > 128 or T <= n_fft // 2:
+    if hop % 8 or n_fft % 64 or T <= n_fft // 2:
         raise ValueError(
-            "the log-mel kernel needs hop % 8 == 0, n_fft % 64 == 0, n_mels % 8 == 0, "
-            f"n_mels <= 128 and T > n_fft/2; got hop={hop} n_fft={n_fft} "
-            f"n_mels={params.n_mels} T={T}"
+            "the log-mel kernel needs hop % 8 == 0, n_fft % 64 == 0 and T > n_fft/2; "
+            f"got hop={hop} n_fft={n_fft} T={T}"
         )
     lib = _lib()
     start, n_out = _frame_range(params, T, trim)
     if n_out <= 0:
         raise ValueError(f"a wave of {T} samples leaves no frame after the trim")
     wave = wave.to(torch.float32).contiguous()
-    C, S, M = _device_constants(params, wave.device)
+    C, S, _ = _device_constants(params, wave.device)
+    table = _device_table(params, wave.device)
+    n_tiles = table.shape[0] // FREQ_TILE
+    blocks = B * -(-n_out // TILE_FRAMES)
+    split = freq_split(blocks, n_tiles, torch.cuda.get_device_properties(wave.device).multi_processor_count)
     out = torch.empty((B, n_out, params.n_mels), dtype=torch.float32, device=wave.device)
+    parts = torch.empty((split, *out.shape), dtype=torch.float32, device=wave.device) if split > 1 else None
     with torch.cuda.device(wave.device):
         err = lib.launch_log_mel(
-            wave.data_ptr(), C.data_ptr(), S.data_ptr(), M.data_ptr(), out.data_ptr(),
-            B, T, n_fft, hop, C.shape[1], params.n_mels, start, n_out,
+            wave.data_ptr(), C.data_ptr(), S.data_ptr(), table.data_ptr(), out.data_ptr(),
+            None if parts is None else parts.data_ptr(), B, T, n_fft, hop, C.shape[1], n_tiles,
+            params.n_mels, start, n_out, split,
             params.log_floor, params.clamp_lo, params.clamp_hi, int(params.log_mode == "db"),
             torch.cuda.current_stream().cuda_stream,
         )

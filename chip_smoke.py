@@ -17,8 +17,9 @@ no JAX and nothing of the JAX package. Phases, each printing one JSON line:
    (fused FFN + dropout) at N = 64 * 246 and 64 * 511 rows. Each line:
    max/mean abs error against the stated tolerance, kernel/plain/library
    medians over 12 timed calls (each on other inputs, after warm-up) and
-   the least time the card could take (`bound_ms`, `bound_by`); for K4 and
-   K5f also each device kernel's own time (`device_ms`, torch.profiler);
+   the least time the card could take (`bound_ms`, `bound_by`); for K1,
+   K4, K5f and K5b also each device kernel's own time (`device_ms`,
+   torch.profiler);
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -252,6 +253,7 @@ def phase_mel(params, batch: int, gen) -> dict:
     if not (torch.isfinite(out).all() and res["max_abs_err"] <= tol):
         raise RuntimeError(f"log_mel kernel disagrees with its plain version: {res}")
     res["ms"] = median_ms(cuda_mel.log_mel, inputs)
+    res["device_ms"] = device_ms(cuda_mel.log_mel, inputs)  # the main kernel and, when split, the reduction
     res["plain_ms"] = median_ms(cuda_mel.log_mel_plain, inputs)
     res["library_ms"] = median_ms(mel_library, inputs)
     rows, k = batch * params.out_frames(T), params.n_freqs
@@ -345,6 +347,7 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
         raise RuntimeError(f"attention backward kernel disagrees with its plain version at {shape}: {res}")
     res["tol"] = tol_rel * max(scale.values())
     res["ms"] = median_ms(cuda_attention.fused_attention_bwd, inputs)
+    res["device_ms"] = device_ms(cuda_attention.fused_attention_bwd, inputs)  # the delta pass and the main kernel
     res["plain_ms"] = median_ms(cuda_attention.attention_bwd_plain, inputs)
     lib_inputs = []
     for q, k, v, mask, _, _, do in inputs:
@@ -749,7 +752,7 @@ def _group(name: str) -> str:
     that the library rule below would file under cuBLAS."""
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
-                       ("log_mel_kernel", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
+                       ("log_mel_", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
                        ("place_notes_kernel", "K3 note placement")):
         if key in name:
             return group

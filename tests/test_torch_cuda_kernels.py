@@ -60,6 +60,38 @@ def test_log_mel_kernel_matches_plain(cuda, params, n, trim, tol):
     assert (out - ref).abs().max().item() <= tol
 
 
+def _assert_log_mel_matches_plain(wave, params, trim=True):
+    before = cuda_mel.log_mel.launches
+    out = cuda_mel.log_mel(wave, params, trim)
+    torch.cuda.synchronize()
+    assert cuda_mel.log_mel.launches == before + 1
+    ref = cuda_mel.log_mel_plain(wave, params, trim)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (1e-3 if params.log_mode == "db" else 1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64])
+def test_log_mel_kernel_batches(cuda, batch):
+    """The serving and training batches: one frequency split per grid size
+    (8 blocks share a frame tile at B 1, 4 at B 16, none at B 64)."""
+    _assert_log_mel_matches_plain(_wave(batch, 61440, seed=batch).to(cuda), SERVING_MEL)
+
+
+# The kernel's blocks hold 128 frames: kept frame counts below, at and past
+# that tile, one frame, and the model's 246; hop 240 (the model) and 80.
+@pytest.mark.parametrize("kept", [1, 127, 128, 129, 246])
+@pytest.mark.parametrize(
+    "params",
+    [SERVING_MEL, SMALL_MEL,
+     MelFrontendParams(sample_rate=8000, win_length=512, hop_length=80, n_mels=64, log_mode="db")],
+    ids=["hop240", "hop80", "hop80-db"],
+)
+def test_log_mel_kernel_frame_tile_edges(cuda, params, kept):
+    n = (kept + 2 * params.window_pad_idxs) * params.hop_length + params.hop_length // 2
+    assert params.out_frames(n) == kept
+    _assert_log_mel_matches_plain(_wave(2, n, seed=kept).to(cuda), params)
+
+
 def test_log_mel_kernel_silence(cuda):
     out = cuda_mel.log_mel(torch.zeros(2, 61440, device=cuda), SERVING_MEL)
     assert out.abs().max().item() == 0.0
@@ -161,6 +193,66 @@ def test_attention_bwd_kernel_matches_plain(cuda, case):
         assert torch.isfinite(got.float()).all(), name
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= 2**-6 * ref.float().abs().max().item(), (name, err)
+
+
+def _gradient_magnitudes(q, k, v, mask, out, lse, do):
+    """The largest |dq|, |dk|, |dv| that the inputs' magnitudes allow: the
+    gradients computed on absolute values (|dp| + |delta| in place of
+    dp - delta). Where ds = p (dp - delta) cancels to nearly 0 (a row with a
+    single real key), fp32 rounding of dp and delta leaves an error of that
+    magnitude's order, not of the nearly vanishing gradient's."""
+    scale = q.shape[-1] ** -0.5
+    qa, ka, va, oa, da = (t.float().abs() for t in (q, k, v, out, do))
+    p = torch.exp(cuda_attention._scores(q, k, mask) - lse.transpose(-1, -2))
+    ds = p * (da @ va.transpose(-1, -2) + (da * oa).sum(-1, keepdim=True)) * scale
+    return (ds @ ka).max().item(), (ds.transpose(-1, -2) @ qa).max().item(), (p.transpose(-1, -2) @ da).max().item()
+
+
+def _assert_attention_bwd_matches_plain(q, k, v, mask, n_virtual):
+    """Within 2^-6 of each gradient's largest element (as above), plus 2^-12
+    of the magnitude its terms allow, for the rows where they cancel."""
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(q.device, torch.bfloat16)
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    sizes = _gradient_magnitudes(q, k, v, mask, out, lse, do)
+    for name, got, ref, size in zip(("dq", "dk", "dv"), grads, refs, sizes):
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all(), name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2**-6 * ref.float().abs().max().item() + 2**-12 * size, (name, err, size)
+
+
+# The backward's tiles are 128 keys and 64 query rows.
+@pytest.mark.parametrize("tk", EDGE_LENGTHS)
+@pytest.mark.parametrize("tq", EDGE_LENGTHS)
+def test_attention_bwd_kernel_tile_edges(cuda, tq, tk):
+    q, k, v = _qkv(1, 2, tq, tk, cuda, seed=1000 * tq + tk)
+    mask = _causal(1, tq, tk, cuda) if tq == tk else None
+    _assert_attention_bwd_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(tq, tk))
+
+
+@pytest.mark.parametrize("tk", (65, 511))
+def test_attention_bwd_kernel_row_whose_only_key_is_the_last(cuda, tk):
+    """Row 7 sees only key Tk - 1 (in the last, ragged key tile); row 3 sees
+    none (its real keys all masked: the virtual keys take the softmax)."""
+    q, k, v = _qkv(1, 2, 30, tk, cuda, seed=tk + 1)
+    mask = torch.zeros(1, 30, tk)
+    mask[:, 7, : tk - 1] = -1e4
+    mask[:, 3] = -1e4
+    _assert_attention_bwd_matches_plain(q, k, v, mask.to(cuda), cuda_attention.virtual_keys(30, tk))
+
+
+@pytest.mark.parametrize("case", ["decoder-self", "cross-training"])
+def test_attention_bwd_kernel_is_deterministic(cuda, case):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, mask, n_virtual = _attention_inputs(case, cuda)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    second = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_attention_autograd_launches_both_kernels(cuda):

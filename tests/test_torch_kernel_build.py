@@ -53,8 +53,8 @@ def test_library_path_is_stable(csrc):
 
 
 def test_repo_kernels_share_the_hopper_header():
-    """Both redesigned kernels include the one header the digest covers."""
-    for name in ("ffn_dropout", "attention"):
+    """The four redesigned kernels include the one header the digest covers."""
+    for name in ("ffn_dropout", "attention", "attention_bwd", "log_mel"):
         assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
     assert (_build.CSRC / "hopper.cuh").exists()
 
@@ -78,11 +78,20 @@ def _chip_smoke():
          "__nv_bfloat16 const*, int, int, int, unsigned int, unsigned int, unsigned int, float)", "K4 fused FFN"),
         ("void (anonymous namespace)::attention_fwd_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
          "CUtensorMap_st, float const*, float*, int, int, int, int, float)", "K5f attention fwd"),
+        ("void (anonymous namespace)::attention_bwd_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, float const*, float const*, float const*, float*, __nv_bfloat16*, __nv_bfloat16*, "
+         "__nv_bfloat16*, int, int, int, float)", "K5b attention bwd"),
+        ("void (anonymous namespace)::attention_delta_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, "
+         "int)", "K5b attention bwd"),
+        ("void (anonymous namespace)::log_mel_kernel(CUtensorMap_st, CUtensorMap_st, float const*, float4 const*, "
+         "float*, int, int, int, int, int, int, int, int, int, float, float, float, int)", "K1 log-mel"),
+        ("void (anonymous namespace)::log_mel_reduce_kernel(float const*, float*, unsigned long, int, float, float, "
+         "float, int)", "K1 log-mel"),
         ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1_execute_kernel",
          "GEMM (cuBLAS)"),
         ("nvjet_hsh_128x256_64x4_1x2_h_bz_coopA_NTN", "GEMM (cuBLAS)"),
     ],
-    ids=["k4-gemm1", "k4-gemm2", "k5f", "cublas-sm90", "cublas-nvjet"],
+    ids=["k4-gemm1", "k4-gemm2", "k5f", "k5b", "k5b-delta", "k1", "k1-reduce", "cublas-sm90", "cublas-nvjet"],
 )
 def test_chip_smoke_files_kernels_under_their_group(kernel, group):
     assert _chip_smoke()._group(kernel) == group
