@@ -7,16 +7,14 @@ floats (`8e-4` is a float), unknown keys and sections dropped.
 
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
 `model`, `synthetiser`, `inference`, `serving`, `training`); every other
-section stays readable in
-`FrameworkConfig.raw`. PyYAML is imported inside `from_yaml` only: the
-machine with the card has no PyYAML, and `FrameworkConfig.from_dict` needs
-none.
+section stays readable in `FrameworkConfig.raw`. The YAML is read by the
+port's own reader (`parse_yaml`), never by PyYAML: the machine with the card
+has none.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 import re
 from dataclasses import dataclass, field
@@ -40,37 +38,180 @@ def substitute_env_vars(content: str) -> str:
     return _ENV_PLAIN.sub(_replace, content)
 
 
-@functools.cache
-def _yaml12_loader():
-    """SafeLoader with the YAML 1.2 float grammar: stock PyYAML (YAML 1.1)
-    loads `8e-4` as a string, which the configs spell that way."""
-    import yaml
+# Plain scalars, resolved as the JAX package's loader resolves them (PyYAML's
+# SafeLoader with the YAML 1.2 float grammar added).
+_NULLS = {"", "~", "null", "Null", "NULL"}
+_BOOLS = {"true": True, "True": True, "TRUE": True, "false": False, "False": False, "FALSE": False}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9]+\.[0-9]*(?:[eE][-+]?[0-9]+)?|\.[0-9]+(?:[eE][-+]?[0-9]+)?|[0-9]+[eE][-+]?[0-9]+)")
+_INF_NAN = re.compile(r"[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+# Plain scalars that PyYAML (YAML 1.1) reads other than YAML 1.2 does, or as
+# something other than a string or a number: yes/no/on/off, hex, octal and
+# binary ints, sexagesimals, dates, merge keys.
+_AMBIGUOUS = re.compile(
+    r"yes|Yes|YES|no|No|NO|on|On|ON|off|Off|OFF|<<|="
+    r"|[-+]?0[xXoObB][0-9a-fA-F_]+|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt ].*)?"
+)
+# Numbers that _INT and _FLOAT do not take: a leading zero (octal in YAML
+# 1.1, decimal in 1.2) and underscores between digits (PyYAML drops them)
+_NUMBERISH = re.compile(
+    r"[-+]?(?:0[0-9_]+|[1-9][0-9_]*_[0-9_]*(?:\.[0-9_]*)?(?:[eE][-+]?[0-9]+)?"
+    r"|[0-9]*\.[0-9_]*_[0-9_]*(?:[eE][-+]?[0-9]+)?)"
+)
+_KEY_LINE = re.compile(r"(?:([A-Za-z_][A-Za-z0-9_.\-]*)|'([^']*)'|\"([^\"\\\\]*)\"):(?: +(.*))?")
+_COMMENT = re.compile(r"\s#")
+_REFUSED_START = {"&": "an anchor", "*": "an alias", "!": "a tag", "|": "a block scalar", ">": "a block scalar",
+                  "{": "a flow mapping", "[": "a nested flow sequence", "]": "a stray `]`", "}": "a stray `}`",
+                  ",": "a stray `,`", "@": "a reserved indicator", "`": "a reserved indicator", "%": "a directive",
+                  "?": "a complex key", "-": "a block sequence", ":": "an empty key"}
 
-    class Yaml12Loader(yaml.SafeLoader):
-        pass
 
-    Yaml12Loader.add_implicit_resolver(
-        "tag:yaml.org,2002:float",
-        re.compile(
-            r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+]?[0-9]+)?
-            |[-+]?(?:[0-9][0-9_]*)(?:[eE][-+]?[0-9]+)
-            |[-+]?\.[0-9_]+(?:[eE][-+]?[0-9]+)?
-            |[-+]?\.(?:inf|Inf|INF)
-            |\.(?:nan|NaN|NAN))$""",
-            re.X,
-        ),
-        list("-+0123456789."),
-    )
-    return Yaml12Loader
+def _plain(text: str, where: str):
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.fullmatch(text):
+        return int(text)
+    if _FLOAT.fullmatch(text):
+        return float(text)
+    if _INF_NAN.fullmatch(text):
+        return float(text.replace(".", "", 1))
+    if _AMBIGUOUS.fullmatch(text) or _NUMBERISH.fullmatch(text):
+        raise ValueError(f"{where}: {text!r} reads differently in YAML 1.1 and 1.2, or not as a string: quote it")
+    if text[0] in _REFUSED_START and not (text[0] in "-?:" and len(text) > 1 and text[1] != " "):
+        raise ValueError(f"{where}: {_REFUSED_START[text[0]]} is outside the YAML subset this reader takes")
+    if ": " in text or text.endswith(":"):
+        raise ValueError(f"{where}: a mapping inside a value is outside the YAML subset this reader takes")
+    return text
+
+
+def _quoted(text: str, where: str) -> tuple[str, str]:
+    """A quoted scalar at the start of `text` -> (its value, the rest)."""
+    quote, out, i = text[0], [], 1
+    escapes = {"\\": "\\", '"': '"', "/": "/", "n": "\n", "t": "\t"}
+    while i < len(text):
+        c = text[i]
+        if c == quote:
+            if quote == "'" and text[i + 1 : i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), text[i + 1 :]
+        if quote == '"' and c == "\\":
+            esc = text[i + 1 : i + 2]
+            if esc not in escapes:
+                raise ValueError(f"{where}: the escape \\{esc} is outside the YAML subset this reader takes")
+            out.append(escapes[esc])
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    raise ValueError(f"{where}: a quoted scalar must end on its line")
+
+
+def _strip_comment(text: str) -> str:
+    """`text` up to a comment (a `#` after whitespace)."""
+    m = _COMMENT.search(text)
+    return (text if m is None else text[: m.start()]).rstrip()
+
+
+def _scalar(text: str, where: str):
+    if text[0] in "\"'":
+        value, rest = _quoted(text, where)
+        if rest[:1] not in ("", " ", "\t") or _strip_comment(rest).strip():
+            raise ValueError(f"{where}: text after a quoted scalar")
+        return value
+    return _plain(_strip_comment(text), where)
+
+
+def _value(text: str, where: str):
+    """The value after `key: ` (not empty)."""
+    if text[0] == "[":
+        body = _strip_comment(text)
+        if not body.endswith("]") or any(c in body[1:-1] for c in "[]{}"):
+            raise ValueError(f"{where}: a flow sequence must be one line of scalars, `[a, b]`")
+        inner = body[1:-1].strip()
+        items = [item.strip() for item in inner.split(",")] if inner else []
+        if any(not item for item in items):
+            raise ValueError(f"{where}: an empty item in a flow sequence")
+        return [_scalar(item, where) for item in items]
+    return _scalar(text, where)
+
+
+def parse_yaml(text: str, source: str = "<string>") -> dict:
+    """The YAML subset of `configs/` -> a dict, as PyYAML with the YAML 1.2
+    float grammar reads it: block mappings by indentation, `key: value`
+    scalars (ints, YAML 1.2 floats, true/false, null, bare and quoted
+    strings), sequences of scalars (one-line `[a, b]`, or `- a` lines as
+    PyYAML writes them), comments and blank lines. Anything else (anchors,
+    aliases, tags, block scalars, flow mappings, nested sequences, mappings
+    in a sequence, multi-line scalars, a tab in the indentation, a duplicate
+    key, a scalar that YAML 1.1 and 1.2 read differently) raises a
+    ValueError naming `source` and the line: the reader never guesses."""
+    root: dict = {}
+    stack: list[list] = [[None, root]]  # [indent of the mapping's keys, mapping]
+    open_key = None  # (indent, mapping, key) of a `key:` whose value may be a nested mapping
+    for lineno, line in enumerate(text.splitlines(), 1):
+        where = f"{source}:{lineno}"
+        body = line.lstrip(" ")
+        if not body.strip() or body.lstrip(" \t").startswith("#"):
+            continue
+        if body[0] == "\t":
+            raise ValueError(f"{where}: a tab in the indentation")
+        indent = len(line) - len(body)
+        body = body.rstrip()
+        entry = body == "-" or body.startswith("- ")
+        if open_key is not None:
+            parent_indent, parent, key = open_key
+            open_key = None
+            if entry and indent >= parent_indent:  # a block sequence, indented or not
+                parent[key] = []
+                stack.append([indent, parent[key]])
+            elif indent > parent_indent:
+                parent[key] = {}
+                stack.append([indent, parent[key]])
+        while stack[-1][0] is not None and indent < stack[-1][0]:
+            stack.pop()
+        if isinstance(stack[-1][1], list) and not entry and indent == stack[-2][0]:
+            stack.pop()  # the key after a sequence at its key's own indentation
+        if stack[-1][0] is None:
+            stack[-1][0] = indent
+        if indent != stack[-1][0]:
+            raise ValueError(f"{where}: the indentation matches no enclosing mapping (a multi-line scalar?)")
+        if isinstance(stack[-1][1], list):
+            item = body[1:].strip()
+            if not entry or not item:
+                raise ValueError(f"{where}: a block sequence holds `- scalar` items only")
+            stack[-1][1].append(_scalar(item, where))
+            continue
+        if body.startswith(("---", "...")) or entry:
+            raise ValueError(f"{where}: a block sequence outside a mapping value, or a document marker, is "
+                             "outside the YAML subset this reader takes")
+        m = _KEY_LINE.fullmatch(body)
+        if m is None:
+            raise ValueError(f"{where}: expected `key: value`")
+        bare, rest = m.group(1), m.group(4)
+        key = bare if bare is not None else m.group(2) if m.group(2) is not None else m.group(3)
+        if bare is not None and not isinstance(_plain(bare, where), str):
+            raise ValueError(f"{where}: the key {key!r} is not a string")
+        mapping = stack[-1][1]
+        if key in mapping:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        if rest is None or not rest.strip() or rest.lstrip().startswith("#"):
+            mapping[key] = None
+            open_key = (indent, mapping, key)
+        else:
+            mapping[key] = _value(rest.strip(), where)
+    return root
 
 
 def load_config_from_yaml(path: str | Path) -> dict:
-    """Load a YAML file into a plain dict (env vars substituted)."""
-    import yaml
-
+    """Load a YAML file into a plain dict (env vars substituted first)."""
     with open(path, "r") as f:
         content = f.read()
-    return yaml.load(substitute_env_vars(content), Loader=_yaml12_loader()) or {}
+    return parse_yaml(substitute_env_vars(content), str(path))
 
 
 def deep_merge_dicts(base: dict, override: dict) -> dict:

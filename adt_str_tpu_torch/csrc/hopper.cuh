@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu): mbarriers,
-// TMA tile copies, wgmma shared-memory descriptors and products, ldmatrix,
+// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu) and the
+// bulk-copy ring of place_notes.cu: mbarriers, TMA tile copies, 1-D bulk
+// copies, wgmma shared-memory descriptors and products, ldmatrix,
 // setmaxnreg, and the host-side tensor-map encoder. Raw PTX and the CUDA runtime only, no library: a
 // kernel that includes it still builds in seconds.
 //
@@ -107,6 +108,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` into
+// shared memory at `dst` (both 16-byte aligned): a 1-D bulk copy, no tensor
+// map; completion is counted in bytes on `bar` as for a TMA load.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 // Shared memory to the tensor; the parts of the box outside the tensor are

@@ -23,12 +23,12 @@ import torch
 from adt_str_tpu_torch.ops import _build
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
 
-# the `dtype` argument of both C entry points
+# the `dtype` argument of K2's C entry point
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # int arguments of each C entry point, between its five pointers and the stream
-_INT_ARGS = {"gather_blend": 4, "place_notes": 6}
+_INT_ARGS = {"gather_blend": 4, "place_notes": 5}
 
 
 @functools.cache
@@ -81,10 +81,25 @@ def gather_blend(table: torch.Tensor, idx_main: torch.Tensor, idx_sub: torch.Ten
 gather_blend.launches = 0
 
 
+def place_notes_layout() -> dict:
+    """K3's launch geometry: output samples a block owns (`tile`), note
+    windows in flight a block (`ring`), threads and dynamic shared memory a
+    block."""
+    fn = _build.load("place_notes").place_notes_layout
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = None
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn(*vals)
+    return dict(zip(("tile", "ring", "threads", "smem_bytes"), (v.value for v in vals)))
+
+
 def place_notes(blend: torch.Tensor, slot: torch.Tensor, onset: torch.Tensor, gain: torch.Tensor,
                 chunk_samples: int) -> torch.Tensor:
-    """(B, S, L) blend rows (f32 or bf16, the stream dtype), (B, N) slots,
-    onsets and gains -> (B, chunk_samples) f32 audio, through K3."""
+    """(B, S, L) blend rows (bf16 on the card, any float dtype on the CPU),
+    (B, N) slots, onsets and gains -> (B, chunk_samples) f32 audio, through
+    K3. The kernel copies each note's window of its row with 16-byte bulk
+    copies, so its rows must start on 16-byte boundaries: L % 8 == 0 and a
+    16-byte-aligned blend."""
     if blend.dim() != 3 or slot.dim() != 2 or slot.shape != onset.shape or slot.shape != gain.shape \
             or slot.shape[0] != blend.shape[0] or blend.shape[1] == 0 or chunk_samples < 1 or blend.shape[0] > 65535:
         raise ValueError(f"place_notes shapes: blend {tuple(blend.shape)} slot {tuple(slot.shape)} "
@@ -92,9 +107,12 @@ def place_notes(blend: torch.Tensor, slot: torch.Tensor, onset: torch.Tensor, ga
     if blend.device.type == "cpu":
         return place_notes_plain(blend, slot, onset, gain, chunk_samples)
     _same_cuda_device("place_notes", blend, slot, onset, gain)
-    if blend.dtype not in _DTYPE_CODE or not blend.is_contiguous():
-        raise ValueError(f"the place_notes kernel takes contiguous f32 or bf16 blend rows, got {blend.dtype}")
+    if blend.dtype != torch.bfloat16 or not blend.is_contiguous():
+        raise ValueError(f"the place_notes kernel takes contiguous bf16 blend rows, got {blend.dtype}")
     B, S, L = blend.shape
+    if L % 8 != 0 or blend.data_ptr() % 16 != 0:
+        raise ValueError(f"the place_notes kernel needs rows on 16-byte boundaries: L % 8 == 0 (L = {L}) and a "
+                         f"16-byte-aligned blend (address % 16 = {blend.data_ptr() % 16})")
     n_notes = slot.shape[1]
     out = torch.empty((B, chunk_samples), dtype=torch.float32, device=blend.device)
     if B == 0:
@@ -104,7 +122,7 @@ def place_notes(blend: torch.Tensor, slot: torch.Tensor, onset: torch.Tensor, ga
     with torch.cuda.device(blend.device):
         err = _launcher("place_notes")(
             blend.data_ptr(), slot.data_ptr(), onset.data_ptr(), gain.data_ptr(), out.data_ptr(),
-            B, S, L, n_notes, chunk_samples, _DTYPE_CODE[blend.dtype], torch.cuda.current_stream().cuda_stream,
+            B, S, L, n_notes, chunk_samples, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "place_notes")
     place_notes.launches += 1

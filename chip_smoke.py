@@ -3,7 +3,10 @@
 Drives the port's serving path, its real-audio training step and its
 synthesis-fused training step (`adt_str_tpu_torch`) at full width and holds
 its hand-written CUDA kernels against their plain PyTorch versions. Imports
-no JAX and nothing of the JAX package. Phases, each printing one JSON line:
+no JAX and nothing of the JAX package. Its four configs come from `configs/`
+through the port's own YAML reader (`SERVING_YAML`, `TRAIN_YAMLS`,
+`SYNTH_YAML`; a `config` line prints each value the smoke overrides beside
+the config's). Phases, each printing one JSON line:
 
 1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
 2. the kernel build (`csrc/*.cu` with the shared `csrc/hopper.cuh`, one
@@ -25,12 +28,15 @@ no JAX and nothing of the JAX package. Phases, each printing one JSON line:
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
    24 kHz in bf16, 5.72 GiB; the repo has no curated library); K2 (gather +
    mixup blend) at N = 64 * 27 requests from it and K3 (note placement) at
-   B = 64, 128 notes, each bit-equal to its plain version and timed as in 3;
+   B = 64, 128 notes, each bit-equal to its plain version and timed as in 3
+   (K3 also with each launch's device time, its L2-read floor at the L2
+   rate of a `copy_` measured here, its grid and ring depth, and its ptxas
+   lines);
    then `render_batch` at B = 64: the kernel-path render must equal the
    plain-path render on the same draws, a few rows must agree with the
    port's CPU render, and the median render time is split into draw / K2 /
    K3 / FX / normalise;
-5. training, one phase per configuration (`TRAIN_CONFIGS`: TMIDT at full
+5. training, one phase per configuration (`TRAIN_YAMLS`: TMIDT at full
    width, batch 64, with K4 or with K5; then `synth-setting-1`, the
    synthesis-fused step of setting-1 on the bank of 4): 5 steps of the
    port's `make_train_step` / `make_synth_train_step` on one seeded batch
@@ -40,8 +46,10 @@ no JAX and nothing of the JAX package. Phases, each printing one JSON line:
    below the first, the slice's kernels launched exactly as often as the
    step calls them, and the first step's loss and grad_norm agree with the
    same step through the plain versions on the card. It reports the median
-   step time, the device-busy share of one profiled step and where that
-   step's device time goes;
+   step time, the device-busy share of one profiled step (traced after a
+   warm-up step in the same profiler session) and where that step's device
+   time goes; it fails if a kernel that the step launched has no device
+   time in the trace;
 6. serving: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
    from seeded random weights, served by the port's HTTP server on
    127.0.0.1; 3 concurrent POSTs of 10 s of seeded raw f32 PCM must answer
@@ -67,6 +75,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,59 +94,15 @@ from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
 from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
 
-# configs/serve/ENSTserving.yaml merged over configs/config_default.yaml, as
-# a dict: the machine with the card has no PyYAML (a test checks the two agree).
-SERVING_CONFIG = {
-    "shared": {"input_sec": 2.56, "time_res": 0.01, "win_length": 2048, "sample_rate": 24000},
-    "model": {
-        "enc_layers": 4, "dec_layers": 4, "nhead": 6, "d_query": 128, "dropout": 0.1,
-        "tgt_vocab_size": 1400, "plain": True, "n_mels": 128, "param_dtype": "float32",
-        "compute_dtype": "bfloat16", "use_pallas_mel": True, "use_flash_attention": True,
-    },
-    "tokenizer": {"ADTOF_mapping": True, "BOS_token": 2, "EOS_token": 3, "pad_token": 1,
-                  "silence_token": 0, "add_velocity": True},
-    "inference": {"checkpoint_path": "checkpoints/setting-1", "batch_size": 16, "max_length": 512,
-                  "beam_size": 5, "use_beam_search": False, "output_path": "results/ENST/"},
-    "serving": {"buckets": [1, 2, 4, 8, 16, 32, 64], "max_wait_ms": 2.0, "host": "127.0.0.1",
-                "port": 8321, "precompile": True},
-}
-
-# configs/train/TMIDT-{fused-ffn,flash}.yaml merged over configs/config_default.yaml
-# (the sections the step reads; a test checks each against its YAML)
-_TMIDT_MODEL = {
-    "enc_layers": 4, "dec_layers": 4, "nhead": 6, "d_query": 128, "tgt_vocab_size": 1400, "plain": True,
-    "n_mels": 128, "param_dtype": "float32", "compute_dtype": "bfloat16", "use_pallas_mel": True,
-}
-_TMIDT = {
-    "shared": {"input_sec": 2.56, "time_res": 0.01, "win_length": 2048, "sample_rate": 24000},
-    "tokenizer": {"ADTOF_mapping": False, "BOS_token": 2, "EOS_token": 3, "pad_token": 1,
-                  "silence_token": 0, "add_velocity": False},
-    "training": {"learning_rate": 1e-4, "min_learning_rate": 1e-5, "warmup_ratio": 0.1,
-                 "gradient_accumulation_steps": 1, "weight_decay": 1e-5, "max_grad_norm": 1.0, "optim": "adamw",
-                 "lr_scheduler_type": "cosine"},
-}
-TRAIN_CONFIGS = {
-    "fused-ffn": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.1, "use_pallas_ffn": True}},
-    "flash": {**_TMIDT, "model": {**_TMIDT_MODEL, "dropout": 0.0, "use_flash_attention": True}},
-}
-# configs/train/setting-1.yaml merged over configs/config_default.yaml (the
-# sections the synthesis-fused step reads; a test checks it against the
-# YAML). No one-shot library: the bank is built on the card.
-SYNTH_CONFIG = {
-    "shared": {"input_sec": 2.56, "time_res": 0.01, "win_length": 2048, "sample_rate": 24000},
-    "tokenizer": {"ADTOF_mapping": False, "BOS_token": 2, "EOS_token": 3, "pad_token": 1,
-                  "silence_token": 0, "add_velocity": True},
-    "model": {**_TMIDT_MODEL, "dropout": 0.1},
-    "training": {"learning_rate": 1e-4, "warmup_ratio": 0.1, "gradient_accumulation_steps": 1,
-                 "weight_decay": 1e-5, "max_grad_norm": 1.0, "optim": "adamw", "lr_scheduler_type": "cosine"},
-    "synthetiser": {"similarity_threshold": 0.8, "mixup_range": 0.8, "use_fx_prob": 0.3,
-                    "use_reverb_prob": 0.5, "use_compression_prob": 0.5, "use_limiter_prob": 0.5,
-                    "max_notes": 128, "max_oneshot_sec": 1.28},
-}
+REPO = Path(__file__).resolve().parent
+# the repo's configs, read on the card's machine by the port's own YAML reader
+SERVING_YAML = "configs/serve/ENSTserving.yaml"
+TRAIN_YAMLS = {"fused-ffn": "configs/train/TMIDT-fused-ffn.yaml", "flash": "configs/train/TMIDT-flash.yaml"}
+SYNTH_YAML = "configs/train/setting-1.yaml"
 SYNTH_NAME = "synth-setting-1"
 BANK_ROWS_PER_BIN = 1235  # 27 pitches x 3 bins x 1,235 = 100,035 rows: the ~100k-one-shot production bank
 BANK_BUILD_ROWS = 4096  # rows generated at once (a 0.5 GB f32 intermediate)
-TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size
+TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size; the TMIDT configs' 128 is overridden
 TRAIN_TOKENS = 512  # TrainDatasetConfig.max_tokens: decoder inputs of 511 tokens
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
@@ -174,18 +139,23 @@ def median_ms(fn, inputs) -> float:
 def device_ms(fn, inputs) -> dict:
     """Device time of each kernel `fn` launches, per call, over the staged
     inputs under torch.profiler: the kernel alone, without the host's launch
-    cost that `median_ms` includes when one call cannot fill the card."""
+    cost that `median_ms` includes when one call cannot fill the card. A
+    profiler session now and then records no device event at all; such a
+    session is taken again, up to 3 times."""
     fn(*inputs[0])
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            fn(*args)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-            out[name] = out.get(name, 0.0) + e.device_time_total / len(inputs) / 1e3
+    out: dict = {}
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for args in inputs:
+                fn(*args)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                out[name] = out.get(name, 0.0) + e.device_time_total / len(inputs) / 1e3
+        if out:
+            break
     return out
 
 
@@ -195,6 +165,26 @@ def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[flo
     ops_s = max(f / peak for f, peak in flops_by_peak)
     bytes_s = n_bytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def load_config(path: str, train: bool = False) -> FrameworkConfig:
+    """`path` (relative to the repo) through the port's YAML reader; prints
+    the values the smoke overrides, each beside the config's own."""
+    cfg = FrameworkConfig.from_yaml(REPO / path)
+    overrides = {}
+    if train:
+        t = cfg.training
+        overrides["training.schedule"] = {
+            "config": f"{t.lr_scheduler_type} from {t.learning_rate}, warmup {t.warmup_ratio}",
+            "smoke": f"constant {TRAIN_LR}, no warmup"}
+        overrides["training.batch_size"] = {"config": cfg.raw["training"].get("batch_size"), "smoke": TRAIN_BATCH}
+        overrides["TrainDatasetConfig.max_tokens"] = {
+            "config": cfg.raw.get("TrainDatasetConfig", {}).get("max_tokens"), "smoke": TRAIN_TOKENS}
+    if cfg.synthetiser is not None:
+        overrides["synthetiser.max_notes"] = {"config": cfg.raw["synthetiser"]["max_notes"],
+                                              "smoke": cfg.synthetiser.max_notes}
+    emit({"phase": "config", "path": path, "overrides": overrides})
+    return cfg
 
 
 def phase_card() -> tuple[str, str]:
@@ -208,15 +198,43 @@ def phase_card() -> tuple[str, str]:
     return smi, name
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """-> each kernel's ptxas lines (entry, registers, spills, serialisation)."""
     t0 = time.monotonic()
     reports = _build.build_all()
     secs = time.monotonic() - t0
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill", "serialized")):
-                print(f"[ptxas {name}] {line.strip()}", flush=True)
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if any(k in line for k in ("entry function", "registers", "spill", "serialized"))]
+             for name, log in reports.items()}
+    for name, lines in ptxas.items():
+        for line in lines:
+            print(f"[ptxas {name}] {line}", flush=True)
     emit({"phase": "build", "kernels": sorted(reports), "seconds": round(secs, 3)})
+    return ptxas
+
+
+def copy_rate(n_bytes: int, copies: int = 50) -> float:
+    """Bytes per second that `dst.copy_(src)` moves (read plus written) for
+    an f32 tensor of `n_bytes`: a CUDA graph of `copies` copies replayed
+    between two events, median of 5 replays, so the host's launch cost
+    (which a copy that fits in L2 does not hide) stays out."""
+    src = torch.randn(n_bytes // 4, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            dst.copy_(src)
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / copies)
+    return 2 * n_bytes / statistics.median(times)
 
 
 def mel_library(wave, params):
@@ -518,10 +536,13 @@ def _place_library(blend, slot, onset, gain, chunk):
     return torch.fft.irfft(spec, n=P)[:, :chunk]
 
 
-def phase_place_notes(statics: render.SynthStatics, cfg, gen) -> dict:
+def phase_place_notes(statics: render.SynthStatics, cfg, gen, ptxas: list) -> dict:
     """K3 at the training shape: B = 64 segments of up to 128 notes over
     27 blend rows of 30720 bf16, chunk 61440; the inputs are those the
-    render gives it (`blend_notes` on random note lists and draws)."""
+    render gives it (`blend_notes` on random note lists and draws). Besides
+    the byte bound, the L2-read floor: every sounding note's window of its
+    row read once from L2 (`mean_multiply_adds` x 2 B) at the L2 rate of a
+    `copy_` measured here."""
     chunk = cfg.chunk_samples
     inputs = []
     for r in range(REPS):
@@ -540,6 +561,7 @@ def phase_place_notes(statics: render.SynthStatics, cfg, gen) -> dict:
     if not (res["equal"] and torch.isfinite(out).all() and out.abs().max() > 0):
         raise RuntimeError(f"place_notes kernel disagrees with its plain version: {res}")
     res["ms"] = median_ms(cuda_place.place_notes, inputs)
+    res["device_ms"] = device_ms(cuda_place.place_notes, inputs)
     res["plain_ms"] = median_ms(place_notes_plain, inputs)
     res["library_ms"] = median_ms(_place_library, inputs)
     res["library"] = "rfft convolution of per-slot impulse trains (torch.fft)"
@@ -556,8 +578,14 @@ def phase_place_notes(statics: render.SynthStatics, cfg, gen) -> dict:
         [(2.0 * macs, PEAK_FP32)],
         row_samples * blend.element_size() + B * chunk * 4 + slot.numel() * 12,  # rows read, out once, metadata
     )
+    layout = cuda_place.place_notes_layout()
+    res["l2_rate_bytes_per_s"] = copy_rate(8 << 20)  # 2 x 8 MiB: both sides stay in L2
+    res["hbm_rate_bytes_per_s"] = copy_rate(1 << 30)  # 2 x 1 GiB: device memory
+    res["l2_floor_ms"] = macs * blend.element_size() / res["l2_rate_bytes_per_s"] * 1e3
+    res["grid"] = [math.ceil(chunk / layout["tile"]), B]
     emit({"phase": "kernel", "name": "place_notes", "batch": B, "notes": slot.shape[1], "L": L, "chunk": chunk,
-          "stream": str(blend.dtype), "mean_multiply_adds": macs, "mean_row_samples_read": row_samples, **res})
+          "stream": str(blend.dtype), "mean_multiply_adds": macs, "mean_row_samples_read": row_samples,
+          "layout": layout, "ptxas": ptxas, **res})
     return res
 
 
@@ -774,33 +802,68 @@ def _group(name: str) -> str:
     return "other elementwise"
 
 
-def step_profile(fn, label: str) -> dict:
-    """Device time of one call of `fn` under torch.profiler: the busy share
-    (kernel time over host wall time; the profiler's own host cost makes
-    the idle share an upper bound) and the time by kernel group."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    trace = _build.BUILD_DIR.parent / f"train_trace_{label}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    prof.export_chrome_trace(str(trace))
-    kernels = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+# the device-time group (`_group`) of each kernel wrapper's kernels
+KERNEL_GROUPS = {"log_mel": "K1 log-mel", "gather_blend": "K2 gather + blend", "place_notes": "K3 note placement",
+                 "ffn_dropout": "K4 fused FFN", "fused_attention": "K5f attention fwd",
+                 "fused_attention_bwd": "K5b attention bwd"}
+
+
+def device_time_by_group(events: list, launched: dict) -> dict:
+    """A chrome trace's events -> its device events' count, busy ms, ms by
+    kernel group and ms by kernel name. Raises if a kernel wrapper that
+    launched (`launched[name] > 0`, from its counter) has no device time in
+    its group: the trace then misses part of the call it reports."""
+    kernels = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     groups: dict = {}
     by_name: dict = {}
     for e in kernels:
-        dur = float(e.get("dur", 0)) / 1e3
-        groups[_group(e.get("name", ""))] = groups.get(_group(e.get("name", "")), 0.0) + dur
-        by_name[e.get("name", "")[:90]] = by_name.get(e.get("name", "")[:90], 0.0) + dur
-    busy_ms = sum(groups.values())
-    return {"wall_ms": wall_us / 1e3, "device_kernels": len(kernels), "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms * 1e3 / wall_us if kernels else None,  # None: the profiler saw no device
+        dur, name = float(e.get("dur", 0)) / 1e3, e.get("name", "")
+        groups[_group(name)] = groups.get(_group(name), 0.0) + dur
+        by_name[name[:90]] = by_name.get(name[:90], 0.0) + dur
+    missing = sorted(k for k, n in launched.items() if n and not groups.get(KERNEL_GROUPS[k]))
+    if missing:
+        raise RuntimeError(f"the profile has no device time for {missing}, which the call launched: {launched}")
+    return {"device_kernels": len(kernels), "device_busy_ms": sum(groups.values()),
             "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def step_profile(fn, label: str) -> dict:
+    """Device time of one call of `fn` under torch.profiler, traced after an
+    untraced warm-up call in the same session (the first kernels of a
+    session can fall outside its trace): the busy share (kernel time over
+    host wall time; the profiler's own host cost makes the idle share an
+    upper bound) and the time by kernel group, which must hold every kernel
+    that the launch counters saw in the traced call (a trace that misses
+    one is taken again, and the third such trace raises)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    trace = _build.BUILD_DIR.parent / f"train_trace_{label}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    counters = kernel_counters()
+    for attempt in range(1, 4):  # a session now and then loses its device events: take it again, 3 times at most
+        torch.cuda.synchronize()
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=schedule,
+                                    on_trace_ready=lambda p: p.export_chrome_trace(str(trace))) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+            launched = {k: c.launches - before[k] for k, c in counters.items()}
+            prof.step()
+        try:
+            res = device_time_by_group(json.loads(trace.read_text()).get("traceEvents", []), launched)
+            break
+        except RuntimeError:
+            if attempt == 3:
+                raise
+    return {"wall_ms": wall_us / 1e3, "launched": launched, "attempts": attempt, **res,
+            # None: the profiler saw no device
+            "device_busy_share": res["device_busy_ms"] * 1e3 / wall_us if res["device_kernels"] else None}
 
 
 def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
@@ -868,7 +931,7 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dic
 
 def phase_training(name: str) -> dict:
     """TRAIN_STEPS steps of one real-audio training configuration through its kernels."""
-    cfg = FrameworkConfig.from_dict(TRAIN_CONFIGS[name])
+    cfg = load_config(TRAIN_YAMLS[name], train=True)
     mc = cfg.model
     per_step = {"log_mel": 1}
     if mc.use_pallas_ffn and mc.dropout > 0:
@@ -888,10 +951,9 @@ def phase_training(name: str) -> dict:
     return run_training(name, mc, per_step, fresh, lambda step, state, i: step(state, batch, keys[i]), {})
 
 
-def phase_synth_training(statics: render.SynthStatics) -> dict:
+def phase_synth_training(cfg: FrameworkConfig, statics: render.SynthStatics) -> dict:
     """TRAIN_STEPS synthesis-fused steps of setting-1: render (K2, K3, FX) ->
     K1 -> the 4+4-layer model with dropout 0.1 -> AdamW."""
-    cfg = FrameworkConfig.from_dict(SYNTH_CONFIG)
     mc, sc = cfg.model, cfg.synthetiser
     per_step = {"log_mel": 1, "gather_blend": 1, "place_notes": 1}
     tcfg = _constant_lr(cfg)
@@ -982,9 +1044,10 @@ TRAIN_ATTENTION = {"encoder": (246, 246, False), "decoder-self": (511, 511, True
 TRAIN_FFN_ROWS = {"encoder": TRAIN_BATCH * 246, "decoder": TRAIN_BATCH * 511}
 
 
-def phase_synthesis() -> dict:
+def phase_synthesis(ptxas: dict) -> dict:
     """Phases 4 and the synthesis-fused training phase, on one bank built on the card."""
-    sc = FrameworkConfig.from_dict(SYNTH_CONFIG).synthetiser
+    cfg = load_config(SYNTH_YAML, train=True)
+    sc = cfg.synthetiser
     t0 = time.monotonic()
     statics = render.SynthStatics.from_bank(build_card_bank(sc, SEED + 50), device="cuda")
     torch.cuda.synchronize()
@@ -993,8 +1056,9 @@ def phase_synthesis() -> dict:
           "gib": table.numel() * table.element_size() / 2**30, "loaded_bins": statics.loaded_bins,
           "build_s": round(time.monotonic() - t0, 3)})
     gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
-    out = {"gather_blend": phase_gather_blend(statics, sc, gen), "place_notes": phase_place_notes(statics, sc, gen),
-           "render": phase_render(statics, sc, gen), "training": phase_synth_training(statics)}
+    out = {"gather_blend": phase_gather_blend(statics, sc, gen),
+           "place_notes": phase_place_notes(statics, sc, gen, ptxas["place_notes"]),
+           "render": phase_render(statics, sc, gen), "training": phase_synth_training(cfg, statics)}
     del statics, table
     torch.cuda.empty_cache()
     return out
@@ -1008,8 +1072,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
     smi, name = phase_card()
-    phase_build()
-    cfg = FrameworkConfig.from_dict(SERVING_CONFIG)
+    ptxas = phase_build()
+    cfg = load_config(SERVING_YAML)
     params = mel_params(cfg.model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # the main path's batch shape, a lone chunk, and the largest bucket
@@ -1020,8 +1084,8 @@ def main() -> int:
     att_train = {s: phase_attention(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     bwd_train = {s: phase_attention_bwd(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     ffn_train = {s: phase_ffn(rows, gen, s) for s, rows in TRAIN_FFN_ROWS.items()}
-    synth = phase_synthesis()
-    training = {c: phase_training(c) for c in TRAIN_CONFIGS}
+    synth = phase_synthesis(ptxas)
+    training = {c: phase_training(c) for c in TRAIN_YAMLS}
     training[SYNTH_NAME] = synth["training"]
     serving = phase_serving(cfg)
     by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()}}

@@ -362,32 +362,104 @@ def test_gather_blend_kernel_reaches_rows_past_2_31_elements(cuda):
 
 def _notes_case(B, S, L, N, chunk, seed, cuda):
     g = torch.Generator().manual_seed(seed)
-    blend = torch.randn(B, S, L, generator=g)
+    blend = torch.randn(B, S, L, generator=g).to(torch.bfloat16)
     slot = torch.randint(0, S, (B, N), generator=g)
     onset = torch.randint(0, chunk, (B, N), generator=g)
     gain = torch.rand(B, N, generator=g) + 0.1
     gain[:, 4::5] = 0.0  # silent notes are skipped
-    onset[:, 0], onset[:, 1], onset[:, 2] = 0, chunk - 1, onset[:, 3]  # first sample, last sample, overlap
+    if N >= 4:
+        onset[:, 0], onset[:, 1], onset[:, 2] = 0, chunk - 1, onset[:, 3]  # first sample, last sample, overlap
     return blend.to(cuda), slot.to(cuda), onset.to(cuda), gain.to(cuda)
 
 
-@pytest.mark.parametrize(
-    "B, S, L, N, chunk, dtype",
-    [(64, 27, 30720, 128, 61440, torch.bfloat16), (3, 4, 300, 300, 1000, torch.float32),
-     (2, 27, 30720, 128, 61440, torch.float32), (5, 2, 128, 11, 512, torch.bfloat16)],
-    ids=["training-bf16", "many-notes-f32", "training-f32", "small-bf16"],
-)
-def test_place_notes_kernel_matches_plain(cuda, B, S, L, N, chunk, dtype):
-    blend, slot, onset, gain = _notes_case(B, S, L, N, chunk, B + N, cuda)
-    blend = blend.to(dtype)
+def _place_and_check(blend, slot, onset, gain, chunk):
+    """K3 once (one launch), bit-equal to its plain version; -> the output."""
     before = cuda_place.place_notes.launches
     out = cuda_place.place_notes(blend, slot, onset, gain, chunk)
     torch.cuda.synchronize()
     assert cuda_place.place_notes.launches == before + 1
     ref = place_notes_plain(blend, slot, onset, gain, chunk)
-    assert out.dtype == torch.float32 and out.shape == (B, chunk)
+    assert out.dtype == torch.float32 and out.shape == (blend.shape[0], chunk)
     assert torch.equal(out, ref)
+    return out
+
+
+@pytest.mark.parametrize(
+    "B, S, L, N, chunk",
+    [(64, 27, 30720, 128, 61440), (3, 4, 304, 300, 1000), (2, 27, 30720, 128, 61440), (5, 2, 128, 11, 512)],
+    ids=["training", "many-notes", "training-b2", "small"],
+)
+def test_place_notes_kernel_matches_plain(cuda, B, S, L, N, chunk):
+    out = _place_and_check(*_notes_case(B, S, L, N, chunk, B + N, cuda), chunk)
     assert (out[:, chunk - 1] != 0).all()  # the note at the last sample lands there
+
+
+def _edge_case(name, tile, cuda):
+    """(blend, slot, onset, gain, chunk) for one edge of K3's tiling."""
+    g = torch.Generator().manual_seed(len(name))
+    if name == "more-notes-than-ring-slots":  # all 128 notes at onset 0 cover the first two tiles
+        B, S, L, chunk = 2, 27, 2 * tile + 8, 3 * tile
+        onset = torch.zeros(B, 128, dtype=torch.int64)
+    elif name == "row-ends-inside-a-tile":
+        B, S, L, chunk = 3, 4, 1000, 2 * tile
+        onset = torch.tensor([[100, tile - 500, tile + 7, 2 * tile - 1001]] * B)
+    elif name == "no-notes":
+        B, S, L, chunk = 2, 4, 512, tile + 64
+        onset = torch.zeros(B, 0, dtype=torch.int64)
+    elif name == "one-note":
+        B, S, L, chunk = 2, 4, 4096, 2 * tile
+        onset = torch.tensor([[tile - 3], [5]])
+    elif name == "one-segment":
+        B, S, L, chunk = 1, 27, 30720, 61440
+        onset = torch.randint(0, chunk, (B, 40), generator=g)
+    elif name == "chunk-not-a-multiple-of-the-tile":
+        B, S, L, chunk = 2, 5, 3000, 2 * tile + 1234
+        onset = torch.randint(0, chunk, (B, 30), generator=g)
+        onset[:, 0], onset[:, 1] = chunk - 1, 2 * tile - 10
+    else:  # "onset-residue-<r>": every residue mod 8 of a note's shift, around the first tile edge
+        r = int(name.rsplit("-", 1)[1])
+        B, S, L, chunk = 2, 3, 2000, 3 * tile
+        onset = torch.tensor([[tile - 8 + r, tile + r, tile - 1000 + r, r, tile - 2000 + r, 3 * tile - 5 + r,
+                               2 * tile - 3 + r, 8 + r]] * B)
+    N = onset.shape[1]
+    blend = torch.randn(B, S, L, generator=g).to(torch.bfloat16)
+    slot = torch.randint(0, S, (B, N), generator=g)
+    gain = torch.rand(B, N, generator=g) + 0.1
+    return blend.to(cuda), slot.to(cuda), onset.clamp(max=chunk - 1).to(cuda), gain.to(cuda), chunk
+
+
+@pytest.mark.parametrize(
+    "name",
+    [*(f"onset-residue-{r}" for r in range(8)), "row-ends-inside-a-tile", "more-notes-than-ring-slots",
+     "no-notes", "one-note", "one-segment", "chunk-not-a-multiple-of-the-tile"],
+)
+def test_place_notes_kernel_edges(cuda, name):
+    tile = cuda_place.place_notes_layout()["tile"]
+    blend, slot, onset, gain, chunk = _edge_case(name, tile, cuda)
+    out = _place_and_check(blend, slot, onset, gain, chunk)
+    if name == "no-notes":
+        assert (out == 0).all()
+    elif name != "one-segment":
+        assert (out != 0).any(dim=1).all()
+
+
+def test_place_notes_kernel_is_deterministic(cuda):
+    blend, slot, onset, gain = _notes_case(64, 27, 30720, 128, 61440, 7, cuda)
+    first = cuda_place.place_notes(blend, slot, onset, gain, 61440)
+    second = cuda_place.place_notes(blend, slot, onset, gain, 61440)
+    assert torch.equal(first, second)
+
+
+def test_place_notes_kernel_takes_only_bf16_rows_on_16_byte_boundaries(cuda):
+    slot = torch.zeros(1, 3, dtype=torch.int64, device=cuda)
+    onset, gain = torch.zeros_like(slot), torch.ones(1, 3, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_place.place_notes(torch.zeros(1, 2, 64, device=cuda), slot, onset, gain, 128)
+    with pytest.raises(ValueError, match="L % 8 == 0"):
+        cuda_place.place_notes(torch.zeros(1, 2, 60, dtype=torch.bfloat16, device=cuda), slot, onset, gain, 128)
+    unaligned = torch.zeros(2 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 2, 64)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        cuda_place.place_notes(unaligned, slot, onset, gain, 128)
 
 
 def test_place_kernels_reject_what_they_cannot_hold(cuda):
@@ -403,7 +475,8 @@ def test_place_kernels_reject_what_they_cannot_hold(cuda):
 def test_place_kernels_clamp_out_of_range_ids(cuda, L, dtype):
     """A row id >= n_rows (or < 0), a slot outside [0, S) or an onset outside
     [0, chunk) is clamped into its range, as the plain versions clamp it:
-    nothing is read out of bounds and the two stay bit-equal."""
+    nothing is read out of bounds and the two stay bit-equal. K2 runs in the
+    table's dtype; K3 takes bf16 rows of L rounded down to a multiple of 8."""
     n_rows = 9
     g = torch.Generator().manual_seed(L)
     table = torch.randn(n_rows, L, generator=g).to(cuda, dtype)
@@ -413,8 +486,8 @@ def test_place_kernels_clamp_out_of_range_ids(cuda, L, dtype):
     out = cuda_place.gather_blend(table, im, isub, lam)
     assert torch.equal(out, gather_blend_plain(table, im, isub, lam))
     assert torch.equal(out, cuda_place.gather_blend(table, im.clamp(0, n_rows - 1), isub.clamp(0, n_rows - 1), lam))
+    L = L // 8 * 8
     blend, slot, onset, gain = _notes_case(2, 3, L, 12, 4 * L, 5, cuda)
-    blend = blend.to(dtype)
     slot[0, :3] = torch.tensor([3, 50, -1])
     onset[1, :3] = torch.tensor([-7, 4 * L, 10**7])
     out = cuda_place.place_notes(blend, slot, onset, gain, 4 * L)

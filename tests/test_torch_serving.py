@@ -254,17 +254,21 @@ def test_configs_parse_alike_in_both_packages(path):
     assert _typed(FrameworkConfig.from_yaml(REPO / path)) == _typed(JFrameworkConfig.from_yaml(REPO / path))
 
 
-def test_chip_smoke_config_is_enst_serving():
-    """chip_smoke.py spells configs/serve/ENSTserving.yaml as a dict (the
-    machine with the card has no PyYAML): the two must not drift apart."""
+def test_chip_smoke_config_is_enst_serving(monkeypatch):
+    """chip_smoke.py reads configs/serve/ENSTserving.yaml with the port's own
+    reader (the machine with the card has no PyYAML): with PyYAML blocked it
+    gives the JAX package's typed config."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    yaml_cfg = FrameworkConfig.from_yaml(REPO / "configs/serve/ENSTserving.yaml")
-    assert _typed(FrameworkConfig.from_dict(chip_smoke.SERVING_CONFIG)) == _typed(yaml_cfg)
-    assert yaml_cfg.model.use_pallas_mel and yaml_cfg.model.use_flash_attention
+    assert chip_smoke.SERVING_YAML == "configs/serve/ENSTserving.yaml"
+    jax_cfg = JFrameworkConfig.from_yaml(REPO / chip_smoke.SERVING_YAML)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cfg = chip_smoke.load_config(chip_smoke.SERVING_YAML)
+    assert _typed(cfg) == _typed(jax_cfg)
+    assert cfg.model.use_pallas_mel and cfg.model.use_flash_attention
 
 
 def test_port_imports_no_jax():

@@ -147,19 +147,19 @@ def test_synth_train_step_refuses_a_mesh_a_bank_elsewhere_and_missing_bins(monke
         tstep.make_synth_train_step(tcfg, cfg, statics, opt)
 
 
-def test_chip_smoke_synth_config_matches_setting_1_yaml():
-    """chip_smoke.py spells configs/train/setting-1.yaml as a dict (the
-    machine with the card has no PyYAML); both packages read the YAML alike."""
+def test_chip_smoke_synth_config_matches_setting_1_yaml(monkeypatch):
+    """chip_smoke.py reads configs/train/setting-1.yaml with the port's own
+    reader (the machine with the card has no PyYAML): with PyYAML blocked it
+    gives the JAX package's typed config."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    path = REPO / "configs/train/setting-1.yaml"
-    yaml_cfg, jax_cfg = FrameworkConfig.from_yaml(path), JFrameworkConfig.from_yaml(path)
-    smoke = FrameworkConfig.from_dict(chip_smoke.SYNTH_CONFIG)
-    for section in ("shared", "tokenizer", "model", "training", "synthetiser"):
-        assert dataclasses.asdict(getattr(smoke, section)) == dataclasses.asdict(getattr(yaml_cfg, section)), section
+    assert chip_smoke.SYNTH_YAML == "configs/train/setting-1.yaml"
+    jax_cfg = JFrameworkConfig.from_yaml(REPO / chip_smoke.SYNTH_YAML)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    yaml_cfg = chip_smoke.load_config(chip_smoke.SYNTH_YAML, train=True)
     for section in ("shared", "tokenizer", "model"):
         assert dataclasses.asdict(getattr(yaml_cfg, section)) == dataclasses.asdict(getattr(jax_cfg, section)), section
     for section in ("training", "synthetiser"):  # the port's fields are a subset of the JAX package's

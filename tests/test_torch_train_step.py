@@ -315,19 +315,20 @@ def test_train_step_refuses_a_mesh_remat_and_a_missing_card(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["fused-ffn", "flash"])
-def test_chip_smoke_train_configs_match_their_yaml(name):
-    """chip_smoke.py spells configs/train/TMIDT-<name>.yaml as a dict (the
-    machine with the card has no PyYAML); both packages read the YAML alike."""
+def test_chip_smoke_train_configs_match_their_yaml(name, monkeypatch):
+    """chip_smoke.py reads configs/train/TMIDT-<name>.yaml with the port's own
+    reader (the machine with the card has no PyYAML): with PyYAML blocked it
+    gives the JAX package's typed config."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    path = REPO / f"configs/train/TMIDT-{name}.yaml"
-    yaml_cfg, jax_cfg = FrameworkConfig.from_yaml(path), JFrameworkConfig.from_yaml(path)
-    smoke = FrameworkConfig.from_dict(chip_smoke.TRAIN_CONFIGS[name])
-    for section in ("shared", "tokenizer", "model", "training"):
-        assert dataclasses.asdict(getattr(smoke, section)) == dataclasses.asdict(getattr(yaml_cfg, section)), section
+    path = chip_smoke.TRAIN_YAMLS[name]
+    assert path == f"configs/train/TMIDT-{name}.yaml"
+    jax_cfg = JFrameworkConfig.from_yaml(REPO / path)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    yaml_cfg = chip_smoke.load_config(path, train=True)
     for section in ("shared", "tokenizer", "model"):
         assert dataclasses.asdict(getattr(yaml_cfg, section)) == dataclasses.asdict(getattr(jax_cfg, section)), section
     jt = dataclasses.asdict(jax_cfg.training)
