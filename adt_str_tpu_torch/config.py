@@ -6,10 +6,10 @@ the experiment YAML, `${oc.env:VAR}` / `${VAR}` substitution, YAML 1.2
 floats (`8e-4` is a float), unknown keys and sections dropped.
 
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
-`model`, `synthetiser`, `inference`, `serving`, `training`); every other
-section stays readable in `FrameworkConfig.raw`. The YAML is read by the
-port's own reader (`parse_yaml`), never by PyYAML: the machine with the card
-has none.
+`model`, `synthetiser`, `EvalDatasetConfig` as `eval_data`, `inference`,
+`serving`, `training`); every other section stays readable in
+`FrameworkConfig.raw`. The YAML is read by the port's own reader
+(`parse_yaml`), never by PyYAML: the machine with the card has none.
 """
 
 from __future__ import annotations
@@ -313,10 +313,11 @@ class ModelConfig(SharedConfig):
 
 @dataclass(frozen=True)
 class SynthConfig(SharedConfig):
-    """The on-device drum synthesiser's knobs that the render reads
-    (`adt_str_tpu/config.py:SynthConfig`); the one-shot library path and the
-    dataset's velocity fields come with the dataset slice that reads them."""
+    """The on-device drum synthesiser's knobs that the render and the bank
+    load read (`adt_str_tpu/config.py:SynthConfig`); the dataset's velocity
+    fields come with the dataset slice that reads them."""
 
+    oneshot_path: str = ""  # the bank file is f"{oneshot_path}@{sample_rate}.hdf5"
     similarity_threshold: float = 0.8
     ADTOF_mapping: bool = False
     mixup_range: float = 0.8
@@ -326,6 +327,19 @@ class SynthConfig(SharedConfig):
     use_compression_prob: float = 0.5
     max_notes: int = 128  # notes per segment, padded and masked
     max_oneshot_sec: float = 2.56  # one-shot bank rows padded to this length
+
+
+@dataclass(frozen=True)
+class EvalDataConfig(SharedConfig):
+    """The `EvalDatasetConfig` section: an ENST or MDB parquet shard and its
+    filters (`adt_str_tpu/config.py:EvalDataConfig`)."""
+
+    dataset_path: str = ""
+    dataset_name: str = "ENST"
+    drummers: Optional[list[int]] = None
+    minus_one: bool = False
+    splits: Optional[list[int]] = None
+    demucs_separated: bool = False
 
 
 @dataclass
@@ -385,6 +399,7 @@ class FrameworkConfig:
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     synthetiser: Optional[SynthConfig] = None
+    eval_data: Optional[EvalDataConfig] = None
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
@@ -392,10 +407,10 @@ class FrameworkConfig:
 
     @classmethod
     def from_dict(cls, cfg: dict) -> "FrameworkConfig":
-        """`shared` is splatted into the model and synthetiser sections, the
-        tokenizer's `ADTOF_mapping` is copied into the synthetiser's, and
-        `training.learning_rate` into model enc_lr/dec_lr, as in the JAX
-        package."""
+        """`shared` is splatted into the model, synthetiser and eval dataset
+        sections, the tokenizer's `ADTOF_mapping` is copied into the
+        synthetiser's, and `training.learning_rate` into model
+        enc_lr/dec_lr, as in the JAX package."""
         shared_d = cfg.get("shared", {}) or {}
         tok_d = cfg.get("tokenizer", {}) or {}
         training_d = cfg.get("training", {}) or {}
@@ -411,6 +426,10 @@ class FrameworkConfig:
             synth_d["ADTOF_mapping"] = tok_d.get("ADTOF_mapping", False)
             synth = make_dataclass_from(SynthConfig, synth_d, shared_d)
 
+        eval_data = None
+        if cfg.get("EvalDatasetConfig"):
+            eval_data = make_dataclass_from(EvalDataConfig, cfg["EvalDatasetConfig"], shared_d)
+
         def _coerce(cls_, section):
             d = {k: v for k, v in (cfg.get(section, {}) or {}).items() if v is not None}
             return make_dataclass_from(cls_, d)
@@ -420,6 +439,7 @@ class FrameworkConfig:
             tokenizer=make_dataclass_from(TokenizerConfig, tok_d),
             model=make_dataclass_from(ModelConfig, model_d, shared_d),
             synthetiser=synth,
+            eval_data=eval_data,
             inference=_coerce(InferenceConfig, "inference"),
             serving=_coerce(ServingConfig, "serving"),
             training=_coerce(TrainingConfig, "training"),

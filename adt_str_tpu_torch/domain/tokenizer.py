@@ -1,8 +1,8 @@
-"""MIDI token decoding: token sequence -> note rows.
+"""MIDI token decoding and the dataset pitch remap.
 
-Port of `adt_str_tpu/domain/tokenizer.py:MidiTokenizer` (decode side only,
-through its pure-Python decode `_decode_python`; the native extension and
-the encoders join with the training slice).
+Port of `adt_str_tpu/domain/tokenizer.py:MidiTokenizer`: the decode side
+(through its pure-Python decode `_decode_python`) and `map_notes_to_Gm_custom`;
+the native extension and the encoders join with the training slice.
 
 Vocab layout:
   0            silence
@@ -21,7 +21,7 @@ from collections import defaultdict
 import numpy as np
 
 from adt_str_tpu_torch.config import TokenizerConfig
-from adt_str_tpu_torch.utils.mappings import ADTOF_MAPPING
+from adt_str_tpu_torch.utils.mappings import ADTOF_LUT, ADTOF_MAPPING, GM_STANDARD_TO_GM_CUSTOM_LUT
 
 TIME_OFFSET = 4
 PITCH_OFFSET = 300
@@ -34,6 +34,30 @@ class MidiTokenizer:
         self.BOS_token = config.BOS_token
         self.EOS_token = config.EOS_token
         self.pad_token = config.pad_token
+
+    def map_notes_to_Gm_custom(
+        self, notes: np.ndarray, random_velocity: bool = False, rng: np.random.Generator | None = None
+    ) -> np.ndarray:
+        """GM-standard -> GM-custom (and under ADTOF -> ADTOF class) pitch
+        remap of float32 note rows, with optional random velocities in
+        [10, 126] from `rng`. An unknown pitch raises a KeyError, as the
+        reference's dict lookup does."""
+        notes = np.asarray(notes, dtype=np.float32).copy()
+        if notes.size == 0:
+            return notes
+        pitches = notes[:, 2].astype(np.int64)
+        if np.any((pitches < 0) | (pitches > 127)):
+            raise KeyError(f"pitch out of MIDI range: {pitches}")
+        mapped = GM_STANDARD_TO_GM_CUSTOM_LUT[pitches]
+        if np.any(mapped < 0):
+            raise KeyError(f"pitch not in GM drum mapping: {pitches[mapped < 0].tolist()}")
+        if self.ADTOF_mapping:
+            mapped = ADTOF_LUT[mapped]
+        notes[:, 2] = mapped.astype(np.float32)
+        if random_velocity:
+            rng = rng or np.random.default_rng()
+            notes[:, 3] = rng.integers(10, 127, size=notes.shape[0]).astype(np.float32)
+        return notes
 
     def decode(self, tokens) -> np.ndarray:
         """Token sequence -> [onset, onset+0.1, pitch, velocity] float64 rows.

@@ -1,9 +1,10 @@
 """Training and eval steps on one device.
 
 Port of `adt_str_tpu/parallel/train_step.py:make_train_step`,
-`make_synth_train_step` and `make_eval_step` without a mesh: [synthesis of
-the batch's audio ->] forward in train mode (the compute dtype) -> fp32 loss
--> backward -> global-norm clip -> AdamW, eagerly in PyTorch.
+`make_synth_train_step`, `make_eval_step` and `make_synth_eval_step`
+without a mesh: [synthesis of the batch's audio ->] forward in train mode
+(the compute dtype) -> fp32 loss -> backward -> global-norm clip -> AdamW,
+eagerly in PyTorch.
 The model is the state's parameters, updated in place; `TrainState` holds
 it with the optimizer state and the step count, like the JAX `TrainState`.
 
@@ -100,9 +101,7 @@ def make_synth_train_step(config: ModelConfig, synth_config: SynthConfig, static
     batch's `RenderDraws`. The bank's loaded bins are checked here too."""
     _no_mesh(mesh)
     device = resolve_device(device)
-    check_bins_loaded(statics, synth_config.similarity_threshold)
-    if statics.waveforms.device.type != device.type:
-        raise ValueError(f"the bank lies on {statics.waveforms.device}, the step runs on {device}")
+    _synth_statics_on(statics, synth_config, device)
 
     def step(state: TrainState, batch: dict, draws: RenderDraws, site_keys) -> tuple[TrainState, dict]:
         _check(state.model, config, device)
@@ -111,6 +110,12 @@ def make_synth_train_step(config: ModelConfig, synth_config: SynthConfig, static
         return _update(state, opt, wavs, *_tokens_on(batch, device), site_keys)
 
     return step
+
+
+def _synth_statics_on(statics: SynthStatics, synth_config: SynthConfig, device: torch.device) -> None:
+    check_bins_loaded(statics, synth_config.similarity_threshold)
+    if statics.waveforms.device.type != device.type:
+        raise ValueError(f"the bank lies on {statics.waveforms.device}, the step runs on {device}")
 
 
 def make_eval_step(config: ModelConfig, device=None, mesh=None):
@@ -123,5 +128,24 @@ def make_eval_step(config: ModelConfig, device=None, mesh=None):
         _check(model, config, device)
         with torch.no_grad():
             return model.forward_loss(batch["wavs"].to(device), *_tokens_on(batch, device), train=False)
+
+    return step
+
+
+def make_synth_eval_step(config: ModelConfig, synth_config: SynthConfig, statics: SynthStatics, device=None,
+                         mesh=None):
+    """-> `step(model, batch, draws) -> loss`: the teacher-forced loss of a
+    note-list batch (as `make_synth_train_step` takes it) whose audio is
+    rendered under the caller's fixed `draws`, so an eval stream gives the
+    same audio at every call; no dropout, no gradients."""
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    _synth_statics_on(statics, synth_config, device)
+
+    def step(model: ADTModel, batch: dict, draws: RenderDraws) -> torch.Tensor:
+        _check(model, config, device)
+        with torch.no_grad():
+            wavs = render_batch(statics, batch["notes"], batch["note_mask"], draws, synth_config)
+            return model.forward_loss(wavs, *_tokens_on(batch, device), train=False)
 
     return step

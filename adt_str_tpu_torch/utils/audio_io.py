@@ -1,9 +1,8 @@
-"""Host audio decoding + resampling for the server's request bodies.
+"""Host audio I/O: decoding, resampling, peak normalisation, WAV writing.
 
-Port of `adt_str_tpu/utils/audio_io.py` (its own copy of the readers the
-HTTP front-end uses): WAV via scipy.io.wavfile, other containers through an
-ffmpeg subprocess when one is installed, polyphase resampling via
-`scipy.signal.resample_poly`.
+Port of `adt_str_tpu/utils/audio_io.py` (its own copy): WAV via
+scipy.io.wavfile, other containers through an ffmpeg subprocess when one is
+installed, polyphase resampling via `scipy.signal.resample_poly`.
 """
 
 from __future__ import annotations
@@ -35,6 +34,14 @@ def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     return data, sr
 
 
+def write_wav(path: str | Path, wave: np.ndarray, sample_rate: int) -> None:
+    """float32 WAV; a (C, T) wave is written as C channels."""
+    wave = np.asarray(wave, dtype=np.float32)
+    if wave.ndim == 2:
+        wave = wave.T
+    wavfile.write(str(path), sample_rate, wave)
+
+
 def _load_via_ffmpeg(path: str | Path) -> tuple[np.ndarray, int]:
     if shutil.which("ffmpeg") is None:
         raise RuntimeError(
@@ -55,6 +62,12 @@ def resample(wave: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
         np.asarray(wave, dtype=np.float64), target_sr // g, orig_sr // g, axis=-1
     )
     return out.astype(np.float32)
+
+
+def normalize(wave: np.ndarray) -> np.ndarray:
+    """Peak normalise (an epsilon guards the all-zero wave)."""
+    peak = np.abs(wave).max()
+    return wave / max(peak, 1e-8)
 
 
 def load_and_resample(path: str | Path, target_sr: int | None) -> np.ndarray:

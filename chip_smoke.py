@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's serving path, its real-audio training step and its
-synthesis-fused training step (`adt_str_tpu_torch`) at full width and holds
-its hand-written CUDA kernels against their plain PyTorch versions. Imports
-no JAX and nothing of the JAX package. Its four configs come from `configs/`
-through the port's own YAML reader (`SERVING_YAML`, `TRAIN_YAMLS`,
-`SYNTH_YAML`; a `config` line prints each value the smoke overrides beside
-the config's). Phases, each printing one JSON line:
+Drives the port's serving path, its real-audio training step, its
+synthesis-fused training step, its evaluation harness, its offline
+transcription CLI and its bench (`adt_str_tpu_torch`) at full width and
+holds its hand-written CUDA kernels against their plain PyTorch versions.
+Imports no JAX and nothing of the JAX package. Its five configs come from
+`configs/` through the port's own YAML reader (`SERVING_YAML`,
+`TRAIN_YAMLS`, `SYNTH_YAML`, `EVAL_YAML`; a `config` line prints each value
+the smoke overrides beside the config's). Phases, each printing one JSON
+line:
 
 1. the card: `nvidia-smi` name and power limit, `torch.cuda.get_device_name`;
 2. the kernel build (`csrc/*.cu` with the shared `csrc/hopper.cuh`, one
@@ -35,7 +37,25 @@ the config's). Phases, each printing one JSON line:
    then `render_batch` at B = 64: the kernel-path render must equal the
    plain-path render on the same draws, a few rows must agree with the
    port's CPU render, and the median render time is split into draw / K2 /
-   K3 / FX / normalise;
+   K3 / FX / normalise; on the same bank, after the setting-1 training
+   phase of 5:
+   - eval (`configs/eval/ENSTinference.yaml` with K1 and K5 on, seeded
+     random weights): `run_inference` over 34 items held in memory (32
+     drum-like 2.56 s chunks rendered with the bank, a 1 s tail, an empty
+     reference); TP, FN and FP, counted again from the token rows the
+     harness decoded, must give its aggregate; `metrics.json` and
+     `confusion_matrix.csv` are read back and must count every reference
+     and predicted note once (TP + FN, TP + FP); K1 and K5f launch once a
+     batch and once an encoder layer a batch; the F-measure of random weights is printed, not held to
+     anything; decode ms a step;
+   - inference: `python -m adt_str_tpu_torch.inference` on 30 s of drum
+     audio and a seeded checkpoint, plain and with a 1.28 s hop, must
+     write its MIDI file; then `transcribe` (K1, K5f) and the resynthesis
+     (K2, K3) of the transcribed notes in this process: the CLI's MIDI
+     must equal this process's; at the CLI's chunk batches (B = 12 plain,
+     24 hopped) K1 must agree with its plain version and the encoder
+     memory through K1 and K5f with the plain path's, and the 12-chunk
+     resynthesis must equal the plain path's;
 5. training, one phase per configuration (`TRAIN_YAMLS`: TMIDT at full
    width, batch 64, with K4 or with K5; then `synth-setting-1`, the
    synthesis-fused step of setting-1 on the bank of 4): 5 steps of the
@@ -56,8 +76,15 @@ the config's). Phases, each printing one JSON line:
    200 with well-formed notes, both serving kernels' launch counters must
    rise, and the kernel-path encoder memory must agree with the port's CPU
    path (which the tests hold against the JAX package);
-7. one `{"kernels": [...]}` line: each kernel at the main-path shape named
-   in its entry, with its launches in every main-path run.
+7. bench: the port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with
+   its whole workload prints its JSON line on a line of its own, with
+   every window's time, the launches of K1, K2 and K3 in the timed
+   windows (once a step each) and the busy share of one profiled step;
+   one bench batch (48 note slots, the 192-row bank) rendered through K2
+   and K3 must equal its plain-path render on the same draws;
+8. one `{"kernels": [...]}` line: each kernel at the main-path shape named
+   in its entry, with its launches in every main-path run (serving, the
+   three training steps, bench, eval, inference).
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
@@ -67,11 +94,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -80,7 +110,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from adt_str_tpu_torch import bench as port_bench
+from adt_str_tpu_torch import inference as port_inference
 from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
+from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
+from adt_str_tpu_torch.evaluation.harness import run_inference
+from adt_str_tpu_torch.evaluation.metrics import aggregate_metrics, compute_metrics
+from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel, collate_token_lengths, draw_site_keys, mel_params
 from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
@@ -93,6 +129,9 @@ from adt_str_tpu_torch.synth import render
 from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
 from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
+from adt_str_tpu_torch.utils.audio_io import normalize, write_wav
+from adt_str_tpu_torch.utils.mappings import ADTOF_LABEL_MAPPING
+from adt_str_tpu_torch.utils.midi_io import write_midi
 
 REPO = Path(__file__).resolve().parent
 # the repo's configs, read on the card's machine by the port's own YAML reader
@@ -100,6 +139,13 @@ SERVING_YAML = "configs/serve/ENSTserving.yaml"
 TRAIN_YAMLS = {"fused-ffn": "configs/train/TMIDT-fused-ffn.yaml", "flash": "configs/train/TMIDT-flash.yaml"}
 SYNTH_YAML = "configs/train/setting-1.yaml"
 SYNTH_NAME = "synth-setting-1"
+EVAL_YAML = "configs/eval/ENSTinference.yaml"  # the eval and inference phases' config, with K1 and K5 on
+KERNELS_ON = {"use_pallas_mel": True, "use_flash_attention": True}
+EVAL_CHUNKS = 32  # full 2.56 s items; a short tail item and an empty-reference item join them
+EVAL_TAIL_SEC = 1.0
+EVAL_GM_PITCHES = [35, 36, 38, 40, 41, 42, 44, 45, 46, 48, 49, 51, 56]  # GM standard drums
+INFERENCE_SEC = 30.0
+INFERENCE_HOP_SEC = 1.28
 BANK_ROWS_PER_BIN = 1235  # 27 pitches x 3 bins x 1,235 = 100,035 rows: the ~100k-one-shot production bank
 BANK_BUILD_ROWS = 4096  # rows generated at once (a 0.5 GB f32 intermediate)
 TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size; the TMIDT configs' 128 is overridden
@@ -167,11 +213,17 @@ def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[flo
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
 
 
-def load_config(path: str, train: bool = False) -> FrameworkConfig:
-    """`path` (relative to the repo) through the port's YAML reader; prints
-    the values the smoke overrides, each beside the config's own."""
+def load_config(path: str, train: bool = False, **sections: dict) -> FrameworkConfig:
+    """`path` (relative to the repo) through the port's YAML reader, with the
+    fields of `sections` ({"model": {"use_pallas_mel": True}, ...}) replaced;
+    prints the values the smoke overrides, each beside the config's own."""
     cfg = FrameworkConfig.from_yaml(REPO / path)
     overrides = {}
+    for section, fields in sections.items():
+        old = getattr(cfg, section)
+        for k, v in fields.items():
+            overrides[f"{section}.{k}"] = {"config": getattr(old, k), "smoke": v}
+        setattr(cfg, section, dataclasses.replace(old, **fields))
     if train:
         t = cfg.training
         overrides["training.schedule"] = {
@@ -976,6 +1028,37 @@ def phase_synth_training(cfg: FrameworkConfig, statics: render.SynthStatics) -> 
                         lambda step, state, i: step(state, batch, draws[i], keys[i]), extra)
 
 
+def memory_error(mem: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Encoder memory against a reference memory of the same chunks: bf16
+    activations round at other points in the kernels and the plain versions,
+    and on the two devices, through 4 layers."""
+    err = (mem.float() - ref.float()).abs()
+    out = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol_max": 0.5, "tol_mean": 2e-2,
+           "shape": list(mem.shape)}
+    out["ok"] = bool(torch.isfinite(mem).all()) and out["max_abs_err"] <= 0.5 and out["mean_abs_err"] <= 2e-2
+    return out
+
+
+def encoder_vs_plain(model: ADTModel, chunks: torch.Tensor) -> dict:
+    """K1 on the card's `chunks` against its plain version (phase_mel's
+    tolerance), and the encoder memory through K1 and K5f against the same
+    encoder through the plain versions, on the card."""
+    params = mel_params(model.config)
+    mel_err = (cuda_mel.log_mel(chunks, params) - cuda_mel.log_mel_plain(chunks, params)).abs().max().item()
+    with torch.inference_mode():
+        mem = model.encode(chunks)
+        with plain_kernels():
+            ref = model.encode(chunks)
+    # the K1 route these chunks take (as `cuda_mel.log_mel` picks it)
+    n_tiles = cuda_mel.mel_table(params).shape[0] // cuda_mel.FREQ_TILE
+    blocks = chunks.shape[0] * -(-params.out_frames(chunks.shape[1]) // cuda_mel.TILE_FRAMES)
+    split = cuda_mel.freq_split(blocks, n_tiles, torch.cuda.get_device_properties(chunks.device).multi_processor_count)
+    out = {"batch": chunks.shape[0], "log_mel_freq_split": split, "log_mel_max_abs_err": mel_err,
+           "log_mel_tol": 1e-4, "memory": memory_error(mem, ref)}
+    out["ok"] = mel_err <= 1e-4 and out["memory"]["ok"]
+    return out
+
+
 def phase_serving(cfg: FrameworkConfig) -> dict:
     t0 = time.monotonic()
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
@@ -988,11 +1071,8 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
     with torch.inference_mode():
         mem_gpu = model.encode(chunk.cuda()).float().cpu()
         mem_cpu = copy.deepcopy(model).to("cpu").encode(chunk).float()
-    mem_err = (mem_gpu - mem_cpu).abs()
-    # bf16 activations round differently on the two devices through 4 layers
-    mem = {"max_abs_err": mem_err.max().item(), "mean_abs_err": mem_err.mean().item(),
-           "tol_max": 0.5, "tol_mean": 2e-2, "shape": list(mem_gpu.shape)}
-    if not (torch.isfinite(mem_gpu).all() and mem["max_abs_err"] <= 0.5 and mem["mean_abs_err"] <= 2e-2):
+    mem = memory_error(mem_gpu, mem_cpu)
+    if not mem["ok"]:
         raise RuntimeError(f"kernel-path encoder memory disagrees with the CPU path: {mem}")
 
     engine = build_engine(cfg, model)
@@ -1039,13 +1119,298 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
     return res
 
 
+class InMemoryEvalDataset:
+    """Items of (1-D wave, reference notes) with `EvalDataset.batches`' interface."""
+
+    def __init__(self, wavs: list, notes: list):
+        self.wavs, self.notes = wavs, notes
+
+    def __len__(self) -> int:
+        return len(self.wavs)
+
+    def batches(self, batch_size: int):
+        for b in range(0, len(self), batch_size):
+            yield {"wavs": self.wavs[b : b + batch_size], "notes": self.notes[b : b + batch_size]}
+
+
+class RecordingTokenizer(MidiTokenizer):
+    """The port's tokenizer, keeping each token row the harness decodes."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.rows: list = []
+
+    def truncate_at_eos(self, tokens):
+        self.rows.append(np.asarray(tokens).copy())
+        return super().truncate_at_eos(tokens)
+
+
+def render_segments(statics: render.SynthStatics, sc, notes_list: list, seed: int) -> np.ndarray:
+    """(len(notes_list), chunk_samples) audio of note lists rendered on the
+    card with the bank (draws from a generator seeded `seed`)."""
+    padded, masks = zip(*(render.pad_notes(n, sc.max_notes) for n in notes_list))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = render.draw_render(statics, len(notes_list), sc, gen)
+    wavs = render.render_batch(statics, torch.from_numpy(np.stack(padded)), torch.from_numpy(np.stack(masks)),
+                               draws, sc)
+    return wavs.cpu().numpy()
+
+
+def eval_items(statics: render.SynthStatics, sc, tokenizer: MidiTokenizer, seed: int) -> InMemoryEvalDataset:
+    """EVAL_CHUNKS items of 2.56 s, one short tail item of EVAL_TAIL_SEC and
+    one item with an empty reference (silence), their audio rendered on the
+    card from random GM drum notes (8-40 an item) and peak-normalised as
+    `EvalDataset` does; the references are the notes as the tokenizer maps
+    them (`map_notes_to_Gm_custom`)."""
+    rng = np.random.default_rng(seed)
+    n = EVAL_CHUNKS + 2
+    refs = []
+    for i in range(n):
+        span = EVAL_TAIL_SEC if i == n - 2 else sc.input_sec
+        k = 0 if i == n - 1 else int(rng.integers(8, 41))
+        on = np.sort(rng.uniform(0, span - 0.1, k))
+        raw = np.stack([on, on + 0.1, rng.choice(EVAL_GM_PITCHES, k), rng.integers(30, 128, k)], 1)
+        refs.append(tokenizer.map_notes_to_Gm_custom(raw.astype(np.float32)))
+    audio = render_segments(statics, sc, refs, seed)
+    tail = int(EVAL_TAIL_SEC * sc.sample_rate)
+    wavs = [normalize(a[:tail] if i == n - 2 else a).astype(np.float32) for i, a in enumerate(audio)]
+    return InMemoryEvalDataset(wavs, refs)
+
+
+def read_confusion(path: Path) -> tuple[list, list]:
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def phase_eval(statics: render.SynthStatics, sc) -> dict:
+    """The port's evaluation harness (`run_inference`) on the card: the
+    ENST eval config with K1 and K5 on and seeded random weights, over
+    EVAL_CHUNKS + 2 drum-like items held in memory (the card's machine has
+    no pyarrow for the shards). Random weights make the F-measure
+    meaningless: it is printed, not held to anything. TP, FN and FP are
+    counted again here from the token rows the harness decoded: their
+    aggregate must be the harness's, TP + FN the reference's notes, TP + FP
+    the decoded notes after dedup, and the confusion CSV, read back, must
+    hold each of both once."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(EVAL_YAML, model=KERNELS_ON, inference={"output_path": out_dir})
+        tokenizer = RecordingTokenizer(cfg.tokenizer)
+        ds = eval_items(statics, sc, MidiTokenizer(cfg.tokenizer), SEED + 70)
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device="cuda")
+        wall = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        saved = json.loads((Path(out_dir) / "metrics.json").read_text())
+        header, rows = read_confusion(Path(out_dir) / "confusion_matrix.csv")
+    bs = cfg.inference.batch_size
+    n_batches = -(-len(ds) // bs)
+    preds = [decode_tokens_to_notes(MidiTokenizer(cfg.tokenizer), r) for r in tokenizer.rows]
+    n_ref, n_pred = sum(len(r) for r in ds.notes), sum(len(p) for p in preds)
+    counts = dict(zip(("tp", "fn", "fp"), np.sum(
+        [compute_metrics(np.asarray(r).reshape(-1, 4) if len(r) else [], p) for r, p in zip(ds.notes, preds)],
+        axis=0, dtype=int).tolist()))
+    onsets = np.concatenate([p[:, 0] for p in preds]) if n_pred else np.zeros(0)
+    labels = [*ADTOF_LABEL_MAPPING.values()]
+    grid = {r[0]: [int(x) for x in r[1 : len(labels) + 2]] for r in rows}
+    csv_ref = sum(sum(grid[lbl]) for lbl in labels)
+    csv_pred = sum(grid[lbl][j] for lbl in labels for j in range(len(labels))) + sum(grid["False Positive"])
+    res = {"phase": "eval", "config": EVAL_YAML, "items": len(ds), "batch_size": bs, "batches": n_batches,
+           "max_length": cfg.inference.max_length, "wall_s": wall, "items_per_s": len(ds) / wall,
+           "reference_notes": n_ref, "predicted_notes": n_pred, "counts": counts,
+           "f_measure": metrics["all"]["f_measure"], "metrics": metrics, "launches": launches,
+           "onsets_past_input_sec": int((onsets >= cfg.shared.input_sec).sum()),
+           "csv_reference_notes": csv_ref, "csv_predicted_notes": csv_pred,
+           "breakdown": decode_breakdown(model, cfg, batch=bs)}
+    emit(res)
+    expected = {**dict.fromkeys(counters, 0), "log_mel": n_batches, "fused_attention": n_batches * cfg.model.enc_layers}
+    checks = {
+        "every item decoded once": len(tokenizer.rows) == len(ds),
+        "the harness's aggregate = the recount's": metrics["all"] == aggregate_metrics(*counts.values()),
+        "TP + FN = reference notes": counts["tp"] + counts["fn"] == n_ref,
+        "TP + FP = predicted notes": counts["tp"] + counts["fp"] == n_pred,
+        "metrics.json = the returned metrics": saved == metrics and all(
+            math.isfinite(v) for m in metrics.values() for v in m.values()),
+        "onsets on the time-token grid": bool(((onsets >= 0) & (onsets < 2.96)).all()),
+        "confusion CSV rows and columns": header == ["", *labels, "False Negative", "precision", "recall", "f1",
+                                                      "support"] and [r[0] for r in rows] == [*labels, "False Positive"]
+                                           and all(len(r) == len(header) for r in rows),
+        "confusion CSV counts each note once": (csv_ref, csv_pred) == (n_ref, n_pred),
+        "K1 and K5f launched as the batches need": launches == expected,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"eval phase failed {failed}: launches {launches}, expected {expected}, counts {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def yaml_text(sections: dict) -> str:
+    """Sections of scalars and lists of scalars as YAML the port's reader takes."""
+    lines = []
+    for name, fields in sections.items():
+        lines.append(f"{name}:")
+        lines.extend(f"  {k}: {json.dumps(v, ensure_ascii=False)}" for k, v in fields.items())
+    return "\n".join(lines) + "\n"
+
+
+def run_cli(args: list, timeout: int = 600) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{args[:2]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc, time.monotonic() - t0
+
+
+def phase_inference(statics: render.SynthStatics, sc) -> dict:
+    """The offline transcription CLI on the card: a seeded model's state dict
+    as a reference checkpoint and INFERENCE_SEC of drum audio rendered with
+    the bank, through `python -m adt_str_tpu_torch.inference` (plain and
+    with a 1.28 s hop) with the ENST eval config and K1 and K5 on; then,
+    in this process, the same `transcribe` calls and the resynthesis
+    (K2, K3) of the transcribed notes that the synthesiser can play (the
+    rendered notes when there are none)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "ckpt").mkdir()
+        cfg = load_config(EVAL_YAML, model=KERNELS_ON, inference={"checkpoint_path": str(tmp / "ckpt")})
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        torch.save(model.state_dict(), tmp / "ckpt" / "pytorch_model.bin")
+        rng = np.random.default_rng(SEED + 80)
+        n_seg = math.ceil(INFERENCE_SEC / sc.input_sec)
+        seg_notes = []
+        for _ in range(n_seg):
+            on = np.sort(rng.uniform(0, sc.input_sec - 0.1, 24))
+            seg_notes.append(np.stack([on, on + 0.1, rng.choice([35, 38, 42, 48], 24), rng.integers(30, 128, 24)], 1))
+        wave = render_segments(statics, sc, seg_notes, SEED + 81).reshape(-1)[: int(INFERENCE_SEC * sc.sample_rate)]
+        write_wav(tmp / "song.wav", wave, sc.sample_rate)
+        raw = cfg.raw
+        (tmp / "cfg.yaml").write_text(yaml_text({
+            "shared": raw["shared"], "tokenizer": raw["tokenizer"], "model": {**raw["model"], **KERNELS_ON},
+            "inference": {**raw["inference"], "checkpoint_path": str(tmp / "ckpt")}}))
+        cli = {}
+        for name, hop in (("plain", []), ("hop", ["--hop_sec", str(INFERENCE_HOP_SEC)])):
+            proc, secs = run_cli(["-m", "adt_str_tpu_torch.inference", str(tmp / "song.wav"), str(tmp / "cfg.yaml"),
+                                  "-o", str(tmp / name), *hop])
+            midi = (tmp / name / "song.mid").read_bytes()
+            cli[name] = {"wall_s": secs, "midi_bytes": len(midi), "stdout": proc.stdout.strip().splitlines()[-1],
+                         "midi": midi}
+
+        tokenizer = MidiTokenizer(cfg.tokenizer)
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        notes = port_inference.transcribe(model, cfg, wave, tokenizer, device="cuda")
+        torch.cuda.synchronize()
+        transcribe_s = time.monotonic() - t0
+        notes_hop = port_inference.transcribe(model, cfg, wave, tokenizer, device="cuda", hop_sec=INFERENCE_HOP_SEC)
+        playable = notes[(notes[:, 2] >= render.PITCH_LO) & (notes[:, 2] <= render.PITCH_HI)]
+        source = "transcribed"
+        if not len(playable):
+            playable = np.concatenate([n + [i * sc.input_sec, i * sc.input_sec, 0, 0] for i, n in enumerate(seg_notes)])
+            source = "rendered"
+        t0 = time.monotonic()
+        resynth = port_inference.resynthesize(playable, sc, statics)
+        resynth_s = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        same_midi = {}
+        for name, n in (("plain", notes), ("hop", notes_hop)):
+            write_midi(tmp / f"{name}.mid", n)
+            same_midi[name] = (tmp / f"{name}.mid").read_bytes() == cli[name].pop("midi")
+    # the kernels at the shapes this path gave them, against their plain versions
+    vs_plain = {}
+    for name, hop in (("plain", None), ("hop", int(INFERENCE_HOP_SEC * cfg.shared.sample_rate))):
+        chunks, _ = port_inference.chunk_audio(wave, cfg.shared.chunk_samples, hop)
+        vs_plain[f"encoder_{name}"] = encoder_vs_plain(model, torch.from_numpy(chunks).cuda())
+    with plain_kernels():
+        resynth_plain = port_inference.resynthesize(playable, sc, statics)
+    vs_plain["resynthesis_equal_to_plain_path"] = bool(np.array_equal(resynth, resynth_plain))
+    n_chunks = int(np.asarray(playable, np.float32)[:, 1].max() // sc.input_sec) + 1
+    res = {"phase": "inference", "config": EVAL_YAML, "audio_s": INFERENCE_SEC, "hop_sec": INFERENCE_HOP_SEC,
+           "cli": cli, "notes": len(notes), "notes_hop": len(notes_hop), "transcribe_s": transcribe_s,
+           "cli_midi_equals_in_process": same_midi, "kernel_path_vs_plain_path": vs_plain, "resynthesis": {
+               "source": source, "notes": len(playable), "samples": resynth.shape[0], "chunks": n_chunks,
+               "seconds": resynth_s, "peak": float(np.abs(resynth).max())}, "launches": launches}
+    emit(res)
+    expected = {**dict.fromkeys(counters, 0), "log_mel": 2, "fused_attention": 2 * cfg.model.enc_layers,
+                "gather_blend": 1, "place_notes": 1}
+    checks = {
+        "resynthesis shape and values": resynth.shape == (n_chunks * sc.chunk_samples,) and np.isfinite(resynth).all(),
+        "K1, K5f, K2 and K3 launched as the path needs": launches == expected,
+        "the CLI wrote MIDI notes": all(c["midi_bytes"] > 22 for c in cli.values()),
+        "the CLI's MIDI = the in-process kernel path's": all(same_midi.values()),
+        "the encoder's kernels agree with their plain versions": vs_plain["encoder_plain"]["ok"]
+                                                                and vs_plain["encoder_hop"]["ok"],
+        "the resynthesis = the plain-path resynthesis": vs_plain["resynthesis_equal_to_plain_path"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"inference phase failed {failed}: launches {launches}, expected {expected}, "
+                           f"{res['resynthesis']}, {vs_plain}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bench() -> dict:
+    """The port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with its
+    whole workload: its JSON line on a line of its own, every window's time,
+    the kernels' launches during the timed windows (K1, K2 and K3 once a
+    step) and the device-busy share of one profiled step; then one bench
+    batch (48 note slots, the 192-row bank) rendered through K2 and K3 must
+    equal its render through the plain versions on the same draws."""
+    counters = kernel_counters()
+    t0 = time.monotonic()
+    warm: dict = {}
+
+    def before_windows():
+        torch.cuda.synchronize()
+        warm["setup_and_warm_up_s"] = time.monotonic() - t0
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    line, b, windows = port_bench.main(device="cuda", before_windows=before_windows)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    notes, mask = b.batch["notes"], b.batch["note_mask"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    draws = render.draw_render(b.statics, notes.shape[0], b.synth, gen)
+    out = render.render_batch(b.statics, notes, mask, draws, b.synth)
+    with plain_kernels():
+        ref = render.render_batch(b.statics, notes, mask, draws, b.synth)
+    steps = port_bench.MEASURE_STEPS * port_bench.MEASURE_WINDOWS
+    res = {"phase": "bench", "line": line, "window_s": windows,
+           "step_ms_by_window": [w / port_bench.MEASURE_STEPS * 1e3 for w in windows], **warm,
+           "note_slots": notes.shape[1], "bank_rows": b.statics.waveforms.shape[0],
+           "tokens": b.batch["tokens"].shape[1], "launches": launches, "peak_mem_gib": peak_gib,
+           "render_equal_to_plain_path": bool(torch.equal(out, ref)),
+           "render_max_abs_err_vs_plain": (out - ref).abs().max().item(),
+           "profile_one_step": step_profile(b.run_step, "bench")}
+    emit(res)
+    expected = {**dict.fromkeys(counters, 0), "log_mel": steps, "gather_blend": steps, "place_notes": steps}
+    if launches != expected or not res["render_equal_to_plain_path"]:
+        raise RuntimeError(f"bench: kernel launches {launches}, expected {expected}; "
+                           f"render equal to the plain path: {res['render_equal_to_plain_path']}")
+    del b
+    torch.cuda.empty_cache()
+    return res
+
+
 # the training shapes of K5 at B = 64: (Tq, Tk, causal + padding mask)
 TRAIN_ATTENTION = {"encoder": (246, 246, False), "decoder-self": (511, 511, True), "cross": (511, 246, False)}
 TRAIN_FFN_ROWS = {"encoder": TRAIN_BATCH * 246, "decoder": TRAIN_BATCH * 511}
 
 
 def phase_synthesis(ptxas: dict) -> dict:
-    """Phases 4 and the synthesis-fused training phase, on one bank built on the card."""
+    """Phase 4, the synthesis-fused training phase and the eval and
+    inference phases, on one bank built on the card."""
     cfg = load_config(SYNTH_YAML, train=True)
     sc = cfg.synthetiser
     t0 = time.monotonic()
@@ -1058,7 +1423,8 @@ def phase_synthesis(ptxas: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
     out = {"gather_blend": phase_gather_blend(statics, sc, gen),
            "place_notes": phase_place_notes(statics, sc, gen, ptxas["place_notes"]),
-           "render": phase_render(statics, sc, gen), "training": phase_synth_training(cfg, statics)}
+           "render": phase_render(statics, sc, gen), "training": phase_synth_training(cfg, statics),
+           "eval": phase_eval(statics, sc), "inference": phase_inference(statics, sc)}
     del statics, table
     torch.cuda.empty_cache()
     return out
@@ -1088,7 +1454,10 @@ def main() -> int:
     training = {c: phase_training(c) for c in TRAIN_YAMLS}
     training[SYNTH_NAME] = synth["training"]
     serving = phase_serving(cfg)
-    by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()}}
+    bench = phase_bench()
+    by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()},
+               "bench": bench["launches"], "eval": synth["eval"]["launches"],
+               "inference": synth["inference"]["launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -70,10 +70,12 @@ def _assert_log_mel_matches_plain(wave, params, trim=True):
     assert (out - ref).abs().max().item() <= (1e-3 if params.log_mode == "db" else 1e-4)
 
 
-@pytest.mark.parametrize("batch", [1, 16, 64])
+@pytest.mark.parametrize("batch", [1, 12, 16, 24, 64])
 def test_log_mel_kernel_batches(cuda, batch):
-    """The serving and training batches: one frequency split per grid size
-    (8 blocks share a frame tile at B 1, 4 at B 16, none at B 64)."""
+    """The serving, transcription and training batches: one frequency split
+    per grid size on 132 SMs (8 blocks share a frame tile at B 1, 4 at B 12
+    and 16, 2 at B 24, the 30 s transcription with a 1.28 s hop, none at
+    B 64)."""
     _assert_log_mel_matches_plain(_wave(batch, 61440, seed=batch).to(cuda), SERVING_MEL)
 
 
@@ -493,3 +495,45 @@ def test_place_kernels_clamp_out_of_range_ids(cuda, L, dtype):
     out = cuda_place.place_notes(blend, slot, onset, gain, 4 * L)
     assert torch.equal(out, place_notes_plain(blend, slot, onset, gain, 4 * L))
     assert torch.equal(out, cuda_place.place_notes(blend, slot.clamp(0, 2), onset.clamp(0, 4 * L - 1), gain, 4 * L))
+
+
+def test_run_inference_on_the_card_launches_k1_and_k5f(cuda, tmp_path, caplog):
+    """The eval harness on the card over a small in-memory dataset (a short
+    item and an empty reference among five items, batches of 2) with K1 and
+    K5f on: K1 launches once a batch and K5f once an encoder layer a batch,
+    TP + FN is the reference's notes, and the written metrics are the
+    returned ones."""
+    import json
+    import logging
+
+    from adt_str_tpu_torch.config import InferenceConfig, ModelConfig, TokenizerConfig
+    from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
+    from adt_str_tpu_torch.evaluation.harness import run_inference
+    from adt_str_tpu_torch.models.adt import ADTModel
+
+    cfg = ModelConfig(sample_rate=8000, win_length=512, time_res=0.01, input_sec=0.64, enc_layers=2, dec_layers=1,
+                      nhead=2, d_query=128, n_mels=64, max_positions=64, use_pallas_mel=True,
+                      use_flash_attention=True)
+    rng = np.random.default_rng(3)
+    wavs = [(rng.normal(size=n) * 0.3).astype(np.float32) for n in (5120, 5120, 2400, 5120, 5120)]
+    notes = [np.stack([on, on + 0.1, rng.choice([35, 38, 42], 6), np.full(6, 90)], 1) for on in
+             rng.uniform(0, 0.5, (5, 6))]
+    notes[3] = np.zeros((0, 4), np.float32)
+
+    class Items:
+        def batches(self, batch_size):
+            for b in range(0, 5, batch_size):
+                yield {"wavs": wavs[b : b + batch_size], "notes": notes[b : b + batch_size]}
+
+    model = ADTModel(cfg, seed=0, device=cuda)
+    tok = MidiTokenizer(TokenizerConfig(ADTOF_mapping=True))
+    before = (cuda_mel.log_mel.launches, cuda_attention.fused_attention.launches)
+    caplog.set_level(logging.INFO, logger="adt_str_tpu_torch.evaluation.harness")
+    metrics = run_inference(model, cfg, Items(), tok, InferenceConfig(batch_size=2, max_length=12,
+                                                                      output_path=str(tmp_path)), device="cuda")
+    assert (cuda_mel.log_mel.launches - before[0], cuda_attention.fused_attention.launches - before[1]) == (3, 6)
+    (record,) = [r for r in caplog.records if r.msg.startswith("eval items=")]
+    items, tp, fn, fp = record.args
+    assert items == 5 and tp + fn == sum(len(n) for n in notes) and fp >= 0
+    assert json.loads((tmp_path / "metrics.json").read_text()) == metrics
+    assert all(np.isfinite(v) for m in metrics.values() for v in m.values())
