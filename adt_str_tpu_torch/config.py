@@ -6,9 +6,10 @@ the experiment YAML, `${oc.env:VAR}` / `${VAR}` substitution, YAML 1.2
 floats (`8e-4` is a float), unknown keys and sections dropped.
 
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
-`model`, `synthetiser`, `EvalDatasetConfig` as `eval_data`, `inference`,
-`serving`, `training`); every other section stays readable in
-`FrameworkConfig.raw`. The YAML is read by the port's own reader
+`model`, `synthetiser`, `TrainDatasetConfig` as `train_data`,
+`EvalDatasetConfig` as `eval_data`, `training`, `logging`, `checkpoint`,
+`experiment`, `inference`, `serving`, `mesh`); every other section stays
+readable in `FrameworkConfig.raw`. The YAML is read by the port's own reader
 (`parse_yaml`), never by PyYAML: the machine with the card has none.
 """
 
@@ -330,6 +331,25 @@ class SynthConfig(SharedConfig):
 
 
 @dataclass(frozen=True)
+class TrainDataConfig(SharedConfig):
+    """The `TrainDatasetConfig` section: Lakh note shards or TMIDT audio
+    shards and the host pipeline's knobs (`adt_str_tpu/config.py:TrainDataConfig`)."""
+
+    dataset_path: str = ""
+    empty_tokens_percentage: float = 0.05
+    random_velocity_prob: float = 0.5
+    dataset_name: str = "Lakh"
+    partitions: Optional[list[str]] = None
+    max_tokens: int = 512  # padded token length of an example
+    shuffle_buffer: int = 8192
+    prefetch: int = 2  # batches the prefetch thread keeps ready
+    seed: int = 0
+    # the unshuffled prefix held out of training epochs for the in-training
+    # eval stream (0.0: the reference's behaviour, no holdout)
+    holdout_fraction: float = 0.0
+
+
+@dataclass(frozen=True)
 class EvalDataConfig(SharedConfig):
     """The `EvalDatasetConfig` section: an ENST or MDB parquet shard and its
     filters (`adt_str_tpu/config.py:EvalDataConfig`)."""
@@ -374,21 +394,65 @@ class ServingConfig:
 
 @dataclass
 class TrainingConfig:
-    """The `training:` fields that the optimizer and train step read
-    (`adt_str_tpu/config.py:TrainingConfig`); the mesh and trainer fields
-    come with the slices that use them."""
+    """The `training:` section (`adt_str_tpu/config.py:TrainingConfig`).
+    `grad_allreduce_dtype` and `ddp_loss_weighting` are read by multi-GPU
+    training (ROADMAP's DDP item); on one device they change nothing."""
 
+    batch_size: int = 64
+    num_epochs: float = 1.0
     learning_rate: float = 1e-4
     min_learning_rate: Optional[float] = None
     warmup_ratio: float = 0.1
     weight_decay: float = 1e-5
     max_grad_norm: float = 1.0
     gradient_accumulation_steps: int = 1
+    mixed_precision: str = "bf16"
     optim: str = "adamw"
     lr_scheduler_type: str = "cosine"
+    eval_strategy: str = "no"
+    max_dataloader_num_workers: int = 0
+    max_steps: Optional[int] = None  # caps the analytic step count
+    grad_allreduce_dtype: Optional[str] = None
+    ddp_loss_weighting: bool = False
     # N > 0: a step whose gradients hold NaN/Inf leaves params and optimizer
     # state untouched, until N consecutive such steps let one through
     skip_nonfinite_updates: int = 0
+
+
+@dataclass
+class LoggingConfig:
+    output_dir: str = "./outputs"
+    logging_steps: int = 1
+    save_every_n_steps: Optional[int] = None
+    eval_every_n_steps: Optional[int] = None
+    eval_batches: int = 8  # batches per in-training eval pass
+    log_level: str = "INFO"
+    profile_steps: Optional[list[int]] = None  # torch.profiler trace window (first, last step)
+
+
+@dataclass
+class CheckpointConfig:
+    resume_from_checkpoint: Optional[str] = None
+    auto_resume: bool = False
+    max_checkpoints: Optional[int] = 3
+
+
+@dataclass
+class ExperimentConfig:
+    seed: int = 42
+    use_wandb: bool = False
+    project_name: Optional[str] = None
+    run_name: str = "default"
+
+
+@dataclass
+class MeshConfig:
+    """The parallel layout. The port trains on one device: a layout with
+    more than one replica or model shard raises in the trainer."""
+
+    data_axis: int = -1  # -1: all remaining devices
+    model_axis: int = 1
+    fsdp: bool = False
 
 
 @dataclass
@@ -399,10 +463,15 @@ class FrameworkConfig:
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     synthetiser: Optional[SynthConfig] = None
+    train_data: Optional[TrainDataConfig] = None
     eval_data: Optional[EvalDataConfig] = None
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    experiment: ExperimentConfig = field(default_factory=ExperimentConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
-    training: TrainingConfig = field(default_factory=TrainingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     raw: dict = field(default_factory=dict)
 
     @classmethod
@@ -426,6 +495,10 @@ class FrameworkConfig:
             synth_d["ADTOF_mapping"] = tok_d.get("ADTOF_mapping", False)
             synth = make_dataclass_from(SynthConfig, synth_d, shared_d)
 
+        train_data = None
+        if cfg.get("TrainDatasetConfig"):
+            train_data = make_dataclass_from(TrainDataConfig, cfg["TrainDatasetConfig"], shared_d)
+
         eval_data = None
         if cfg.get("EvalDatasetConfig"):
             eval_data = make_dataclass_from(EvalDataConfig, cfg["EvalDatasetConfig"], shared_d)
@@ -439,10 +512,15 @@ class FrameworkConfig:
             tokenizer=make_dataclass_from(TokenizerConfig, tok_d),
             model=make_dataclass_from(ModelConfig, model_d, shared_d),
             synthetiser=synth,
+            train_data=train_data,
             eval_data=eval_data,
+            training=_coerce(TrainingConfig, "training"),
+            logging=_coerce(LoggingConfig, "logging"),
+            checkpoint=_coerce(CheckpointConfig, "checkpoint"),
+            experiment=_coerce(ExperimentConfig, "experiment"),
             inference=_coerce(InferenceConfig, "inference"),
             serving=_coerce(ServingConfig, "serving"),
-            training=_coerce(TrainingConfig, "training"),
+            mesh=_coerce(MeshConfig, "mesh"),
             raw=cfg,
         )
 

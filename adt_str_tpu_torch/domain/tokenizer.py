@@ -1,8 +1,9 @@
-"""MIDI token decoding and the dataset pitch remap.
+"""MIDI token codec and the dataset pitch remap.
 
-Port of `adt_str_tpu/domain/tokenizer.py:MidiTokenizer`: the decode side
-(through its pure-Python decode `_decode_python`) and `map_notes_to_Gm_custom`;
-the native extension and the encoders join with the training slice.
+Port of `adt_str_tpu/domain/tokenizer.py:MidiTokenizer`: the encode side
+(`notes_to_adt_tokens`, `empty_adt_tokens`, the fixed-length
+`encode_padded`), the decode side (through the JAX package's pure-Python
+decode `_decode_python`) and `map_notes_to_Gm_custom`.
 
 Vocab layout:
   0            silence
@@ -34,6 +35,9 @@ class MidiTokenizer:
         self.BOS_token = config.BOS_token
         self.EOS_token = config.EOS_token
         self.pad_token = config.pad_token
+        self.silence_token = config.silence_token
+        self.add_velocity = config.add_velocity
+        self.tokens_per_note = 3 if self.add_velocity else 2  # time, pitch[, velocity]
 
     def map_notes_to_Gm_custom(
         self, notes: np.ndarray, random_velocity: bool = False, rng: np.random.Generator | None = None
@@ -58,6 +62,40 @@ class MidiTokenizer:
             rng = rng or np.random.default_rng()
             notes[:, 3] = rng.integers(10, 127, size=notes.shape[0]).astype(np.float32)
         return notes
+
+    def notes_to_adt_tokens(self, notes) -> np.ndarray:
+        """[BOS, (time, pitch[, velocity])*, EOS] int64 tokens of (n, 4)
+        [onset, offset, pitch, velocity] rows. The time token is
+        `int(onset * 100) + 4` computed on float32 onsets (the product is
+        rounded to float32, then truncated); a time token past the time
+        range raises, as the reference's assertion does."""
+        notes = np.asarray(notes, dtype=np.float32)
+        if notes.size == 0:
+            return np.array([self.BOS_token, self.EOS_token], dtype=np.int64)
+        time_tok = np.trunc(notes[:, 0] * np.float32(100.0)).astype(np.int64) + TIME_OFFSET
+        if np.any(time_tok >= PITCH_OFFSET):
+            raise AssertionError("Time token is out of range")
+        cols = [time_tok, notes[:, 2].astype(np.int64) + PITCH_OFFSET]
+        if self.add_velocity:
+            cols.append(notes[:, 3].astype(np.int64) + VELOCITY_OFFSET)
+        body = np.stack(cols, axis=1).reshape(-1)
+        return np.concatenate([[self.BOS_token], body, [self.EOS_token]]).astype(np.int64)
+
+    def empty_adt_tokens(self) -> np.ndarray:
+        """[BOS, silence, EOS]: the tokens of an injected empty segment."""
+        return np.array([self.BOS_token, self.silence_token, self.EOS_token], dtype=np.int64)
+
+    def encode_padded(self, notes, max_tokens: int) -> tuple[np.ndarray, int]:
+        """(max_tokens,) int64 tokens padded with PAD, and their length.
+        Notes that overflow `max_tokens` are dropped whole (never part of a
+        time/pitch/velocity group), and EOS still ends the row."""
+        tokens = self.notes_to_adt_tokens(notes)
+        if len(tokens) > max_tokens:
+            n_notes = (max_tokens - 2) // self.tokens_per_note
+            tokens = np.concatenate([tokens[: 1 + n_notes * self.tokens_per_note], [self.EOS_token]]).astype(np.int64)
+        out = np.full(max_tokens, self.pad_token, dtype=np.int64)
+        out[: len(tokens)] = tokens
+        return out, len(tokens)
 
     def decode(self, tokens) -> np.ndarray:
         """Token sequence -> [onset, onset+0.1, pitch, velocity] float64 rows.

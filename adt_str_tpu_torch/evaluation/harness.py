@@ -1,4 +1,4 @@
-"""Evaluation harness: batched greedy decode -> notes -> onset F-measure.
+"""Evaluation harness: batched greedy or beam decode -> notes -> onset F-measure.
 
 Port of `adt_str_tpu/evaluation/harness.py:run_inference` on one device:
 
@@ -13,8 +13,9 @@ Port of `adt_str_tpu/evaluation/harness.py:run_inference` on one device:
   `inference.output_path`; `max_samples` stops after the batch that reaches
   it.
 
-Greedy decoding only: beam search is ROADMAP.md queue 1 item 7, and a mesh
-(multi-GPU decode) item 10; both raise.
+`inference.use_beam_search` decodes with `beam_search_decode`
+(`beam_size`, 5 when unset; length penalty 1.0), as the JAX harness does. A
+mesh (multi-GPU decode) is ROADMAP.md queue 1 item 10 and raises.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from adt_str_tpu_torch.evaluation.metrics import (
 )
 from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes
 from adt_str_tpu_torch.models.adt import ADTModel
-from adt_str_tpu_torch.models.decode import greedy_decode
+from adt_str_tpu_torch.models.decode import beam_search_decode, greedy_decode
 from adt_str_tpu_torch.utils.mappings import ADTOF_LABEL_MAPPING, GM_REDUCED_NAME_CONVENTION
 
 logger = logging.getLogger(__name__)
@@ -69,8 +70,6 @@ def run_inference(
     if mesh is not None:
         raise NotImplementedError("multi-device decode is not ported yet (ROADMAP.md queue 1 item 10: multi-GPU decode)")
     cfg = inference_config
-    if cfg.use_beam_search:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP.md queue 1 item 7: beam search)")
     device = resolve_device(device)
     model = model.to(device).eval()
     max_len = max(2, int(cfg.max_length))
@@ -90,9 +89,13 @@ def run_inference(
         if n_real < cfg.batch_size:
             raw_wavs = list(raw_wavs) + [np.zeros(1024, np.float32)] * (cfg.batch_size - n_real)
         wavs = torch.from_numpy(_pad_batch(raw_wavs, model_config.chunk_samples)).to(device)
-        tokens_pred = greedy_decode(
-            model, wavs, max_length=max_len, start_token=tokenizer.BOS_token, end_token=tokenizer.EOS_token
-        ).cpu().numpy()
+        bos, eos = tokenizer.BOS_token, tokenizer.EOS_token
+        if cfg.use_beam_search:
+            tokens_pred = beam_search_decode(model, wavs, max_length=max_len, beam_size=cfg.beam_size or 5,
+                                             start_token=bos, end_token=eos)
+        else:
+            tokens_pred = greedy_decode(model, wavs, max_length=max_len, start_token=bos, end_token=eos)
+        tokens_pred = tokens_pred.cpu().numpy()
 
         for i in range(n_real):
             gt = np.asarray(gt_notes[i]).reshape(-1, 4) if len(gt_notes[i]) else []

@@ -16,7 +16,9 @@ positional table is a non-persistent buffer.
 - `forward_loss`: teacher forcing (`tokens[:, :-1]` in, `tokens[:, 1:]` as
   labels) with causal + padding masks -> fp32 cross-entropy.
 
-Parameters are fp32; activations run in `config.compute_dtype`.
+Parameters are fp32; activations run in `config.compute_dtype`. With
+`config.remat`, training recomputes each layer's activations in the
+backward pass.
 
 Training dropout takes its keys as data: `dropout_sites(config)` names the
 sites in the order of the JAX package's `jax.random.split` tree (forward_loss
@@ -34,6 +36,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from adt_str_tpu_torch import resolve_device, torch_dtype
@@ -163,15 +166,19 @@ class ADTModel(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.config.compute_dtype)
 
-    def _check_train(self, train: bool) -> None:
+    def _layer(self, layer: nn.Module, *args, train: bool, **kw) -> torch.Tensor:
+        """One encoder or decoder layer. In training with `config.remat` its
+        activations are recomputed in the backward pass instead of kept
+        (`torch.utils.checkpoint`, as `jax.checkpoint` per layer in the JAX
+        package); the dropout keys are data, so the recomputation is exact."""
         if train and self.config.remat:
-            raise NotImplementedError("config.remat (activation recomputation) is not ported")
+            return torch.utils.checkpoint.checkpoint(layer, *args, train=train, use_reentrant=False, **kw)
+        return layer(*args, train=train, **kw)
 
     def encode(self, wave: torch.Tensor, keys: Optional[Sequence] = None, train: bool = False) -> torch.Tensor:
         """(B, samples) waveform -> (B, frames, d_model) encoder memory.
         `keys`: the encoder's `4 * enc_layers + 2` site keys (None: no dropout)."""
         cfg, compute = self.config, self.compute_dtype
-        self._check_train(train)
         n_layers = cfg.enc_layers
         keys = _site_words(keys) or [None] * (4 * n_layers + 2)
         if len(keys) != 4 * n_layers + 2:
@@ -185,8 +192,8 @@ class ADTModel(nn.Module):
         x = x + self.pe[None, : x.shape[1]].to(compute)
         x = T.dropout(x, cfg.dropout, keys[0], train)
         for i, layer in enumerate(self.encoder.encoder.layers):
-            x = layer(x, use_flash=cfg.use_flash_attention, use_pallas_ffn=cfg.use_pallas_ffn,
-                      dropout_rate=cfg.dropout, keys=keys[1 + 4 * i : 5 + 4 * i], train=train)
+            x = self._layer(layer, x, use_flash=cfg.use_flash_attention, use_pallas_ffn=cfg.use_pallas_ffn,
+                            dropout_rate=cfg.dropout, keys=keys[1 + 4 * i : 5 + 4 * i], train=train)
         x = T.layer_norm(self.encoder.layer_norm, x)
         return T.dropout(x, cfg.dropout, keys[-1], train)
 
@@ -212,7 +219,6 @@ class ADTModel(nn.Module):
         """(B, T) tokens + (B, S, d) memory -> (B, T, vocab) logits.
         `keys`: the decoder's `6 * dec_layers + 1` site keys (None: no dropout)."""
         cfg, compute = self.config, self.compute_dtype
-        self._check_train(train)
         n_layers = cfg.dec_layers
         keys = _site_words(keys) or [None] * (6 * n_layers + 1)
         if len(keys) != 6 * n_layers + 1:
@@ -222,9 +228,9 @@ class ADTModel(nn.Module):
         x = T.dropout(x, cfg.dropout, keys[0], train)
         mem = memory.to(compute)
         for i, layer in enumerate(self.decoder.decoder.layers):
-            x = layer(x, mem, self_mask=self_mask, use_flash=cfg.use_flash_attention,
-                      use_pallas_ffn=cfg.use_pallas_ffn, dropout_rate=cfg.dropout,
-                      keys=keys[1 + 6 * i : 7 + 6 * i], train=train)
+            x = self._layer(layer, x, mem, self_mask=self_mask, use_flash=cfg.use_flash_attention,
+                            use_pallas_ffn=cfg.use_pallas_ffn, dropout_rate=cfg.dropout,
+                            keys=keys[1 + 6 * i : 7 + 6 * i], train=train)
         return T.linear(self.decoder.generator, x)
 
     def forward_loss(

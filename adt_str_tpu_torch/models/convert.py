@@ -8,9 +8,10 @@ transposing each `w` (JAX stores (d_in, d_out), PyTorch (d_out, d_in)).
 `load_reference_checkpoint` mirrors
 `adt_str_tpu/training/checkpoint.py:load_params_from_reference_checkpoint`:
 `model.safetensors` (or `model.safetensor`) first, else `pytorch_model.bin`.
-safetensors is read by the small reader below (an 8-byte little-endian
-header length, a JSON header, raw little-endian buffers): the machine with
-the card has no safetensors package.
+safetensors is read and written by the small reader and writer below (an
+8-byte little-endian header length, a JSON header padded with spaces to a
+multiple of 8 bytes, raw little-endian buffers in header order): the machine
+with the card has no safetensors package.
 """
 
 from __future__ import annotations
@@ -101,6 +102,31 @@ def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
         flat = torch.frombuffer(buf, dtype=dtype) if buf else torch.empty(0, dtype=dtype)
         out[name] = flat.reshape(info["shape"])
     return out
+
+
+def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str | Path) -> None:
+    """{name: tensor} -> a safetensors file, tensors in name order, each
+    copied to the host as its little-endian bytes (bf16 through an int16
+    view, which numpy lacks)."""
+    names = {dtype: name for name, dtype in _ST_DTYPES.items()}
+    header: dict = {}
+    buffers = []
+    offset = 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().contiguous().cpu()
+        if t.dtype not in names:
+            raise ValueError(f"tensor {name!r} has a dtype safetensors does not take: {t.dtype}")
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        buffers.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in buffers:
+            f.write(raw)
 
 
 def load_reference_checkpoint(checkpoint_path: str | Path, device=None) -> dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Online transcription server on one GPU:
-`python -m adt_str_tpu_torch.serve <config.yaml> [--host H] [--port P]`.
+`python -m adt_str_tpu_torch.serve <config.yaml> [--host H] [--port P] [--beam]`.
 
 Port of the root `serve.py`: loads the reference checkpoint named by the
 config's `inference.checkpoint_path`, wraps it in the micro-batching
@@ -49,6 +49,8 @@ def main() -> None:
                         help="after the first queued request, wait at most this long for stragglers")
     parser.add_argument("--max-length", type=int, default=None,
                         help="decode token budget (default: config inference.max_length)")
+    parser.add_argument("--beam", action="store_true", default=None, dest="use_beam",
+                        help="beam-search decoding (serving.beam_size wide) instead of greedy")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     parser.add_argument("--no-precompile", action="store_true",
                         help="skip warming every bucket at startup")
@@ -68,9 +70,10 @@ def main() -> None:
         max_length=args.max_length,
         buckets=tuple(args.buckets) if args.buckets else None,
         max_wait_ms=args.max_wait_ms,
+        use_beam=args.use_beam,
     )
     if cfg.serving.precompile and not args.no_precompile:
-        print(f"Warming {len(engine.buckets)} buckets...")
+        print(f"Warming {len(engine.buckets)} buckets ({'beam' if engine.use_beam else 'greedy'})...")
         print(f"Warm-up done in {engine.precompile():.1f}s")
 
     host = args.host if args.host is not None else cfg.serving.host

@@ -1,4 +1,4 @@
-"""Dynamic micro-batching engine over the greedy decode.
+"""Dynamic micro-batching engine over the greedy or beam decode.
 
 Port of `adt_str_tpu/serving/engine.py:ServingEngine`, with the same
 contract:
@@ -12,10 +12,14 @@ contract:
 - after the first request of a batch, the dispatcher drains what is queued
   and then waits at most `max_wait_ms` for stragglers (capped at the largest
   bucket);
+- `max_queue` > 0 bounds the queue: `submit_chunk` then blocks while it is
+  full (0: unbounded);
+- `use_beam` decodes with `beam_search_decode` (`beam_size`,
+  `length_penalty`), the eval harness's beam, with the same buckets;
 - `close()` drains the queue so every accepted request is answered.
 
-Tokens come back to the host as numpy int32. Beam search and the
-multi-device mesh are not ported yet (ROADMAP.md, queue 1).
+Tokens come back to the host as numpy int32. The multi-device mesh is not
+ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -78,11 +82,12 @@ class ServingEngine:
         max_length: int | None = None,
         buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
         max_wait_ms: float = 2.0,
+        max_queue: int = 0,
         mesh=None,
         use_beam: bool = False,
+        beam_size: int = 5,
+        length_penalty: float = 1.0,
     ) -> None:
-        if use_beam:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP.md queue 1: beam search)")
         if mesh is not None:
             raise NotImplementedError("multi-device decode is not ported yet (ROADMAP.md queue 1: multi-GPU decode)")
         if not buckets or list(buckets) != sorted(set(buckets)):
@@ -94,8 +99,11 @@ class ServingEngine:
         self.chunk_samples = int(config.shared.chunk_samples)
         self.buckets = tuple(int(b) for b in buckets)
         self.max_wait_s = float(max_wait_ms) / 1000.0
+        self.use_beam = bool(use_beam)
+        self.beam_size = int(beam_size)
+        self.length_penalty = float(length_penalty)
         self._model = model.to(self.device).eval()
-        self._queue: queue.Queue = queue.Queue()
+        self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self._stats = EngineStats()
         self._stats_lock = threading.Lock()
         self._closed = False
@@ -116,6 +124,8 @@ class ServingEngine:
             buckets=s.buckets,
             max_wait_ms=s.max_wait_ms,
             use_beam=s.use_beam_search,
+            beam_size=s.beam_size,
+            length_penalty=s.length_penalty,
         )
         kw.update({k: v for k, v in overrides.items() if v is not None})
         return cls(model, config, device=device, **kw)
@@ -185,10 +195,15 @@ class ServingEngine:
     def _decode_device(self, waves: np.ndarray) -> np.ndarray:
         """One device decode of a padded (bucket, chunk_samples) batch."""
         dev = torch.from_numpy(waves).to(self.device)
-        tokens = decode_lib.greedy_decode(
-            self._model, dev, max_length=self.max_length,
-            start_token=self.tokenizer.BOS_token, end_token=self.tokenizer.EOS_token,
-        )
+        bos, eos = self.tokenizer.BOS_token, self.tokenizer.EOS_token
+        if self.use_beam:
+            tokens = decode_lib.beam_search_decode(
+                self._model, dev, max_length=self.max_length, beam_size=self.beam_size,
+                start_token=bos, end_token=eos, length_penalty=self.length_penalty,
+            )
+        else:
+            tokens = decode_lib.greedy_decode(self._model, dev, max_length=self.max_length,
+                                              start_token=bos, end_token=eos)
         return tokens.cpu().numpy().astype(np.int32, copy=False)
 
     def _collect_batch(self, first) -> tuple[list, bool]:

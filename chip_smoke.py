@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Drives the port's serving path, its real-audio training step, its
-synthesis-fused training step, its evaluation harness, its offline
-transcription CLI and its bench (`adt_str_tpu_torch`) at full width and
-holds its hand-written CUDA kernels against their plain PyTorch versions.
+synthesis-fused training step, its training job (`trainer.train`: epochs,
+checkpoints, resume, in-training eval), its evaluation harness with greedy
+and beam decoding, its offline transcription CLI and its bench
+(`adt_str_tpu_torch`) at full width and holds its hand-written CUDA kernels
+against their plain PyTorch versions.
 Imports no JAX and nothing of the JAX package. Its five configs come from
 `configs/` through the port's own YAML reader (`SERVING_YAML`,
 `TRAIN_YAMLS`, `SYNTH_YAML`, `EVAL_YAML`; a `config` line prints each value
@@ -56,6 +58,23 @@ line:
      24 hopped) K1 must agree with its plain version and the encoder
      memory through K1 and K5f with the plain path's, and the 12-chunk
      resynthesis must equal the plain path's;
+   - trainer: the training job on setting-1 at batch 64 (in-memory Lakh
+     rows, a one-batch holdout, the bank): 10 steps saving and evaluating
+     after 5 and 10, then a run resumed from the step-5 checkpoint; the
+     resumed steps and weights must equal the straight run's, the saved
+     `model.safetensors` the model, K1/K2/K3 launch once a step and an eval
+     batch, one trainer batch renders bit-equal to the plain path and one
+     trainer step agrees with a plain-path step; the logged steps/s, and a
+     save and a restore timed on their own;
+   - trainer_tmidt: the training job on TMIDT-flash at batch 64 over audio
+     rendered with the bank, 6 steps at trimmed token buckets (K1, K5f,
+     K5b; the 3rd traced by the trainer's `logging.profile_steps`, and
+     the trace must hold every kernel of the step), then K5f and K5b
+     against their plain versions at one bucket;
+   - beam: `run_inference` with beam search (beam 5) over the eval items,
+     every row well formed, beam 1 equal to greedy on one batch, the HTTP
+     server around a beam engine answering 3 concurrent requests, decode ms
+     a step and the device's busy share;
 5. training, one phase per configuration (`TRAIN_YAMLS`: TMIDT at full
    width, batch 64, with K4 or with K5; then `synth-setting-1`, the
    synthesis-fused step of setting-1 on the bank of 4): 5 steps of the
@@ -84,7 +103,8 @@ line:
    and K3 must equal its plain-path render on the same draws;
 8. one `{"kernels": [...]}` line: each kernel at the main-path shape named
    in its entry, with its launches in every main-path run (serving, the
-   three training steps, bench, eval, inference).
+   three training steps, bench, eval, inference, trainer, trainer-resumed,
+   trainer_tmidt, beam, beam-serving).
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
@@ -97,6 +117,7 @@ import copy
 import csv
 import dataclasses
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -113,13 +134,20 @@ import torch
 from adt_str_tpu_torch import bench as port_bench
 from adt_str_tpu_torch import inference as port_inference
 from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
+from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.evaluation.harness import run_inference
 from adt_str_tpu_torch.evaluation.metrics import aggregate_metrics, compute_metrics
 from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel, collate_token_lengths, draw_site_keys, mel_params
-from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
+from adt_str_tpu_torch.models.convert import read_safetensors
+from adt_str_tpu_torch.models.decode import (
+    beam_search_decode,
+    beam_search_decode_from_memory,
+    greedy_decode,
+    greedy_decode_from_memory,
+)
 from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
@@ -127,6 +155,8 @@ from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_t
 from adt_str_tpu_torch.serve import build_engine
 from adt_str_tpu_torch.synth import render
 from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
+from adt_str_tpu_torch.training import checkpoint as trainer_ckpt
+from adt_str_tpu_torch.training import trainer
 from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
 from adt_str_tpu_torch.utils.audio_io import normalize, write_wav
@@ -152,6 +182,12 @@ TRAIN_BATCH = 64  # configs/train/setting-1.yaml's batch size; the TMIDT configs
 TRAIN_TOKENS = 512  # TrainDatasetConfig.max_tokens: decoder inputs of 511 tokens
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
+TRAINER_ROWS = 512  # the trainer phase's in-memory Lakh rows
+TRAINER_HOLDOUT = 0.125  # 64 rows: one eval batch
+TRAINER_STEPS = 10  # 7 steps an epoch; saved and evaluated after 5 and 10; the resumed run takes 6-10
+TMIDT_STEPS = 6
+TMIDT_PROFILED = 2  # the step index `logging.profile_steps` traces (the 3rd step)
+BEAM_SIZE = 5
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
@@ -739,11 +775,12 @@ def check_notes(payload: dict, duration: float, vocab: int) -> None:
         raise RuntimeError("notes out of their ranges")
 
 
-def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int) -> dict:
-    """Where one served batch's time goes: encode against the greedy decode
-    loop (CUDA events), then the device's busy share of a 64-step decode
-    under torch.profiler (kernel time over host wall time; the profiler's
-    own host cost makes the idle share an upper bound)."""
+def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int, decode=greedy_decode_from_memory) -> dict:
+    """Where one served batch's time goes: encode against the decode loop
+    (`decode(model, memory, max_len, bos, eos)`, greedy unless given; CUDA
+    events), then the device's busy share of a 64-step decode under
+    torch.profiler (kernel time over host wall time; the profiler's own host
+    cost makes the idle share an upper bound)."""
     bucket = next(b for b in cfg.serving.buckets if b >= batch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     wave = torch.randn(bucket, cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
@@ -754,7 +791,7 @@ def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int) -> dict:
         ev[0].record()
         memory = model.encode(wave)
         ev[1].record()
-        tokens = greedy_decode_from_memory(model, memory, max_len, cfg.tokenizer.BOS_token, eos)
+        tokens = decode(model, memory, max_len, cfg.tokenizer.BOS_token, eos)
         ev[2].record()
         torch.cuda.synchronize()
         # the loop ran until the last row's first EOS (or the length budget)
@@ -767,7 +804,7 @@ def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int) -> dict:
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.monotonic()
-            greedy_decode_from_memory(model, memory, 65, cfg.tokenizer.BOS_token, eos)
+            decode(model, memory, 65, cfg.tokenizer.BOS_token, eos)
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
         prof.export_chrome_trace(str(trace))
@@ -1059,23 +1096,11 @@ def encoder_vs_plain(model: ADTModel, chunks: torch.Tensor) -> dict:
     return out
 
 
-def phase_serving(cfg: FrameworkConfig) -> dict:
-    t0 = time.monotonic()
-    model = ADTModel(cfg.model, seed=SEED, device="cuda")
-    build_s = time.monotonic() - t0
-
-    # the kernel path against the port's CPU path (plain versions) on one chunk
-    chunk = torch.from_numpy(
-        (np.random.default_rng(SEED).normal(size=(1, cfg.shared.chunk_samples)) * 0.3).astype(np.float32)
-    )
-    with torch.inference_mode():
-        mem_gpu = model.encode(chunk.cuda()).float().cpu()
-        mem_cpu = copy.deepcopy(model).to("cpu").encode(chunk).float()
-    mem = memory_error(mem_gpu, mem_cpu)
-    if not mem["ok"]:
-        raise RuntimeError(f"kernel-path encoder memory disagrees with the CPU path: {mem}")
-
-    engine = build_engine(cfg, model)
+def serve_requests(engine, cfg: FrameworkConfig) -> tuple[list, float, dict, dict]:
+    """N_REQUESTS concurrent POSTs of REQUEST_SEC of seeded raw f32 PCM to
+    the port's HTTP server around `engine` (closed afterwards); each must
+    answer 200 with well-formed notes, and K1 and K5f must launch. ->
+    (results, wall s, launches, engine stats)."""
     server = make_server(engine, "127.0.0.1", 0)
     start_in_thread(server)
     host, port = server.server_address[:2]
@@ -1107,6 +1132,27 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
         check_notes(json.loads(r[1]), REQUEST_SEC, cfg.model.tgt_vocab_size)
     if not (launches["log_mel"] and launches["fused_attention"]):
         raise RuntimeError(f"a kernel of the path was not launched while serving: {launches}")
+    return results, wall, launches, stats
+
+
+def phase_serving(cfg: FrameworkConfig) -> dict:
+    t0 = time.monotonic()
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    build_s = time.monotonic() - t0
+
+    # the kernel path against the port's CPU path (plain versions) on one chunk
+    chunk = torch.from_numpy(
+        (np.random.default_rng(SEED).normal(size=(1, cfg.shared.chunk_samples)) * 0.3).astype(np.float32)
+    )
+    with torch.inference_mode():
+        mem_gpu = model.encode(chunk.cuda()).float().cpu()
+        mem_cpu = copy.deepcopy(model).to("cpu").encode(chunk).float()
+    mem = memory_error(mem_gpu, mem_cpu)
+    if not mem["ok"]:
+        raise RuntimeError(f"kernel-path encoder memory disagrees with the CPU path: {mem}")
+
+    engine = build_engine(cfg, model)
+    results, wall, launches, stats = serve_requests(engine, cfg)
     breakdown = decode_breakdown(model, cfg, batch=stats["n_requests"])
     res = {
         "phase": "serving", "requests": N_REQUESTS, "request_sec": REQUEST_SEC,
@@ -1403,6 +1449,338 @@ def phase_bench() -> dict:
     return res
 
 
+class StepLog(logging.Handler):
+    """The numbers (`record.step_metrics`) of the trainer's log lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list = []
+
+    def emit(self, record):
+        if hasattr(record, "step_metrics"):
+            self.records.append(record.step_metrics)
+
+
+def run_trainer(cfg: FrameworkConfig, **kw) -> dict:
+    """`trainer.train(cfg, device="cuda", **kw)` with every kernel counter
+    set to 0 just before and read just after -> the final state, the logged
+    steps, the eval lines, the launches and the wall seconds."""
+    log = StepLog()
+    logging.getLogger(trainer.__name__).addHandler(log)
+    counters = kernel_counters()
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        state = trainer.train(cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        logging.getLogger(trainer.__name__).removeHandler(log)
+    steps = [r for r in log.records if "loss" in r]
+    return {"state": state, "steps": steps, "evals": [r for r in log.records if "eval_loss" in r],
+            "launches": launches, "wall_s": wall}
+
+
+def gm_note_rows(n: int, seed: int, most: int) -> list:
+    """`n` rows of GM-standard drum notes (as a Lakh or TMIDT shard holds
+    them): 4 to `most` notes a row, log-uniformly (so batches fill note and
+    token buckets of many sizes), onsets in [0, 2.4) s, velocities 30..127."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        k = int(np.exp(rng.uniform(np.log(4), np.log(most + 1))))
+        on = np.sort(rng.uniform(0, 2.4, k))
+        rows.append(np.stack([on, on + 0.1, rng.choice(EVAL_GM_PITCHES, k), rng.integers(30, 128, k)], 1)
+                    .astype(np.float32))
+    return rows
+
+
+def step_rate(run: dict, every: int = 0, exclude=()) -> dict:
+    """The logged steps/s. Step k's is read when the host fetches its loss,
+    just after it has queued step k + 1, over the time since the last fetch:
+    the first holds the start-up; a step that evaluates or saves (every
+    `every` steps) and the last one are fetched at once after the step
+    before them (their rate is the device's remaining work only), and the
+    step after an eval or save holds that work; the two steps before a
+    profiled one (`exclude`) hold the profiler's start and stop. The steady
+    rate is the median over the other steps."""
+    rates = {r["step"]: r["steps_per_sec"] for r in run["steps"]}
+    first, last = min(rates), max(rates)
+    steady = [v for k, v in rates.items() if k not in (first, last, *exclude)
+              and not (every and (k % every == 0 or (k - 1) % every == 0))]
+    return {"logged_steps_per_sec": list(rates.values()), "steady_steps": len(steady),
+            "steady_steps_per_sec": statistics.median(steady) if steady else None}
+
+
+def phase_trainer(bank: OneShotBank, statics: render.SynthStatics) -> dict:
+    """The port's training job (`trainer.train`) on setting-1 at full width,
+    batch 64: an in-memory LakhDataset of TRAINER_ROWS seeded GM note rows
+    (the card's machine has no pyarrow) with a one-batch holdout, the card
+    bank; TRAINER_STEPS steps saving and evaluating every
+    TRAINER_STEPS // 2 (the second half crosses into epoch 1); then a second
+    run resumes from the middle checkpoint and runs to the end; a save and a
+    restore are timed on their own. Its steps and final weights must equal the straight
+    run's; the final `model.safetensors` must read back as the model; the
+    eval history must hold two finite lines; K1, K2 and K3 must launch once
+    a step and once an eval batch; one trainer batch (its trimmed note
+    bucket) must render bit-equal through K2/K3 and through the plain
+    versions, and one trainer step's loss agree with a plain-path step."""
+    half = TRAINER_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        common = dict(training={"max_steps": TRAINER_STEPS, "num_epochs": 2},  # 7 steps an epoch
+                      train_data={"holdout_fraction": TRAINER_HOLDOUT},
+                      logging={"output_dir": tmp, "logging_steps": 1, "save_every_n_steps": half,
+                               "eval_every_n_steps": half})
+        cfg = load_config(SYNTH_YAML, experiment={"run_name": "straight"}, **common)
+        sc, mc = cfg.synthetiser, cfg.model
+        rows = {"notes": [r.tobytes() for r in gm_note_rows(TRAINER_ROWS, SEED + 100, sc.max_notes)]}
+        ds = LakhDataset(cfg.train_data, MidiTokenizer(cfg.tokenizer), max_notes=sc.max_notes, rows=rows)
+        straight = run_trainer(cfg, dataset=ds, bank=bank)
+        out = Path(tmp) / "straight"
+        middle = out / trainer_ckpt.checkpoint_name(0, half)
+        cfg2 = load_config(SYNTH_YAML, experiment={"run_name": "resumed"},
+                           checkpoint={"resume_from_checkpoint": str(middle)}, **common)
+        resumed = run_trainer(cfg2, dataset=ds, bank=bank)
+        history = [json.loads(x) for x in (out / "eval_history.jsonl").read_text().splitlines()]
+        final = Path(trainer_ckpt.latest_checkpoint(out))
+        saved = read_safetensors(final / "model.safetensors")
+        model_sd = {k: v.cpu() for k, v in straight["state"].model.state_dict().items()}
+        safetensors_equal = sorted(saved) == sorted(model_sd) and all(torch.equal(saved[k], model_sd[k])
+                                                                      for k in model_sd)
+        checkpoint_gib = sum(f.stat().st_size for f in final.iterdir()) / 2**30
+        # a save and a restore of the final state on their own (the work a resume adds)
+        t0 = time.monotonic()
+        trainer_ckpt.save_checkpoint(Path(tmp) / "timed", straight["state"].model, straight["state"].opt_state,
+                                     TRAINER_STEPS)
+        torch.cuda.synchronize()
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        probe = trainer.init_model(cfg, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        trainer_ckpt.restore_checkpoint(Path(tmp) / "timed" / trainer_ckpt.checkpoint_name(0, TRAINER_STEPS), probe)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        del probe
+    a = {r["step"]: r for r in straight["steps"]}
+    b = {r["step"]: r for r in resumed["steps"]}
+    resumed_steps = sorted(b)
+    loss_rel = max(abs(a[i]["loss"] - b[i]["loss"]) / abs(a[i]["loss"]) for i in resumed_steps)
+    params = dict(straight["state"].model.named_parameters())
+    param_diff = max((p - params[n]).abs().max().item() for n, p in resumed["state"].model.named_parameters())
+    param_scale = max(p.abs().max().item() for p in params.values())
+
+    # one trainer batch (the first of epoch 0) through the kernels and through the plain versions
+    batch = next(iter(ds.batches(cfg.training.batch_size, np.random.default_rng([cfg.experiment.seed, 0]))))
+    b0 = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    key_gen, draw_gen = trainer.seeded_generators(cfg.experiment.seed + 1, 0, torch.device("cuda"))
+    draws = render.draw_render(statics, b0["tokens"].shape[0], sc, draw_gen)
+    keys = draw_site_keys(mc, key_gen)
+    wav = render.render_batch(statics, b0["notes"], b0["note_mask"], draws, sc)
+    with plain_kernels():
+        wav_plain = render.render_batch(statics, b0["notes"], b0["note_mask"], draws, sc)
+
+    def fresh():
+        model = trainer.init_model(cfg, "cuda")
+        opt, _ = make_optimizer(cfg.training, TRAINER_STEPS, model)
+        return make_synth_train_step(mc, sc, statics, opt, device="cuda"), init_train_state(model, opt)
+
+    step, state = fresh()
+    with plain_kernels():
+        _, m_plain = step(state, b0, draws, keys)
+        plain = {k: float(m_plain[k]) for k in ("loss", "grad_norm")}
+    del step, state, m_plain
+    step, state = fresh()
+    _, m = step(state, b0, draws, keys)
+    kernel = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del step, state, m
+    per_step = {**dict.fromkeys(kernel_counters(), 0), "log_mel": 1, "gather_blend": 1, "place_notes": 1}
+    n_evals = {"straight": 2, "resumed": 1}  # one holdout batch each
+    expected = {run: {k: n * (len(r["steps"]) + n_evals[run]) for k, n in per_step.items()}
+                for run, r in (("straight", straight), ("resumed", resumed))}
+    res = {"phase": "trainer", "config": SYNTH_YAML, "batch": cfg.training.batch_size, "rows": TRAINER_ROWS,
+           "holdout_rows": int(TRAINER_ROWS * TRAINER_HOLDOUT), "steps": TRAINER_STEPS,
+           "losses": [a[i]["loss"] for i in sorted(a)], "grad_norms": [a[i]["grad_norm"] for i in sorted(a)],
+           **step_rate(straight, half), "straight_wall_s": straight["wall_s"], "resumed_wall_s": resumed["wall_s"],
+           "resumed_steps_rate": step_rate(resumed, half)["logged_steps_per_sec"], "save_s": save_s,
+           "model_init_s": init_s, "restore_s": restore_s,
+           "eval_history": history, "resumed_steps": resumed_steps,
+           "resumed_losses": [b[i]["loss"] for i in resumed_steps], "resume_loss_max_rel_diff": loss_rel,
+           "resume_loss_rtol": 1e-4, "resume_param_max_abs_diff": param_diff, "param_scale": param_scale,
+           "resume_bit_equal": loss_rel == 0.0 and param_diff == 0.0, "safetensors_equal_to_model": safetensors_equal,
+           "checkpoint_gib": checkpoint_gib, "first_batch": {"note_slots": batch["notes"].shape[1],
+                                                            "tokens": batch["tokens"].shape[1]},
+           "render_equal_to_plain_path": bool(torch.equal(wav, wav_plain)),
+           "vs_plain_step": {"kernel": kernel, "plain": plain, "loss_rtol": 1e-4, "grad_norm_rtol": 2e-3},
+           "launches": {"straight": straight["launches"], "resumed": resumed["launches"]},
+           "expected_launches": expected}
+    emit(res)
+    checks = {
+        "every loss finite": all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+        "straight run took every step": sorted(a) == list(range(1, TRAINER_STEPS + 1)),
+        "resumed run took the second half": resumed_steps == list(range(half + 1, TRAINER_STEPS + 1)),
+        "resumed losses = straight losses": loss_rel <= 1e-4,
+        "resumed weights = straight weights": param_diff <= 1e-4 * param_scale,
+        "model.safetensors = the model": safetensors_equal,
+        "two finite eval lines": [h["step"] for h in history] == [half, TRAINER_STEPS]
+                                 and all(math.isfinite(h["eval_loss"]) for h in history),
+        "K1, K2, K3 once a step and an eval batch": res["launches"] == expected,
+        "trainer batch render = plain path": res["render_equal_to_plain_path"],
+        "trainer step = plain-path step": abs(kernel["loss"] - plain["loss"]) <= 1e-4 * abs(plain["loss"])
+                                          and abs(kernel["grad_norm"] - plain["grad_norm"]) <= 2e-3 * plain["grad_norm"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"trainer phase failed {failed}")
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_trainer_tmidt(statics: render.SynthStatics, sc) -> dict:
+    """The training job on TMIDT-flash at full width, batch 64, TMIDT_STEPS
+    steps: an in-memory TMIDTDataset of audio rendered on the card with the
+    bank from seeded GM notes (as the eval phase renders its items). K1
+    launches once a step, K5f and K5b once an attention a step, at the
+    trimmed token buckets; the trainer traces one step
+    (`logging.profile_steps`), and that trace must hold device time for
+    every kernel the step launches; then K5f and K5b are held against their
+    plain versions at the first batch's bucket (decoder self and cross)."""
+    n = TMIDT_STEPS * TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(TRAIN_YAMLS["flash"], training={"batch_size": TRAIN_BATCH, "max_steps": TMIDT_STEPS},
+                          logging={"output_dir": tmp, "logging_steps": 1, "save_every_n_steps": None,
+                                   "profile_steps": [TMIDT_PROFILED, TMIDT_PROFILED]})
+        tok = MidiTokenizer(cfg.tokenizer)
+        raw = gm_note_rows(n, SEED + 110, 100)
+        audio = render_segments(statics, sc, [tok.map_notes_to_Gm_custom(r) for r in raw], SEED + 111)
+        rows = {"audio": [a.astype(np.float32).tobytes() for a in audio], "sample_rate": [sc.sample_rate] * n,
+                "notes": [r.tobytes() for r in raw]}
+        ds = TMIDTDataset(cfg.train_data, tok, rows=rows)
+        run = run_trainer(cfg, dataset=ds)
+        traces = list((Path(tmp) / cfg.experiment.run_name / "profile").glob("*.json"))
+        events = json.loads(traces[0].read_text()).get("traceEvents", []) if len(traces) == 1 else []
+    mc = cfg.model
+    buckets = [b["tokens"].shape[1] for b in ds.batches(TRAIN_BATCH, np.random.default_rng([cfg.experiment.seed, 0]))]
+    per_step = mc.enc_layers + 2 * mc.dec_layers
+    one_step = {**dict.fromkeys(kernel_counters(), 0), "log_mel": 1, "fused_attention": per_step,
+                "fused_attention_bwd": per_step}
+    expected = {k: n * TMIDT_STEPS for k, n in one_step.items()}
+    # the trainer's own trace of one step (`logging.profile_steps`): every kernel the step launches must
+    # have device time in it (a session now and then records no device event at all: then it is only
+    # reported); busy share = device time over the trace's span
+    device_events = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    profile = None
+    if events:
+        profile = device_time_by_group(events, one_step) if device_events else {"device_kernels": 0}
+    if device_events:
+        ts = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events if "ts" in e and e.get("ph") == "X"]
+        profile["span_ms"] = (max(b for _, b in ts) - min(a for a, _ in ts)) / 1e3
+        profile["device_busy_share_of_span"] = profile["device_busy_ms"] / profile["span_ms"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 112)
+    tq = buckets[0] - 1  # the decoder's inputs: the bucket less the last label
+    at_bucket = {f"decoder-self {tq}": (tq, tq, True), f"cross {tq} x 246": (tq, 246, False)}
+    vs_plain = {s: {"fwd": phase_attention(TRAIN_BATCH, *shape, gen, s),
+                    "bwd": phase_attention_bwd(TRAIN_BATCH, *shape, gen, s)} for s, shape in at_bucket.items()}
+    losses = [r["loss"] for r in run["steps"]]
+    res = {"phase": "trainer_tmidt", "config": TRAIN_YAMLS["flash"], "batch": TRAIN_BATCH, "items": n,
+           "steps": TMIDT_STEPS, "token_buckets": buckets, "losses": losses,
+           **step_rate(run, exclude=(TMIDT_PROFILED - 1, TMIDT_PROFILED)),
+           "wall_s": run["wall_s"], "launches": run["launches"], "expected_launches": expected,
+           "profiled_step": TMIDT_PROFILED + 1, "trainer_profile": profile,
+           "kernels_at_bucket": {s: {d: {k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms")}
+                                     for d, r in v.items()} for s, v in vs_plain.items()}}
+    emit(res)
+    if not (len(losses) == TMIDT_STEPS and all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"trainer_tmidt: losses {losses}")
+    if run["launches"] != expected:
+        raise RuntimeError(f"trainer_tmidt: launches {run['launches']}, expected {expected}")
+    if all(b == cfg.train_data.max_tokens for b in buckets):
+        raise RuntimeError(f"trainer_tmidt: no batch was trimmed to a token bucket: {buckets}")
+    if profile is None:
+        raise RuntimeError(f"trainer_tmidt: the trainer wrote no profile of step {TMIDT_PROFILED + 1}: {traces}")
+    del run
+    torch.cuda.empty_cache()
+    return res
+
+
+def beam_decode(length_penalty: float, beam_size: int):
+    def decode(model, memory, max_len, bos, eos):
+        return beam_search_decode_from_memory(model, memory, max_len, beam_size, bos, eos, length_penalty)
+
+    return decode
+
+
+def phase_beam(statics: render.SynthStatics, sc) -> dict:
+    """Beam search on the card: `run_inference` with `use_beam_search`
+    (beam BEAM_SIZE, length penalty 1.0) over the eval phase's items with
+    the ENST eval config and K1 and K5 on; every decoded row well formed
+    (BOS, then only EOS after the first EOS); K1 once a batch and K5f once
+    an encoder layer a batch; a beam-1 decode of one batch equal to the
+    greedy decode's tokens; the HTTP server around
+    `ServingEngine(use_beam=True)` (the serving config with
+    `serving.use_beam_search` on) answering N_REQUESTS concurrent requests;
+    decode ms a step and the device's busy share of a beam decode."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(EVAL_YAML, model=KERNELS_ON, inference={"output_path": out_dir, "use_beam_search": True,
+                                                                   "beam_size": BEAM_SIZE})
+        tokenizer = RecordingTokenizer(cfg.tokenizer)
+        ds = eval_items(statics, sc, MidiTokenizer(cfg.tokenizer), SEED + 70)
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device="cuda")
+        wall = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    bs, max_len = cfg.inference.batch_size, cfg.inference.max_length
+    bos, eos = cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token
+    n_batches = -(-len(ds) // bs)
+
+    def well_formed(row) -> bool:
+        ends = np.nonzero(row == eos)[0]
+        return row[0] == bos and (not len(ends) or (row[ends[0]:] == eos).all())
+
+    wavs = torch.from_numpy(np.stack(ds.wavs[:bs])).cuda()
+    greedy = greedy_decode(model, wavs, max_length=max_len, start_token=bos, end_token=eos)
+    beam1 = beam_search_decode(model, wavs, max_length=max_len, beam_size=1, start_token=bos, end_token=eos)
+    breakdown = decode_breakdown(model, cfg, batch=bs, decode=beam_decode(1.0, BEAM_SIZE))
+    del model
+    serve_cfg = load_config(SERVING_YAML, serving={"use_beam_search": True, "beam_size": BEAM_SIZE,
+                                                   "length_penalty": 1.0})
+    engine = build_engine(serve_cfg, ADTModel(serve_cfg.model, seed=SEED, device="cuda"))
+    engine_beam = (engine.use_beam, engine.beam_size, engine.length_penalty)
+    results, serve_wall, serve_launches, stats = serve_requests(engine, serve_cfg)
+    res = {"phase": "beam", "config": EVAL_YAML, "beam_size": BEAM_SIZE, "length_penalty": 1.0, "batch_size": bs,
+           "max_length": max_len, "items": len(ds), "batches": n_batches, "wall_s": wall,
+           "items_per_s": len(ds) / wall, "f_measure": metrics["all"]["f_measure"], "launches": launches,
+           "rows_decoded": len(tokenizer.rows), "rows_with_eos": int(sum((r == eos).any() for r in tokenizer.rows)),
+           "beam1_equals_greedy": bool(torch.equal(beam1, greedy)), "breakdown": breakdown,
+           "serving": {"engine_beam": engine_beam, "wall_s": serve_wall, "request_s": [r[2] for r in results],
+                       "n_notes": [json.loads(r[1])["n_notes"] for r in results], "launches": serve_launches,
+                       "engine_stats": stats}}
+    emit(res)
+    expected = {**dict.fromkeys(counters, 0), "log_mel": n_batches, "fused_attention": n_batches * cfg.model.enc_layers}
+    checks = {
+        "every item decoded once": len(tokenizer.rows) == len(ds),
+        "every row well formed": all(well_formed(np.asarray(r)) for r in tokenizer.rows),
+        "K1 and K5f launched as the batches need": launches == expected,
+        "metrics finite": all(math.isfinite(v) for m in metrics.values() for v in m.values()),
+        "beam 1 = greedy": res["beam1_equals_greedy"],
+        "the served engine decodes with beam search": engine_beam == (True, BEAM_SIZE, 1.0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"beam phase failed {failed}: launches {launches}, expected {expected}")
+    torch.cuda.empty_cache()
+    return res
+
+
 # the training shapes of K5 at B = 64: (Tq, Tk, causal + padding mask)
 TRAIN_ATTENTION = {"encoder": (246, 246, False), "decoder-self": (511, 511, True), "cross": (511, 246, False)}
 TRAIN_FFN_ROWS = {"encoder": TRAIN_BATCH * 246, "decoder": TRAIN_BATCH * 511}
@@ -1414,7 +1792,8 @@ def phase_synthesis(ptxas: dict) -> dict:
     cfg = load_config(SYNTH_YAML, train=True)
     sc = cfg.synthetiser
     t0 = time.monotonic()
-    statics = render.SynthStatics.from_bank(build_card_bank(sc, SEED + 50), device="cuda")
+    bank = build_card_bank(sc, SEED + 50)
+    statics = render.SynthStatics.from_bank(bank, device="cuda")
     torch.cuda.synchronize()
     table = statics.waveforms
     emit({"phase": "bank", "rows": table.shape[0], "samples": table.shape[1], "dtype": str(table.dtype),
@@ -1424,8 +1803,10 @@ def phase_synthesis(ptxas: dict) -> dict:
     out = {"gather_blend": phase_gather_blend(statics, sc, gen),
            "place_notes": phase_place_notes(statics, sc, gen, ptxas["place_notes"]),
            "render": phase_render(statics, sc, gen), "training": phase_synth_training(cfg, statics),
-           "eval": phase_eval(statics, sc), "inference": phase_inference(statics, sc)}
-    del statics, table
+           "eval": phase_eval(statics, sc), "inference": phase_inference(statics, sc),
+           "trainer": phase_trainer(bank, statics), "trainer_tmidt": phase_trainer_tmidt(statics, sc),
+           "beam": phase_beam(statics, sc)}
+    del statics, table, bank
     torch.cuda.empty_cache()
     return out
 
@@ -1457,7 +1838,11 @@ def main() -> int:
     bench = phase_bench()
     by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()},
                "bench": bench["launches"], "eval": synth["eval"]["launches"],
-               "inference": synth["inference"]["launches"]}
+               "inference": synth["inference"]["launches"],
+               "trainer": synth["trainer"]["launches"]["straight"],
+               "trainer-resumed": synth["trainer"]["launches"]["resumed"],
+               "trainer_tmidt": synth["trainer_tmidt"]["launches"], "beam": synth["beam"]["launches"],
+               "beam-serving": synth["beam"]["serving"]["launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -537,3 +537,31 @@ def test_run_inference_on_the_card_launches_k1_and_k5f(cuda, tmp_path, caplog):
     assert items == 5 and tp + fn == sum(len(n) for n in notes) and fp >= 0
     assert json.loads((tmp_path / "metrics.json").read_text()) == metrics
     assert all(np.isfinite(v) for m in metrics.values() for v in m.values())
+
+
+# The training job trims note batches to 16-slot buckets and token batches to
+# 64-token buckets (`data/datasets.py`): K3 at the trimmed note buckets of a
+# setting-1 batch, K5f and K5b at the decoder's lengths of a token bucket
+# (bucket - 1 inputs: self-attention with the causal + padding mask, and
+# cross-attention over the 246 encoder frames).
+@pytest.mark.parametrize("slots", [16, 32, 48])
+def test_place_notes_kernel_at_the_trainers_note_buckets(cuda, slots):
+    out = _place_and_check(*_notes_case(64, 27, 30720, slots, 61440, slots, cuda), 61440)
+    assert (out[:, 61439] != 0).all()
+
+
+TOKEN_BUCKET_CASES = {"self-127": (8, 6, 127, 127, "causal"), "cross-127": (8, 6, 127, 246, None),
+                      "self-191": (4, 6, 191, 191, "causal"), "cross-191": (4, 6, 191, 246, None)}
+
+
+@pytest.mark.parametrize("case", list(TOKEN_BUCKET_CASES))
+def test_attention_kernels_at_the_trainers_token_buckets(cuda, case):
+    B, H, Tq, Tk, kind = TOKEN_BUCKET_CASES[case]
+    q, k, v = _qkv(B, H, Tq, Tk, cuda, seed=Tq)
+    mask = None
+    if kind == "causal":  # padding past each row's length, as the trainer's masks have
+        lengths = torch.randint(Tk // 4, Tk + 1, (B,), generator=torch.Generator().manual_seed(Tq))
+        pad = torch.where(torch.arange(Tk)[None] >= lengths[:, None], -1e4, 0.0)
+        mask = _causal(B, Tq, Tk, cuda) + pad[:, None, :].to(cuda)
+    _assert_attention_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk))
+    _assert_attention_bwd_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk))

@@ -281,8 +281,10 @@ def test_run_inference_refuses_beam_search_and_a_mesh(crafted, shard):
     cfg = FrameworkConfig.from_dict(tiny_config())
     model, tok = port_model(crafted, cfg), MidiTokenizer(cfg.tokenizer)
     ds = tdata.ENSTDataset(EvalDataConfig(dataset_path=shard, sample_rate=SR), tok)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tharness.run_inference(model, cfg.model, ds, tok, InferenceConfig(use_beam_search=True), device="cpu")
+    # beam search is ported: it decodes (test_torch_beam.py holds its metrics to the JAX harness's)
+    beam = tharness.run_inference(model, cfg.model, ds, tok, InferenceConfig(use_beam_search=True, max_length=8,
+                                                                            output_path=""), device="cpu")
+    assert set(beam["all"]) == {"precision", "recall", "f_measure"}
     with pytest.raises(NotImplementedError, match="item 10"):
         tharness.run_inference(model, cfg.model, ds, tok, InferenceConfig(), device="cpu", mesh=object())
 

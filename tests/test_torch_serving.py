@@ -151,8 +151,8 @@ def test_engine_close_drains_pending(served):
 
 def test_engine_rejects_what_is_not_ported(served):
     _, model, cfg = served
-    with pytest.raises(NotImplementedError, match="beam"):
-        ServingEngine(model, cfg, device="cpu", use_beam=True)
+    with ServingEngine(model, cfg, device="cpu", use_beam=True, beam_size=2) as eng:  # beam search is ported
+        assert eng.use_beam and eng.beam_size == 2
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ServingEngine(model, cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError):
@@ -273,7 +273,8 @@ def test_chip_smoke_config_is_enst_serving(monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing every port module (and chip_smoke.py) leaves `jax` and the
-    JAX package out of sys.modules."""
+    JAX package out of sys.modules; the training job's modules are among
+    those imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import adt_str_tpu_torch as pkg\n"
@@ -282,11 +283,14 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'adt_str_tpu'))\n"
         "assert not bad, bad\n"
+        "new = ['training.trainer', 'training.checkpoint', 'data.datasets', 'train', 'utils.misc']\n"
+        "missing = [m for m in new if 'adt_str_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('adt_str_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 20
 
 
 def test_entry_points_need_a_device_without_cuda(served, monkeypatch, tmp_path):
