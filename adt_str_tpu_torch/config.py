@@ -395,8 +395,9 @@ class ServingConfig:
 @dataclass
 class TrainingConfig:
     """The `training:` section (`adt_str_tpu/config.py:TrainingConfig`).
-    `grad_allreduce_dtype` and `ddp_loss_weighting` are read by multi-GPU
-    training (ROADMAP's DDP item); on one device they change nothing."""
+    `grad_allreduce_dtype` and `ddp_loss_weighting` set how the ranks of a
+    data-parallel run reduce (`parallel/train_step.py`); in one process
+    they change nothing."""
 
     batch_size: int = 64
     num_epochs: float = 1.0
@@ -447,8 +448,9 @@ class ExperimentConfig:
 
 @dataclass
 class MeshConfig:
-    """The parallel layout. The port trains on one device: a layout with
-    more than one replica or model shard raises in the trainer."""
+    """The parallel layout. The data axis is the ranks of a torchrun job
+    (-1: all of them); a model axis above 1 and `fsdp` raise
+    (`parallel/mesh.py:check_layout`)."""
 
     data_axis: int = -1  # -1: all remaining devices
     model_axis: int = 1

@@ -12,8 +12,9 @@ TMIDT example is real audio. The augmentations (injected empty segments,
 random velocities) draw from a per-example numpy generator.
 `_epoch_batches` shuffles an epoch (the holdout prefix excluded), draws
 every example's seed up front so that skipping the first `skip` batches on
-resume replays the same examples, and `collate`s them: the reference's
-length quirk, then the note and token bucket trims. `prefetch_batches`
+resume replays the same examples, strides the epoch by process in a
+multi-process run, and `collate`s them: the reference's length quirk,
+then (in one process) the note and token bucket trims. `prefetch_batches`
 assembles batches on a thread, a bounded number ahead.
 
 Evaluation (`EvalDataset` and its ENST and MDB variants): `audio_id`,
@@ -175,32 +176,39 @@ def trim_token_bucket(batch: dict[str, np.ndarray], pad_token: int = 1) -> dict[
     return batch
 
 
-def collate(examples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
-    """Stack fixed-shape examples, apply the length quirk, then the note and
-    token bucket trims."""
+def collate(examples: list[dict[str, np.ndarray]], trim: bool = True) -> dict[str, np.ndarray]:
+    """Stack fixed-shape examples, apply the length quirk, then (with
+    `trim`) the note and token bucket trims."""
     batch = {key: np.stack([e[key] for e in examples]) for key in examples[0]}
     batch["token_lengths"] = collate_token_lengths(torch.from_numpy(batch["token_lengths"].astype(np.int64))).numpy()
-    return trim_token_bucket(trim_note_bucket(batch))
+    return trim_token_bucket(trim_note_bucket(batch)) if trim else batch
 
 
-def _epoch_batches(dataset, batch_size: int, rng: np.random.Generator, shuffle: bool,
-                   skip: int) -> Iterator[dict[str, np.ndarray]]:
-    """One epoch of collated full batches. Shuffled, the epoch leaves out the
-    `holdout_fraction` prefix (the in-training eval stream) and permutes the
-    rest with `rng`; then one seed per example is drawn from `rng`, so the
-    examples of batch b are the same whether or not the first `skip`
-    batches were skipped."""
+def _epoch_batches(dataset, batch_size: int, rng: np.random.Generator, shuffle: bool, skip: int,
+                   process_index: int = 0, process_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+    """One epoch of collated full batches of `batch_size` rows. Shuffled,
+    the epoch leaves out the `holdout_fraction` prefix (the in-training
+    eval stream) and permutes the rest with `rng`; then one seed per
+    example is drawn from `rng` over the whole epoch, so the examples of
+    batch b are the same whether or not the first `skip` batches were
+    skipped. With `process_count` > 1, process `process_index` takes every
+    `process_count`-th example and seed from its index on (JAX's per-host
+    stride), and no batch is trimmed: ranks whose batches had other shapes
+    would deadlock in the collectives."""
     order = np.arange(len(dataset))
     if shuffle:
         holdout = int(len(dataset) * dataset.config.holdout_fraction)
         order = order[holdout:]
         rng.shuffle(order)
     seeds = rng.integers(0, 2**62, size=len(order))
+    if process_count > 1:
+        order = order[process_index::process_count]
+        seeds = seeds[process_index::process_count]
     for b in range(skip, len(order) // batch_size):
         idx = order[b * batch_size : (b + 1) * batch_size]
         sds = seeds[b * batch_size : (b + 1) * batch_size]
         examples = [dataset.example(int(i), np.random.default_rng(int(s))) for i, s in zip(idx, sds)]
-        yield collate(examples)
+        yield collate(examples, trim=process_count == 1)
 
 
 def _train_rows(config: TrainDataConfig, rows: Optional[dict[str, list]], columns: list[str]) -> dict[str, list]:
@@ -258,9 +266,9 @@ class LakhDataset:
             note_arr, note_mask = pad_notes(notes, self.max_notes)
         return {"notes": note_arr, "note_mask": note_mask, "tokens": padded, "token_lengths": np.int64(length)}
 
-    def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
-                skip: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        yield from _epoch_batches(self, batch_size, rng, shuffle, skip)
+    def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True, skip: int = 0,
+                process_index: int = 0, process_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+        yield from _epoch_batches(self, batch_size, rng, shuffle, skip, process_index, process_count)
 
 
 class TMIDTDataset:
@@ -311,9 +319,9 @@ class TMIDTDataset:
         padded, length = tok.encode_padded(notes[:n_fit], cfg.max_tokens)
         return {"wavs": wave, "tokens": padded, "token_lengths": np.int64(length)}
 
-    def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
-                skip: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        yield from _epoch_batches(self, batch_size, rng, shuffle, skip)
+    def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True, skip: int = 0,
+                process_index: int = 0, process_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+        yield from _epoch_batches(self, batch_size, rng, shuffle, skip, process_index, process_count)
 
 
 def prefetch_batches(iterator: Iterator, depth: int = 2) -> Iterator:

@@ -14,8 +14,16 @@ Port of `adt_str_tpu/evaluation/harness.py:run_inference` on one device:
   it.
 
 `inference.use_beam_search` decodes with `beam_search_decode`
-(`beam_size`, 5 when unset; length penalty 1.0), as the JAX harness does. A
-mesh (multi-GPU decode) is ROADMAP.md queue 1 item 10 and raises.
+(`beam_size`, 5 when unset; length penalty 1.0), as the JAX harness does.
+
+With a `mesh` (`parallel/mesh.py:DataMesh`) the decode runs data-parallel,
+as at `adt_str_tpu/evaluation/harness.py:115-140`: the decode batch is
+rounded up to the data axis, and each mesh entry decodes its own rows
+(`models/decode.py`'s sharded decoders). In a process group every rank
+walks the same dataset, decodes its row stripe of each global batch, and
+the tokens are all-gathered to every rank (through host memory with
+gloo), so every rank computes the same metrics; rank 0 alone writes
+`output_path`.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import json
 import logging
 import os
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,7 +49,13 @@ from adt_str_tpu_torch.evaluation.metrics import (
 )
 from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes
 from adt_str_tpu_torch.models.adt import ADTModel
-from adt_str_tpu_torch.models.decode import beam_search_decode, greedy_decode
+from adt_str_tpu_torch.models.decode import (
+    beam_search_decode,
+    beam_search_decode_sharded,
+    greedy_decode,
+    greedy_decode_sharded,
+)
+from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.utils.mappings import ADTOF_LABEL_MAPPING, GM_REDUCED_NAME_CONVENTION
 
 logger = logging.getLogger(__name__)
@@ -54,6 +69,20 @@ def _pad_batch(wavs: list[np.ndarray], chunk_samples: int) -> np.ndarray:
     return out
 
 
+def _decoder(cfg: InferenceConfig, max_len: int, bos: int, eos: int, mesh: Optional[DataMesh]):
+    """-> `decode(model, wavs) -> tokens`: greedy or beam, sharded over
+    `mesh` when there is one."""
+    if cfg.use_beam_search:
+        kw = dict(max_length=max_len, beam_size=cfg.beam_size or 5, start_token=bos, end_token=eos)
+        if mesh is not None:
+            return lambda m, w: beam_search_decode_sharded(m, w, mesh, **kw)
+        return lambda m, w: beam_search_decode(m, w, **kw)
+    kw = dict(max_length=max_len, start_token=bos, end_token=eos)
+    if mesh is not None:
+        return lambda m, w: greedy_decode_sharded(m, w, mesh, **kw)
+    return lambda m, w: greedy_decode(m, w, **kw)
+
+
 def run_inference(
     model: ADTModel,
     model_config: ModelConfig,
@@ -62,21 +91,27 @@ def run_inference(
     inference_config: InferenceConfig,
     exclude_ref_empty: bool = False,
     device=None,
-    mesh=None,
+    mesh: Optional[DataMesh] = None,
 ) -> dict:
     """Decode every batch of `dataset.batches(batch_size)` ({"wavs": [1-D
     float arrays], "notes": [(n, 4) arrays]}) with `model` on `device`
-    (None: cuda) -> {"all": {precision, recall, f_measure}, "<label>": {...}}."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device decode is not ported yet (ROADMAP.md queue 1 item 10: multi-GPU decode)")
+    (None: cuda, or the mesh's first device) -> {"all": {precision,
+    recall, f_measure}, "<label>": {...}}; over `mesh` as the module
+    docstring says."""
     cfg = inference_config
+    batch_rows = cfg.batch_size
+    writer = True
+    if mesh is not None:
+        batch_rows = -(-cfg.batch_size // mesh.n_data) * mesh.n_data  # rows divisible by the data axis
+        device = mesh.device if device is None else device
+        writer = mesh.rank == 0
     device = resolve_device(device)
     model = model.to(device).eval()
-    max_len = max(2, int(cfg.max_length))
+    decode = _decoder(cfg, max(2, int(cfg.max_length)), tokenizer.BOS_token, tokenizer.EOS_token, mesh)
     TP = FN = FP = 0
     per_label = new_per_label_accumulator()
     confusion = DrumConfusionMatrix(ADTOF_LABEL_MAPPING if tokenizer.ADTOF_mapping else GM_REDUCED_NAME_CONVENTION)
-    output_path = cfg.output_path
+    output_path = cfg.output_path if writer else ""
     if output_path:
         os.makedirs(output_path, exist_ok=True)
 
@@ -86,15 +121,13 @@ def run_inference(
         if max(len(w) for w in raw_wavs) < 1024:
             continue
         n_real = len(raw_wavs)
-        if n_real < cfg.batch_size:
-            raw_wavs = list(raw_wavs) + [np.zeros(1024, np.float32)] * (cfg.batch_size - n_real)
-        wavs = torch.from_numpy(_pad_batch(raw_wavs, model_config.chunk_samples)).to(device)
-        bos, eos = tokenizer.BOS_token, tokenizer.EOS_token
-        if cfg.use_beam_search:
-            tokens_pred = beam_search_decode(model, wavs, max_length=max_len, beam_size=cfg.beam_size or 5,
-                                             start_token=bos, end_token=eos)
+        if n_real < batch_rows:
+            raw_wavs = list(raw_wavs) + [np.zeros(1024, np.float32)] * (batch_rows - n_real)
+        wavs = torch.from_numpy(_pad_batch(raw_wavs, model_config.chunk_samples))
+        if mesh is not None and mesh.world > 1:  # this rank's stripe, then every rank's tokens
+            tokens_pred = mesh.all_gather_rows(decode(model, wavs[mesh.local_rows(batch_rows)].to(device)))
         else:
-            tokens_pred = greedy_decode(model, wavs, max_length=max_len, start_token=bos, end_token=eos)
+            tokens_pred = decode(model, wavs.to(device))
         tokens_pred = tokens_pred.cpu().numpy()
 
         for i in range(n_real):

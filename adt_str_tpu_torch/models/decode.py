@@ -27,16 +27,30 @@ resolve as in the JAX package. The best beam is read back through `anc`.
 
 The decode loop runs no kernel of its own: like the JAX `decode_step`, it
 calls `attention_core` directly.
+
+`greedy_decode_sharded` and `beam_search_decode_sharded` (JAX's mesh
+decode, `adt_str_tpu/models/decode.py:437-510`) split the batch over a
+`parallel/mesh.py:DataMesh`'s local entries: each entry decodes its own
+rows with the model's replica on its device, with no collective, and the
+rows come back in order. Decoding is row-independent, so each entry's
+tokens are a one-device decode of its rows; where the arithmetic does not
+depend on the batch size (the CPU at fp32) they equal the full batch's
+decode row for row. On the card the full-width bf16 decode does depend on
+it (PERF.md §6, PR 9). Distinct devices decode at once, one host thread
+each; entries that repeat a device run one after the other.
 """
 
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import torch
 
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.parallel.mesh import DataMesh
 
 
 class DecoderCaches(NamedTuple):
@@ -237,3 +251,49 @@ def beam_search_decode_from_memory(
     path = anc[items[:, 0], best]  # (B, max_length): the slot of the best beam's row at each position
     out = torch.gather(tokens.reshape(B, K, max_length), 1, path[:, None, :])[:, 0]
     return out.to(torch.int32)
+
+
+def _decode_sharded(model: ADTModel, wave: torch.Tensor, mesh: DataMesh, decode) -> torch.Tensor:
+    """`decode(replica, rows)` of each local mesh entry's contiguous rows of
+    `wave`, on its device -> the (B, max_length) tokens in row order, on
+    the mesh's first device. Under a process group `wave` holds this
+    rank's rows."""
+    entries = mesh.devices
+    if wave.shape[0] % len(entries):
+        raise ValueError(f"batch of {wave.shape[0]} rows not divisible by the mesh data axis ({len(entries)} "
+                         "local entries)")
+    k = wave.shape[0] // len(entries)
+    by_device: dict[torch.device, list[int]] = {}
+    for i, dev in enumerate(entries):
+        by_device.setdefault(dev, []).append(i)
+    parts: list = [None] * len(entries)
+
+    def run(dev: torch.device, indices: list[int]) -> None:
+        replica = mesh.replica(model, dev)
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            for i in indices:  # entries that share a device, one after the other
+                parts[i] = decode(replica, wave[i * k : (i + 1) * k].to(dev))
+
+    if len(by_device) == 1:
+        run(*next(iter(by_device.items())))
+    else:
+        with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+            for fut in [pool.submit(run, dev, idx) for dev, idx in by_device.items()]:
+                fut.result()
+    return torch.cat([p.to(mesh.device) for p in parts])
+
+
+def greedy_decode_sharded(model: ADTModel, wave: torch.Tensor, mesh: DataMesh, max_length: int = 1000,
+                          start_token: int = 2, end_token: int = 3) -> torch.Tensor:
+    """`greedy_decode` with each mesh entry decoding its own batch rows. The
+    batch must be divisible by the data axis."""
+    return _decode_sharded(model, wave, mesh,
+                           lambda m, w: greedy_decode(m, w, max_length, start_token, end_token))
+
+
+def beam_search_decode_sharded(model: ADTModel, wave: torch.Tensor, mesh: DataMesh, beam_size: int = 5,
+                               max_length: int = 1000, start_token: int = 2, end_token: int = 3,
+                               length_penalty: float = 1.0) -> torch.Tensor:
+    """`beam_search_decode` with each mesh entry decoding its own rows."""
+    return _decode_sharded(model, wave, mesh, lambda m, w: beam_search_decode(
+        m, w, max_length, beam_size, start_token, end_token, length_penalty))

@@ -1,4 +1,4 @@
-"""Online transcription server on one GPU:
+"""Online transcription server:
 `python -m adt_str_tpu_torch.serve <config.yaml> [--host H] [--port P] [--beam]`.
 
 Port of the root `serve.py`: loads the reference checkpoint named by the
@@ -9,6 +9,10 @@ config's `inference.checkpoint_path`, wraps it in the micro-batching
 - `GET  /healthz`        readiness
 - `GET  /stats`          micro-batching counters
 - `POST /v1/transcribe`  audio body (WAV/FLAC/raw f32 PCM) -> notes JSON/MIDI
+
+With no `--device` and more than one visible card, the engine serves
+data-parallel over all of them (each bucket split over the cards), as root
+`serve.py` does over every device; with one card nothing changes.
 
 `build_engine(cfg, model)` is the engine construction shared with
 `chip_smoke.py`.
@@ -21,23 +25,26 @@ import signal
 import sys
 import threading
 
+import torch
+
 from adt_str_tpu_torch import resolve_device
 from adt_str_tpu_torch.config import FrameworkConfig
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.convert import load_reference_checkpoint
+from adt_str_tpu_torch.parallel.mesh import make_mesh
 from adt_str_tpu_torch.serving.engine import ServingEngine
 from adt_str_tpu_torch.serving.http import make_server
 
 
-def build_engine(cfg: FrameworkConfig, model: ADTModel, device=None, **overrides) -> ServingEngine:
+def build_engine(cfg: FrameworkConfig, model: ADTModel, device=None, mesh=None, **overrides) -> ServingEngine:
     """The config's `serving:` engine around `model` on `device` (None:
-    cuda); keyword overrides (the CLI flags) win over YAML."""
-    return ServingEngine.from_config(model, cfg, device=device, **overrides)
+    cuda) or over `mesh`; keyword overrides (the CLI flags) win over YAML."""
+    return ServingEngine.from_config(model, cfg, device=device, mesh=mesh, **overrides)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(
-        description="ADT transcription server on one GPU. Every knob below "
+        description="ADT transcription server. Every knob below "
         "defaults to the config's `serving:` section; flags override YAML."
     )
     parser.add_argument("config_path", type=str)
@@ -65,8 +72,12 @@ def main() -> None:
     model = ADTModel(cfg.model, device=device)
     model.load_state_dict(load_reference_checkpoint(cfg.inference.checkpoint_path, device), strict=True)
 
+    mesh = None
+    if args.device is None and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+        print(f"Serving data-parallel over {mesh.n_data} devices")
     engine = build_engine(
-        cfg, model, device,
+        cfg, model, device, mesh,
         max_length=args.max_length,
         buckets=tuple(args.buckets) if args.buckets else None,
         max_wait_ms=args.max_wait_ms,

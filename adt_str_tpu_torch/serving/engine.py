@@ -18,8 +18,10 @@ contract:
   `length_penalty`), the eval harness's beam, with the same buckets;
 - `close()` drains the queue so every accepted request is answered.
 
-Tokens come back to the host as numpy int32. The multi-device mesh is not
-ported yet (ROADMAP.md, queue 1).
+Tokens come back to the host as numpy int32. With a `mesh`
+(`parallel/mesh.py:DataMesh` over this process's cards) every bucket must
+be divisible by its data axis, and each micro-batch decodes through the
+sharded decoders (`models/decode.py`): each card its own rows.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes, merge_chunk_notes
 from adt_str_tpu_torch.models import decode as decode_lib
 from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.parallel.mesh import DataMesh
 
 _SHUTDOWN = object()
 
@@ -66,12 +69,13 @@ class EngineStats:
 
 
 class ServingEngine:
-    """Micro-batching transcription engine on one device.
+    """Micro-batching transcription engine on one device or over a mesh.
 
     `submit_chunk(wave)` returns a Future resolving to the `(max_length,)`
     int32 token row of one audio chunk; `transcribe` chunks a whole song,
     submits, and merges notes — concurrent songs share micro-batches.
-    `device` None means cuda (raises without one)."""
+    `device` None means cuda (raises without one), or the mesh's first
+    device."""
 
     def __init__(
         self,
@@ -88,10 +92,16 @@ class ServingEngine:
         beam_size: int = 5,
         length_penalty: float = 1.0,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("multi-device decode is not ported yet (ROADMAP.md queue 1: multi-GPU decode)")
         if not buckets or list(buckets) != sorted(set(buckets)):
             raise ValueError(f"buckets must be sorted unique sizes, got {buckets!r}")
+        if mesh is not None:
+            if not isinstance(mesh, DataMesh) or mesh.group is not None:
+                raise ValueError("the engine serves in one process: pass a DataMesh over this process's devices")
+            bad = [b for b in buckets if b % mesh.n_data]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the mesh data axis ({mesh.n_data})")
+            device = mesh.device if device is None else device
+        self._mesh = mesh
         self.device = resolve_device(device)
         self.config = config
         self.tokenizer = MidiTokenizer(config.tokenizer)
@@ -115,7 +125,7 @@ class ServingEngine:
     # ---------------------------------------------------------------- public
 
     @classmethod
-    def from_config(cls, model: ADTModel, config: FrameworkConfig, *, device=None,
+    def from_config(cls, model: ADTModel, config: FrameworkConfig, *, device=None, mesh=None,
                     **overrides) -> "ServingEngine":
         """Build from the config's `serving:` section; kwargs override YAML."""
         s = config.serving
@@ -128,7 +138,7 @@ class ServingEngine:
             length_penalty=s.length_penalty,
         )
         kw.update({k: v for k, v in overrides.items() if v is not None})
-        return cls(model, config, device=device, **kw)
+        return cls(model, config, device=device, mesh=mesh, **kw)
 
     def precompile(self) -> float:
         """Run every bucket once (blocking): builds the kernels and warms the
@@ -193,10 +203,19 @@ class ServingEngine:
     # ------------------------------------------------------------- internals
 
     def _decode_device(self, waves: np.ndarray) -> np.ndarray:
-        """One device decode of a padded (bucket, chunk_samples) batch."""
+        """One decode of a padded (bucket, chunk_samples) batch, each mesh
+        entry decoding its own rows when there is a mesh."""
         dev = torch.from_numpy(waves).to(self.device)
         bos, eos = self.tokenizer.BOS_token, self.tokenizer.EOS_token
-        if self.use_beam:
+        if self._mesh is not None:
+            if self.use_beam:
+                tokens = decode_lib.beam_search_decode_sharded(
+                    self._model, dev, self._mesh, beam_size=self.beam_size, max_length=self.max_length,
+                    start_token=bos, end_token=eos, length_penalty=self.length_penalty)
+            else:
+                tokens = decode_lib.greedy_decode_sharded(self._model, dev, self._mesh, max_length=self.max_length,
+                                                          start_token=bos, end_token=eos)
+        elif self.use_beam:
             tokens = decode_lib.beam_search_decode(
                 self._model, dev, max_length=self.max_length, beam_size=self.beam_size,
                 start_token=bos, end_token=eos, length_penalty=self.length_penalty,

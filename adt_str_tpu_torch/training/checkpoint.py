@@ -13,7 +13,11 @@ Port of `adt_str_tpu/training/checkpoint.py`. A checkpoint is a directory
   the JAX package and the reference load.
 
 Each file is written under a temporary name and renamed into place, and a
-second save of a step overwrites it. `gc_checkpoints` keeps the newest
+second save of a step overwrites it. In a data-parallel run (`mesh` a
+process-group `DataMesh`) every rank calls the save: rank 0 alone writes
+and collects garbage, and a barrier follows, so no rank reads a
+half-written checkpoint; every rank restores the same files onto its own
+device. `gc_checkpoints` keeps the newest
 `max_checkpoints` by mtime; `latest_checkpoint` is the newest (auto-resume).
 A checkpoint whose `meta.json` was lost (a preemption between the two
 writes) restores with step and epoch read from its directory name. The JAX
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from adt_str_tpu_torch.models.convert import write_safetensors
+from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.training.optimizer import OptState
 
 _CKPT_RE = re.compile(r"checkpoint-epoch-(\d+)-step-(\d+)$")
@@ -51,19 +56,24 @@ def _replace_into(path: Path, write) -> None:
 
 
 def save_checkpoint(output_dir: str | Path, model: torch.nn.Module, opt_state: OptState, step: int, epoch: int = 0,
-                    max_checkpoints: Optional[int] = None) -> str:
+                    max_checkpoints: Optional[int] = None, mesh: Optional[DataMesh] = None) -> str:
     """Write `output_dir/checkpoint-epoch-{epoch}-step-{step}` (overwriting
-    it if it exists), then GC to the newest `max_checkpoints`. -> its path."""
+    it if it exists), then GC to the newest `max_checkpoints`. -> its path.
+    Under a process-group `mesh`: rank 0 writes, then every rank waits."""
     output_dir = Path(output_dir)
     path = output_dir / checkpoint_name(epoch, step)
-    path.mkdir(parents=True, exist_ok=True)
-    state = {"model": model.state_dict(), "opt_state": dataclasses.asdict(opt_state), "step": int(step),
-             "epoch": int(epoch)}
-    _replace_into(path / "state.pt", lambda p: torch.save(state, p))
-    _replace_into(path / "meta.json", lambda p: p.write_text(json.dumps({"step": int(step), "epoch": int(epoch)})))
-    _replace_into(path / "model.safetensors", lambda p: write_safetensors(model.state_dict(), p))
-    if max_checkpoints:
-        gc_checkpoints(output_dir, max_checkpoints)
+    if mesh is None or mesh.rank == 0:
+        path.mkdir(parents=True, exist_ok=True)
+        state = {"model": model.state_dict(), "opt_state": dataclasses.asdict(opt_state), "step": int(step),
+                 "epoch": int(epoch)}
+        _replace_into(path / "state.pt", lambda p: torch.save(state, p))
+        _replace_into(path / "meta.json",
+                      lambda p: p.write_text(json.dumps({"step": int(step), "epoch": int(epoch)})))
+        _replace_into(path / "model.safetensors", lambda p: write_safetensors(model.state_dict(), p))
+        if max_checkpoints:
+            gc_checkpoints(output_dir, max_checkpoints)
+    if mesh is not None:
+        mesh.barrier()
     return str(path)
 
 

@@ -1,4 +1,4 @@
-"""Training loop on one device: `train(cfg)`.
+"""Training loop on one device or data-parallel over ranks: `train(cfg)`.
 
 Port of `adt_str_tpu/training/trainer.py` (`evaluate_loss`, `train`):
 
@@ -9,8 +9,9 @@ Port of `adt_str_tpu/training/trainer.py` (`evaluate_loss`, `train`):
 - Lakh: the synthesis-fused step renders each batch's audio on the device
   (`make_synth_train_step`); TMIDT: real audio (`make_train_step`);
 - each step's dropout site keys and render draws come from generators
-  seeded by (`experiment.seed + 1`, step index), counter-based like JAX's
-  `fold_in`, so a resumed run replays the same keys;
+  seeded by (`experiment.seed + 1`, step index[, rank]), counter-based like
+  JAX's `fold_in`, so a resumed run replays the same keys; the rank joins
+  the seed only when there is more than one;
 - epoch order from `np.random.default_rng([seed, epoch])`; a resume skips
   the in-progress epoch's first batches by index (`skip`); batches are
   assembled on a prefetch thread, in pinned host memory on CUDA so that
@@ -29,15 +30,26 @@ Port of `adt_str_tpu/training/trainer.py` (`evaluate_loss`, `train`):
 - `logging.profile_steps` traces steps [first, last] with torch.profiler
   into `output_dir/profile`; wandb when asked for and installed.
 
-One device only: a mesh, FSDP or more than one process raises (ROADMAP's
-multi-GPU DDP item).
+Data parallelism (the JAX trainer's multi-process logic): under torchrun
+(`python -m torch.distributed.run --nproc_per_node N -m
+adt_str_tpu_torch.train <yaml>`) `maybe_initialize_distributed` joins the
+process group first and picks each rank's device and backend. Each rank
+loads `training.batch_size` rows of its own stride a step, so the global
+batch is `batch_size x world`, at which `steps_per_epoch` and the holdout
+check are computed; the steps reduce over the ranks
+(`parallel/train_step.py`); rank 0's weights are broadcast at start;
+`evaluate_loss` gives every rank the same global loss; rank 0 alone logs,
+writes the checkpoints and `eval_history.jsonl`, traces the profile window
+and starts wandb; a signal sets a local flag whose global OR (one
+all-reduce a step, read a step later) stops every rank after one common
+save. The group the trainer joined is destroyed at the end, also on
+error. A model axis or FSDP raises (`parallel/mesh.py:check_layout`).
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import os
 import signal
 import time
 from pathlib import Path
@@ -51,6 +63,8 @@ from adt_str_tpu_torch.config import FrameworkConfig, ModelConfig, SynthConfig
 from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset, prefetch_batches
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.models.adt import ADTModel, draw_site_keys
+from adt_str_tpu_torch.parallel import mesh as mesh_lib
+from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.parallel.train_step import (
     TrainState,
     init_train_state,
@@ -75,10 +89,13 @@ def init_model(cfg: FrameworkConfig, device) -> ADTModel:
     return ADTModel(cfg.model, seed=cfg.experiment.seed, device=device)
 
 
-def seeded_generators(seed: int, index: int, device: torch.device) -> tuple[torch.Generator, torch.Generator]:
+def seeded_generators(seed: int, index: int, device: torch.device,
+                      rank: Optional[int] = None) -> tuple[torch.Generator, torch.Generator]:
     """(host generator, generator on `device`) seeded from (seed, index)
-    alone: the site keys are host integers, the render draws device tensors."""
-    host_seed, device_seed = np.random.SeedSequence([seed, index]).generate_state(2, np.uint64)
+    and, given one, a rank alone: the site keys are host integers, the
+    render draws device tensors."""
+    entropy = [seed, index] if rank is None else [seed, index, rank]
+    host_seed, device_seed = np.random.SeedSequence(entropy).generate_state(2, np.uint64)
     return (torch.Generator().manual_seed(int(host_seed)),
             torch.Generator(device=device).manual_seed(int(device_seed)))
 
@@ -130,40 +147,41 @@ def _maybe_wandb(cfg: FrameworkConfig):
     return wandb
 
 
-def _one_device(cfg: FrameworkConfig) -> None:
-    m = cfg.mesh
-    replicas = int(os.environ.get("WORLD_SIZE", "1"))
-    if m.model_axis > 1 or m.data_axis > 1 or m.fsdp or replicas > 1:
-        raise NotImplementedError(
-            f"the port trains on one device (mesh data_axis={m.data_axis}, model_axis={m.model_axis}, "
-            f"fsdp={m.fsdp}, WORLD_SIZE={replicas}): multi-GPU training is ROADMAP's multi-GPU DDP item")
+def _rank_or_none(mesh: Optional[DataMesh]) -> Optional[int]:
+    """The rank that joins a generator's seed: none in one process."""
+    return None if mesh is None or mesh.world == 1 else mesh.rank
 
 
 def evaluate_loss(model: ADTModel, model_cfg: ModelConfig, dataset, batch_size: int, device=None,
                   synth_config: Optional[SynthConfig] = None, statics: Optional[SynthStatics] = None,
-                  max_batches: Optional[int] = None, eval_step=None) -> float:
+                  max_batches: Optional[int] = None, eval_step=None, mesh: Optional[DataMesh] = None) -> float:
     """Mean teacher-forced loss over the unshuffled dataset's first batches
     (at most `max_batches`): real-audio batches directly, note-list batches
     rendered on the device under draws fixed per batch index (pass
     `synth_config` and `statics`), so repeated calls see the same audio.
-    `eval_step` reuses a step across calls. `device` None: cuda."""
+    `eval_step` reuses a step across calls. `device` None: cuda. Under a
+    process-group `mesh` each rank loads its stride of the prefix
+    (`batch_size` rows a rank), every rank takes the same analytic number
+    of batches, and each gets the same global loss."""
     device = resolve_device(device)
     synth = synth_config is not None and statics is not None
     if eval_step is None:
-        eval_step = (make_synth_eval_step(model_cfg, synth_config, statics, device=device) if synth
-                     else make_eval_step(model_cfg, device=device))
-    n_batches = len(dataset) // batch_size
+        eval_step = (make_synth_eval_step(model_cfg, synth_config, statics, device=device, mesh=mesh) if synth
+                     else make_eval_step(model_cfg, device=device, mesh=mesh))
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    n_batches = (len(dataset) // world) // batch_size
     if max_batches is not None:
         n_batches = min(n_batches, max_batches)
     total, batches = 0.0, 0
-    for batch in dataset.batches(batch_size, np.random.default_rng(0), shuffle=False):
+    for batch in dataset.batches(batch_size, np.random.default_rng(0), shuffle=False, process_index=rank,
+                                 process_count=world):
         if batches >= n_batches:
             break
         b = _device_batch(_host_tensors(batch, pin=False), device)
         if "wavs" in b:
             total += float(eval_step(model, b))
         elif "notes" in b and synth:
-            _, gen = seeded_generators(EVAL_DRAW_SEED, batches, device)
+            _, gen = seeded_generators(EVAL_DRAW_SEED, batches, device, _rank_or_none(mesh))
             total += float(eval_step(model, b, draw_render(statics, b["tokens"].shape[0], synth_config, gen)))
         else:
             raise ValueError("evaluate_loss needs real-audio batches (wavs) or a note-list dataset with "
@@ -172,17 +190,51 @@ def evaluate_loss(model: ADTModel, model_cfg: ModelConfig, dataset, batch_size: 
     return total / batches if batches else 0.0
 
 
+class _WarningsOnly(logging.Filter):
+    """Keeps a rank other than 0 from logging below WARNING."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        return record.levelno >= logging.WARNING
+
+
 def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = None, device=None) -> TrainState:
-    """Run the training job `cfg` describes on `device` (None: cuda) -> the
-    final TrainState. `dataset` (a LakhDataset or TMIDTDataset) and `bank`
-    (the one-shot bank of a Lakh run) replace what the config names: the
-    shards (read with pyarrow) and `<oneshot_path>@<sr>.hdf5` (h5py)."""
+    """Run the training job `cfg` describes on `device` (None: cuda; under
+    torchrun, `parallel/mesh.py:placement`) -> the final TrainState.
+    `dataset` (a LakhDataset or TMIDTDataset) and `bank` (the one-shot bank
+    of a Lakh run) replace what the config names: the shards (read with
+    pyarrow) and `<oneshot_path>@<sr>.hdf5` (h5py). In a process group
+    (joined here from torchrun's environment, or by the caller) it trains
+    data-parallel over the ranks."""
     setup_logging(cfg.logging.log_level)
-    _one_device(cfg)
-    device = resolve_device(device)
+    mesh_lib.check_layout(cfg.mesh.model_axis, cfg.mesh.fsdp)
+    joined = mesh_lib.maybe_initialize_distributed(device)
+    quiet = None
+    try:
+        device = joined if joined is not None else resolve_device(device)
+        mesh = None
+        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+            mesh = mesh_lib.make_mesh(devices=[device])
+            if mesh.rank > 0:
+                quiet = _WarningsOnly()
+                logger.addFilter(quiet)
+        data_axis = 1 if mesh is None else mesh.world
+        if cfg.mesh.data_axis > 0 and cfg.mesh.data_axis != data_axis:
+            raise ValueError(f"mesh.data_axis={cfg.mesh.data_axis} but the job runs {data_axis} ranks: the port "
+                             "runs one rank a data-axis entry (-1 takes every rank)")
+        return _train(cfg, dataset, bank, device, mesh)
+    finally:
+        if quiet is not None:
+            logger.removeFilter(quiet)
+        if joined is not None:
+            mesh_lib.destroy()
+
+
+def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: torch.device,
+           mesh: Optional[DataMesh]) -> TrainState:
     if cfg.train_data is None:
         raise ValueError("a TrainDatasetConfig section is required")
     data_cfg = cfg.train_data
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     tokenizer = MidiTokenizer(cfg.tokenizer)
     lakh = data_cfg.dataset_name == "Lakh"
     statics = None
@@ -205,34 +257,39 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
         logger.info("TMIDT dataset: %d items", len(dataset))
     else:
         raise ValueError(f"Dataset name {data_cfg.dataset_name} not supported")
-    wandb = _maybe_wandb(cfg)
+    wandb = _maybe_wandb(cfg) if rank == 0 else None
 
     model_cfg = cfg.model
     model = init_model(cfg, device)
     logger.info("model params: %.2f M", sum(p.numel() for p in model.parameters()) / 1e6)
 
-    batch_size = cfg.training.batch_size
+    batch_size = cfg.training.batch_size  # rows a rank loads a step
+    global_batch = batch_size * world
     holdout_rows = int(len(dataset) * data_cfg.holdout_fraction)
-    if data_cfg.holdout_fraction > 0 and cfg.logging.eval_every_n_steps and holdout_rows < batch_size:
+    if data_cfg.holdout_fraction > 0 and cfg.logging.eval_every_n_steps and holdout_rows < global_batch:
         # the unshuffled eval stream would run past the holdout into trained rows
         raise ValueError(f"holdout_fraction={data_cfg.holdout_fraction} reserves only {holdout_rows} of "
-                         f"{len(dataset)} rows but one eval batch needs {batch_size}; raise holdout_fraction "
+                         f"{len(dataset)} rows but one eval batch needs {global_batch}; raise holdout_fraction "
                          "or shrink the batch")
-    steps_per_epoch = max(1, (len(dataset) - holdout_rows) // batch_size)
+    steps_per_epoch = max(1, (len(dataset) - holdout_rows) // global_batch)
     total_steps = int(steps_per_epoch * float(cfg.training.num_epochs))
     if cfg.training.max_steps:
         total_steps = min(total_steps, cfg.training.max_steps)
-    logger.info("device=%s batch=%d steps/epoch=%d total_steps=%d", device, batch_size, steps_per_epoch, total_steps)
+    logger.info("device=%s ranks=%d batch=%d a rank (%d global) steps/epoch=%d total_steps=%d", device, world,
+                batch_size, global_batch, steps_per_epoch, total_steps)
 
     opt, schedule = make_optimizer(cfg.training, total_steps, model)
+    dp = dict(mesh=mesh, comm_dtype=cfg.training.grad_allreduce_dtype,
+              ddp_loss_weighting=cfg.training.ddp_loss_weighting)
     if lakh:
-        step_fn = make_synth_train_step(model_cfg, cfg.synthetiser, statics, opt, device=device)
+        step_fn = make_synth_train_step(model_cfg, cfg.synthetiser, statics, opt, device=device, **dp)
     else:
-        step_fn = make_train_step(model_cfg, opt, device=device)
+        step_fn = make_train_step(model_cfg, opt, device=device, **dp)
     state = init_train_state(model, opt)
 
     output_dir = Path(cfg.logging.output_dir) / cfg.experiment.run_name
-    output_dir.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        output_dir.mkdir(parents=True, exist_ok=True)
     start_step = 0
     resume = cfg.checkpoint.resume_from_checkpoint
     if not resume and cfg.checkpoint.auto_resume:
@@ -241,35 +298,40 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
         opt_state, start_step, _ = ckpt_lib.restore_checkpoint(resume, model, device)
         state = TrainState(model, opt_state, start_step)
         logger.info("resumed from %s at step %d", resume, start_step)
+    mesh_lib.broadcast_model(mesh, model)
 
     eval_every = cfg.logging.eval_every_n_steps
     eval_step_fn = None
     if eval_every:
-        eval_step_fn = (make_synth_eval_step(model_cfg, cfg.synthetiser, statics, device=device) if lakh
-                        else make_eval_step(model_cfg, device=device))
+        eval_step_fn = (make_synth_eval_step(model_cfg, cfg.synthetiser, statics, device=device, mesh=mesh) if lakh
+                        else make_eval_step(model_cfg, device=device, mesh=mesh))
 
     def run_eval(step_idx: int) -> None:
         eval_cap = cfg.logging.eval_batches
         if holdout_rows:  # stay inside the held-out prefix
-            prefix_batches = max(1, holdout_rows // batch_size)
+            prefix_batches = max(1, holdout_rows // global_batch)
             eval_cap = min(eval_cap or prefix_batches, prefix_batches)
         e_loss = evaluate_loss(state.model, model_cfg, dataset, batch_size, device,
                                synth_config=cfg.synthetiser if lakh else None, statics=statics,
-                               max_batches=eval_cap, eval_step=eval_step_fn)
+                               max_batches=eval_cap, eval_step=eval_step_fn, mesh=mesh)
         logger.info("eval @ step %d: eval_loss=%.4f", step_idx, e_loss,
                     extra={"step_metrics": {"step": step_idx, "eval_loss": e_loss}})
         if wandb:
             wandb.log({"eval_loss": e_loss}, step=step_idx)
-        with open(output_dir / "eval_history.jsonl", "a") as f:
-            f.write(json.dumps({"step": step_idx, "eval_loss": e_loss}) + "\n")
+        if rank == 0:  # one writer; every rank holds the same loss
+            with open(output_dir / "eval_history.jsonl", "a") as f:
+                f.write(json.dumps({"step": step_idx, "eval_loss": e_loss}) + "\n")
 
-    # SIGTERM / SIGINT: finish the step in flight, save, stop
+    # SIGTERM / SIGINT: finish the step in flight, save, stop. A signal lands
+    # on one rank: the local flags' global OR (one all-reduce a step, read a
+    # step later so it never waits on the step in flight) stops every rank at
+    # the same step, into one common save.
     stop_requested = {"flag": False}
     prev_handlers = {}
 
     def _on_signal(signum, frame):
         stop_requested["flag"] = True
-        logger.info("signal %d received: will checkpoint and stop", signum)
+        logger.warning("signal %d received: will checkpoint and stop", signum)
 
     for sig in (signal.SIGTERM, signal.SIGINT):
         try:
@@ -277,7 +339,19 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
         except ValueError:  # not the main thread
             pass
 
-    profile_steps = cfg.logging.profile_steps or []
+    flag_device = None if mesh is None else (torch.device("cpu") if mesh.backend == "gloo" else device)
+    pending_stop = None  # last step's global OR, dispatched
+
+    def stop_now() -> bool:
+        nonlocal pending_stop
+        if mesh is None:
+            return stop_requested["flag"]
+        stop = pending_stop is not None and bool(pending_stop.item())
+        flag = torch.tensor([int(stop_requested["flag"])], dtype=torch.int32, device=flag_device)
+        pending_stop = mesh.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return stop
+
+    profile_steps = (cfg.logging.profile_steps or []) if rank == 0 else []
     profiler = None
     step_idx = start_step
     t_last = time.perf_counter()
@@ -310,19 +384,23 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
     last_saved_step = -1
     done = False
     pin = device.type == "cuda"
+    key_rank = _rank_or_none(mesh)
 
     def save(tag: str) -> None:
         nonlocal last_saved_step
         path = ckpt_lib.save_checkpoint(output_dir, state.model, state.opt_state, step_idx, epoch,
-                                        max_checkpoints=cfg.checkpoint.max_checkpoints)
+                                        max_checkpoints=cfg.checkpoint.max_checkpoints, mesh=mesh)
         last_saved_step = step_idx
         logger.info("%s checkpoint %s", tag, path)
 
     while not done:
         epoch_rng = np.random.default_rng([cfg.experiment.seed, epoch])
         batches = prefetch_batches(
-            (_host_tensors(b, pin) for b in dataset.batches(batch_size, epoch_rng, shuffle=True, skip=skip)),
+            (_host_tensors(b, pin) for b in dataset.batches(batch_size, epoch_rng, shuffle=True, skip=skip,
+                                                              process_index=rank, process_count=world)),
             depth=max(1, data_cfg.prefetch))
+        # every rank takes the analytic steps_per_epoch batches an epoch, so
+        # the ranks' epochs end together
         epoch_budget = steps_per_epoch - skip
         skip = 0
         for batch in batches:
@@ -331,7 +409,7 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
                 break
             epoch_budget -= 1
             b = _device_batch(batch, device)
-            key_gen, draw_gen = seeded_generators(cfg.experiment.seed + 1, step_idx, device)
+            key_gen, draw_gen = seeded_generators(cfg.experiment.seed + 1, step_idx, device, key_rank)
             site_keys = draw_site_keys(model_cfg, key_gen)
             if profile_steps and profiler is None and step_idx == max(0, profile_steps[0] - 1):
                 profiler = _start_profiler(profile_steps, device, output_dir)
@@ -360,7 +438,7 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
             if cfg.logging.save_every_n_steps and step_idx % cfg.logging.save_every_n_steps == 0:
                 flush_step_log()
                 save("saved")
-            if stop_requested["flag"]:
+            if stop_now():
                 if last_saved_step != step_idx:
                     save("preemption")
                 done = True

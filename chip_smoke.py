@@ -3,9 +3,10 @@
 Drives the port's serving path, its real-audio training step, its
 synthesis-fused training step, its training job (`trainer.train`: epochs,
 checkpoints, resume, in-training eval), its evaluation harness with greedy
-and beam decoding, its offline transcription CLI and its bench
-(`adt_str_tpu_torch`) at full width and holds its hand-written CUDA kernels
-against their plain PyTorch versions.
+and beam decoding, its offline transcription CLI, its bench and its data
+parallelism (two gloo ranks on the one card, one NCCL rank, decode split
+over a mesh) (`adt_str_tpu_torch`) at full width and holds its hand-written
+CUDA kernels against their plain PyTorch versions.
 Imports no JAX and nothing of the JAX package. Its five configs come from
 `configs/` through the port's own YAML reader (`SERVING_YAML`,
 `TRAIN_YAMLS`, `SYNTH_YAML`, `EVAL_YAML`; a `config` line prints each value
@@ -75,6 +76,25 @@ line:
      every row well formed, beam 1 equal to greedy on one batch, the HTTP
      server around a beam engine answering 3 concurrent requests, decode ms
      a step and the device's busy share;
+   - decode_dp: `run_inference` over a mesh of two entries of cuda:0
+     (`make_mesh(devices=["cuda:0", "cuda:0"])`), greedy and beam 5: tokens,
+     metrics.json and the confusion CSV equal to the one-device run at the
+     entries' batch of 8 (the full-width decode on the card is not
+     batch-invariant: the rows that differ from the batch-16 run are
+     counted, and `batch_dependence` reports which op first moves between
+     16 and 8 chunks); each entry launches K1 and K5f for its half of a batch;
+   - the data-parallel phases of two rank processes (multiprocessing spawn,
+     torchrun's environment, gloo, both on cuda:0; each rank builds its own
+     bank), after this process's single-process references and one rank of
+     NCCL here (`phase_ddp`): ddp_step (full width, 32 rows a rank: the
+     setting-1 and TMIDT-flash steps equal the one-process step on the same
+     64 rows within 1e-4 / 2e-3, the ranks' weights bit-equal; setting-1
+     as shipped for 3 steps; TMIDT-fused-ffn (K4); `ddp_loss_weighting`;
+     bf16 transport; NCCL equal to the no-mesh step; step ms, busy share,
+     all-reduce ms by backend and dtype), trainer_ddp (`trainer.train` in
+     both ranks, 6 steps with a save and an eval at 3, a resumed run
+     bit-equal, rank 0 the only writer, steps/s) and eval_ddp
+     (`run_inference` over the ranks: the one-process run at batch 8);
 5. training, one phase per configuration (`TRAIN_YAMLS`: TMIDT at full
    width, batch 64, with K4 or with K5; then `synth-setting-1`, the
    synthesis-fused step of setting-1 on the bank of 4): 5 steps of the
@@ -95,6 +115,9 @@ line:
    200 with well-formed notes, both serving kernels' launch counters must
    rise, and the kernel-path encoder memory must agree with the port's CPU
    path (which the tests hold against the JAX package);
+   then decode_dp's serving part: a `ServingEngine` over the two-entry mesh
+   (its even buckets; a bucket of 1 must raise) answers the same requests,
+   and whether its notes equal the one-device engine's is reported;
 7. bench: the port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with
    its whole workload prints its JSON line on a line of its own, with
    every window's time, the launches of K1, K2 and K3 in the timed
@@ -104,7 +127,8 @@ line:
 8. one `{"kernels": [...]}` line: each kernel at the main-path shape named
    in its entry, with its launches in every main-path run (serving, the
    three training steps, bench, eval, inference, trainer, trainer-resumed,
-   trainer_tmidt, beam, beam-serving).
+   trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
+   their ranks, the NCCL step, decode_dp greedy, beam and serving).
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
@@ -116,9 +140,13 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import hashlib
 import json
 import logging
 import math
+import multiprocessing
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -145,12 +173,16 @@ from adt_str_tpu_torch.models.convert import read_safetensors
 from adt_str_tpu_torch.models.decode import (
     beam_search_decode,
     beam_search_decode_from_memory,
+    decode_step,
     greedy_decode,
     greedy_decode_from_memory,
+    init_caches,
 )
 from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
+from adt_str_tpu_torch.parallel import mesh as mesh_lib
+from adt_str_tpu_torch.parallel import train_step as port_step
 from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_train_step, make_train_step
 from adt_str_tpu_torch.serve import build_engine
 from adt_str_tpu_torch.synth import render
@@ -249,10 +281,11 @@ def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[flo
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
 
 
-def load_config(path: str, train: bool = False, **sections: dict) -> FrameworkConfig:
+def load_config(path: str, train: bool = False, show: bool = True, **sections: dict) -> FrameworkConfig:
     """`path` (relative to the repo) through the port's YAML reader, with the
     fields of `sections` ({"model": {"use_pallas_mel": True}, ...}) replaced;
-    prints the values the smoke overrides, each beside the config's own."""
+    prints the values the smoke overrides, each beside the config's own
+    (unless `show` is off, as in the rank processes)."""
     cfg = FrameworkConfig.from_yaml(REPO / path)
     overrides = {}
     for section, fields in sections.items():
@@ -271,7 +304,8 @@ def load_config(path: str, train: bool = False, **sections: dict) -> FrameworkCo
     if cfg.synthetiser is not None:
         overrides["synthetiser.max_notes"] = {"config": cfg.raw["synthetiser"]["max_notes"],
                                               "smoke": cfg.synthetiser.max_notes}
-    emit({"phase": "config", "path": path, "overrides": overrides})
+    if show:
+        emit({"phase": "config", "path": path, "overrides": overrides})
     return cfg
 
 
@@ -1162,6 +1196,7 @@ def phase_serving(cfg: FrameworkConfig) -> dict:
         "launches": launches, "engine_stats": stats, "memory_vs_cpu": mem, "breakdown": breakdown,
     }
     emit(res)
+    res["bodies"] = [json.loads(r[1]) for r in results]  # for decode_dp
     return res
 
 
@@ -1253,6 +1288,7 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
         launches = {k: c.launches for k, c in counters.items()}
         saved = json.loads((Path(out_dir) / "metrics.json").read_text())
         header, rows = read_confusion(Path(out_dir) / "confusion_matrix.csv")
+        files = {f: (Path(out_dir) / f).read_bytes() for f in ("metrics.json", "confusion_matrix.csv")}
     bs = cfg.inference.batch_size
     n_batches = -(-len(ds) // bs)
     preds = [decode_tokens_to_notes(MidiTokenizer(cfg.tokenizer), r) for r in tokenizer.rows]
@@ -1293,6 +1329,9 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
         raise RuntimeError(f"eval phase failed {failed}: launches {launches}, expected {expected}, counts {counts}")
     del model
     torch.cuda.empty_cache()
+    # the single-device run that decode_dp and eval_ddp must reproduce
+    res["reference"] = {"rows": tokenizer.rows, "metrics": metrics, "files": files, "launches": launches,
+                        "wall_s": wall, "wavs": ds.wavs, "notes": ds.notes}
     return res
 
 
@@ -1461,8 +1500,8 @@ class StepLog(logging.Handler):
             self.records.append(record.step_metrics)
 
 
-def run_trainer(cfg: FrameworkConfig, **kw) -> dict:
-    """`trainer.train(cfg, device="cuda", **kw)` with every kernel counter
+def run_trainer(cfg: FrameworkConfig, device="cuda", **kw) -> dict:
+    """`trainer.train(cfg, device=device, **kw)` with every kernel counter
     set to 0 just before and read just after -> the final state, the logged
     steps, the eval lines, the launches and the wall seconds."""
     log = StepLog()
@@ -1473,7 +1512,7 @@ def run_trainer(cfg: FrameworkConfig, **kw) -> dict:
         for c in counters.values():
             c.launches = 0
         t0 = time.monotonic()
-        state = trainer.train(cfg, device="cuda", **kw)
+        state = trainer.train(cfg, device=device, **kw)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: c.launches for k, c in counters.items()}
@@ -1738,6 +1777,7 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
         metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device="cuda")
         wall = time.monotonic() - t0
         launches = {k: c.launches for k, c in counters.items()}
+        files = {f: (Path(out_dir) / f).read_bytes() for f in ("metrics.json", "confusion_matrix.csv")}
     bs, max_len = cfg.inference.batch_size, cfg.inference.max_length
     bos, eos = cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token
     n_batches = -(-len(ds) // bs)
@@ -1778,6 +1818,724 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
     if failed:
         raise RuntimeError(f"beam phase failed {failed}: launches {launches}, expected {expected}")
     torch.cuda.empty_cache()
+    res["reference"] = {"rows": tokenizer.rows, "metrics": metrics, "files": files, "launches": launches,
+                        "wall_s": wall}  # for decode_dp
+    return res
+
+
+# ------------------------------------------------------------------ data parallelism
+
+DDP_WORLD = 2  # rank processes, both on cuda:0 over gloo (NCCL cannot hold two ranks on one card)
+DDP_ROWS = TRAIN_BATCH // DDP_WORLD  # 32 rows a rank: the global batch is TRAIN_BATCH
+DDP_SHIPPED_STEPS = 3
+DDP_TRAINER_STEPS = 6  # saved and evaluated after 3 and 6; the resumed run takes 4-6
+DDP_TIMEOUT = 360  # seconds the rank processes may take, all their phases together
+ALLREDUCE_REPS = 5
+PARITY_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}  # the kernel path's step tolerances (PERF.md §2)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def weights_digest(model: torch.nn.Module) -> str:
+    """sha256 of every weight's bytes in name order: equal digests, bit-equal weights."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def draws_rows(draws: render.RenderDraws, rows: slice, device) -> render.RenderDraws:
+    """The draws of `rows` of a batch, on `device`."""
+    idx = torch.arange(rows.start, rows.stop)
+    fx = draws.fx.take(idx.to(draws.lam.device))
+    return render.RenderDraws(*(t[rows].to(device) for t in draws[:5]), type(fx)(*(t.to(device) for t in fx)))
+
+
+def close_to(got: dict, ref: dict) -> bool:
+    return (abs(got["loss"] - ref["loss"]) <= PARITY_TOL["loss_rtol"] * abs(ref["loss"])
+            and abs(got["grad_norm"] - ref["grad_norm"]) <= PARITY_TOL["grad_norm_rtol"] * ref["grad_norm"])
+
+
+def per_step(mc, synth: bool) -> dict:
+    """The kernel launches of one training step of `mc`."""
+    n = {"log_mel": 1}
+    if synth:
+        n.update(gather_blend=1, place_notes=1)
+    if mc.use_pallas_ffn and mc.dropout > 0:
+        n["ffn_dropout"] = mc.enc_layers + mc.dec_layers
+    if mc.use_flash_attention and mc.dropout == 0:
+        n["fused_attention"] = n["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
+    return n
+
+
+def add_launches(total: dict, n: dict, times: int = 1) -> dict:
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v * times
+    return total
+
+
+def reset_counters() -> dict:
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def allreduce_ms(mesh, n_params: int) -> dict:
+    """Median wall ms of `allreduce_grads` on a flat buffer of `n_params`
+    on the card, in fp32 and through bf16 transport (with gloo: the copy to
+    the host, the reduction there and the copy back)."""
+    flat = torch.randn(n_params, device=mesh.device)
+    out = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        port_step.allreduce_grads(mesh, [flat], dtype)  # warm-up
+        times = []
+        for _ in range(ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            port_step.allreduce_grads(mesh, [flat], dtype)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        out[name] = {"ms": statistics.median(times), "all_ms": times,
+                     "mb": n_params * (4 if dtype is None else 2) / 1e6}
+    return out
+
+
+def rank_busy(fn, label: str) -> dict:
+    """Device time of one call of `fn` under torch.profiler, traced after
+    an untraced call in the same session, with no retry: a retry on one
+    rank alone would put the ranks' collectives out of step. The busy share
+    is None when the session saw no device."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    trace = _build.BUILD_DIR.parent / f"train_trace_{label}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule,
+                                on_trace_ready=lambda p: p.export_chrome_trace(str(trace))) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+        prof.step()
+    res = device_time_by_group(json.loads(trace.read_text()).get("traceEvents", []), {})
+    return {"wall_ms": wall_us / 1e3, **res,
+            "device_busy_share": res["device_busy_ms"] * 1e3 / wall_us if res["device_kernels"] else None}
+
+
+def timed_steps(model, make, call, n: int) -> tuple[dict, tuple]:
+    """`n` steps of `call(step, state, i)` from `model` with a fresh
+    optimizer (constant lr) -> (losses, grad norms, step ms, the weights'
+    digest; (step, state))."""
+    opt, _ = make_optimizer(TrainingConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_scheduler_type="constant"),
+                            TRAIN_STEPS, model)
+    step, state = make(opt), init_train_state(model, opt)
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = call(step, state, i)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.monotonic() - t0) * 1e3)
+    out["digest"] = weights_digest(model)
+    return out, (step, state)
+
+
+def ddp_inputs(statics: render.SynthStatics, sc) -> tuple[dict, dict]:
+    """The parity batches at the global batch (setting-1 note lists with
+    its draws, TMIDT waves; random 512-token rows) on the host for the
+    ranks, and the single-process references on all TRAIN_BATCH rows: one
+    step of each, the per-rank means of the ddp weighting's formula, and
+    the NCCL one-rank step against the no-mesh step in this process."""
+    synth_cfg = load_config(SYNTH_YAML, train=True, model={"dropout": 0.0})
+    flash_cfg = load_config(TRAIN_YAMLS["flash"], train=True)
+    notes, mask = random_notes(sc, TRAIN_BATCH, SEED + 200)
+    synth_batch = {"notes": notes, "note_mask": mask,
+                   **token_batch(synth_cfg, torch.Generator().manual_seed(SEED + 201))}
+    draws = render.draw_render(statics, TRAIN_BATCH, sc, torch.Generator(device="cuda").manual_seed(SEED + 202))
+    flash_batch = train_batch(flash_cfg, SEED + 203)
+    keys = draw_site_keys(flash_cfg.model, torch.Generator().manual_seed(SEED + 204))  # dropout 0: unused
+    refs = {}
+    model = ADTModel(synth_cfg.model, seed=SEED, device="cuda")
+    r, _ = timed_steps(model, lambda opt: make_synth_train_step(synth_cfg.model, sc, statics, opt, device="cuda"),
+                       lambda step, state, i: step(state, synth_batch, draws, keys), 1)
+    refs["synth"] = {"loss": r["losses"][0], "grad_norm": r["grad_norms"][0]}
+    model = ADTModel(flash_cfg.model, seed=SEED, device="cuda")
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():  # ddp_loss_weighting: the mean of the ranks' token-masked means
+        halves = [float(model.forward_loss(flash_batch["wavs"][s], flash_batch["tokens"][s],
+                                           flash_batch["token_lengths"][s], keys=keys, train=True))
+                  for s in (slice(0, DDP_ROWS), slice(DDP_ROWS, TRAIN_BATCH))]
+    refs["ddp_weighting"] = {"rank_means": halves, "loss": sum(halves) / DDP_WORLD}
+    r, _ = timed_steps(model, lambda opt: make_train_step(flash_cfg.model, opt, device="cuda"),
+                       lambda step, state, i: step(state, flash_batch, keys), 2)
+    refs["flash"] = {"loss": r["losses"][0], "grad_norm": r["grad_norms"][0], "step_ms": r["step_ms"]}
+    refs["nccl"] = nccl_one_rank(model, initial, flash_cfg, flash_batch, keys)
+    del model, initial
+    torch.cuda.empty_cache()
+    host = {"synth_batch": {k: v.cpu() for k, v in synth_batch.items()},
+            "draws": draws_rows(draws, slice(0, TRAIN_BATCH), "cpu"),
+            "flash_batch": {k: v.cpu() for k, v in flash_batch.items()}, "keys": keys}
+    return host, refs
+
+
+def nccl_one_rank(model, initial: dict, cfg, batch: dict, keys) -> dict:
+    """One rank of NCCL in this process (torchrun's environment for a world
+    of 1, `maybe_initialize_distributed` picks NCCL on cuda:0): the flash
+    parity step through the mesh (and a second step: the first collective
+    also sets up NCCL's communicator), the gradient all-reduce's time."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    counters = reset_counters()
+    try:
+        device = mesh_lib.maybe_initialize_distributed()
+        try:
+            mesh = mesh_lib.make_mesh(devices=[device])
+            model.load_state_dict(initial)
+            r, _ = timed_steps(model, lambda opt: make_train_step(cfg.model, opt, mesh=mesh),
+                               lambda step, state, i: step(state, batch, keys), 2)
+            launches = {k: c.launches for k, c in counters.items()}
+            n_params = sum(p.numel() for p in model.parameters())
+            res = {"backend": mesh.backend, "device": str(device), "world": mesh.world, "loss": r["losses"][0],
+                   "grad_norm": r["grad_norms"][0], "step_ms": r["step_ms"], "launches": launches,
+                   "allreduce": allreduce_ms(mesh, n_params), "n_params": n_params}
+        finally:
+            mesh_lib.destroy()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return res
+
+
+def rank_main(rank: int, job_path: str) -> None:
+    """A rank process of the data-parallel phases: torchrun's environment
+    (each phase's own port), then `rank_job`; its results go to the job's
+    directory as `rank{rank}.pt`."""
+    job = torch.load(job_path, weights_only=False)
+    os.environ.update(MASTER_ADDR="127.0.0.1", RANK=str(rank), WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(DDP_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sc = load_config(SYNTH_YAML, show=False).synthetiser
+    bank = build_card_bank(sc, SEED + 50)  # the parent's bank, built again from the same seed
+    statics = render.SynthStatics.from_bank(bank, device="cuda")
+    res = {"ddp_step": rank_ddp_step(rank, job, statics, sc)}
+    torch.cuda.empty_cache()
+    res["trainer_ddp"] = rank_trainer(rank, job, bank)
+    torch.cuda.empty_cache()
+    res["eval_ddp"] = rank_eval(rank, job)
+    torch.save(res, Path(job["dir"]) / f"rank{rank}.pt")
+
+
+def rank_ddp_step(rank: int, job: dict, statics: render.SynthStatics, sc) -> dict:
+    """This rank's part of the ddp_step phase (see `phase_ddp`)."""
+    os.environ["MASTER_PORT"] = str(job["ports"]["ddp_step"])
+    device = mesh_lib.maybe_initialize_distributed("cuda:0")
+    try:
+        mesh = mesh_lib.make_mesh(devices=[device])
+        rows = mesh.local_rows(TRAIN_BATCH)
+        synth_cfg = load_config(SYNTH_YAML, train=True, show=False, model={"dropout": 0.0})
+        shipped_cfg = load_config(SYNTH_YAML, train=True, show=False)
+        flash_cfg = load_config(TRAIN_YAMLS["flash"], train=True, show=False)
+        ffn_cfg = load_config(TRAIN_YAMLS["fused-ffn"], train=True, show=False)
+        sb = {k: v[rows].to(device) for k, v in job["synth_batch"].items()}
+        fb = {k: v[rows].to(device) for k, v in job["flash_batch"].items()}
+        draws = draws_rows(job["draws"], rows, device)
+        keys = job["keys"]
+        res = {"backend": mesh.backend, "device": str(device), "rank": mesh.rank, "world": mesh.world,
+               "rows": [rows.start, rows.stop]}
+        counters = reset_counters()
+        expected: dict = {}
+
+        def model_of(cfg):
+            model = ADTModel(cfg.model, seed=SEED, device=device)
+            mesh_lib.broadcast_model(mesh, model)  # rank 0's weights; raises unless the ranks' were equal
+            return model
+
+        # parity: setting-1 with dropout 0 and the fixed draws, TMIDT-flash (K5f, K5b)
+        res["synth"], _ = timed_steps(
+            model_of(synth_cfg), lambda opt: make_synth_train_step(synth_cfg.model, sc, statics, opt, mesh=mesh),
+            lambda step, state, i: step(state, sb, draws, keys), 1)
+        add_launches(expected, per_step(synth_cfg.model, True))
+        torch.cuda.empty_cache()
+        model = model_of(flash_cfg)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        res["flash"], (step, state) = timed_steps(
+            model, lambda opt: make_train_step(flash_cfg.model, opt, mesh=mesh),
+            lambda step, state, i: step(state, fb, keys), 1)
+        res["flash_profile"] = rank_busy(lambda: step(state, fb, keys), f"ddp_flash_rank{rank}")
+        add_launches(expected, per_step(flash_cfg.model, False), 3)
+        del step, state
+        # options: bf16 transport, ddp weighting, each one step from the same weights
+        for name, kw in (("bf16", {"comm_dtype": "bf16"}), ("ddp_weighting", {"ddp_loss_weighting": True})):
+            model.load_state_dict(initial)
+            res[name], _ = timed_steps(model, lambda opt, kw=kw: make_train_step(flash_cfg.model, opt, mesh=mesh, **kw),
+                                       lambda step, state, i: step(state, fb, keys), 1)
+            add_launches(expected, per_step(flash_cfg.model, False))
+        del model, initial
+        torch.cuda.empty_cache()
+        # the shipped dropout configs: per-rank keys (and draws) from (seed, step, rank)
+        res["ffn"], _ = timed_steps(
+            model_of(ffn_cfg), lambda opt: make_train_step(ffn_cfg.model, opt, mesh=mesh),
+            lambda step, state, i: step(state, fb, draw_site_keys(ffn_cfg.model, trainer.seeded_generators(
+                SEED + 1, i, device, mesh.rank)[0])), 1)
+        add_launches(expected, per_step(ffn_cfg.model, False))
+        torch.cuda.empty_cache()
+
+        def shipped(step, state, i):
+            key_gen, draw_gen = trainer.seeded_generators(SEED + 1, i, device, mesh.rank)
+            return step(state, sb, render.draw_render(statics, DDP_ROWS, sc, draw_gen),
+                        draw_site_keys(shipped_cfg.model, key_gen))
+
+        model = model_of(shipped_cfg)
+        res["shipped"], _ = timed_steps(
+            model, lambda opt: make_synth_train_step(shipped_cfg.model, sc, statics, opt, mesh=mesh), shipped,
+            DDP_SHIPPED_STEPS)
+        add_launches(expected, per_step(shipped_cfg.model, True), DDP_SHIPPED_STEPS)
+        res["launches"] = {k: c.launches for k, c in counters.items()}
+        res["expected_launches"] = {**dict.fromkeys(counters, 0), **expected}
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        res["allreduce"] = allreduce_ms(mesh, n_params)
+        res["n_params"] = n_params
+        return res
+    finally:
+        mesh_lib.destroy()
+
+
+def rank_trainer(rank: int, job: dict, bank: OneShotBank) -> dict:
+    """This rank's part of the trainer_ddp phase: `trainer.train` joins the
+    group from torchrun's environment itself, straight and then resumed
+    from the middle checkpoint, each run its own launch (port)."""
+    out = Path(job["dir"]) / "trainer"
+    common = dict(training={"max_steps": DDP_TRAINER_STEPS, "num_epochs": 2, "batch_size": DDP_ROWS},
+                  train_data={"holdout_fraction": TRAINER_HOLDOUT},
+                  logging={"output_dir": str(out), "logging_steps": 1, "save_every_n_steps": DDP_TRAINER_STEPS // 2,
+                           "eval_every_n_steps": DDP_TRAINER_STEPS // 2})
+    middle = out / "straight" / trainer_ckpt.checkpoint_name(0, DDP_TRAINER_STEPS // 2)
+    cfgs = {"straight": load_config(SYNTH_YAML, show=False, experiment={"run_name": "straight"}, **common),
+            "resumed": load_config(SYNTH_YAML, show=False, experiment={"run_name": "resumed"},
+                                   checkpoint={"resume_from_checkpoint": str(middle)}, **common)}
+    sc = cfgs["straight"].synthetiser
+    rows = {"notes": [r.tobytes() for r in gm_note_rows(TRAINER_ROWS, SEED + 100, sc.max_notes)]}
+    ds = LakhDataset(cfgs["straight"].train_data, MidiTokenizer(cfgs["straight"].tokenizer), max_notes=sc.max_notes,
+                     rows=rows)
+    writes: list = []
+    write = trainer_ckpt._replace_into
+
+    def counted(path, fn):
+        writes.append(Path(path).name)
+        return write(path, fn)
+
+    trainer_ckpt._replace_into = counted
+    res = {}
+    try:
+        for name, cfg in cfgs.items():
+            os.environ["MASTER_PORT"] = str(job["ports"][f"trainer_{name}"])
+            run = run_trainer(cfg, device="cuda:0", dataset=ds, bank=bank)  # every rank on the one card, gloo
+            res[name] = {"steps": run["steps"], "evals": run["evals"], "launches": run["launches"],
+                         "wall_s": run["wall_s"], "step": run["state"].step,
+                         "digest": weights_digest(run["state"].model),
+                         "group_destroyed": not torch.distributed.is_initialized()}
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        trainer_ckpt._replace_into = write
+    res["writes"] = writes
+    if rank == 0:
+        history = (out / "straight" / "eval_history.jsonl").read_text()
+        res["eval_history"] = [json.loads(x) for x in history.splitlines()]
+        res["checkpoints"] = sorted(p.name for p in (out / "straight").glob("checkpoint-*"))
+    return res
+
+
+def rank_eval(rank: int, job: dict) -> dict:
+    """This rank's part of the eval_ddp phase: `run_inference` over a
+    process-group mesh, each rank decoding its stripe of every batch."""
+    os.environ["MASTER_PORT"] = str(job["ports"]["eval_ddp"])
+    device = mesh_lib.maybe_initialize_distributed("cuda:0")
+    try:
+        mesh = mesh_lib.make_mesh(devices=[device])
+        out = Path(job["dir"]) / "eval" / f"rank{rank}"
+        cfg = load_config(EVAL_YAML, show=False, model=KERNELS_ON, inference={"output_path": str(out)})
+        tokenizer = RecordingTokenizer(cfg.tokenizer)
+        model = ADTModel(cfg.model, seed=SEED, device=device)
+        counters = reset_counters()
+        t0 = time.monotonic()
+        metrics = run_inference(model, cfg.model, InMemoryEvalDataset(job["eval_wavs"], job["eval_notes"]), tokenizer,
+                                cfg.inference, mesh=mesh)
+        wall = time.monotonic() - t0
+        res = {"metrics": metrics, "rows": tokenizer.rows, "wall_s": wall,
+               "launches": {k: c.launches for k, c in counters.items()}, "wrote": out.exists(),
+               "files": {f: (out / f).read_bytes() for f in ("metrics.json", "confusion_matrix.csv")}
+               if out.exists() else {}}
+        return res
+    finally:
+        mesh_lib.destroy()
+
+
+def run_ranks(job: dict) -> list:
+    """`rank_main` in DDP_WORLD spawned processes; each must exit 0 within
+    DDP_TIMEOUT. A rank that fails, or a hung collective, ends the phase:
+    the other ranks are killed at once, or at the deadline."""
+    job_path = Path(job["dir"]) / "job.pt"
+    torch.save(job, job_path)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, str(job_path)), daemon=True) for r in range(DDP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_TIMEOUT
+    try:
+        while time.monotonic() < deadline and any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # a rank failed: the others would wait in a collective
+            time.sleep(0.2)
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * DDP_WORLD:
+        raise RuntimeError(f"rank processes failed: exit codes {codes}, still running after {DDP_TIMEOUT} s: {hung}")
+    return [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+
+
+def phase_ddp(statics: render.SynthStatics, sc, eval_ref: dict, entry_ref: dict) -> dict:
+    """The data-parallel phases of DDP_WORLD rank processes on the one card
+    (gloo; torchrun's environment), after this process's references.
+
+    - ddp_step: at full width, the global batch of TRAIN_BATCH rows split
+      DDP_ROWS a rank; setting-1's synthesis-fused step (dropout 0 for the
+      check, fixed draws) and TMIDT-flash (K5f, K5b) must equal the
+      single-process step on the same rows and draws (loss 1e-4, grad norm
+      2e-3 relative) with the ranks' weights bit-equal; setting-1 as
+      shipped (dropout 0.1, per-rank keys and draws) for 3 steps, the loss
+      falling, bit-equal; TMIDT-fused-ffn (K4) one step, bit-equal; one step
+      with `ddp_loss_weighting` on ragged lengths equal to the mean of the
+      two ranks' means computed here; one with bf16 transport whose grad
+      norm lies within 1% of the fp32 step's; and one rank of NCCL in this
+      process, equal to the no-mesh step (loss 1e-6 relative). Each rank's
+      step ms, device busy share and the all-reduce ms of the 69,000,824
+      gradients by backend and dtype are printed.
+    - trainer_ddp: `trainer.train` on setting-1 at DDP_ROWS a rank (the
+      trainer phase's in-memory Lakh rows and the card bank, each rank its
+      own), DDP_TRAINER_STEPS steps saving and evaluating at the half, then
+      a run resumed from the half: bit-equal to the straight run (losses
+      and every weight), the ranks bit-equal, rank 0 alone writing the
+      checkpoint files and `eval_history.jsonl`; the steady steps/s.
+    - eval_ddp: `run_inference` over the eval phase's items in the two
+      ranks, each decoding its 8 rows of every batch of 16: both hold the
+      metrics, tokens and files of the one-process run at the ranks' batch
+      of 8 (`entry_ref`, decode_dp's), which decodes the same blocks (the
+      full-width decode on the card is not batch-invariant)."""
+    host, refs = ddp_inputs(statics, sc)
+    with tempfile.TemporaryDirectory() as tmp:
+        ports = {k: free_port() for k in ("ddp_step", "trainer_straight", "trainer_resumed", "eval_ddp")}
+        job = {"dir": tmp, "ports": ports, **host, "eval_wavs": eval_ref["wavs"], "eval_notes": eval_ref["notes"]}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = run_ranks(job)
+        wall = time.monotonic() - t0
+    return {"ddp_step": check_ddp_step(ranks, refs, wall), "trainer_ddp": check_trainer_ddp(ranks),
+            "eval_ddp": check_eval_ddp(ranks, eval_ref, entry_ref)}
+
+
+def fail_unless(phase: str, checks: dict, detail="") -> None:
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{phase} phase failed {failed} {detail}")
+
+
+def check_ddp_step(ranks: list, refs: dict, wall: float) -> dict:
+    r0, r1 = (r["ddp_step"] for r in ranks)
+    first = {k: {"loss": r0[k]["losses"][0], "grad_norm": r0[k]["grad_norms"][0]} for k in ("synth", "flash")}
+    res = {"phase": "ddp_step", "ranks": DDP_WORLD, "backend": r0["backend"], "device": r0["device"],
+           "rows_a_rank": DDP_ROWS, "global_batch": TRAIN_BATCH, "tokens": TRAIN_TOKENS, "ranks_wall_s": wall,
+           "parity": {k: {"two_ranks": first[k], "one_process": refs[k], **PARITY_TOL} for k in first},
+           "ddp_weighting": {"loss": r0["ddp_weighting"]["losses"][0], **refs["ddp_weighting"]},
+           "bf16": {"grad_norm": r0["bf16"]["grad_norms"][0], "f32_grad_norm": r0["flash"]["grad_norms"][0]},
+           "nccl_one_rank": {k: refs["nccl"][k] for k in ("backend", "device", "world", "loss", "grad_norm",
+                                                          "step_ms")} | {"no_mesh_loss": refs["flash"]["loss"],
+                                                                         "no_mesh_step_ms": refs["flash"]["step_ms"]},
+           "shipped_losses": r0["shipped"]["losses"], "ffn_loss": r0["ffn"]["losses"][0],
+           "step_ms": {f"rank{i}": {k: r["ddp_step"][k]["step_ms"] for k in ("synth", "flash", "ffn", "shipped")}
+                       for i, r in enumerate(ranks)},
+           "device_busy_share": {f"rank{i}": r["ddp_step"]["flash_profile"]["device_busy_share"]
+                                 for i, r in enumerate(ranks)},
+           "flash_profile_rank0": {k: r0["flash_profile"][k] for k in ("wall_ms", "device_busy_ms", "by_group_ms")},
+           "allreduce_ms": {"gloo 2 ranks, one card (through host memory)": {f"rank{i}": r["ddp_step"]["allreduce"]
+                                                                            for i, r in enumerate(ranks)},
+                            "nccl 1 rank": refs["nccl"]["allreduce"]},
+           "n_params": r0["n_params"], "launches": {f"rank{i}": r["ddp_step"]["launches"] for i, r in enumerate(ranks)},
+           "nccl_launches": refs["nccl"]["launches"], "expected_launches": r0["expected_launches"]}
+    emit(res)
+    digests = {k: (r0[k]["digest"], r1[k]["digest"]) for k in ("synth", "flash", "bf16", "ddp_weighting", "ffn",
+                                                                  "shipped")}
+    ddp = res["ddp_weighting"]
+    fail_unless("ddp_step", {
+        "setting-1 step of 2 ranks = the one-process step": close_to(first["synth"], refs["synth"]),
+        "TMIDT-flash step of 2 ranks = the one-process step": close_to(first["flash"], refs["flash"]),
+        "the ranks' weights bit-equal after every step": all(a == b for a, b in digests.values()),
+        "the ranks report the same numbers": all(r0[k]["losses"] == r1[k]["losses"] for k in digests),
+        "shipped setting-1: finite, falling loss": all(math.isfinite(x) for x in res["shipped_losses"])
+                                                   and res["shipped_losses"][-1] < res["shipped_losses"][0],
+        "fused-FFN step finite": math.isfinite(res["ffn_loss"]),
+        "ddp weighting = the mean of the ranks' means": abs(ddp["loss"] - ddp["rank_means"][0] / 2
+                                                            - ddp["rank_means"][1] / 2) <= 1e-4 * abs(ddp["loss"]),
+        "bf16 transport grad norm within 1% of fp32's": abs(res["bf16"]["grad_norm"] - res["bf16"]["f32_grad_norm"])
+                                                        <= 0.01 * res["bf16"]["f32_grad_norm"],
+        "NCCL one rank = the no-mesh step": refs["nccl"]["backend"] == "nccl" and abs(
+            refs["nccl"]["loss"] - refs["flash"]["loss"]) <= 1e-6 * abs(refs["flash"]["loss"]),
+        "gloo on cuda:0": r0["backend"] == r1["backend"] == "gloo" and r0["device"] == "cuda:0",
+        "kernels launched as the steps need": r0["launches"] == r1["launches"] == r0["expected_launches"],
+        "the NCCL steps' kernels": refs["nccl"]["launches"] == add_launches(
+            dict.fromkeys(kernel_counters(), 0), per_step(load_config(TRAIN_YAMLS["flash"], show=False).model, False),
+            2),
+    })
+    return res
+
+
+def check_trainer_ddp(ranks: list) -> dict:
+    t0, t1 = (r["trainer_ddp"] for r in ranks)
+    half = DDP_TRAINER_STEPS // 2
+    a = {r["step"]: r for r in t0["straight"]["steps"]}
+    b = {r["step"]: r for r in t0["resumed"]["steps"]}
+    n_evals = {"straight": 2, "resumed": 1}  # one holdout batch of DDP_ROWS a rank each
+    per = {"log_mel": 1, "gather_blend": 1, "place_notes": 1}
+    expected = {run: {**dict.fromkeys(kernel_counters(), 0), **{k: n * (len(steps) + n_evals[run]) for k, n in
+                                                                 per.items()}}
+                for run, steps in (("straight", a), ("resumed", b))}
+    res = {"phase": "trainer_ddp", "config": SYNTH_YAML, "ranks": DDP_WORLD, "rows_a_rank": DDP_ROWS,
+           "global_batch": DDP_ROWS * DDP_WORLD, "steps": DDP_TRAINER_STEPS,
+           "losses": [a[i]["loss"] for i in sorted(a)], "resumed_losses": [b[i]["loss"] for i in sorted(b)],
+           **step_rate(t0["straight"], half), "straight_wall_s": t0["straight"]["wall_s"],
+           "resumed_wall_s": t0["resumed"]["wall_s"], "eval_history": t0["eval_history"],
+           "checkpoints": t0["checkpoints"], "writes": {"rank0": t0["writes"], "rank1": t1["writes"]},
+           "launches": {run: {f"rank{i}": r["trainer_ddp"][run]["launches"] for i, r in enumerate(ranks)}
+                        for run in ("straight", "resumed")}, "expected_launches": expected}
+    emit(res)
+    fail_unless("trainer_ddp", {
+        "straight run took every step": sorted(a) == list(range(1, DDP_TRAINER_STEPS + 1)),
+        "resumed run took the second half": sorted(b) == list(range(half + 1, DDP_TRAINER_STEPS + 1)),
+        "every loss finite": all(math.isfinite(x) for x in res["losses"]),
+        "resumed losses = straight losses (bit-equal)": all(a[i]["loss"] == b[i]["loss"] for i in b),
+        "resumed weights = straight weights (bit-equal)": t0["resumed"]["digest"] == t0["straight"]["digest"],
+        "the ranks' weights bit-equal": all(t0[r]["digest"] == t1[r]["digest"] for r in ("straight", "resumed")),
+        "rank 0 alone wrote the checkpoints": t1["writes"] == [] and len(t0["writes"]) > 0,
+        "one eval line an eval": [h["step"] for h in t0["eval_history"]] == [half, DDP_TRAINER_STEPS]
+                                 and all(math.isfinite(h["eval_loss"]) for h in t0["eval_history"]),
+        "the trainer left the group it joined": all(t[r]["group_destroyed"] for t in (t0, t1)
+                                                    for r in ("straight", "resumed")),
+        "K1, K2, K3 once a step and an eval batch": all(r["trainer_ddp"][run]["launches"] == expected[run]
+                                                        for r in ranks for run in expected),
+    })
+    return res
+
+
+def check_eval_ddp(ranks: list, eval_ref: dict, entry_ref: dict) -> dict:
+    e0, e1 = (r["eval_ddp"] for r in ranks)
+    res = {"phase": "eval_ddp", "ranks": DDP_WORLD, "items": len(eval_ref["wavs"]),
+           "wall_s": {"rank0": e0["wall_s"], "rank1": e1["wall_s"]},
+           "one_process_wall_s": {"batch 16": eval_ref["wall_s"], "batch 8": entry_ref["wall_s"]},
+           "f_measure": e0["metrics"]["all"]["f_measure"],
+           "launches": {"rank0": e0["launches"], "rank1": e1["launches"]},
+           "rows_differing_from_one_process_at_batch_16": sum(
+               not np.array_equal(x, y) for x, y in zip(e0["rows"], eval_ref["rows"]))}
+    emit(res)
+    fail_unless("eval_ddp", {
+        "both ranks hold the one-process metrics at batch 8": e0["metrics"] == e1["metrics"] == entry_ref["metrics"],
+        "the decoded tokens = the one-process tokens at batch 8": same_rows(e0["rows"], entry_ref["rows"])
+                                                                  and same_rows(e1["rows"], entry_ref["rows"]),
+        "rank 0 alone wrote, the one-process files": not e1["wrote"] and e0["files"] == entry_ref["files"],
+        "K1 and K5f once a rank's stripe of a batch": e0["launches"] == e1["launches"] == eval_ref["launches"],
+    })
+    return res
+
+
+def eval_run(statics: render.SynthStatics, sc, extra: dict, mesh=None) -> dict:
+    """`run_inference` over the eval phase's items with the ENST eval config
+    (K1 and K5 on, `inference` fields replaced by `extra`), on cuda or over
+    `mesh` -> the decoded token rows, metrics, the files it wrote, the
+    kernel launches and the wall seconds."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(EVAL_YAML, show=False, model=KERNELS_ON, inference={"output_path": out_dir, **extra})
+        tokenizer = RecordingTokenizer(cfg.tokenizer)
+        ds = eval_items(statics, sc, MidiTokenizer(cfg.tokenizer), SEED + 70)
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        counters = reset_counters()
+        t0 = time.monotonic()
+        metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device=None if mesh else "cuda",
+                                mesh=mesh)
+        wall = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        files = {f: (Path(out_dir) / f).read_bytes() for f in ("metrics.json", "confusion_matrix.csv")}
+    return {"rows": tokenizer.rows, "metrics": metrics, "files": files, "launches": launches, "wall_s": wall}
+
+
+@contextlib.contextmanager
+def recording_ops(log: list):
+    """Record (name, tensor inputs, output) of every `models/transformer.py`
+    op the decode step calls (`linear`, `layer_norm`, `ffn`,
+    `attention_core`, the attention's `project`) while the context is open."""
+    mha = T.MultiheadAttention
+    saved = {name: getattr(T, name) for name in ("linear", "layer_norm", "ffn", "attention_core")}
+    saved_project = mha.project
+
+    def wrap(name, f, skip: int = 0):
+        def op(*args, **kw):
+            y = f(*args, **kw)
+            log.append((name, [t.clone() for t in args[skip:] if isinstance(t, torch.Tensor)], y.clone()))
+            return y
+        return op
+
+    try:
+        for name, f in saved.items():
+            setattr(T, name, wrap(name, f))
+        mha.project = wrap("project", saved_project, skip=1)
+        yield
+    finally:
+        for name, f in saved.items():
+            setattr(T, name, f)
+        mha.project = saved_project
+
+
+def batch_dependence(cfg: FrameworkConfig, rows: int = 16) -> dict:
+    """Where the full-width decode depends on the batch size: each part run
+    on `rows` chunks and on their first half, the first half's results
+    compared (max abs difference): K1 and the encoder memory; then,
+    teacher-forced on the full batch's greedy tokens from the same memory,
+    the first decode step whose logits differ, and in it the first op
+    (`recording_ops`) whose output differs although its inputs agree."""
+    half = rows // 2
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    wav = torch.randn(rows, cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
+
+    def diff(f, *xs) -> float:
+        return (f(*xs)[:half].float() - f(*(x[:half] for x in xs)).float()).abs().max().item()
+
+    out = {"rows": [rows, half], "first_step_with_other_logits": None}
+    with torch.inference_mode():
+        out["k1"] = diff(lambda w: cuda_mel.log_mel(w, mel_params(cfg.model)), wav)
+        out["encoder_memory"] = diff(model.encode, wav)
+        memory = model.encode(wav)
+        L = cfg.inference.max_length
+        tokens = greedy_decode_from_memory(model, memory, L).long()
+        full, part = init_caches(model, memory, L), init_caches(model, memory[:half].clone(), L)
+        for step in range(L - 1):
+            ops_full: list = []
+            ops_part: list = []
+            with recording_ops(ops_full):
+                a = decode_step(model, tokens[:, step], step, full)[:half]
+            with recording_ops(ops_part):
+                b = decode_step(model, tokens[:half, step], step, part)
+            if torch.equal(a, b):
+                continue
+            out.update(first_step_with_other_logits=step, logit_diff=(a.float() - b.float()).abs().max().item())
+            for i, ((name, ins_f, y_f), (_, ins_p, y_p)) in enumerate(zip(ops_full, ops_part)):
+                same_inputs = all(torch.equal(x[:half], z) for x, z in zip(ins_f, ins_p) if x.shape[0] == rows)
+                if same_inputs and not torch.equal(y_f[:half], y_p):
+                    out["first_op_with_other_output_on_equal_inputs"] = {
+                        "op": name, "index": i, "of": len(ops_full), "input_shapes": [list(x.shape) for x in ins_f],
+                        "max_abs_diff": (y_f[:half].float() - y_p.float()).abs().max().item()}
+                    break
+            break
+    del model
+    return out
+
+
+def same_rows(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def decode_dp_eval(statics: render.SynthStatics, sc, refs: dict) -> dict:
+    """`run_inference` over a mesh of two entries of cuda:0 (each decoding
+    its half of every batch of 16), greedy and beam BEAM_SIZE, on the eval
+    phase's items. Its tokens, metrics.json and confusion CSV must equal
+    the one-device run at the entries' batch of 8, which decodes the same
+    blocks of items (the ragged last batch's real items included). Against
+    the one-device run at batch 16 (`refs`: the eval and beam phases) the
+    rows that differ are counted, not held: on the card the full-width
+    decode is not batch-invariant (PERF.md §6, PR 9). -> the result, with
+    the greedy one-device batch-8 run for eval_ddp."""
+    mesh = mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"])
+    res = {"phase": "decode_dp", "part": "eval", "mesh": [str(d) for d in mesh.devices], "runs": {}}
+    same, entry_refs = {}, {}
+    for name, extra in (("greedy", {}), ("beam", {"use_beam_search": True, "beam_size": BEAM_SIZE})):
+        bs = load_config(EVAL_YAML, show=False).inference.batch_size
+        entry_refs[name] = ref8 = eval_run(statics, sc, {**extra, "batch_size": bs // mesh.n_data})
+        dp = eval_run(statics, sc, extra, mesh=mesh)
+        full = refs[name]
+        same[name] = {"tokens": same_rows(dp["rows"], ref8["rows"]), "metrics": dp["metrics"] == ref8["metrics"],
+                      "files": dp["files"] == ref8["files"],
+                      "launches (each entry its half of a batch)": dp["launches"] == {
+                          k: 2 * n for k, n in full["launches"].items()}}
+        res["runs"][name] = {
+            "batch": bs, "wall_s": dp["wall_s"], "one_device_wall_s": {f"batch {bs}": full["wall_s"],
+                                                                      f"batch {bs // 2}": ref8["wall_s"]},
+            "launches": dp["launches"], f"equal_to_one_device_at_batch_{bs // 2}": same[name],
+            f"vs_one_device_at_batch_{bs}": {
+                "rows_differing": sum(not np.array_equal(x, y) for x, y in zip(dp["rows"], full["rows"])),
+                "rows": len(full["rows"]), "f_measure": dp["metrics"]["all"]["f_measure"],
+                "one_device_f_measure": full["metrics"]["all"]["f_measure"]}}
+    res["batch_dependence"] = batch_dependence(load_config(EVAL_YAML, show=False, model=KERNELS_ON))
+    emit(res)
+    fail_unless("decode_dp", {f"{n} {k} = one device at the entries' batch": ok for n, s in same.items()
+                              for k, ok in s.items()})
+    torch.cuda.empty_cache()
+    res["entry_batch_reference"] = entry_refs["greedy"]  # for eval_ddp
+    return res
+
+
+def decode_dp_serving(cfg: FrameworkConfig, serving: dict) -> dict:
+    """A `ServingEngine` over a mesh of two entries of cuda:0 answers the
+    serving phase's requests through the port's HTTP server: every answer
+    well formed, K1 and K5f launched; a bucket the data axis does not divide
+    raises. Whether its notes equal the one-device engine's is reported, not
+    held: the micro-batches' shapes follow the requests' timing, and the
+    full-width decode on the card is not batch-invariant (decode_dp holds
+    the sharded decode to the one-device decode at the entries' batch)."""
+    mesh = mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"])
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    refused = None
+    try:
+        build_engine(cfg, model, mesh=mesh)  # the config's buckets hold 1
+    except ValueError as e:
+        refused = str(e)
+    buckets = tuple(b for b in cfg.serving.buckets if b % mesh.n_data == 0)
+    results, wall, launches, stats = serve_requests(build_engine(cfg, model, mesh=mesh, buckets=buckets), cfg)
+    bodies = [json.loads(r[1]) for r in results]
+    res = {"phase": "decode_dp", "part": "serving", "mesh": [str(d) for d in mesh.devices], "buckets": buckets,
+           "wall_s": wall, "one_device_wall_s": serving["wall_s"], "request_s": [r[2] for r in results],
+           "n_notes": [b["n_notes"] for b in bodies], "one_device_n_notes": serving["n_notes"],
+           "same_notes_as_one_device": [b == r for b, r in zip(bodies, serving["bodies"])], "launches": launches,
+           "engine_stats": stats, "odd_bucket_refused": refused}
+    emit(res)
+    fail_unless("decode_dp serving", {
+        "a bucket of 1 refused": refused is not None and "not divisible by the mesh data axis (2)" in refused,
+        "every bucket split over the two entries": stats["n_batches"] > 0
+                                                   and all(b % 2 == 0 for b in stats["occupancy"]),
+    })
+    del model
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1806,6 +2564,9 @@ def phase_synthesis(ptxas: dict) -> dict:
            "eval": phase_eval(statics, sc), "inference": phase_inference(statics, sc),
            "trainer": phase_trainer(bank, statics), "trainer_tmidt": phase_trainer_tmidt(statics, sc),
            "beam": phase_beam(statics, sc)}
+    out["decode_dp"] = decode_dp_eval(statics, sc, {"greedy": out["eval"]["reference"],
+                                                    "beam": out["beam"]["reference"]})
+    out.update(phase_ddp(statics, sc, out["eval"]["reference"], out["decode_dp"]["entry_batch_reference"]))
     del statics, table, bank
     torch.cuda.empty_cache()
     return out
@@ -1835,14 +2596,27 @@ def main() -> int:
     training = {c: phase_training(c) for c in TRAIN_YAMLS}
     training[SYNTH_NAME] = synth["training"]
     serving = phase_serving(cfg)
+    dp_serving = decode_dp_serving(cfg, serving)
     bench = phase_bench()
+
+    def ranks_sum(per_rank: dict) -> dict:
+        return {k: sum(n[k] for n in per_rank.values()) for k in kernel_counters()}
+
+    ddp, trainer_ddp = synth["ddp_step"], synth["trainer_ddp"]
     by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()},
                "bench": bench["launches"], "eval": synth["eval"]["launches"],
                "inference": synth["inference"]["launches"],
                "trainer": synth["trainer"]["launches"]["straight"],
                "trainer-resumed": synth["trainer"]["launches"]["resumed"],
                "trainer_tmidt": synth["trainer_tmidt"]["launches"], "beam": synth["beam"]["launches"],
-               "beam-serving": synth["beam"]["serving"]["launches"]}
+               "beam-serving": synth["beam"]["serving"]["launches"],
+               "ddp_step (2 ranks)": ranks_sum(ddp["launches"]), "ddp_step-nccl": ddp["nccl_launches"],
+               "trainer_ddp (2 ranks)": ranks_sum(trainer_ddp["launches"]["straight"]),
+               "trainer_ddp-resumed (2 ranks)": ranks_sum(trainer_ddp["launches"]["resumed"]),
+               "eval_ddp (2 ranks)": ranks_sum(synth["eval_ddp"]["launches"]),
+               "decode_dp": synth["decode_dp"]["runs"]["greedy"]["launches"],
+               "decode_dp-beam": synth["decode_dp"]["runs"]["beam"]["launches"],
+               "decode_dp-serving": dp_serving["launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

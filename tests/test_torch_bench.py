@@ -25,6 +25,7 @@ from adt_str_tpu.synth import render as jrender
 from adt_str_tpu_torch import bench as tbench
 from adt_str_tpu_torch.config import ModelConfig, SynthConfig
 from adt_str_tpu_torch.parallel import train_step as tstep
+from adt_str_tpu_torch.parallel.mesh import make_mesh
 from adt_str_tpu_torch.synth import render as trender
 from adt_str_tpu_torch.synth.bank import n_allowed_bins
 from test_torch_synth import jax_render_draws
@@ -149,7 +150,8 @@ def test_synth_eval_step_refuses_a_mesh_and_missing_bins():
     _, _, _, tcfg = build(dict(BASE, dropout=0.1))
     statics = trender.SynthStatics.from_bank(_bank(), device="cpu")
     cfg = SynthConfig(**SYNTH)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        tstep.make_synth_eval_step(tcfg, cfg, statics, device="cpu", mesh=object())
+    # data parallelism is ported: a step runs one process a rank, so a one-process mesh of two entries is refused
+    with pytest.raises(ValueError, match="one process a rank"):
+        tstep.make_synth_eval_step(tcfg, cfg, statics, mesh=make_mesh(devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="loaded with only the leading"):
         tstep.make_synth_eval_step(tcfg, cfg, statics._replace(loaded_bins=2), device="cpu")

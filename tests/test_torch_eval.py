@@ -44,6 +44,7 @@ from adt_str_tpu_torch.evaluation import harness as tharness
 from adt_str_tpu_torch.evaluation import metrics as tmetrics
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
+from adt_str_tpu_torch.parallel.mesh import make_mesh
 from adt_str_tpu_torch.utils.mappings import ADTOF_LABEL_MAPPING, GM_REDUCED_NAME_CONVENTION
 
 REPO = Path(__file__).resolve().parent.parent
@@ -285,8 +286,10 @@ def test_run_inference_refuses_beam_search_and_a_mesh(crafted, shard):
     beam = tharness.run_inference(model, cfg.model, ds, tok, InferenceConfig(use_beam_search=True, max_length=8,
                                                                             output_path=""), device="cpu")
     assert set(beam["all"]) == {"precision", "recall", "f_measure"}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tharness.run_inference(model, cfg.model, ds, tok, InferenceConfig(), device="cpu", mesh=object())
+    # a mesh is ported too: it decodes (test_torch_decode_dp.py holds it to the one-device run)
+    inf = InferenceConfig(max_length=8, output_path="")
+    dp = tharness.run_inference(model, cfg.model, ds, tok, inf, mesh=make_mesh(devices=["cpu", "cpu"]))
+    assert dp == tharness.run_inference(model, cfg.model, ds, tok, inf, device="cpu")
 
 
 # ------------------------------------------------------------------ the CLI

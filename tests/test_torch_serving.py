@@ -153,7 +153,8 @@ def test_engine_rejects_what_is_not_ported(served):
     _, model, cfg = served
     with ServingEngine(model, cfg, device="cpu", use_beam=True, beam_size=2) as eng:  # beam search is ported
         assert eng.use_beam and eng.beam_size == 2
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # multi-device decode is ported (test_torch_decode_dp.py): the mesh must be a DataMesh of this process
+    with pytest.raises(ValueError, match="DataMesh"):
         ServingEngine(model, cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError):
         ServingEngine(model, cfg, device="cpu", buckets=(4, 2))
@@ -283,7 +284,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'adt_str_tpu'))\n"
         "assert not bad, bad\n"
-        "new = ['training.trainer', 'training.checkpoint', 'data.datasets', 'train', 'utils.misc']\n"
+        "new = ['training.trainer', 'training.checkpoint', 'data.datasets', 'train', 'utils.misc', 'parallel.mesh',\n"
+        "       'parallel.train_step', 'models.decode', 'serving.engine', 'evaluation.harness', 'inference', 'eval',\n"
+        "       'serve']\n"
         "missing = [m for m in new if 'adt_str_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('adt_str_tpu_torch')]))\n"

@@ -31,6 +31,7 @@ from adt_str_tpu.training import optimizer as jopt
 from adt_str_tpu_torch.config import FrameworkConfig, ModelConfig, SynthConfig, TrainingConfig
 from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
 from adt_str_tpu_torch.parallel import train_step as tstep
+from adt_str_tpu_torch.parallel.mesh import make_mesh
 from adt_str_tpu_torch.synth import render as trender
 from adt_str_tpu_torch.synth.bank import n_allowed_bins
 from adt_str_tpu_torch.synth.fx import FxParams
@@ -136,8 +137,9 @@ def test_synth_train_step_refuses_a_mesh_a_bank_elsewhere_and_missing_bins(monke
     opt, _ = topt.make_optimizer(TrainingConfig(), total_steps=10, model=model)
     statics = trender.SynthStatics.from_bank(_bank(), device="cpu")
     cfg = SynthConfig(**SYNTH)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        tstep.make_synth_train_step(tcfg, cfg, statics, opt, device="cpu", mesh=object())
+    # data parallelism is ported (test_torch_ddp.py): a one-process mesh of two entries is refused
+    with pytest.raises(ValueError, match="one process a rank"):
+        tstep.make_synth_train_step(tcfg, cfg, statics, opt, mesh=make_mesh(devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="loaded with only the leading"):
         tstep.make_synth_train_step(tcfg, cfg, statics._replace(loaded_bins=2), opt, device="cpu")
     with pytest.raises(ValueError, match="bank lies on"):

@@ -40,6 +40,7 @@ from adt_str_tpu_torch.models import adt as tadt
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
 from adt_str_tpu_torch.parallel import train_step as tstep
+from adt_str_tpu_torch.parallel.mesh import make_mesh
 from adt_str_tpu_torch.training import optimizer as topt
 
 REPO = Path(__file__).resolve().parent.parent
@@ -305,8 +306,9 @@ def test_train_step_refuses_a_mesh_remat_and_a_missing_card(monkeypatch):
     for make in (lambda: tstep.make_train_step(tcfg, opt), lambda: tstep.make_eval_step(tcfg)):
         with pytest.raises(RuntimeError, match="no CUDA"):
             make()
-    with pytest.raises(NotImplementedError, match="DDP"):
-        tstep.make_train_step(tcfg, opt, device="cpu", mesh=object())
+    # data parallelism is ported (test_torch_ddp.py): a one-process mesh of two entries is refused
+    with pytest.raises(ValueError, match="one process a rank"):
+        tstep.make_train_step(tcfg, opt, mesh=make_mesh(devices=["cpu", "cpu"]))
     # remat is ported: training recomputes each layer (test_torch_checkpoint.py holds it to remat off)
     remat = ADTModel(ModelConfig(**dict(CONFIGS["plain"], remat=True)), device="cpu")
     assert remat.encode(torch.zeros(1, tcfg.chunk_samples), train=True).shape[0] == 1

@@ -295,11 +295,11 @@ def test_sigterm_saves_and_stops(lakh_env, tmp_path):
 
 def test_one_device_only_and_no_silent_cpu(lakh_env, tmp_path, monkeypatch):
     cfg = lakh_config(lakh_env, tmp_path, 2)
-    cfg.mesh.model_axis = 2
-    with pytest.raises(NotImplementedError, match="DDP"):
+    cfg.mesh.model_axis = 2  # not ported (data parallelism is: test_torch_trainer_ddp.py)
+    with pytest.raises(NotImplementedError, match="tensor-parallel model axis"):
         trainer.train(cfg, device="cpu")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="DDP"):
+    monkeypatch.setenv("WORLD_SIZE", "2")  # a partial torchrun environment never trains as one process
+    with pytest.raises(RuntimeError, match="partial torchrun environment"):
         trainer.train(lakh_config(lakh_env, tmp_path, 2), device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
