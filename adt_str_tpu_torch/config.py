@@ -8,7 +8,8 @@ floats (`8e-4` is a float), unknown keys and sections dropped.
 Only the sections the ported slices use are typed (`shared`, `tokenizer`,
 `model`, `synthetiser`, `TrainDatasetConfig` as `train_data`,
 `EvalDatasetConfig` as `eval_data`, `training`, `logging`, `checkpoint`,
-`experiment`, `inference`, `serving`, `mesh`); every other section stays
+`experiment`, `inference`, `serving`, `mesh`; `clap_config` as
+`ClapConfig` through `make_dataclass_from`); every other section stays
 readable in `FrameworkConfig.raw`. The YAML is read by the port's own reader
 (`parse_yaml`), never by PyYAML: the machine with the card has none.
 """
@@ -360,6 +361,18 @@ class EvalDataConfig(SharedConfig):
     minus_one: bool = False
     splits: Optional[list[int]] = None
     demucs_separated: bool = False
+
+
+@dataclass(frozen=True)
+class ClapConfig(SharedConfig):
+    """The `clap_config` section of `configs/preprocess/clap.yaml`: the local
+    CLAP checkpoint directory, the encode batch and the two trees
+    (`adt_str_tpu/config.py:ClapConfig`)."""
+
+    model_name: str = "laion/clap-htsat-fused"
+    batch_size: int = 32
+    sample_pack_root: str = ""
+    reference_root: str = ""
 
 
 @dataclass

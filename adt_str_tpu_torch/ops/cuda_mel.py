@@ -57,6 +57,14 @@ def _device_constants(params: MelFrontendParams, device: torch.device):
     return tuple(x.to(device) for x in _constants(params))
 
 
+def used_bins(params: MelFrontendParams) -> int:
+    """Bins 0..k-1 hold every filterbank weight above 1e-10 of the largest:
+    the bins whose power the mel bands need (`mel_table` keeps these)."""
+    M = mel_filterbank(params.n_freqs, params.n_mels, params.sample_rate, params.f_min, params.f_max)
+    used = np.flatnonzero((M > 1e-10 * M.max()).any(axis=1))
+    return int(used[-1]) + 1 if used.size else 1
+
+
 @functools.lru_cache(maxsize=4)
 def mel_table(params: MelFrontendParams) -> torch.Tensor:
     """The kernel's sparse form of the mel filterbank: an (n_tiles * 128, 4)
@@ -73,8 +81,7 @@ def mel_table(params: MelFrontendParams) -> torch.Tensor:
     if n_mels < 2:
         raise ValueError(f"the log-mel kernel needs n_mels >= 2, got {n_mels}")
     M = mel_filterbank(params.n_freqs, n_mels, params.sample_rate, params.f_min, params.f_max)
-    used = np.flatnonzero((M > 1e-10 * M.max()).any(axis=1))
-    k_used = int(used[-1]) + 1 if used.size else 1
+    k_used = used_bins(params)
     n_tiles = -(-k_used // FREQ_TILE)
     w = np.zeros((n_tiles * FREQ_TILE, 2), np.float32)
     m0 = np.zeros(n_tiles * FREQ_TILE, np.int64)

@@ -21,8 +21,8 @@ algorithms are the JAX package's, operation for operation:
 
 Every matrix product is true fp32 (the JAX package asks for
 `precision="highest"`): each public entry turns TF32 off while it runs and
-restores the caller's setting (`_fp32_products`). There is no `conv1d` here
-(cuDNN allows TF32).
+restores the caller's setting (`utils/misc.py:fp32_products`, which also
+turns cuDNN's TF32 off; there is no convolution here).
 
 Randomness is data: `draw_fx_params` draws the chain's parameters from a
 `torch.Generator` and `fx_chain` applies them; a parity test replays the
@@ -38,6 +38,8 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from adt_str_tpu_torch.utils.misc import fp32_products
 
 # Freeverb tunings at 44100 Hz (Jezar's constants, used verbatim by JUCE
 # Reverb) and JUCE parameter scalings.
@@ -62,26 +64,6 @@ _PEAK_WINDOW = 12  # causal sliding-max width of the envelope
 Param = Union[float, torch.Tensor]
 
 
-def _fp32_products(fn):
-    """Run `fn` with matmul precision "highest" (no TF32), restoring the
-    caller's setting after. The setting is process-wide, so it is set once
-    at the outermost public entry (`fx_chain` for a render), and a nested
-    entry that finds it already "highest" leaves it alone."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        prev = torch.get_float32_matmul_precision()
-        if prev == "highest":
-            return fn(*args, **kwargs)
-        torch.set_float32_matmul_precision("highest")
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.set_float32_matmul_precision(prev)
-
-    return wrapped
-
-
 def _col(p: Param, x: torch.Tensor) -> torch.Tensor:
     """A per-row parameter as an (R, 1) f32 column (a number: the same for every row)."""
     t = torch.as_tensor(p, dtype=torch.float32, device=x.device)
@@ -95,7 +77,7 @@ def draw_clamped_normal(z: torch.Tensor, std: float, mean: float, high_bound: fl
     return torch.clamp(torch.abs(x) * high_bound, low_bound, high_bound)
 
 
-@_fp32_products
+@fp32_products
 def ema_scan(x: torch.Tensor, coeff: Param, block: int = 128) -> torch.Tensor:
     """First-order IIR y[t] = c*y[t-1] + (1-c)*x[t] along each row of (R, n)
     x, exactly and scan-free: y = blocks(x) @ A(c)^T plus carries, with
@@ -297,7 +279,7 @@ def _band_gains_decay(d: torch.Tensor, fb: torch.Tensor) -> tuple[torch.Tensor, 
     return torch.where(pin, 1.0, a_b), torch.where(pin, 1.0, g_b)
 
 
-@_fp32_products
+@fp32_products
 def reverb(x: torch.Tensor, sr: int, room_size: Param, damping: Param, wet_level: Param,
            width: Param = 1.0) -> torch.Tensor:
     """Freeverb / JUCE Reverb, mono, on (R, n) rows with per-row parameters:
@@ -357,7 +339,7 @@ def _envelope(x: torch.Tensor, sr: int, attack_ms: Param, release_ms: Param) -> 
     return torch.maximum(fast, slow)
 
 
-@_fp32_products
+@fp32_products
 def compressor(x: torch.Tensor, sr: int, threshold_db: Param, ratio: Param, attack_ms: Param,
                release_ms: Param) -> torch.Tensor:
     env = _envelope(x, sr, attack_ms, release_ms)
@@ -367,7 +349,7 @@ def compressor(x: torch.Tensor, sr: int, threshold_db: Param, ratio: Param, atta
     return x * torch.pow(10.0, gain_db / 20.0)
 
 
-@_fp32_products
+@fp32_products
 def limiter(x: torch.Tensor, sr: int, threshold_db: Param, release_ms: Param = 100.0) -> torch.Tensor:
     """JUCE dsp::Limiter semantics: a fixed 4:1 pre-compressor at -10 dB
     (2/200 ms), a near-infinite-ratio stage at the threshold with instant
@@ -428,7 +410,7 @@ def draw_fx_params(n: int, generator: torch.Generator, use_reverb_prob: float, u
     )
 
 
-@_fp32_products
+@fp32_products
 def fx_chain(x: torch.Tensor, sr: int, p: FxParams) -> torch.Tensor:
     """(R, n) rows through reverb -> compressor -> limiter, each where its
     row's flag is set (deterministic given `p`)."""

@@ -3,10 +3,11 @@
 Drives the port's serving path, its real-audio training step, its
 synthesis-fused training step, its training job (`trainer.train`: epochs,
 checkpoints, resume, in-training eval), its evaluation harness with greedy
-and beam decoding, its offline transcription CLI, its bench and its data
+and beam decoding, its offline transcription CLI, its bench, its data
 parallelism (two gloo ranks on the one card, one NCCL rank, decode split
-over a mesh) (`adt_str_tpu_torch`) at full width and holds its hand-written
-CUDA kernels against their plain PyTorch versions.
+over a mesh) and its CLAP curation CLI (`adt_str_tpu_torch`) at full width
+and holds its hand-written CUDA kernels against their plain PyTorch
+versions.
 Imports no JAX and nothing of the JAX package. Its five configs come from
 `configs/` through the port's own YAML reader (`SERVING_YAML`,
 `TRAIN_YAMLS`, `SYNTH_YAML`, `EVAL_YAML`; a `config` line prints each value
@@ -124,11 +125,36 @@ line:
    windows (once a step each) and the busy share of one profiled step;
    one bench batch (48 note slots, the 192-row bank) rendered through K2
    and K3 must equal its plain-path render on the same draws;
-8. one `{"kernels": [...]}` line: each kernel at the main-path shape named
+8. clap (`configs/preprocess/clap.yaml` at laion/clap-htsat-fused's widths,
+   `ClapAudioArch()` and `ClapTextArch()`, on seeded random weights: no
+   CLAP checkpoint is in the repo): K1 at CLAP's frontend, (32, 480000),
+   48 kHz, n_fft 1024, hop 480, 64 mels, dB, no trim, against its plain
+   version within 1e-3 dB and timed as in 3; a checkpoint written by the
+   port (`config.json` + `model.safetensors`, 153.5 M parameters); a
+   synthetic library of 1,024 one-shots of 0.2-1.0 s (as
+   `tools/bench_curation.py` makes them) and a reference tree of the 48
+   `REFERENCE_CLASSES` with 2 WAVs each; `python -m
+   adt_str_tpu_torch.scripts.augment_data_with_clap` on them (wall s,
+   files/s); the same curation in this process (K1 once a batch and no
+   other kernel; the embeddings kept): every library file copied once into
+   the `<class>/<bin>` that the port's assignment of the kept embeddings
+   gives, that assignment equal to an fp64 argmax but for near ties
+   (top-two margin < 1e-6), the CLI's tree equal to this one but for near
+   ties or bin edges; a batch's time by part (host padding, upload, K1,
+   tower), the decode, the assignment, the device busy share over an
+   encode, peak memory; one batch's embeddings through K1 and through its
+   plain version (cosine >= 0.9999), 4 clips on the card against the CPU
+   on the same route (< 1e-3), a mesh of two entries of cuda:0 against one
+   device at the entries' batch, and 8 token rows of 16-77 through the
+   text tower on the card against the CPU, `semantic_match` rows summing
+   to 1;
+9. one `{"kernels": [...]}` line: each kernel at the main-path shape named
    in its entry, with its launches in every main-path run (serving, the
    three training steps, bench, eval, inference, trainer, trainer-resumed,
    trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
-   their ranks, the NCCL step, decode_dp greedy, beam and serving).
+   their ranks, the NCCL step, decode_dp greedy, beam and serving, clap);
+   K1's entry also holds its numbers at CLAP's frontend
+   (`at_clap_frontend`).
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
@@ -146,6 +172,7 @@ import logging
 import math
 import multiprocessing
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -154,6 +181,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -161,6 +189,12 @@ import torch
 
 from adt_str_tpu_torch import bench as port_bench
 from adt_str_tpu_torch import inference as port_inference
+from adt_str_tpu_torch.clap import curation as clap_curation
+from adt_str_tpu_torch.clap import features as clap_features
+from adt_str_tpu_torch.clap import model as clap_model
+from adt_str_tpu_torch.clap.audio_model import ClapAudioArch
+from adt_str_tpu_torch.clap.text_model import ClapTextArch
+from adt_str_tpu_torch.clap.text_model import get_text_features as clap_text_features
 from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
 from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
@@ -191,7 +225,7 @@ from adt_str_tpu_torch.training import checkpoint as trainer_ckpt
 from adt_str_tpu_torch.training import trainer
 from adt_str_tpu_torch.training.optimizer import make_optimizer
 from adt_str_tpu_torch.serving.http import make_server, start_in_thread
-from adt_str_tpu_torch.utils.audio_io import normalize, write_wav
+from adt_str_tpu_torch.utils.audio_io import load_and_resample, normalize, write_wav
 from adt_str_tpu_torch.utils.mappings import ADTOF_LABEL_MAPPING
 from adt_str_tpu_torch.utils.midi_io import write_midi
 
@@ -359,7 +393,7 @@ def copy_rate(n_bytes: int, copies: int = 50) -> float:
     return 2 * n_bytes / statistics.median(times)
 
 
-def mel_library(wave, params):
+def mel_library(wave, params, trim=True):
     """torch.stft + the mel matmul + the log tail: the library yardstick of K1."""
     window = torch.hann_window(params.n_fft, periodic=True, device=wave.device)
     spec = torch.stft(wave, params.n_fft, params.hop_length, window=window, center=True,
@@ -367,9 +401,15 @@ def mel_library(wave, params):
     power = spec.real**2 + spec.imag**2  # (B, n_freqs, frames)
     fb = cuda_mel._device_constants(params, wave.device)[2][: params.n_freqs]
     mel = torch.matmul(power.transpose(1, 2), fb)
-    logmel = torch.clamp(torch.log(mel + params.log_floor), params.clamp_lo, params.clamp_hi)
+    if params.log_mode == "db":
+        out = 10.0 * torch.log10(torch.clamp(mel, min=params.log_floor))
+    else:
+        logmel = torch.clamp(torch.log(mel + params.log_floor), params.clamp_lo, params.clamp_hi)
+        out = (logmel - params.clamp_lo) / (params.clamp_hi - params.clamp_lo)
+    if not trim:
+        return out
     p = params.window_pad_idxs
-    return ((logmel - params.clamp_lo) / (params.clamp_hi - params.clamp_lo))[:, p : mel.shape[1] - p - 1]
+    return out[:, p : mel.shape[1] - p - 1]
 
 
 def main_path_bucket(cfg: FrameworkConfig) -> int:
@@ -378,9 +418,16 @@ def main_path_bucket(cfg: FrameworkConfig) -> int:
     return next(b for b in cfg.serving.buckets if b >= chunks)
 
 
-def phase_mel(params, batch: int, gen) -> dict:
-    T = 61440
-    inputs = [(torch.randn(batch, T, generator=gen, device="cuda") * 0.3, params) for _ in range(REPS)]
+def time_log_mel(inputs: list, tol: float, frame_tol: float | None = None) -> dict:
+    """K1 against its plain version on the first of `inputs` ((wave, params,
+    trim) each), then its kernel, device, plain and library times over all
+    of them and the least time the card could take. Each output must lie
+    within `tol`; with `frame_tol` (dB outputs), a band may instead lie
+    within `frame_tol` of its frame's total mel power on the power scale: the
+    two sum the same fp32 products in other orders, and where a band's power
+    is a deep dip of the spectrum (a cancelling sum) that order moves its dB
+    value by more than the loud bands' tolerance."""
+    wave, params, trim = inputs[0]
     before = cuda_mel.log_mel.launches
     out = cuda_mel.log_mel(*inputs[0])
     ref = cuda_mel.log_mel_plain(*inputs[0])
@@ -388,19 +435,34 @@ def phase_mel(params, batch: int, gen) -> dict:
     if cuda_mel.log_mel.launches != before + 1:
         raise RuntimeError("log_mel did not launch its kernel")
     err = (out - ref).abs()
-    tol = 1e-4  # same bf16 operands, fp32 accumulation in another order
     res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol}
-    if not (torch.isfinite(out).all() and res["max_abs_err"] <= tol):
+    ok = err <= tol
+    if frame_tol is not None:
+        power, ref_power = 10.0 ** (out.double() / 10), 10.0 ** (ref.double() / 10)
+        frame_err = (power - ref_power).abs() / ref_power.sum(dim=-1, keepdim=True)
+        ok |= frame_err <= frame_tol
+        res.update(tol={"db": tol, "or_power_over_frame_power": frame_tol},
+                   max_power_err_over_frame_power=frame_err.max().item(),
+                   bands_over_db_tol=int((err > tol).sum().item()), bands=err.numel())
+    if not (torch.isfinite(out).all() and bool(ok.all())):
         raise RuntimeError(f"log_mel kernel disagrees with its plain version: {res}")
     res["ms"] = median_ms(cuda_mel.log_mel, inputs)
     res["device_ms"] = device_ms(cuda_mel.log_mel, inputs)  # the main kernel and, when split, the reduction
     res["plain_ms"] = median_ms(cuda_mel.log_mel_plain, inputs)
     res["library_ms"] = median_ms(mel_library, inputs)
-    rows, k = batch * params.out_frames(T), params.n_freqs
+    B, T = wave.shape
+    rows, k = B * out.shape[1], cuda_mel.used_bins(params)  # the bins the mel bands weigh
     res["bound_ms"], res["bound_by"] = bound(
         [(4.0 * rows * params.n_fft * k, PEAK_BF16), (2.0 * rows * k * params.n_mels, PEAK_FP32)],
-        batch * T * 4 + 2 * params.n_fft * k * 2 + k * params.n_mels * 4 + rows * params.n_mels * 4,
+        B * T * 4 + 2 * params.n_fft * k * 2 + k * params.n_mels * 4 + rows * params.n_mels * 4,
     )
+    return res
+
+
+def phase_mel(params, batch: int, gen) -> dict:
+    T = 61440
+    inputs = [(torch.randn(batch, T, generator=gen, device="cuda") * 0.3, params, True) for _ in range(REPS)]
+    res = time_log_mel(inputs, 1e-4)  # same bf16 operands, fp32 accumulation in another order
     emit({"phase": "kernel", "name": "log_mel", "batch": batch, **res})
     return res
 
@@ -1344,9 +1406,10 @@ def yaml_text(sections: dict) -> str:
     return "\n".join(lines) + "\n"
 
 
-def run_cli(args: list, timeout: int = 600) -> tuple[subprocess.CompletedProcess, float]:
+def run_cli(args: list, timeout: int = 600, env: dict | None = None) -> tuple[subprocess.CompletedProcess, float]:
     t0 = time.monotonic()
-    proc = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=timeout,
+                          env=None if env is None else {**os.environ, **env})
     if proc.returncode != 0:
         raise RuntimeError(f"{args[:2]} exited {proc.returncode}: {proc.stderr[-3000:]}")
     return proc, time.monotonic() - t0
@@ -2572,6 +2635,293 @@ def phase_synthesis(ptxas: dict) -> dict:
     return out
 
 
+# CLAP curation (`configs/preprocess/clap.yaml`) at laion/clap-htsat-fused's widths
+CLAP_YAML = "configs/preprocess/clap.yaml"
+CLAP_SR = 48_000
+CLAP_BATCH = 32  # the config's batch_size
+CLAP_LIBRARY = 1024  # one-shots of 0.2-1.0 s, as tools/bench_curation.py makes them
+CLAP_REF_PER_CLASS = 2
+CLAP_CPU_CLIPS = 4
+CLAP_TEXT_ROWS = 8
+CLAP_TIMED_BATCHES = 5
+CLAP_NEAR_TIE = 1e-6  # a top-two cosine margin below this may go either way in another summation order
+
+
+def one_shots(root: Path, n: int, rng, prefix: str) -> list[str]:
+    """`n` mono 48 kHz one-shots of 0.2-1.0 s as tools/bench_curation.py
+    makes them (a decaying sine of 60-4000 Hz and noise, peak-normalised),
+    written as float32 WAVs."""
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(n):
+        length = int(rng.integers(int(0.2 * CLAP_SR), int(1.0 * CLAP_SR)))
+        t = np.arange(length) / CLAP_SR
+        sig = np.sin(2 * np.pi * rng.uniform(60, 4000) * t) * np.exp(-t * rng.uniform(3, 30))
+        sig += rng.normal(0, 0.05, length)
+        paths.append(str(root / f"{prefix}_{i:05d}.wav"))
+        write_wav(paths[-1], (sig / (np.abs(sig).max() + 1e-9)).astype(np.float32), CLAP_SR)
+    return paths
+
+
+def phase_clap_mel() -> dict:
+    """K1 at CLAP's frontend: (32, 480000) repeat-padded one-shots of
+    0.2-1.0 s (silent tails at the 1e-10 floor), each call on other row
+    gains, no trim, dB; against its plain version within 1e-3 dB (the card
+    tests' dB tolerance) or, for a band in a spectral dip, within 2^-20 (8
+    fp32 ulps) of its frame's mel power."""
+    rng = np.random.default_rng(SEED + 71)
+    fx = clap_features.ClapFeatureExtractor()
+    rows = [fx._pad_short(rng.normal(size=int(rng.integers(9600, 48_000))) * 0.3) for _ in range(CLAP_BATCH)]
+    base = torch.from_numpy(np.stack(rows).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    params = clap_features._clap_mel_params()
+    inputs = [(base * (0.5 + torch.rand(CLAP_BATCH, 1, generator=gen, device="cuda")), params, False)
+              for _ in range(REPS)]
+    res = time_log_mel(inputs, 1e-3, frame_tol=2.0**-20)
+    emit({"phase": "kernel", "name": "log_mel", "at": "clap frontend", "batch": CLAP_BATCH,
+          "samples": base.shape[1], **res})
+    return res
+
+
+class EmbeddingRecorder:
+    """A CLAP wrapper as `curate_library` sees it: every call passes straight
+    through, and each batch's embeddings and end time are kept."""
+
+    def __init__(self, wrapper):
+        self.wrapper, self.device = wrapper, wrapper.device
+        self.batches: list = []
+        self.ends: list = []
+
+    def get_audio_features(self, audios, mesh=None):
+        out = self.wrapper.get_audio_features(audios, mesh=mesh)
+        self.batches.append(out)
+        self.ends.append(time.monotonic())
+        return out
+
+
+def stage_rows(batches: list, counts: list) -> list:
+    """Per-batch embeddings -> one array per stage of `counts` files (each
+    stage's batches padded to CLAP_BATCH rows)."""
+    out, at = [], 0
+    for n in counts:
+        k = -(-n // CLAP_BATCH)
+        out.append(np.concatenate(batches[at : at + k])[:n])
+        at += k
+    return out
+
+
+def curated_tree(root: Path) -> dict:
+    """{file name: "<class>/<bin>"} of a curated tree; raises if a name is there twice."""
+    tree: dict = {}
+    for p in root.rglob("*.wav"):
+        rel = p.relative_to(root)
+        if p.name in tree:
+            raise RuntimeError(f"clap: {p.name} copied twice ({tree[p.name]}, {rel.parent})")
+        tree[p.name] = str(rel.parent)
+    return tree
+
+
+def near_bin_edge(score: float) -> bool:
+    """Whether `score` lies within 1e-5 of a point where `score_to_bin_label`'s rounding turns."""
+    x = (score + 1.0) * 50.0
+    return abs(x - (math.floor(x) + 0.5)) < 5e-4
+
+
+def clap_breakdown(wrapper, files: list) -> dict:
+    """Where one batch's time goes, each part timed on its own over
+    CLAP_TIMED_BATCHES batches of decoded library one-shots (medians): the
+    host's repeat-padding, the upload, K1, the tower (CUDA events), and the
+    whole `get_audio_features` call (host clock)."""
+    fx = wrapper.feature_extractor
+    batches = [[normalize(load_and_resample(f, CLAP_SR)) for f in files[i * CLAP_BATCH : (i + 1) * CLAP_BATCH]]
+               for i in range(CLAP_TIMED_BATCHES)]
+    pad_s, up_s, call_s, waves = [], [], [], []
+    for clips in batches:
+        t0 = time.monotonic()
+        padded = np.stack([fx._pad_short(a) for a in clips]).astype(np.float32)
+        t1 = time.monotonic()
+        waves.append(torch.from_numpy(padded).to(wrapper.device))
+        torch.cuda.synchronize()
+        pad_s.append(t1 - t0)
+        up_s.append(time.monotonic() - t1)
+    for clips in batches:
+        t0 = time.monotonic()
+        wrapper.get_audio_features(clips)
+        call_s.append(time.monotonic() - t0)
+    with torch.no_grad():
+        mels = [clap_features.device_log_mel_db(w)[:, None].expand(-1, 4, -1, -1) for w in waves]
+        longer = torch.zeros(CLAP_BATCH, dtype=torch.bool, device=wrapper.device)
+        tower_ms = median_ms(wrapper.audio, [(m, longer) for m in mels])
+    return {"host_pad_ms": statistics.median(pad_s) * 1e3, "upload_ms": statistics.median(up_s) * 1e3,
+            "k1_ms": median_ms(clap_features.device_log_mel_db, [(w,) for w in waves]), "tower_ms": tower_ms,
+            "get_audio_features_ms": statistics.median(call_s) * 1e3}
+
+
+def clap_text(wrapper, cpu_wrapper, audio_emb: np.ndarray) -> dict:
+    """CLAP_TEXT_ROWS id rows of 16-77 tokens (BOS, random ids, EOS, padding)
+    through the full-width text tower on the card and on the CPU."""
+    rng = np.random.default_rng(SEED + 73)
+    lengths = rng.integers(16, 78, CLAP_TEXT_ROWS)
+    pos = np.arange(77)[None]
+    ids = np.where(pos < lengths[:, None], rng.integers(3, wrapper.text_arch.vocab_size, (CLAP_TEXT_ROWS, 77)),
+                   wrapper.text_arch.pad_token_id)
+    ids[:, 0] = 0
+    ids[np.arange(CLAP_TEXT_ROWS), lengths - 1] = 2
+    ids, mask = torch.from_numpy(ids), torch.from_numpy((pos < lengths[:, None]).astype(np.float32))
+    card = clap_text_features(wrapper.text, ids, mask).cpu().numpy()
+    cpu = clap_text_features(cpu_wrapper.text, ids, mask).numpy()
+    match = wrapper.semantic_match(audio_emb, card)
+    return {"rows": CLAP_TEXT_ROWS, "tokens": lengths.tolist(), "max_abs_vs_cpu": float(np.abs(card - cpu).max()),
+            "match_shape": list(match.shape), "match_row_sum_err": float(np.abs(match.sum(axis=1) - 1).max())}
+
+
+def phase_clap() -> dict:
+    """CLAP curation at full width (`ClapAudioArch()`, `ClapTextArch()`: the
+    laion/clap-htsat-fused shapes) on seeded random weights; see the module
+    docstring, item 8."""
+    k1 = phase_clap_mel()
+    tmp = Path(tempfile.mkdtemp(prefix="clap_smoke_"))
+    try:
+        return {**clap_curation_on_card(tmp), "k1": k1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def clap_curation_on_card(tmp: Path) -> dict:
+    """The CLAP phase after K1's own check, in `tmp`."""
+    res: dict = {"phase": "clap"}
+    t0 = time.monotonic()
+    audio_arch, text_arch = ClapAudioArch(), ClapTextArch()
+    sd = clap_model.random_state_dict(audio_arch, text_arch, SEED + 70)
+    model_dir = clap_model.save_checkpoint(tmp / "model", sd, audio_arch, text_arch)
+    res["checkpoint"] = {"params": sum(v.numel() for v in sd.values()),
+                         "bytes": (model_dir / "model.safetensors").stat().st_size,
+                         "write_s": time.monotonic() - t0}
+    del sd
+    emit({"phase": "clap_checkpoint", **res["checkpoint"]})
+
+    # the library and the reference tree, where configs/preprocess/clap.yaml looks for them
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 74)
+    data = tmp / "data"
+    lib_files = sorted(one_shots(data / "SampleToUse", CLAP_LIBRARY, rng, "shot"))
+    ref_root = data / "GM" / "GM_Mapped_Reduced"
+    for cls in clap_curation.REFERENCE_CLASSES:
+        one_shots(ref_root / str(cls), CLAP_REF_PER_CLASS, rng, f"ref{cls}")
+    n_ref = CLAP_REF_PER_CLASS * len(clap_curation.REFERENCE_CLASSES)
+    res["data"] = {"library": CLAP_LIBRARY, "reference": n_ref, "make_s": time.monotonic() - t0}
+    out_root = clap_curation._augmented_root_for(ref_root)
+
+    # the CLI, as a user runs it
+    proc, wall = run_cli(["-m", "adt_str_tpu_torch.scripts.augment_data_with_clap", CLAP_YAML, "--device", "cuda"],
+                         env={"CLAP_MODEL_DIR": str(model_dir), "ADT_DATA": str(data)})
+    cli_tree = curated_tree(out_root)
+    res["cli"] = {"wall_s": wall, "files_per_s": (CLAP_LIBRARY + n_ref) / wall, "copied": len(cli_tree),
+                  "log_tail": proc.stderr.strip().splitlines()[-2:]}
+
+    # the same curation in this process, with the launch counters and the embeddings read
+    wrapper = clap_model.ClapWrapper.from_dir(model_dir, sample_rate=CLAP_SR, device="cuda")
+    recorder = EmbeddingRecorder(wrapper)
+    counters = reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    clap_curation.curate_library(recorder, str(data / "SampleToUse"), str(ref_root), sample_rate=CLAP_SR,
+                                 batch_size=CLAP_BATCH, num_bins=10)
+    t_end = time.monotonic()
+    launches = {k: c.launches for k, c in counters.items()}
+    res["in_process"] = {"wall_s": t_end - t0, "batches": len(recorder.batches),
+                         "assign_and_copy_s": t_end - recorder.ends[-1],
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+    tree = curated_tree(out_root)
+
+    ref_emb, lib_emb = stage_rows(recorder.batches, [n_ref, CLAP_LIBRARY])
+    ref_files = clap_curation.sort_paths_by_parent_folder([str(p) for p in ref_root.rglob("*.wav")])
+    by_class = {k: [e for f, e in zip(ref_files, ref_emb) if int(Path(f).parent.name) == k]
+                for k in clap_curation.REFERENCE_CLASSES}
+    labels = [k for k in clap_curation.REFERENCE_CLASSES if by_class[k]]
+    means = np.stack([np.mean(by_class[k], axis=0) for k in labels]).astype(np.float32)
+    idx, score = clap_curation.assign_classes(lib_emb, means, device="cuda")
+    expect = {Path(f).name: f"{labels[int(i)]}/{clap_curation.score_to_bin_label(float(v), 10)}"
+              for f, i, v in zip(lib_files, idx, score)}
+    assign_s = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        clap_curation.assign_classes(lib_emb, means, device="cuda")
+        assign_s.append(time.monotonic() - t0)
+    u = lib_emb.astype(np.float64) / np.linalg.norm(lib_emb.astype(np.float64), axis=1, keepdims=True)
+    m = means.astype(np.float64) / np.linalg.norm(means.astype(np.float64), axis=1, keepdims=True)
+    sims = u @ m.T
+    top2 = np.sort(sims, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    near = margin < CLAP_NEAR_TIE
+    cli_diff = sorted(n for n in expect if cli_tree.get(n) != tree.get(n))
+    cli_diff_explained = all(margin[lib_files.index(str(data / "SampleToUse" / n))] < 1e-5
+                             or near_bin_edge(float(score[lib_files.index(str(data / "SampleToUse" / n))]))
+                             for n in cli_diff)
+    res["assignment"] = {"classes": len(labels), "classes_used": len(set(idx.tolist())),
+                         "mean_score": float(score.mean()), "min_margin": float(margin.min()),
+                         "median_margin": float(np.median(margin)), "near_ties": int(near.sum()),
+                         "fp64_argmax_differs": int(((sims.argmax(axis=1) != idx) & ~near).sum()),
+                         "assign_ms": statistics.median(assign_s) * 1e3,
+                         "cli_files_elsewhere": len(cli_diff), "embedding_digest": hashlib.sha256(
+                             np.ascontiguousarray(lib_emb).tobytes()).hexdigest()[:16],
+                         "embedding_rows_0_1": lib_emb[:2, :6].tolist()}
+
+    # where the time goes
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(min(16, os.cpu_count() or 1)) as pool:
+        list(pool.map(lambda f: normalize(load_and_resample(f, CLAP_SR)), lib_files + ref_files))
+    res["breakdown"] = {"decode_s": time.monotonic() - t0, **clap_breakdown(wrapper, lib_files)}
+    res["breakdown"]["decode_ms_per_batch"] = res["breakdown"]["decode_s"] * 1e3 * CLAP_BATCH / (CLAP_LIBRARY + n_ref)
+    res["profile_encode"] = step_profile(lambda: clap_curation.encode_files(
+        wrapper, lib_files[: 4 * CLAP_BATCH], CLAP_SR, CLAP_BATCH), "clap_encode")
+
+    # K1 against its plain version through the tower; the card against the CPU; the mesh; the text tower
+    clips = [normalize(load_and_resample(f, CLAP_SR)) for f in lib_files[:CLAP_BATCH]]
+    emb = wrapper.get_audio_features(clips)
+    with plain_kernels():
+        emb_plain = wrapper.get_audio_features(clips)
+    res["k1_vs_plain_min_cosine"] = float((emb * emb_plain).sum(axis=1).min())
+    cpu_wrapper = clap_model.ClapWrapper.from_dir(model_dir, sample_rate=CLAP_SR, device="cpu")
+    cpu_wrapper.device_mel = True  # the card's route: K1 (its plain version), the tower
+    emb_cpu = cpu_wrapper.get_audio_features(clips[:CLAP_CPU_CLIPS])
+    emb_card = wrapper.get_audio_features(clips[:CLAP_CPU_CLIPS])
+    cpu_wrapper.device_mel = False  # the CPU's own route: the float64 host extractor
+    emb_cpu_host = cpu_wrapper.get_audio_features(clips[:CLAP_CPU_CLIPS])
+    res["card_vs_cpu"] = {"clips": CLAP_CPU_CLIPS, "max_abs": float(np.abs(emb_card - emb_cpu).max()),
+                          "max_abs_vs_host_extractor": float(np.abs(emb_card - emb_cpu_host).max())}
+    half = CLAP_BATCH // 2
+    before = cuda_mel.log_mel.launches
+    emb_mesh = wrapper.get_audio_features(clips, mesh=mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"]))
+    mesh_launches = cuda_mel.log_mel.launches - before
+    emb_halves = np.concatenate([wrapper.get_audio_features(clips[:half]), wrapper.get_audio_features(clips[half:])])
+    res["mesh"] = {"entries": 2, "max_abs_vs_entry_batch": float(np.abs(emb_mesh - emb_halves).max()),
+                   "max_abs_vs_full_batch": float(np.abs(emb_mesh - emb).max()), "k1_launches": mesh_launches}
+    res["text"] = clap_text(wrapper, cpu_wrapper, emb_card)
+    emit(res)
+
+    checks = {
+        "every library file copied once": sorted(tree) == sorted(expect),
+        "the tree is score_to_bin_label's": tree == expect,
+        "the CLI's tree agrees but for near ties": cli_tree.keys() == tree.keys() and cli_diff_explained,
+        "fp64 argmax agrees but for near ties": res["assignment"]["fp64_argmax_differs"] == 0,
+        "K1 launched once a batch, nothing else": launches == {**dict.fromkeys(counters, 0),
+                                                             "log_mel": len(recorder.batches)},
+        "embeddings finite": bool(np.isfinite(lib_emb).all() and np.isfinite(ref_emb).all()),
+        "K1 vs plain cosine >= 0.9999": res["k1_vs_plain_min_cosine"] >= 0.9999,
+        "card vs CPU < 1e-3": res["card_vs_cpu"]["max_abs"] < 1e-3,
+        "mesh equals one device at the entries' batch": res["mesh"]["max_abs_vs_entry_batch"] <= 1e-6
+                                                         and mesh_launches == 2,
+        "text card vs CPU < 1e-3": res["text"]["max_abs_vs_cpu"] < 1e-3,
+        "semantic_match rows sum to 1": res["text"]["match_row_sum_err"] <= 1e-6,
+    }
+    fail_unless("clap", checks)
+    return res
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2598,6 +2948,7 @@ def main() -> int:
     serving = phase_serving(cfg)
     dp_serving = decode_dp_serving(cfg, serving)
     bench = phase_bench()
+    clap = phase_clap()
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in kernel_counters()}
@@ -2616,7 +2967,7 @@ def main() -> int:
                "eval_ddp (2 ranks)": ranks_sum(synth["eval_ddp"]["launches"]),
                "decode_dp": synth["decode_dp"]["runs"]["greedy"]["launches"],
                "decode_dp-beam": synth["decode_dp"]["runs"]["beam"]["launches"],
-               "decode_dp-serving": dp_serving["launches"]}
+               "decode_dp-serving": dp_serving["launches"], "clap": clap["in_process"]["launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2626,8 +2977,14 @@ def main() -> int:
                 **{k: res[k] for k in keys}}
 
     emit({"kernels": [
-        entry("log_mel", "adt_str_tpu_torch/csrc/log_mel.cu", "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
-              f"B={TRAIN_BATCH} chunks of 2.56 s (training; largest serving bucket)", mel[TRAIN_BATCH]),
+        {**entry("log_mel", "adt_str_tpu_torch/csrc/log_mel.cu", "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
+                 f"B={TRAIN_BATCH} chunks of 2.56 s (training; largest serving bucket)", mel[TRAIN_BATCH]),
+         "at_clap_frontend": {
+             "replaces": "adt_str_tpu/clap/features.py:81-90 _device_mel -> pallas_log_mel",
+             "shape": f"B={CLAP_BATCH} x 480000 (10 s at 48 kHz), n_fft 1024, hop 480, 64 mels, dB, no trim",
+             "launches": clap["in_process"]["launches"]["log_mel"],
+             **{k: clap["k1"][k] for k in ("max_abs_err", "tol", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}}},
         entry("fused_attention", "adt_str_tpu_torch/csrc/attention.cu",
               "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
               f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", att_train["decoder-self"]),

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from adt_str_tpu_torch.clap.features import ClapFeatureExtractor, _clap_mel_params, device_log_mel_db
 from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel, cuda_place
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.ffn import ffn_dropout_plain
@@ -58,6 +59,27 @@ def test_log_mel_kernel_matches_plain(cuda, params, n, trim, tol):
     assert out.shape == ref.shape
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= tol
+
+
+def test_log_mel_kernel_at_the_clap_frontend(cuda):
+    """K1 at CLAP's frontend (`clap/features.py:device_log_mel_db`): 48 kHz,
+    n_fft 1024, hop 480, 64 mels to 14 kHz, dB, no trim, on (4, 480000)
+    repeat-padded one-shots (silent tails at the 1e-10 floor) and noise:
+    1001 frames, 7 frame tiles of 128 and one of 105, the centred reflect
+    padding at both ends. Tolerance as the dB case above."""
+    rng = np.random.default_rng(10)
+    fx = ClapFeatureExtractor()
+    rows = [fx._pad_short(rng.normal(size=n) * 0.4) for n in (13_001, 48_000, 7919)]
+    wave = torch.from_numpy(np.stack([*rows, rng.normal(size=480_000) * 0.3]).astype(np.float32)).to(cuda)
+    params = _clap_mel_params()
+    before = cuda_mel.log_mel.launches
+    out = device_log_mel_db(wave)
+    torch.cuda.synchronize()
+    assert cuda_mel.log_mel.launches == before + 1
+    ref = cuda_mel.log_mel_plain(wave, params, trim=False)
+    assert out.shape == ref.shape == (4, 1001, 64)
+    assert torch.isfinite(out).all() and out[0].min().item() < -99.99
+    assert (out - ref).abs().max().item() <= 1e-3
 
 
 def _assert_log_mel_matches_plain(wave, params, trim=True):

@@ -17,6 +17,7 @@ import torch
 
 from adt_str_tpu.ops import mel as jmel
 from adt_str_tpu.ops import pallas_mel
+from adt_str_tpu_torch.clap.features import _clap_mel_params
 from adt_str_tpu_torch.config import FrameworkConfig
 from adt_str_tpu_torch.models.adt import mel_params
 from adt_str_tpu_torch.ops import cuda_mel
@@ -36,7 +37,8 @@ def _shipped_params():
     return sorted(params, key=repr)
 
 
-ALL_PARAMS = [*_shipped_params(), *SMALL]
+CLAP = _clap_mel_params()  # CLAP's frontend: 48 kHz, n_fft 1024, hop 480, 64 mels to 14 kHz, dB
+ALL_PARAMS = [*_shipped_params(), *SMALL, CLAP]
 
 
 def _decode(table):
@@ -73,6 +75,23 @@ def test_serving_table_drops_only_the_f_max_residue():
     assert 0 < M[1024].max() < 1e-14
 
 
+
+@pytest.mark.parametrize("params", ALL_PARAMS, ids=repr)
+def test_used_bins_are_the_weighted_bins(params):
+    """`used_bins` (the table's bins and the smoke's bound count) ends at
+    the last bin with a weight above the residue; at CLAP's frontend that is
+    bin 298 (13968.75 Hz, the last below 14 kHz), at the model's bin 1023."""
+    M = mel_filterbank(params.n_freqs, params.n_mels, params.sample_rate, params.f_min, params.f_max)
+    k = cuda_mel.used_bins(params)
+    assert M[k - 1].max() > 1e-10 * M.max()
+    assert (np.abs(M[k:]) <= 1e-10 * M.max()).all()
+    assert -(-k // cuda_mel.FREQ_TILE) * cuda_mel.FREQ_TILE == cuda_mel.mel_table(params).shape[0]
+    if params == CLAP:
+        assert k == 299
+    if params == MelFrontendParams(sample_rate=24000, win_length=2048, hop_length=240, n_mels=128):
+        assert k == 1024
+
+
 def _kernel_mel(power, table, n_mels, split):
     """numpy replay of the kernel's mel step for one frame: per band parity
     h, one running sum over the bins in order, a band written when the next
@@ -103,7 +122,7 @@ def _kernel_mel(power, table, n_mels, split):
 
 
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
-@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0]], ids=["model", "small"])
+@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0], CLAP], ids=["model", "small", "clap"])
 def test_in_order_band_sums_equal_the_dense_product(params, split):
     table = cuda_mel.mel_table(params)
     split = min(split, table.shape[0] // cuda_mel.FREQ_TILE)
@@ -125,12 +144,12 @@ def test_freq_split_fills_one_wave():
     assert cuda_mel.freq_split(256, 8, 132) == 1 and cuda_mel.freq_split(4, 2, 132) == 2
 
 
-@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0]], ids=["model", "small"])
+@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0], CLAP], ids=["model", "small", "clap"])
 def test_bases_equal_the_pallas_constants(params):
     C, S, M = cuda_mel._constants(params)
     jC, jS, jM = pallas_mel._constants(jmel.MelFrontendParams(
         sample_rate=params.sample_rate, win_length=params.win_length, hop_length=params.hop_length,
-        n_mels=params.n_mels, f_max=params.f_max))
+        n_mels=params.n_mels, f_min=params.f_min, f_max=params.f_max))
     k = params.n_freqs
     for ours, theirs in ((C, jC), (S, jS)):
         theirs = torch.from_numpy(np.asarray(theirs, dtype=np.float32))

@@ -286,7 +286,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "new = ['training.trainer', 'training.checkpoint', 'data.datasets', 'train', 'utils.misc', 'parallel.mesh',\n"
         "       'parallel.train_step', 'models.decode', 'serving.engine', 'evaluation.harness', 'inference', 'eval',\n"
-        "       'serve']\n"
+        "       'serve', 'clap.features', 'clap.audio_model', 'clap.text_model', 'clap.model', 'clap.convert',\n"
+        "       'clap.curation', 'scripts.augment_data_with_clap', 'scripts.copy_originals_to_augmented',\n"
+        "       'scripts.convert_augmented_to_hdf5']\n"
         "missing = [m for m in new if 'adt_str_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('adt_str_tpu_torch')]))\n"
