@@ -7,9 +7,8 @@ Port of `adt_str_tpu/clap/curation.py`:
   audio embedding, the mean of each class;
 - the unstructured library U: batched embedding, the WAVs decoded on a
   thread pool ahead of the encode, every batch padded with silence rows to
-  `batch_size` (K1's frequency split follows the batch,
-  `ops/cuda_mel.py:freq_split`, so a ragged last batch would move its
-  embeddings);
+  `batch_size` (the towers' cuBLAS products pick their algorithm by the
+  batch, so a ragged last batch could move its embeddings);
 - assignment: `class = argmax_c cos(sample, mean_c)` with the score
   `max_c cos`, which is what the reference's global descending sort with
   first-occurrence copying computes; one true fp32 (U, D) x (D, C) product;

@@ -38,11 +38,19 @@
 //     are exact zeros, so this is the same fp32 sum in bin order. Bins past
 //     the last nonzero weight are not computed;
 //   - the log tail runs on the registers and writes each output once;
-//   - at small batches the grid would leave SMs idle (two blocks a wave), so
-//     the wrapper splits the frequency tiles over `split` blocks of the same
-//     frames; each writes its partial mel sums to a scratch and a second
-//     small kernel adds the parts in split order (fixed, deterministic) and
-//     runs the tail.
+//   - a band's sum is taken per frequency tile of 128 bins (the running sum
+//     restarts at each tile) and the sums of the tiles its bins lie in are
+//     added in tile order: ((s_a + s_a+1) + s_a+2) + .... That order does
+//     not depend on how the tiles are shared among blocks, so a row's output
+//     is the same bits at every split and every batch size;
+//   - a launch of few frame tiles would leave SMs idle (two blocks for a
+//     2.56 s chunk), so the wrapper splits the frequency tiles over `split`
+//     blocks of the same frames (ops/cuda_mel.py:freq_split, one wave of
+//     the SMs). With split 1 a block adds its tiles' sums in registers; with
+//     more, each block writes each of its tiles' band sums to that tile's
+//     part of a scratch (only the bands the tile reaches), and a second
+//     small kernel adds each band's parts over its range of tiles
+//     (ops/cuda_mel.py:band_tiles) in tile order and runs the tail.
 
 #include <cmath>
 
@@ -81,7 +89,7 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
     const __grid_constant__ CUtensorMap sin_map,
     const float* __restrict__ wave,               // (B, T) fp32
     const float4* __restrict__ table,             // (n_tiles * FT): w0, w1, m0 (int bits), 0
-    float* __restrict__ out,                      // split 1: (B, n_out, n_mels); else (split, B, n_out, n_mels)
+    float* __restrict__ out,                      // split 1: (B, n_out, n_mels); else (n_tiles, B, n_out, n_mels)
     int B, int T, int n_fft, int hop, int n_tiles, int n_mels, int frame_start, int n_out, int split,
     float log_floor, float clamp_lo, float clamp_hi, int db_mode) {
   extern __shared__ uint8_t smem_raw[];
@@ -149,28 +157,40 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
   float acc_a[BN / 2] = {}, acc_b[BN / 2] = {};  // frames . C and frames . S (64 x 64 each)
   uint32_t fa[4][4];  // a stage's frames: wgmma's A operand for its 4 steps of 16 samples
 
-  // mel state of thread (frame f, band parity h): the running band and sum,
-  // and the next band of parity h not yet written
+  // mel state of thread (frame f, band parity h): the running band, its sum
+  // in this frequency tile and the sum of its earlier tiles (split 1), the
+  // next band of parity h not yet written (split 1) and the part (split > 1)
   const int f = t / 2, h = t % 2;
   const int frame = ft * TILE_F + wg * 64 + f;
-  int cur = -1, next = h;
-  float sum = 0.f;
+  int cur = -1, next = h, part = tile_lo;
+  float sum = 0.f, before = 0.f;
   auto write = [&](int m, float v) {
     if (frame >= n_out) return;
     const size_t row = static_cast<size_t>(b) * n_out + frame;
     if (split == 1)
       out[row * n_mels + m] = log_tail(v, log_floor, clamp_lo, clamp_hi, db_mode);
     else
-      out[(static_cast<size_t>(s_idx) * B * n_out + row) * n_mels + m] = v;
+      out[(static_cast<size_t>(part) * B * n_out + row) * n_mels + m] = v;
   };
-  auto finish_band = [&]() {  // writes `cur` and the untouched bands of parity h below it
-    for (; next < cur; next += 2) write(next, 0.f);
-    write(cur, sum);
+  auto finish_band = [&]() {  // writes `cur` (split 1: and the untouched bands of parity h below it)
+    if (split == 1)
+      for (; next < cur; next += 2) write(next, 0.f);
+    write(cur, before + sum);
     next = cur + 2;
   };
 
   int g = 0;
   for (int bin0 = tile_lo * FT; bin0 < tile_hi * FT; bin0 += BN) {
+    if (bin0 % FT == 0 && bin0 > tile_lo * FT) {  // a new frequency tile: the open band's sum restarts
+      if (split == 1) {
+        before += sum;
+      } else {  // the band's sum in the tile just ended; the next tile's part starts afresh
+        if (cur >= 0) finish_band();
+        ++part;
+        cur = -1;
+      }
+      sum = 0.f;
+    }
     for (int st = 0; st < n_stages; ++st, ++g) {
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) ldmatrix_x4(fa[kk], a_row + (st * KC + 16 * kk) * 2);
@@ -209,23 +229,29 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
       if (band != cur) {
         if (cur >= 0) finish_band();
         cur = band;
-        sum = 0.f;
+        sum = before = 0.f;
       }
       sum = __fmaf_rn((m0 & 1) == h ? e.x : e.y, prow[jj], sum);
     }
     named_barrier(2 + wg, 128);  // the power tile is read before the next tile's overwrites it
   }
   if (cur >= 0) finish_band();
-  for (; next < n_mels; next += 2) write(next, 0.f);
+  if (split == 1)
+    for (; next < n_mels; next += 2) write(next, 0.f);
 }
 
-// out = tail(sum over the split parts, in split order)
-__global__ void log_mel_reduce_kernel(const float* __restrict__ parts, float* __restrict__ out, size_t n, int split,
-                                      float log_floor, float clamp_lo, float clamp_hi, int db_mode) {
+// out = tail(a band's parts over its tiles first..last, in tile order; 0 for no tile)
+__global__ void log_mel_reduce_kernel(const float* __restrict__ parts, const int2* __restrict__ band_tiles,
+                                      float* __restrict__ out, size_t n, int n_mels, float log_floor, float clamp_lo,
+                                      float clamp_hi, int db_mode) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float v = parts[i];
-  for (int s = 1; s < split; ++s) v += parts[s * n + i];
+  const int2 r = __ldg(band_tiles + i % n_mels);
+  float v = 0.f;
+  if (r.x <= r.y) {
+    v = parts[r.x * n + i];
+    for (int s = r.x + 1; s <= r.y; ++s) v += parts[s * n + i];
+  }
   out[i] = log_tail(v, log_floor, clamp_lo, clamp_hi, db_mode);
 }
 
@@ -238,15 +264,17 @@ extern "C" int log_mel_frame_tile() { return TILE_F; }
 // hop % 8 == 0, n_fft % 64 == 0, T > n_fft / 2, contiguous tensors; `cosb`
 // and `sinb` are (n_fft, k_pad) bf16 with k_pad % 8 == 0, `table` holds
 // n_tiles * 128 entries (w0, w1, m0 bits, 0) with m0 + 1 < n_mels and m0
-// nondecreasing; with split > 1, `parts` is an fp32 (split, B, n_out,
-// n_mels) scratch. A window (127 * hop + n_fft samples) too large for shared
-// memory returns cudaErrorInvalidValue.
+// nondecreasing; `band_tiles` holds each band's first and last tile (int32
+// pairs, ops/cuda_mel.py:band_tiles); with split > 1, `parts` is an fp32
+// (n_tiles, B, n_out, n_mels) scratch. A window (127 * hop + n_fft samples)
+// too large for shared memory returns cudaErrorInvalidValue.
 extern "C" int launch_log_mel(const void* wave, const void* cosb, const void* sinb, const void* table,
-                              void* out, void* parts, int B, int T, int n_fft, int hop, int k_pad,
-                              int n_tiles, int n_mels, int frame_start, int n_out, int split,
+                              const void* band_tiles, void* out, void* parts, int B, int T, int n_fft, int hop,
+                              int k_pad, int n_tiles, int n_mels, int frame_start, int n_out, int split,
                               float log_floor, float clamp_lo, float clamp_hi, int db_mode, void* stream) {
   const int smem = smem_bytes(hop, n_fft);
-  if (smem > 232448 || n_fft % KC || hop % 8 || split < 1 || (split > 1 && parts == nullptr))
+  if (smem > 232448 || n_fft % KC || hop % 8 || split < 1 || split > n_tiles ||
+      (split > 1 && (parts == nullptr || band_tiles == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -267,7 +295,8 @@ extern "C" int launch_log_mel(const void* wave, const void* cosb, const void* si
   if (split > 1) {
     const size_t n = static_cast<size_t>(B) * n_out * n_mels;
     log_mel_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(parts), static_cast<float*>(out), n, split, log_floor, clamp_lo, clamp_hi, db_mode);
+        static_cast<const float*>(parts), static_cast<const int2*>(band_tiles), static_cast<float*>(out), n, n_mels,
+        log_floor, clamp_lo, clamp_hi, db_mode);
   }
   return static_cast<int>(cudaGetLastError());
 }

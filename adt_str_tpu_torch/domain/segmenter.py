@@ -1,10 +1,10 @@
 """Audio and note chunkers.
 
-Port of `adt_str_tpu/domain/segmenter.py`: `chunk_wave` and the note side of
-`Segmenter` (`chunk_notes`, which the resynthesis of a transcription
-uses; `chunk_audio_and_notes` joins with the training data slice). Notes
-whose onset and offset land in different chunks are dropped, as in the
-reference, and onset and offset are re-based modulo the chunk length.
+Port of `adt_str_tpu/domain/segmenter.py`: `chunk_wave` and `Segmenter`
+(`chunk_notes`, which the resynthesis of a transcription uses;
+`chunk_audio_and_notes`, which the text parsers use). Notes whose onset and
+offset land in different chunks are dropped, as in the reference, and
+onset and offset are re-based modulo the chunk length.
 """
 
 from __future__ import annotations
@@ -37,6 +37,40 @@ class Segmenter:
         n_chunks = int(notes[:, 1].max() // self.config.input_sec) + 1
         on_idx, keep, rebased = self._assign(notes)
         return [rebased[keep & (on_idx == c)].reshape(-1, 4) for c in range(n_chunks)]
+
+    def chunk_audio_and_notes(
+        self,
+        audio: np.ndarray,
+        notes: np.ndarray,
+        pad_tail: bool = False,
+    ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """1-D audio and its notes -> aligned chunks of `chunk_samples`; the
+        last chunk zero-padded with `pad_tail`, else ragged. Raises when an
+        annotation starts past the audio's last chunk."""
+        audio = np.asarray(audio)
+        if audio.ndim != 1:
+            raise ValueError("audio must be a 1D array")
+        samples = self.config.chunk_samples
+        n_chunks = max(1, -(-len(audio) // samples))
+        audio_chunks = []
+        for c in range(n_chunks):
+            chunk = audio[c * samples : (c + 1) * samples]
+            if pad_tail and len(chunk) < samples:
+                chunk = np.pad(chunk, (0, samples - len(chunk)))
+            audio_chunks.append(chunk)
+
+        notes = np.asarray(notes, dtype=np.float32).reshape(-1, 4)
+        notes_chunks = [np.zeros((0, 4), dtype=np.float32) for _ in range(n_chunks)]
+        if len(notes):
+            on_idx, keep, rebased = self._assign(notes)
+            if on_idx.max(initial=0) > n_chunks - 1:
+                raise ValueError(
+                    f"onset index {int(on_idx.max())} exceeds number of chunks "
+                    f"{n_chunks}: annotations are not consistent with the audio length."
+                )
+            for c in range(n_chunks):
+                notes_chunks[c] = rebased[keep & (on_idx == c)].reshape(-1, 4)
+        return audio_chunks, notes_chunks
 
 
 def chunk_wave(

@@ -26,18 +26,23 @@ the order of ties unspecified; `lax.top_k` is stable), so exact ties
 resolve as in the JAX package. The best beam is read back through `anc`.
 
 The decode loop runs no kernel of its own: like the JAX `decode_step`, it
-calls `attention_core` directly.
+calls `attention_core` directly, and on the card the products (asked
+with `fixed_order`), LayerNorms and attention of each step go to the
+batch-invariance kernels.
 
 `greedy_decode_sharded` and `beam_search_decode_sharded` (JAX's mesh
 decode, `adt_str_tpu/models/decode.py:437-510`) split the batch over a
 `parallel/mesh.py:DataMesh`'s local entries: each entry decodes its own
 rows with the model's replica on its device, with no collective, and the
 rows come back in order. Decoding is row-independent, so each entry's
-tokens are a one-device decode of its rows; where the arithmetic does not
-depend on the batch size (the CPU at fp32) they equal the full batch's
-decode row for row. On the card the full-width bf16 decode does depend on
-it (PERF.md §6, PR 9). Distinct devices decode at once, one host thread
-each; entries that repeat a device run one after the other.
+tokens are the full batch's decode row for row: on the CPU, and on the
+card, where the inference path's LayerNorm, the decode step's products and
+the attention run kernels whose sums follow a row's shape and never the
+batch (`ops/layer_norm.py`, `ops/linear.py`, `ops/attention_rows.py`), and
+the encoder's products keep cuBLAS, which the batch probe finds
+row-independent at the encoder's 246 rows a chunk. Distinct
+devices decode at once, one host thread each; entries that repeat a device
+run one after the other.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 
 
@@ -114,7 +120,7 @@ def decode_step(
     for li, layer in enumerate(model.decoder.decoder.layers):
         sa = layer.self_attn
         # one fused (d -> 3d) projection, then split
-        xw = x @ sa.in_proj_weight.to(compute).T + sa.in_proj_bias.to(compute)
+        xw = linear_ops.linear(x, sa.in_proj_weight, sa.in_proj_bias)
         q = T.split_heads(xw[..., :d], H)
         k_new = T.split_heads(xw[..., d : 2 * d], H)[:, :, 0]  # (B, H, hd)
         v_new = T.split_heads(xw[..., 2 * d :], H)[:, :, 0]
@@ -126,10 +132,10 @@ def decode_step(
             caches.k_self[li, :, :, step] = k_new.reshape(-1, K, H, k_new.shape[-1]).transpose(1, 2)
             caches.v_self[li, :, :, step] = v_new.reshape(-1, K, H, v_new.shape[-1]).transpose(1, 2)
             attn = _anc_attention(q, caches.k_self[li], caches.v_self[li], anc, self_mask)
-        x = T.layer_norm(layer.norm1, x + T.linear(sa.out_proj, T.merge_heads(attn)))
+        x = T.layer_norm(layer.norm1, x + T.linear(sa.out_proj, T.merge_heads(attn), fixed_order=True))
 
         ca = layer.multihead_attn
-        qc = ca.project(x, slice(0, d))
+        qc = ca.project(x, slice(0, d), fixed_order=True)
         if anc is None:
             cross = T.attention_core(qc, caches.k_cross[li], caches.v_cross[li], None)
         else:  # an item's K beam queries attend its one memory as K query rows
@@ -137,10 +143,10 @@ def decode_step(
             qcb = qc[:, :, 0].reshape(-1, K, H, hd).transpose(1, 2)
             cross = T.attention_core(qcb, caches.k_cross[li], caches.v_cross[li], None)
             cross = cross.transpose(1, 2).reshape(-1, H, hd)[:, :, None, :]
-        x = T.layer_norm(layer.norm2, x + T.linear(ca.out_proj, T.merge_heads(cross)))
-        x = T.layer_norm(layer.norm3, x + T.ffn(layer, x))
+        x = T.layer_norm(layer.norm2, x + T.linear(ca.out_proj, T.merge_heads(cross), fixed_order=True))
+        x = T.layer_norm(layer.norm3, x + T.ffn(layer, x, fixed_order=True))
 
-    return T.linear(model.decoder.generator, x)[:, 0, :]
+    return T.linear(model.decoder.generator, x, fixed_order=True)[:, 0, :]
 
 
 @torch.inference_mode()

@@ -29,7 +29,17 @@ Attention goes to the K5 kernels (`ops/cuda_attention.py`) under the rule of
 the JAX package's `_fused_attention_ok`: the flag is on, the head dim is a
 multiple of 128, and attention-probability dropout is inactive. The FFN goes
 to K4 (`ops/cuda_ffn.py`) under `_fused_ffn_ok`: the flag is on, training
-with dropout and a key, d_model a multiple of 128.
+with dropout and a key, d_model a multiple of 128. The LayerNorms and the
+attention outside K5 go through `ops/layer_norm.py` and
+`ops/attention_rows.py`: on the card's inference path their kernels sum in
+an order fixed by a row's shape, so a row's bits do not follow the rows
+beside it; training runs their plain versions under autograd. The other
+products run cuBLAS, except where a caller asks for `fixed_order`: the
+decode step (`models/decode.py`), whose products at 1-320 rows gave a row
+other bits beside other rows, goes to `ops/linear.py`'s kernel. The
+encoder's products and the memory's K/V projections (246 rows a chunk)
+keep cuBLAS: the batch probe (`chip_smoke.py:batch_probe`) finds them
+row-independent at every serving bucket.
 """
 
 from __future__ import annotations
@@ -41,7 +51,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn
+from adt_str_tpu_torch.ops import attention_rows, cuda_attention, cuda_ffn
+from adt_str_tpu_torch.ops import layer_norm as ln_ops
+from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import hash_mask, seed_from_key
 
 Key = Optional[tuple[int, int]]  # the two uint32 words of a site's key
@@ -49,21 +61,16 @@ Key = Optional[tuple[int, int]]  # the two uint32 words of a site's key
 NEG_MASK = -1e4
 
 
-def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """`x @ w^T + b` in `x`'s dtype."""
-    y = x @ mod.weight.to(x.dtype).T
-    if mod.bias is not None:
-        y = y + mod.bias.to(x.dtype)
-    return y
+def linear(mod: nn.Linear, x: torch.Tensor, fixed_order: bool = False) -> torch.Tensor:
+    """`x @ w^T + b` in `x`'s dtype; `fixed_order`: through `ops/linear.py`'s
+    wrapper (its kernel on the card's inference path), else cuBLAS."""
+    product = linear_ops.linear if fixed_order else linear_ops.linear_plain
+    return product(x, mod.weight, mod.bias)
 
 
 def layer_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with fp32 statistics, cast back to `x`'s dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + mod.eps)
-    return (y * mod.weight.float() + mod.bias.float()).to(x.dtype)
+    """LayerNorm with fp32 statistics, cast back to `x`'s dtype (`ops/layer_norm.py`)."""
+    return ln_ops.layer_norm(x, mod.weight, mod.bias, mod.eps)
 
 
 def _scale(x: torch.Tensor, keep: float) -> torch.Tensor:
@@ -109,15 +116,13 @@ def attention_core(
     q, k, v, mask: Optional[torch.Tensor], dropout_rate: float = 0.0, dropout_key: Key = None,
     train: bool = False,
 ) -> torch.Tensor:
-    """(B,H,Tq,hd) x (B,H,Tk,hd) attention without a kernel; `mask` is an
-    additive float mask broadcastable to (B,H,Tq,Tk). In training the
-    probabilities take dropout, as `nn.MultiheadAttention` does."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    if mask is not None:
-        scores = scores + mask.float()
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    probs = dropout(probs, dropout_rate, dropout_key, train)
-    return torch.matmul(probs, v)
+    """(B,H,Tq,hd) x (B,H,Tk,hd) attention outside K5 (`ops/attention_rows.py`);
+    `mask` is an additive float mask broadcastable to (B,H,Tq,Tk). In
+    training the probabilities take dropout, as `nn.MultiheadAttention` does."""
+    if not train or dropout_rate == 0.0 or dropout_key is None:
+        return attention_rows.attention(q, k, v, mask)
+    probs = attention_rows.attention_probs(q, k, mask)
+    return torch.matmul(dropout(probs, dropout_rate, dropout_key, train), v)
 
 
 def _fused_attention_ok(q: torch.Tensor, train: bool, dropout_rate: float) -> bool:
@@ -149,10 +154,11 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def project(self, x: torch.Tensor, part: slice) -> torch.Tensor:
-        """`x @ W[part]^T + b[part]` split into heads (part: q, k or v rows)."""
-        w = self.in_proj_weight[part].to(x.dtype)
-        return split_heads(x @ w.T + self.in_proj_bias[part].to(x.dtype), self.nhead)
+    def project(self, x: torch.Tensor, part: slice, fixed_order: bool = False) -> torch.Tensor:
+        """`x @ W[part]^T + b[part]` split into heads (part: q, k or v rows);
+        `fixed_order` as in `linear`."""
+        product = linear_ops.linear if fixed_order else linear_ops.linear_plain
+        return split_heads(product(x, self.in_proj_weight[part], self.in_proj_bias[part]), self.nhead)
 
     def forward(self, query, key_value, mask=None, use_flash: bool = False, dropout_rate: float = 0.0,
                 dropout_key: Key = None, train: bool = False) -> torch.Tensor:
@@ -168,10 +174,11 @@ class MultiheadAttention(nn.Module):
 
 
 def ffn(layer: nn.Module, x: torch.Tensor, dropout_rate: float = 0.0, key: Key = None,
-        train: bool = False) -> torch.Tensor:
-    """linear2(dropout(gelu(linear1(x)))) with the exact erf GELU."""
-    h = torch.nn.functional.gelu(linear(layer.linear1, x))
-    return linear(layer.linear2, dropout(h, dropout_rate, key, train))
+        train: bool = False, fixed_order: bool = False) -> torch.Tensor:
+    """linear2(dropout(gelu(linear1(x)))) with the exact erf GELU;
+    `fixed_order` as in `linear`."""
+    h = torch.nn.functional.gelu(linear(layer.linear1, x, fixed_order))
+    return linear(layer.linear2, dropout(h, dropout_rate, key, train), fixed_order)
 
 
 def _fused_ffn_ok(x: torch.Tensor, train: bool, rate: float, key: Key) -> bool:

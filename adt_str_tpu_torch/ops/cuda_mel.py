@@ -102,10 +102,29 @@ def mel_table(params: MelFrontendParams) -> torch.Tensor:
     return torch.from_numpy(table)
 
 
+@functools.lru_cache(maxsize=4)
+def band_tiles(params: MelFrontendParams) -> torch.Tensor:
+    """(n_mels, 2) int32: the first and last frequency tile of `mel_table`
+    whose bins the kernel adds into each band (bin j into bands m0 and
+    m0 + 1; last < first for a band no bin reaches). A band's bins are
+    contiguous, so it has a part in every tile of its range: the reduce of
+    a split launch adds just those parts, in tile order."""
+    m0 = mel_table(params)[:, 2].numpy().view(np.int32).astype(np.int64)
+    tile = np.arange(m0.size) // FREQ_TILE
+    first = np.full(params.n_mels, m0.size, np.int64)
+    last = np.full(params.n_mels, -1, np.int64)
+    for bands in (m0, m0 + 1):
+        np.minimum.at(first, bands, tile)
+        np.maximum.at(last, bands, tile)
+    return torch.from_numpy(np.stack([first, last], 1).astype(np.int32))
+
+
 def freq_split(blocks: int, n_tiles: int, sms: int) -> int:
     """Blocks that share one frame tile's frequency tiles: the largest power
     of two (at most n_tiles) that keeps the grid within one wave of `sms`
-    SMs. B = 64 serving chunks (128 frame tiles) -> 1; B = 16 -> 4; B = 1 -> 8."""
+    SMs. B = 64 serving chunks (128 frame tiles) -> 1; B = 16 -> 4; B = 1 -> 8.
+    The kernel adds a band's sums in frequency-tile order whatever the split
+    (`csrc/log_mel.cu`), so the split moves the time and never a row's bits."""
     split = 1
     while 2 * split <= n_tiles and blocks * 2 * split <= sms:
         split *= 2
@@ -144,15 +163,15 @@ def log_mel_plain(wave: torch.Tensor, params: MelFrontendParams, trim: bool = Tr
 
 
 @functools.lru_cache(maxsize=8)
-def _device_table(params: MelFrontendParams, device: torch.device) -> torch.Tensor:
-    return mel_table(params).to(device)
+def _device_table(params: MelFrontendParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return mel_table(params).to(device), band_tiles(params).to(device)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("log_mel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.launch_log_mel.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.launch_log_mel.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
     lib.launch_log_mel.restype = ctypes.c_int
     lib.log_mel_freq_tile.restype = lib.log_mel_frame_tile.restype = ctypes.c_int
     if lib.log_mel_freq_tile() != FREQ_TILE or lib.log_mel_frame_tile() != TILE_FRAMES:
@@ -182,15 +201,16 @@ def log_mel(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) ->
         raise ValueError(f"a wave of {T} samples leaves no frame after the trim")
     wave = wave.to(torch.float32).contiguous()
     C, S, _ = _device_constants(params, wave.device)
-    table = _device_table(params, wave.device)
+    table, tiles = _device_table(params, wave.device)
     n_tiles = table.shape[0] // FREQ_TILE
     blocks = B * -(-n_out // TILE_FRAMES)
     split = freq_split(blocks, n_tiles, torch.cuda.get_device_properties(wave.device).multi_processor_count)
     out = torch.empty((B, n_out, params.n_mels), dtype=torch.float32, device=wave.device)
-    parts = torch.empty((split, *out.shape), dtype=torch.float32, device=wave.device) if split > 1 else None
+    # one part a frequency tile, a band's parts added in tile order
+    parts = torch.empty((n_tiles, *out.shape), dtype=torch.float32, device=wave.device) if split > 1 else None
     with torch.cuda.device(wave.device):
         err = lib.launch_log_mel(
-            wave.data_ptr(), C.data_ptr(), S.data_ptr(), table.data_ptr(), out.data_ptr(),
+            wave.data_ptr(), C.data_ptr(), S.data_ptr(), table.data_ptr(), tiles.data_ptr(), out.data_ptr(),
             None if parts is None else parts.data_ptr(), B, T, n_fft, hop, C.shape[1], n_tiles,
             params.n_mels, start, n_out, split,
             params.log_floor, params.clamp_lo, params.clamp_hi, int(params.log_mode == "db"),

@@ -1,5 +1,5 @@
-"""Drum pitch mapping tables the port's tokenizer, synthesiser and
-evaluation need.
+"""Drum pitch mapping tables the port's tokenizer, synthesiser, evaluation
+and text parsers need.
 
 Port of `adt_str_tpu/utils/mappings.py` (its own copy of the data; the other
 tables join when a slice needs them). The tables are data and must match
@@ -143,6 +143,79 @@ GM_REDUCED_NAME_CONVENTION = {
     58: "Claves",
     59: "Cuica",
     60: "Triangle",
+}
+
+
+# Annotation-label -> MIDI maps for the eval datasets.
+MDB_TO_STANDARD_MIDI = {
+    "KD": 35,
+    "SD": 38,
+    "SDB": 38,
+    "SDD": 38,
+    "SDF": 38,
+    "SDG": 38,
+    "SDNS": 38,
+    "CHH": 42,
+    "OHH": 46,
+    "PHH": 44,
+    "HIT": 50,
+    "MHT": 48,
+    "HFT": 43,
+    "LFT": 41,
+    "RDC": 51,
+    "RDB": 53,
+    "CRC": 49,
+    "CHC": 52,
+    "SPC": 55,
+    "SST": 37,
+    "TMB": 54,
+}
+
+ENST_TO_STANDARD_MIDI = {
+    "bd": 35,
+    "cs": 37,
+    "sweep": 38,
+    "rs": 38,
+    "sd": 38,
+    "sd-": 38,
+    "lft": 41,
+    "chh": 42,
+    "lt": 45,
+    "ltr": 45,
+    "ohh": 46,
+    "lmt": 47,
+    "mt": 48,
+    "mtr": 48,
+    "cr": 49,
+    "c1": 49,
+    "cr1": 49,
+    "cr5": 49,
+    "rc": 51,
+    "rc1": 51,
+    "rc3": 51,
+    "ch": 52,
+    "ch1": 52,
+    "ch5": 52,
+    "spl": 55,
+    "spl2": 55,
+    "cb": 56,
+    "cr2": 57,
+    "c": 57,
+    "c4": 57,
+    "rc2": 59,
+    "rc4": 59,
+    "sticks": 75,
+}
+
+TMIDT_TO_STANDARD_MIDI = {
+    0: 35,
+    1: 38,
+    2: 41,
+    3: 42,
+    4: 49,
+    5: 51,
+    6: 53,
+    7: 75,
 }
 
 

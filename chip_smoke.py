@@ -5,9 +5,10 @@ synthesis-fused training step, its training job (`trainer.train`: epochs,
 checkpoints, resume, in-training eval), its evaluation harness with greedy
 and beam decoding, its offline transcription CLI, its bench, its data
 parallelism (two gloo ranks on the one card, one NCCL rank, decode split
-over a mesh) and its CLAP curation CLI (`adt_str_tpu_torch`) at full width
-and holds its hand-written CUDA kernels against their plain PyTorch
-versions.
+over a mesh) and its CLAP curation CLI (`adt_str_tpu_torch`) at full width,
+holds its hand-written CUDA kernels against their plain PyTorch versions,
+and holds a chunk's decoded tokens independent of the rows decoded beside
+it.
 Imports no JAX and nothing of the JAX package. Its five configs come from
 `configs/` through the port's own YAML reader (`SERVING_YAML`,
 `TRAIN_YAMLS`, `SYNTH_YAML`, `EVAL_YAML`; a `config` line prints each value
@@ -28,7 +29,13 @@ line:
    medians over 12 timed calls (each on other inputs, after warm-up) and
    the least time the card could take (`bound_ms`, `bound_by`); for K1,
    K4, K5f and K5b also each device kernel's own time (`device_ms`,
-   torch.profiler);
+   torch.profiler); K1 also its frequency split and its time with the split
+   chosen as before the batch-invariance repair (from the batch);
+   then the batch-invariance kernels, which no TPU kernel is behind
+   (LayerNorm, the inference product, the inference attention): each
+   against its plain version at the serving bucket's decode step and
+   encoder and at the beam's rows, each row bit-equal at every row count
+   of 1-64, timed as above;
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -80,10 +87,11 @@ line:
    - decode_dp: `run_inference` over a mesh of two entries of cuda:0
      (`make_mesh(devices=["cuda:0", "cuda:0"])`), greedy and beam 5: tokens,
      metrics.json and the confusion CSV equal to the one-device run at the
-     entries' batch of 8 (the full-width decode on the card is not
-     batch-invariant: the rows that differ from the batch-16 run are
-     counted, and `batch_dependence` reports which op first moves between
-     16 and 8 chunks); each entry launches K1 and K5f for its half of a batch;
+     entries' batch of 8, and no row different from the one-device run at
+     batch 16; each entry launches K1 and K5f for its half of a batch;
+   - repair_cost: greedy decode ms and device ops a step at buckets 1 and
+     16, beam 5 ms a step, encode ms and the eval wall, before the
+     batch-invariance repair (`before_repair`) and after it;
    - the data-parallel phases of two rank processes (multiprocessing spawn,
      torchrun's environment, gloo, both on cuda:0; each rank builds its own
      bank), after this process's single-process references and one rank of
@@ -117,8 +125,15 @@ line:
    rise, and the kernel-path encoder memory must agree with the port's CPU
    path (which the tests hold against the JAX package);
    then decode_dp's serving part: a `ServingEngine` over the two-entry mesh
-   (its even buckets; a bucket of 1 must raise) answers the same requests,
-   and whether its notes equal the one-device engine's is reported;
+   (its even buckets; a bucket of 1 must raise) answers the same requests
+   with the one-device engine's notes;
+   then batch_invariance: 8 chunks decoded alone and in batches of 2, 4,
+   8, 16 and 64 (greedy), 4 alone and in a batch of 16 (beam 5), the
+   requests one at a time and concurrently through `ServingEngine`: equal
+   tokens and notes; and the op probe (`batch_probe`: every op of the
+   encoder, the greedy and the beam decode steps at 1-64 rows against the
+   first rows of the largest) before the repair and after it, when it
+   must list no op;
 7. bench: the port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with
    its whole workload prints its JSON line on a line of its own, with
    every window's time, the launches of K1, K2 and K3 in the timed
@@ -148,11 +163,13 @@ line:
    device at the entries' batch, and 8 token rows of 16-77 through the
    text tower on the card against the CPU, `semantic_match` rows summing
    to 1;
-9. one `{"kernels": [...]}` line: each kernel at the main-path shape named
-   in its entry, with its launches in every main-path run (serving, the
-   three training steps, bench, eval, inference, trainer, trainer-resumed,
+9. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
+   the three batch-invariance kernels) at the main-path shape named in its
+   entry, with its launches in every main-path run (serving, the three
+   training steps, bench, eval, inference, trainer, trainer-resumed,
    trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
-   their ranks, the NCCL step, decode_dp greedy, beam and serving, clap);
+   their ranks, the NCCL step, decode_dp greedy, beam and serving, clap,
+   batch_invariance's greedy runs);
    K1's entry also holds its numbers at CLAP's frontend
    (`at_clap_frontend`).
 
@@ -186,6 +203,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from adt_str_tpu_torch import bench as port_bench
 from adt_str_tpu_torch import inference as port_inference
@@ -212,7 +230,9 @@ from adt_str_tpu_torch.models.decode import (
     greedy_decode_from_memory,
     init_caches,
 )
-from adt_str_tpu_torch.ops import _build, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
+from adt_str_tpu_torch.ops import _build, attention_rows, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
+from adt_str_tpu_torch.ops import layer_norm as ln_ops
+from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
@@ -451,11 +471,33 @@ def time_log_mel(inputs: list, tol: float, frame_tol: float | None = None) -> di
     res["plain_ms"] = median_ms(cuda_mel.log_mel_plain, inputs)
     res["library_ms"] = median_ms(mel_library, inputs)
     B, T = wave.shape
+    res.update(log_mel_splits(inputs, out))
     rows, k = B * out.shape[1], cuda_mel.used_bins(params)  # the bins the mel bands weigh
     res["bound_ms"], res["bound_by"] = bound(
         [(4.0 * rows * params.n_fft * k, PEAK_BF16), (2.0 * rows * k * params.n_mels, PEAK_FP32)],
         B * T * 4 + 2 * params.n_fft * k * 2 + k * params.n_mels * 4 + rows * params.n_mels * 4,
     )
+    return res
+
+
+def log_mel_splits(inputs: list, out: torch.Tensor) -> dict:
+    """K1 at the split its wrapper picks (one wave of the SMs) and forced to
+    each other split up to the frequency tiles: the time at each, and the
+    output, which must be `out`'s bits at every split (the band sums run in
+    tile order, so the split moves no bit). Split 4 is what a budget of 8
+    blocks a 2.56 s chunk gives at every batch, split 8 a budget of 16."""
+    wave, params, _ = inputs[0]
+    n_tiles = cuda_mel.mel_table(params).shape[0] // cuda_mel.FREQ_TILE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {"split": cuda_mel.freq_split(wave.shape[0] * -(-out.shape[1] // cuda_mel.TILE_FRAMES), n_tiles, sms),
+           "ms_at_split": {}, "bits_equal_at_split": {}}
+    for split in (1, 2, 4, 8):
+        if split <= n_tiles:
+            with swapped([(cuda_mel, "freq_split", lambda *_: split)]):
+                res["bits_equal_at_split"][split] = bool(torch.equal(cuda_mel.log_mel(*inputs[0]), out))
+                res["ms_at_split"][split] = median_ms(cuda_mel.log_mel, inputs)
+    if not all(res["bits_equal_at_split"].values()):
+        raise RuntimeError(f"log_mel's bits follow its split: {res}")
     return res
 
 
@@ -465,6 +507,213 @@ def phase_mel(params, batch: int, gen) -> dict:
     res = time_log_mel(inputs, 1e-4)  # same bf16 operands, fp32 accumulation in another order
     emit({"phase": "kernel", "name": "log_mel", "batch": batch, **res})
     return res
+
+
+# ------------------------------------------------- the batch-invariance kernels
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at |t| (8 significant bits), floored at 2^-20."""
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp(min=2.0**-20))) - 7)
+
+
+def rows_invariant(fn, inputs: tuple, counts, row_dims: tuple) -> dict:
+    """`fn` on the first r rows of `inputs` (sliced along each input's row
+    dim, None: shared) for each r of `counts`, each against the first r
+    rows of `fn` on all of them: -> {r: bit-equal}."""
+    full = fn(*inputs)
+    out = {}
+    for r in counts:
+        part = fn(*(x if d is None else x.narrow(d, 0, r).contiguous() for x, d in zip(inputs, row_dims)))
+        out[r] = bool(torch.equal(part, full.narrow(0, 0, r)))
+    return out
+
+
+def time_repair(fn, plain, library, inputs: list, flops: list, n_bytes: float) -> dict:
+    """A batch-invariance kernel's times over the staged inputs: kernel,
+    device, plain version, library call, and the least time the card could
+    take."""
+    res = {"ms": median_ms(fn, inputs), "device_ms": device_ms(fn, inputs), "plain_ms": median_ms(plain, inputs),
+           "library_ms": median_ms(library, inputs)}
+    res["bound_ms"], res["bound_by"] = bound(flops, n_bytes)
+    return res
+
+
+def launched_once(fn, *args):
+    """`fn(*args)`, which must launch its kernel once."""
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if fn.launches != before + 1:
+        raise RuntimeError(f"{fn.__name__} did not launch its kernel")
+    return out
+
+
+def phase_layer_norm(gen, rows: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64), rows_per: int = 1,
+                     d: int = 768) -> dict:
+    """The LayerNorm kernel at (rows, d) bf16 against its plain version
+    within 1 bf16 ulp of the plain output, an output below 2^-6 counting as
+    2^-6 (there y = p + b cancels, p ~ -b, and the two versions' fp32
+    statistics, summed in other orders, leave p's last fp32 bits apart; fp32
+    rows: within 1e-5), its rows
+    bit-equal at each of `counts` leading blocks of `rows_per` rows (chunks
+    of the encoder, one a decode row) against all 64, and timed against
+    `F.layer_norm` on fp32."""
+    def make(n, dtype=torch.bfloat16):
+        x = (torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        return x, w, b, 1e-5
+
+    inputs = [make(rows) for _ in range(REPS)]
+    out = launched_once(ln_ops.layer_norm, *inputs[0])
+    ref = ln_ops.layer_norm_plain(*inputs[0])
+    err = (out.float() - ref.float()).abs()
+    ulp = bf16_ulp(ref.float().abs().clamp(min=2.0**-6))
+    x32 = make(rows, torch.float32)
+    err32 = (launched_once(ln_ops.layer_norm, *x32) - ln_ops.layer_norm_plain(*x32)).abs().max()
+    inv = rows_invariant(lambda x, w, b: ln_ops.layer_norm(x, w, b, 1e-5), make(64 * rows_per)[:3],
+                         [r * rows_per for r in counts], (0, None, None))
+    res = {"max_abs_err": err.max().item(), "ulps": (err / ulp).max().item(),
+           "tol": "1 bf16 ulp of max(|plain output|, 2^-6); fp32: 1e-5", "fp32_max_abs_err": err32.item(),
+           "rows_bit_equal": {r // rows_per: v for r, v in inv.items()}, "rows_per_count": rows_per}
+    if not (bool((err <= ulp).all()) and res["fp32_max_abs_err"] <= 1e-5 and all(inv.values())):
+        raise RuntimeError(f"layer_norm kernel at {shape}: {res}")
+    res.update(time_repair(ln_ops.layer_norm, ln_ops.layer_norm_plain,
+                           lambda x, w, b, eps: torch.nn.functional.layer_norm(x.float(), (d,), w, b, eps), inputs,
+                           [(8.0 * rows * d, PEAK_FP32)], rows * d * 2 * 2 + 2 * d * 4))
+    emit({"phase": "kernel", "name": "layer_norm", "shape": shape, "rows": rows, "d": d, **res})
+    return res
+
+
+def phase_linear(gen, m: int, n: int, k: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64), rows_per=1) -> dict:
+    """The product kernel at (m, k) x (n, k)^T + b, bf16, against the fp32
+    product rounded as the plain version rounds it (the product to bf16,
+    then the bias): within 1 bf16 ulp of the product plus 1 of the sum (the
+    two sum in other orders; a rounding may flip); its rows bit-equal at
+    each of `counts` leading row blocks of `rows_per` rows; fp32 within
+    1e-5 relative; timed against cuBLAS."""
+    def make(rows, dtype=torch.bfloat16):
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(n, k, generator=gen, device="cuda") / math.sqrt(k)).to(dtype)
+        b = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+        return x, w, b
+
+    inputs = [make(m) for _ in range(REPS)]
+    x, w, b = inputs[0]
+    out = launched_once(linear_ops.linear, x, w, b)
+    prod = (x.float() @ w.float().T).to(torch.bfloat16)
+    ref = (prod + b).float()
+    err = (out.float() - ref).abs()
+    ok = err <= bf16_ulp(prod) + bf16_ulp(ref)
+    x32, w32, b32 = make(min(m, 512), torch.float32)
+    ref32 = torch.addmm(b32.double(), x32.double(), w32.double().T)
+    err32 = ((launched_once(linear_ops.linear, x32, w32, b32) - ref32).abs()
+             / ref32.abs().clamp(min=1.0)).max().item()
+    big = make(64 * rows_per)
+    inv = rows_invariant(lambda x, w, b: linear_ops.linear(x, w, b), big, [r * rows_per for r in counts],
+                         (0, None, None))
+    res = {"max_abs_err": err.max().item(), "tol": "1 bf16 ulp of the product + 1 of the output; fp32 1e-5 rel",
+           "fp32_max_rel_err": err32, "rows_bit_equal": {r // rows_per: v for r, v in inv.items()},
+           "rows_per_count": rows_per}
+    if not (bool(ok.all()) and err32 <= 1e-5 and all(inv.values())):
+        raise RuntimeError(f"linear kernel at {shape}: {res}")
+    res.update(time_repair(linear_ops.linear, linear_ops.linear_plain, torch.nn.functional.linear, inputs,
+                           [(2.0 * m * n * k, PEAK_BF16)], (m * k + n * k + n + m * n) * 2))
+    emit({"phase": "kernel", "name": "linear", "shape": shape, "m": m, "n": n, "k": k, **res})
+    return res
+
+
+# The attention-rows kernel against its plain version (bf16): both round the
+# probabilities to bf16, and their fp32 sums in other orders can flip one such
+# rounding, which moves an output by a bf16 ulp of that probability times v;
+# the output's own rounding may then flip. So each output lies within
+# ATTENTION_ROWS_FLIPS ulps of its row's largest probability times its
+# column's largest |v|, plus 1 bf16 ulp of the output. A flip is rare and moves
+# an output by about 2^-8 / keys of its size, so few outputs differ at all
+# (0.23% in a float32 replay of the kernel's order at the decode step's 512
+# keys); a kernel that skips the probabilities' rounding moves about 40%, one
+# that rounds its scores to bf16 about 60%.
+ATTENTION_ROWS_FLIPS = 2
+ATTENTION_ROWS_MAX_SHARE = 0.02
+
+
+def attention_rows_error(out, q, k, v, mask) -> dict:
+    """The attention-rows kernel's output `out` against its plain version:
+    the largest error over its bound, the share of outputs that differ, and
+    whether both hold (see ATTENTION_ROWS_FLIPS; fp32: within 1e-5)."""
+    ref = attention_rows.attention_plain(q, k, v, mask).float()
+    err = (out.float() - ref).abs()
+    if q.dtype == torch.float32:
+        return {"max_abs_err": err.max().item(), "tol": 1e-5, "ok": err.max().item() <= 1e-5}
+    p_max = attention_rows.attention_probs(q, k, mask).float().amax(-1, keepdim=True)
+    v_max = v.float().abs().amax(2, keepdim=True)
+    bound = bf16_ulp(ref) + ATTENTION_ROWS_FLIPS * bf16_ulp(p_max) * v_max
+    res = {"max_abs_err": err.max().item(), "max_err_over_bound": (err / bound).max().item(),
+           "share_differing": (err > 0).double().mean().item(),
+           "tol": f"per output: 1 bf16 ulp of it + {ATTENTION_ROWS_FLIPS} of its row's largest probability x its "
+                  f"column's largest |v|; at most {ATTENTION_ROWS_MAX_SHARE:.0%} of outputs differ"}
+    res["ok"] = res["max_err_over_bound"] <= 1.0 and res["share_differing"] <= ATTENTION_ROWS_MAX_SHARE
+    return res
+
+
+def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, shape: str,
+                         counts=(1, 2, 4, 8, 16, 32, 64)) -> dict:
+    """The attention-rows kernel at (batch, 6, tq, 128) queries over tk keys
+    (`step`: the decode step's mask, -1e4 past it; None: no mask), bf16,
+    against its plain version (`attention_rows_error`), its rows bit-equal
+    at each of `counts` leading rows of the largest, and timed against SDPA."""
+    def make(b):
+        q = torch.randn(b, 6, tq, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        kk = torch.randn(b, 6, tk, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(b, 6, tk, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        mask = None if step is None else torch.where(torch.arange(tk, device="cuda") > step, -1e4, 0.0)[None, None, None]
+        return q, kk, v, mask
+
+    inputs = [make(batch) for _ in range(REPS)]
+    out = launched_once(attention_rows.attention, *inputs[0])
+    check = attention_rows_error(out, *inputs[0])
+    big = make(max(counts))
+    inv = rows_invariant(attention_rows.attention, big, counts, (0, 0, 0, None))
+    res = {**{k: v for k, v in check.items() if k != "ok"}, "rows_bit_equal": inv}
+    if not (torch.isfinite(out.float()).all() and check["ok"] and all(inv.values())):
+        raise RuntimeError(f"attention_rows kernel at {shape}: {res}")
+
+    def sdpa(q, kk, v, mask):
+        return torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=None if mask is None
+                                                                else mask.to(q.dtype))
+
+    bh = batch * 6
+    res.update(time_repair(attention_rows.attention, attention_rows.attention_plain, sdpa, inputs,
+                           [(4.0 * bh * tq * tk * 128, PEAK_FP32)], 2 * bh * (2 * tq + 2 * tk) * 128 + tk * 4))
+    emit({"phase": "kernel", "name": "attention_rows", "shape": shape, "batch": batch, "tq": tq, "tk": tk, **res})
+    return res
+
+
+def phase_repairs(gen, cfg: FrameworkConfig) -> dict:
+    """The batch-invariance kernels at the serving bucket's decode step and
+    encoder, and at the beam's rows."""
+    bucket, L, S = main_path_bucket(cfg), cfg.inference.max_length, 246
+    K = BEAM_SIZE
+    return {
+        "layer_norm": {"decode": phase_layer_norm(gen, bucket, f"decode step, bucket {bucket}"),
+                       "encoder": phase_layer_norm(gen, bucket * S, f"encoder, bucket {bucket} x {S} frames",
+                                                   counts=(1, 2, 16), rows_per=S)},
+        "linear": {"decode": phase_linear(gen, bucket, 3072, 768, f"decode FFN linear1, bucket {bucket}"),
+                   "decode_generator": phase_linear(gen, bucket, cfg.model.tgt_vocab_size, 768,
+                                                    f"decode generator, bucket {bucket}"),
+                   "beam": phase_linear(gen, bucket * K, 2304, 768, f"beam in-projection, {bucket} items x {K}",
+                                        counts=(1, 2, 8, 16), rows_per=K),
+                   # not on the path: the encoder keeps cuBLAS, which the probe finds row-independent there
+                   "encoder": phase_linear(gen, bucket * S, 3072, 768,
+                                           f"encoder FFN linear1 shape, bucket {bucket} (the encoder runs cuBLAS)",
+                                           counts=(1, 2, 16), rows_per=S)},
+        "attention_rows": {
+            "decode_self": phase_attention_rows(gen, bucket, 1, L, L // 2, f"decode self, bucket {bucket}"),
+            "decode_cross": phase_attention_rows(gen, bucket, 1, S, None, f"decode cross, bucket {bucket}"),
+            "beam_cross": phase_attention_rows(gen, bucket, K, S, None, f"beam cross, {bucket} items x {K}",
+                                               counts=(1, 2, 8, 16))},
+    }
 
 
 def _attention_mask(batch: int, tq: int, tk: int, causal: bool, gen):
@@ -914,28 +1163,64 @@ def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int, decode=g
 
 
 @contextlib.contextmanager
+def swapped(swaps: list):
+    """Set each (module, attribute, value) of `swaps` while the context is open."""
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, value in swaps:
+            setattr(mod, name, value)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+# the batch-invariance kernels' wrappers and their plain versions: the inference path's LayerNorm,
+# products and attention (no TPU kernel is behind them)
+REPAIRS = [(ln_ops, "layer_norm", ln_ops.layer_norm_plain), (linear_ops, "linear", linear_ops.linear_plain),
+           (attention_rows, "attention", attention_rows.attention_plain)]
+
+
 def plain_kernels():
     """Route every kernel wrapper to its plain version, for the reference
     step: the model code calls the wrappers through their modules."""
-    names = [(cuda_mel, "log_mel", cuda_mel.log_mel_plain),
-             (cuda_attention, "fused_attention", cuda_attention.attention_plain),
-             (cuda_attention, "fused_attention_bwd", cuda_attention.attention_bwd_plain),
-             (cuda_ffn, "ffn_dropout", ffn.ffn_dropout_plain),
-             (cuda_place, "gather_blend", gather_blend_plain), (cuda_place, "place_notes", place_notes_plain)]
-    saved = [getattr(mod, name) for mod, name, _ in names]
-    try:
-        for mod, name, plain in names:
-            setattr(mod, name, plain)
-        yield
-    finally:
-        for (mod, name, _), fn in zip(names, saved):
-            setattr(mod, name, fn)
+    return swapped([(cuda_mel, "log_mel", cuda_mel.log_mel_plain),
+                    (cuda_attention, "fused_attention", cuda_attention.attention_plain),
+                    (cuda_attention, "fused_attention_bwd", cuda_attention.attention_bwd_plain),
+                    (cuda_ffn, "ffn_dropout", ffn.ffn_dropout_plain),
+                    (cuda_place, "gather_blend", gather_blend_plain), (cuda_place, "place_notes", place_notes_plain),
+                    *REPAIRS])
+
+
+def before_repair():
+    """The inference path as it was before the batch-invariance repair, as
+    far as this tree holds it: the plain LayerNorm, products and attention
+    on the card. K1's band sums now run in tile order at every split, so
+    its old dependence on the batch cannot be replayed (`log_mel_splits`
+    times its splits instead)."""
+    return swapped(REPAIRS)
 
 
 def kernel_counters() -> dict:
     return {"log_mel": cuda_mel.log_mel, "fused_attention": cuda_attention.fused_attention,
             "fused_attention_bwd": cuda_attention.fused_attention_bwd, "ffn_dropout": cuda_ffn.ffn_dropout,
             "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
+
+
+# The batch-invariance kernels' wrappers (`REPAIRS`, as imported), counted apart from the TPU kernels:
+# they launch on every inference path, a number of times that follows the decode's length.
+REPAIR_WRAPPERS = {"layer_norm": ln_ops.layer_norm, "linear": linear_ops.linear,
+                   "attention_rows": attention_rows.attention}
+
+
+def all_counters() -> dict:
+    """Every kernel wrapper, by kernel: the TPU kernels' and the batch-invariance kernels'."""
+    return {**kernel_counters(), **REPAIR_WRAPPERS}
+
+
+def tpu_launches(launches: dict) -> dict:
+    """The TPU kernels' part of a run's launches (the batch-invariance kernels' follow the decode's length)."""
+    return {k: launches[k] for k in kernel_counters()}
 
 
 def train_batch(cfg: FrameworkConfig, seed: int) -> dict:
@@ -1072,9 +1357,7 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dic
     step, state = fresh()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = reset_counters()  # a training step launches no batch-invariance kernel: expected 0
     losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.monotonic()
@@ -1184,18 +1467,19 @@ def encoder_vs_plain(model: ADTModel, chunks: torch.Tensor) -> dict:
             ref = model.encode(chunks)
     # the K1 route these chunks take (as `cuda_mel.log_mel` picks it)
     n_tiles = cuda_mel.mel_table(params).shape[0] // cuda_mel.FREQ_TILE
-    blocks = chunks.shape[0] * -(-params.out_frames(chunks.shape[1]) // cuda_mel.TILE_FRAMES)
-    split = cuda_mel.freq_split(blocks, n_tiles, torch.cuda.get_device_properties(chunks.device).multi_processor_count)
+    split = cuda_mel.freq_split(chunks.shape[0] * -(-params.out_frames(chunks.shape[1]) // cuda_mel.TILE_FRAMES),
+                                n_tiles, torch.cuda.get_device_properties(0).multi_processor_count)
     out = {"batch": chunks.shape[0], "log_mel_freq_split": split, "log_mel_max_abs_err": mel_err,
            "log_mel_tol": 1e-4, "memory": memory_error(mem, ref)}
     out["ok"] = mel_err <= 1e-4 and out["memory"]["ok"]
     return out
 
 
-def serve_requests(engine, cfg: FrameworkConfig) -> tuple[list, float, dict, dict]:
-    """N_REQUESTS concurrent POSTs of REQUEST_SEC of seeded raw f32 PCM to
-    the port's HTTP server around `engine` (closed afterwards); each must
-    answer 200 with well-formed notes, and K1 and K5f must launch. ->
+def serve_requests(engine, cfg: FrameworkConfig, sequential: bool = False) -> tuple[list, float, dict, dict]:
+    """N_REQUESTS concurrent POSTs (`sequential`: one after the other) of
+    REQUEST_SEC of seeded raw f32 PCM to the port's HTTP server around
+    `engine` (closed afterwards); each must answer 200 with well-formed
+    notes, and K1, K5f and the batch-invariance kernels must launch. ->
     (results, wall s, launches, engine stats)."""
     server = make_server(engine, "127.0.0.1", 0)
     start_in_thread(server)
@@ -1205,14 +1489,14 @@ def serve_requests(engine, cfg: FrameworkConfig) -> tuple[list, float, dict, dic
     n = int(REQUEST_SEC * cfg.shared.sample_rate)
     bodies = [(rng.normal(size=n) * 0.3).astype("<f4").tobytes() for _ in range(N_REQUESTS)]
     results: list = [None] * N_REQUESTS
-    counters = kernel_counters()
+    counters = reset_counters()
     try:
-        for c in counters.values():
-            c.launches = 0
         t0 = time.monotonic()
         threads = [threading.Thread(target=_post, args=(url, b, results, i)) for i, b in enumerate(bodies)]
         for t in threads:
             t.start()
+            if sequential:
+                t.join(timeout=900)
         for t in threads:
             t.join(timeout=900)
         wall = time.monotonic() - t0
@@ -1226,7 +1510,7 @@ def serve_requests(engine, cfg: FrameworkConfig) -> tuple[list, float, dict, dic
         if r is None or r[0] != 200:
             raise RuntimeError(f"request {i} failed: {r}")
         check_notes(json.loads(r[1]), REQUEST_SEC, cfg.model.tgt_vocab_size)
-    if not (launches["log_mel"] and launches["fused_attention"]):
+    if not all(launches[k] for k in ("log_mel", "fused_attention", *REPAIR_WRAPPERS)):
         raise RuntimeError(f"a kernel of the path was not launched while serving: {launches}")
     return results, wall, launches, stats
 
@@ -1341,9 +1625,7 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
         tokenizer = RecordingTokenizer(cfg.tokenizer)
         ds = eval_items(statics, sc, MidiTokenizer(cfg.tokenizer), SEED + 70)
         model = ADTModel(cfg.model, seed=SEED, device="cuda")
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
+        counters = reset_counters()
         t0 = time.monotonic()
         metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device="cuda")
         wall = time.monotonic() - t0
@@ -1371,7 +1653,8 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
            "csv_reference_notes": csv_ref, "csv_predicted_notes": csv_pred,
            "breakdown": decode_breakdown(model, cfg, batch=bs)}
     emit(res)
-    expected = {**dict.fromkeys(counters, 0), "log_mel": n_batches, "fused_attention": n_batches * cfg.model.enc_layers}
+    expected = {**dict.fromkeys(kernel_counters(), 0), "log_mel": n_batches,
+                "fused_attention": n_batches * cfg.model.enc_layers}
     checks = {
         "every item decoded once": len(tokenizer.rows) == len(ds),
         "the harness's aggregate = the recount's": metrics["all"] == aggregate_metrics(*counts.values()),
@@ -1384,7 +1667,8 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
                                                       "support"] and [r[0] for r in rows] == [*labels, "False Positive"]
                                            and all(len(r) == len(header) for r in rows),
         "confusion CSV counts each note once": (csv_ref, csv_pred) == (n_ref, n_pred),
-        "K1 and K5f launched as the batches need": launches == expected,
+        "K1 and K5f launched as the batches need": tpu_launches(launches) == expected,
+        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1450,9 +1734,7 @@ def phase_inference(statics: render.SynthStatics, sc) -> dict:
                          "midi": midi}
 
         tokenizer = MidiTokenizer(cfg.tokenizer)
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
+        counters = reset_counters()
         t0 = time.monotonic()
         notes = port_inference.transcribe(model, cfg, wave, tokenizer, device="cuda")
         torch.cuda.synchronize()
@@ -1486,11 +1768,12 @@ def phase_inference(statics: render.SynthStatics, sc) -> dict:
                "source": source, "notes": len(playable), "samples": resynth.shape[0], "chunks": n_chunks,
                "seconds": resynth_s, "peak": float(np.abs(resynth).max())}, "launches": launches}
     emit(res)
-    expected = {**dict.fromkeys(counters, 0), "log_mel": 2, "fused_attention": 2 * cfg.model.enc_layers,
+    expected = {**dict.fromkeys(kernel_counters(), 0), "log_mel": 2, "fused_attention": 2 * cfg.model.enc_layers,
                 "gather_blend": 1, "place_notes": 1}
     checks = {
         "resynthesis shape and values": resynth.shape == (n_chunks * sc.chunk_samples,) and np.isfinite(resynth).all(),
-        "K1, K5f, K2 and K3 launched as the path needs": launches == expected,
+        "K1, K5f, K2 and K3 launched as the path needs": tpu_launches(launches) == expected,
+        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
         "the CLI wrote MIDI notes": all(c["midi_bytes"] > 22 for c in cli.values()),
         "the CLI's MIDI = the in-process kernel path's": all(same_midi.values()),
         "the encoder's kernels agree with their plain versions": vs_plain["encoder_plain"]["ok"]
@@ -1513,7 +1796,7 @@ def phase_bench() -> dict:
     step) and the device-busy share of one profiled step; then one bench
     batch (48 note slots, the 192-row bank) rendered through K2 and K3 must
     equal its render through the plain versions on the same draws."""
-    counters = kernel_counters()
+    counters = all_counters()  # a training step launches no batch-invariance kernel: expected 0
     t0 = time.monotonic()
     warm: dict = {}
 
@@ -1569,11 +1852,9 @@ def run_trainer(cfg: FrameworkConfig, device="cuda", **kw) -> dict:
     steps, the eval lines, the launches and the wall seconds."""
     log = StepLog()
     logging.getLogger(trainer.__name__).addHandler(log)
-    counters = kernel_counters()
     try:
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        counters = reset_counters()
         t0 = time.monotonic()
         state = trainer.train(cfg, device=device, **kw)
         torch.cuda.synchronize()
@@ -1730,7 +2011,8 @@ def phase_trainer(bank: OneShotBank, statics: render.SynthStatics) -> dict:
         "model.safetensors = the model": safetensors_equal,
         "two finite eval lines": [h["step"] for h in history] == [half, TRAINER_STEPS]
                                  and all(math.isfinite(h["eval_loss"]) for h in history),
-        "K1, K2, K3 once a step and an eval batch": res["launches"] == expected,
+        "K1, K2, K3 once a step and an eval batch":
+            {r: tpu_launches(n) for r, n in res["launches"].items()} == expected,
         "trainer batch render = plain path": res["render_equal_to_plain_path"],
         "trainer step = plain-path step": abs(kernel["loss"] - plain["loss"]) <= 1e-4 * abs(plain["loss"])
                                           and abs(kernel["grad_norm"] - plain["grad_norm"]) <= 2e-3 * plain["grad_norm"],
@@ -1799,7 +2081,7 @@ def phase_trainer_tmidt(statics: render.SynthStatics, sc) -> dict:
     emit(res)
     if not (len(losses) == TMIDT_STEPS and all(math.isfinite(x) for x in losses)):
         raise RuntimeError(f"trainer_tmidt: losses {losses}")
-    if run["launches"] != expected:
+    if tpu_launches(run["launches"]) != expected:
         raise RuntimeError(f"trainer_tmidt: launches {run['launches']}, expected {expected}")
     if all(b == cfg.train_data.max_tokens for b in buckets):
         raise RuntimeError(f"trainer_tmidt: no batch was trimmed to a token bucket: {buckets}")
@@ -1833,9 +2115,7 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
         tokenizer = RecordingTokenizer(cfg.tokenizer)
         ds = eval_items(statics, sc, MidiTokenizer(cfg.tokenizer), SEED + 70)
         model = ADTModel(cfg.model, seed=SEED, device="cuda")
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
+        counters = reset_counters()
         t0 = time.monotonic()
         metrics = run_inference(model, cfg.model, ds, tokenizer, cfg.inference, device="cuda")
         wall = time.monotonic() - t0
@@ -1868,11 +2148,13 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
                        "n_notes": [json.loads(r[1])["n_notes"] for r in results], "launches": serve_launches,
                        "engine_stats": stats}}
     emit(res)
-    expected = {**dict.fromkeys(counters, 0), "log_mel": n_batches, "fused_attention": n_batches * cfg.model.enc_layers}
+    expected = {**dict.fromkeys(kernel_counters(), 0), "log_mel": n_batches,
+                "fused_attention": n_batches * cfg.model.enc_layers}
     checks = {
         "every item decoded once": len(tokenizer.rows) == len(ds),
         "every row well formed": all(well_formed(np.asarray(r)) for r in tokenizer.rows),
-        "K1 and K5f launched as the batches need": launches == expected,
+        "K1 and K5f launched as the batches need": tpu_launches(launches) == expected,
+        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
         "metrics finite": all(math.isfinite(v) for m in metrics.values() for v in m.values()),
         "beam 1 = greedy": res["beam1_equals_greedy"],
         "the served engine decodes with beam search": engine_beam == (True, BEAM_SIZE, 1.0),
@@ -1943,7 +2225,8 @@ def add_launches(total: dict, n: dict, times: int = 1) -> dict:
 
 
 def reset_counters() -> dict:
-    counters = kernel_counters()
+    """Every kernel wrapper's count to 0; -> every wrapper (`all_counters`)."""
+    counters = all_counters()
     for c in counters.values():
         c.launches = 0
     return counters
@@ -2306,8 +2589,7 @@ def phase_ddp(statics: render.SynthStatics, sc, eval_ref: dict, entry_ref: dict)
     - eval_ddp: `run_inference` over the eval phase's items in the two
       ranks, each decoding its 8 rows of every batch of 16: both hold the
       metrics, tokens and files of the one-process run at the ranks' batch
-      of 8 (`entry_ref`, decode_dp's), which decodes the same blocks (the
-      full-width decode on the card is not batch-invariant)."""
+      of 8 (`entry_ref`, decode_dp's), which decodes the same blocks."""
     host, refs = ddp_inputs(statics, sc)
     with tempfile.TemporaryDirectory() as tmp:
         ports = {k: free_port() for k in ("ddp_step", "trainer_straight", "trainer_resumed", "eval_ddp")}
@@ -2370,7 +2652,7 @@ def check_ddp_step(ranks: list, refs: dict, wall: float) -> dict:
         "gloo on cuda:0": r0["backend"] == r1["backend"] == "gloo" and r0["device"] == "cuda:0",
         "kernels launched as the steps need": r0["launches"] == r1["launches"] == r0["expected_launches"],
         "the NCCL steps' kernels": refs["nccl"]["launches"] == add_launches(
-            dict.fromkeys(kernel_counters(), 0), per_step(load_config(TRAIN_YAMLS["flash"], show=False).model, False),
+            dict.fromkeys(all_counters(), 0), per_step(load_config(TRAIN_YAMLS["flash"], show=False).model, False),
             2),
     })
     return res
@@ -2407,7 +2689,7 @@ def check_trainer_ddp(ranks: list) -> dict:
                                  and all(math.isfinite(h["eval_loss"]) for h in t0["eval_history"]),
         "the trainer left the group it joined": all(t[r]["group_destroyed"] for t in (t0, t1)
                                                     for r in ("straight", "resumed")),
-        "K1, K2, K3 once a step and an eval batch": all(r["trainer_ddp"][run]["launches"] == expected[run]
+        "K1, K2, K3 once a step and an eval batch": all(tpu_launches(r["trainer_ddp"][run]["launches"]) == expected[run]
                                                         for r in ranks for run in expected),
     })
     return res
@@ -2428,7 +2710,8 @@ def check_eval_ddp(ranks: list, eval_ref: dict, entry_ref: dict) -> dict:
         "the decoded tokens = the one-process tokens at batch 8": same_rows(e0["rows"], entry_ref["rows"])
                                                                   and same_rows(e1["rows"], entry_ref["rows"]),
         "rank 0 alone wrote, the one-process files": not e1["wrote"] and e0["files"] == entry_ref["files"],
-        "K1 and K5f once a rank's stripe of a batch": e0["launches"] == e1["launches"] == eval_ref["launches"],
+        "K1 and K5f once a rank's stripe of a batch": tpu_launches(e0["launches"]) == tpu_launches(e1["launches"])
+                                                      == tpu_launches(eval_ref["launches"]),
     })
     return res
 
@@ -2453,75 +2736,282 @@ def eval_run(statics: render.SynthStatics, sc, extra: dict, mesh=None) -> dict:
     return {"rows": tokenizer.rows, "metrics": metrics, "files": files, "launches": launches, "wall_s": wall}
 
 
-@contextlib.contextmanager
-def recording_ops(log: list):
-    """Record (name, tensor inputs, output) of every `models/transformer.py`
-    op the decode step calls (`linear`, `layer_norm`, `ffn`,
-    `attention_core`, the attention's `project`) while the context is open."""
-    mha = T.MultiheadAttention
-    saved = {name: getattr(T, name) for name in ("linear", "layer_norm", "ffn", "attention_core")}
-    saved_project = mha.project
+class ProbeStop(Exception):
+    """Raised by `OpProbe` once the decode steps it watches have run."""
 
-    def wrap(name, f, skip: int = 0):
+
+def _tensors(x) -> list:
+    return [t for t in torch.utils._pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+class OpProbe(TorchDispatchMode):
+    """Every op of a run at one row count, held against the same op of a run
+    at more rows whose first rows are the same inputs.
+
+    Recording (`ref=None`), it keeps each op's output and its inputs'
+    shapes. Forcing (`ref` = a recording), it compares each op's output with
+    the reference's first rows (along the one dimension whose size differs:
+    the batch, or the batch times a per-row size where rows are flattened)
+    and then writes the reference's values into it, so every later op sees
+    equal inputs and every op that moves a row's bits is listed, not only
+    the first. Views, in-place ops, allocations and `.item()` pass through;
+    an output whose size stays while an input's changes (a reduction over
+    the batch: `finished.all()`) is not compared. The port's CUDA kernels run
+    through ctypes, out of the dispatcher's sight, so a kernel wrapper (K1,
+    K5f, the batch-invariance kernels) is compared at its own output with its
+    inner ops muted; replaced by its plain version, it is a label and its
+    ops are compared one by one. Each op is named by the innermost port
+    function around it (`transformer.linear > aten.mm.default`)."""
+
+    SKIP = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "_local_scalar_dense"}
+
+    def __init__(self, ref: "OpProbe | None", steps: int):
+        super().__init__()
+        self.ref, self.steps = ref, steps
+        self.records: list = []  # (name, input shapes, outputs): outputs kept when recording
+        self.diffs: list = []  # (name, shape, max abs diff)
+        self.labels: list[str] = []
+        self.muted = 0
+        self.steps_run = 0
+
+    def _observe(self, name: str, args, out) -> None:
+        outs, in_shapes = _tensors(out), [tuple(t.shape) for t in _tensors(args)]
+        i = len(self.records)
+        if self.ref is None:
+            self.records.append((name, in_shapes, [t.clone() for t in outs]))
+            return
+        self.records.append((name, in_shapes, None))
+        ref_name, ref_in, ref_outs = self.ref.records[i]
+        if ref_name != name or len(ref_outs) != len(outs):
+            raise RuntimeError(f"probe op {i}: {name} here, {ref_name} in the reference run")
+        for t, r in zip(outs, ref_outs):
+            dims = [d for d in range(t.dim()) if t.shape[d] != r.shape[d]] if t.dim() == r.dim() else None
+            if dims is None or len(dims) > 1 or (dims and t.shape[dims[0]] > r.shape[dims[0]]):
+                continue  # not a row-major slice of the reference's output
+            if not dims and in_shapes != ref_in:
+                continue  # a reduction over the batch
+            r = r.narrow(dims[0], 0, t.shape[dims[0]]) if dims else r
+            if not torch.equal(t, r):
+                diff = (t.double() - r.double()).abs().max().item() if t.is_floating_point() else float("nan")
+                self.diffs.append((name, list(t.shape), diff))
+                t.copy_(r)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        schema = func._schema
+        if (self.muted or func.overloadpacket.__name__ in self.SKIP or func.is_view or schema.is_mutable
+                or any(r.alias_info is not None for r in schema.returns)):
+            return out
+        self._observe(f"{self.labels[-1] if self.labels else '-'} > {func}", (args, kwargs), out)
+        return out
+
+    def wrap(self, label: str, fn, kernel: bool):
         def op(*args, **kw):
-            y = f(*args, **kw)
-            log.append((name, [t.clone() for t in args[skip:] if isinstance(t, torch.Tensor)], y.clone()))
-            return y
+            if label == "decode.decode_step":
+                self.steps_run += 1
+                if self.steps_run > self.steps:
+                    raise ProbeStop
+            self.labels.append(label)
+            self.muted += kernel
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self.muted -= kernel
+                self.labels.pop()
+            if kernel:
+                self.muted += 1  # the comparison's own ops
+                try:
+                    self._observe(f"{label} (kernel)", (args, kw), out)
+                finally:
+                    self.muted -= 1
+            return out
+        op.__dict__ = fn.__dict__  # a wrapper counts its launches on itself (`log_mel.launches += 1`)
         return op
 
+
+def probe_targets() -> list:
+    """(module, attribute, kernel wrapper or None): the port functions the
+    probe names its ops by, and the kernel wrappers it compares whole."""
+    from adt_str_tpu_torch.models import decode as decode_mod
+    return [(T, "linear", None), (T, "layer_norm", None), (T, "ffn", None), (T, "attention_core", None),
+            (T.MultiheadAttention, "project", None), (decode_mod, "_anc_attention", None),
+            (decode_mod, "decode_step", None), (decode_mod, "init_caches", None),
+            (cuda_mel, "log_mel", cuda_mel.log_mel), (T, "_flash_attention", T._flash_attention),
+            *[(mod, name, wrapper) for (mod, name, _), wrapper in zip(REPAIRS, REPAIR_WRAPPERS.values())]]
+
+
+def probe_run(run, ref: OpProbe | None, steps: int) -> OpProbe:
+    """`run()` under a fresh `OpProbe`, its port functions wrapped."""
+    probe = OpProbe(ref, steps)
+    targets = probe_targets()
+    saved = [getattr(mod, attr) for mod, attr, _ in targets]
     try:
-        for name, f in saved.items():
-            setattr(T, name, wrap(name, f))
-        mha.project = wrap("project", saved_project, skip=1)
-        yield
+        for (mod, attr, kernel), fn in zip(targets, saved):
+            label = f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}"
+            setattr(mod, attr, probe.wrap(label, fn, fn is kernel))
+        with torch.inference_mode(), probe:
+            run()
+    except ProbeStop:
+        pass
     finally:
-        for name, f in saved.items():
-            setattr(T, name, f)
-        mha.project = saved_project
+        for (mod, attr, _), fn in zip(targets, saved):
+            setattr(mod, attr, fn)
+    return probe
 
 
-def batch_dependence(cfg: FrameworkConfig, rows: int = 16) -> dict:
-    """Where the full-width decode depends on the batch size: each part run
-    on `rows` chunks and on their first half, the first half's results
-    compared (max abs difference): K1 and the encoder memory; then,
-    teacher-forced on the full batch's greedy tokens from the same memory,
-    the first decode step whose logits differ, and in it the first op
-    (`recording_ops`) whose output differs although its inputs agree."""
-    half = rows // 2
+PROBE_ROWS = (64, 32, 16, 8, 4, 2, 1)  # the serving buckets, each against the first rows of the largest
+PROBE_BEAM_ITEMS = (16, 8, 2, 1)
+PROBE_STEPS = 4  # decode steps of each run
+
+
+def batch_probe(cfg: FrameworkConfig) -> dict:
+    """Every op of the full-width inference path whose output for a row
+    differs with the rows beside it although its inputs are equal
+    (`OpProbe`): greedy decoding (K1, the encoder, the cross caches and
+    PROBE_STEPS steps of the greedy loop) at each of PROBE_ROWS rows
+    against the first rows of the largest, and beam BEAM_SIZE decoding
+    (PROBE_STEPS steps of the beam loop: `_anc_attention`, the per-item
+    cross attention, the selection) at each of PROBE_BEAM_ITEMS items
+    against the largest. -> the ops compared and the ops that differ, each
+    with its shape and max abs difference at each row count."""
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
-    wav = torch.randn(rows, cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
-
-    def diff(f, *xs) -> float:
-        return (f(*xs)[:half].float() - f(*(x[:half] for x in xs)).float()).abs().max().item()
-
-    out = {"rows": [rows, half], "first_step_with_other_logits": None}
-    with torch.inference_mode():
-        out["k1"] = diff(lambda w: cuda_mel.log_mel(w, mel_params(cfg.model)), wav)
-        out["encoder_memory"] = diff(model.encode, wav)
-        memory = model.encode(wav)
-        L = cfg.inference.max_length
-        tokens = greedy_decode_from_memory(model, memory, L).long()
-        full, part = init_caches(model, memory, L), init_caches(model, memory[:half].clone(), L)
-        for step in range(L - 1):
-            ops_full: list = []
-            ops_part: list = []
-            with recording_ops(ops_full):
-                a = decode_step(model, tokens[:, step], step, full)[:half]
-            with recording_ops(ops_part):
-                b = decode_step(model, tokens[:half, step], step, part)
-            if torch.equal(a, b):
-                continue
-            out.update(first_step_with_other_logits=step, logit_diff=(a.float() - b.float()).abs().max().item())
-            for i, ((name, ins_f, y_f), (_, ins_p, y_p)) in enumerate(zip(ops_full, ops_part)):
-                same_inputs = all(torch.equal(x[:half], z) for x, z in zip(ins_f, ins_p) if x.shape[0] == rows)
-                if same_inputs and not torch.equal(y_f[:half], y_p):
-                    out["first_op_with_other_output_on_equal_inputs"] = {
-                        "op": name, "index": i, "of": len(ops_full), "input_shapes": [list(x.shape) for x in ins_f],
-                        "max_abs_diff": (y_f[:half].float() - y_p.float()).abs().max().item()}
-                    break
-            break
+    wav = torch.randn(PROBE_ROWS[0], cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
+    L = cfg.inference.max_length
+    runs = {"greedy": (PROBE_ROWS, lambda w: greedy_decode(model, w, L)),
+            "beam": (PROBE_BEAM_ITEMS, lambda w: beam_search_decode(model, w, L, BEAM_SIZE))}
+    found: dict = {}
+    compared = {}
+    for mode, (rows, decode) in runs.items():
+        ref = probe_run(lambda: decode(wav[: rows[0]]), None, PROBE_STEPS)
+        compared[mode] = len(ref.records)
+        for r in rows[1:]:
+            for name, shape, diff in probe_run(lambda: decode(wav[:r]), ref, PROBE_STEPS).diffs:
+                e = found.setdefault(f"{mode}: {name}", {"shape": {}, "max_abs_diff": {}})
+                e["shape"][r] = shape
+                e["max_abs_diff"][r] = max(diff, e["max_abs_diff"].get(r, 0.0))
+        del ref
     del model
+    torch.cuda.empty_cache()
+    return {"rows": {"greedy": list(PROBE_ROWS), "beam_items": list(PROBE_BEAM_ITEMS)}, "decode_steps": PROBE_STEPS,
+            "ops_compared": compared, "differing_ops": [{"op": k, **v} for k, v in found.items()]}
+
+
+INVARIANCE_CHUNKS = 8
+INVARIANCE_BATCHES = (2, 4, 8, 16, 64)
+INVARIANCE_BEAM_CHUNKS = 4
+INVARIANCE_BEAM_BATCH = 16
+
+
+def spread(n: int, b: int) -> list[int]:
+    """Positions of n chunks spread over a batch of b >= n rows."""
+    return [(i * b) // n + b // n - 1 for i in range(n)]
+
+
+def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
+    """A chunk's tokens on the card do not depend on the rows decoded beside
+    it (the serving config at full width, K1, K5f and the batch-invariance
+    kernels on, seeded random weights and chunks):
+    - greedy: INVARIANCE_CHUNKS chunks each decoded alone (bucket 1), then
+      in batches of each of INVARIANCE_BATCHES (below 8: the chunks side by
+      side; from 8: spread among other chunks); the tokens must be equal;
+    - beam BEAM_SIZE: INVARIANCE_BEAM_CHUNKS chunks alone and spread in a
+      batch of INVARIANCE_BEAM_BATCH; the tokens must be equal;
+    - serving: the serving phase's requests through `ServingEngine` one at a
+      time (a request's 4 chunks, bucket 4) and concurrently (12 chunks,
+      bucket 16); the notes must be equal;
+    - the op list of `batch_probe`, before the repair (`before_repair`) and
+      after it, in this call; after, it must be empty."""
+    t0 = time.monotonic()
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    L, n = cfg.inference.max_length, INVARIANCE_CHUNKS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    pool = torch.randn(n + max(INVARIANCE_BATCHES), cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
+    chunks, others = pool[:n], pool[n:]
+    reset_counters()
+    alone = torch.cat([greedy_decode(model, chunks[i : i + 1], L) for i in range(n)])
+    greedy = {}
+    for b in INVARIANCE_BATCHES:
+        if b < n:
+            got = torch.cat([greedy_decode(model, chunks[j : j + b], L) for j in range(0, n, b)])
+        else:
+            pos = spread(n, b)
+            batch = others[:b].clone()
+            batch[pos] = chunks
+            got = greedy_decode(model, batch, L)[pos]
+        greedy[b] = {"equal": bool(torch.equal(got, alone)),
+                     "rows_differing": int((got != alone).any(dim=1).sum().item())}
+    greedy_launches = {k: c.launches for k, c in all_counters().items()}
+    nb, bb = INVARIANCE_BEAM_CHUNKS, INVARIANCE_BEAM_BATCH
+    beam_alone = torch.cat([beam_search_decode(model, chunks[i : i + 1], L, BEAM_SIZE) for i in range(nb)])
+    pos = spread(nb, bb)
+    batch = others[:bb].clone()
+    batch[pos] = chunks[:nb]
+    beam_in = beam_search_decode(model, batch, L, BEAM_SIZE)[pos]
+    beam = {"equal": bool(torch.equal(beam_in, beam_alone)),
+            "rows_differing": int((beam_in != beam_alone).any(dim=1).sum().item())}
+    one, _, _, one_stats = serve_requests(build_engine(cfg, model), cfg, sequential=True)
+    together, _, _, together_stats = serve_requests(build_engine(cfg, model), cfg)
+    same_notes = [json.loads(a[1]) == json.loads(b[1]) for a, b in zip(one, together)]
+    del model
+    torch.cuda.empty_cache()
+    decode_s = time.monotonic() - t0
+    probe_after = batch_probe(cfg)
+    with before_repair():
+        probe_before = batch_probe(cfg)
+    res = {"phase": "batch_invariance", "chunks": n, "max_length": L,
+           "greedy_alone_vs_batch": greedy, "greedy_launches": greedy_launches,
+           "tokens_before_eos": int((alone != cfg.tokenizer.EOS_token).sum().item()),
+           "beam": {"beam_size": BEAM_SIZE, "chunks": nb, "batch": bb, **beam},
+           "serving": {"same_notes_one_at_a_time_and_concurrent": same_notes,
+                       "buckets_one_at_a_time": one_stats["occupancy"], "buckets_concurrent": together_stats["occupancy"]},
+           "probe_before_repair": probe_before, "probe": probe_after,
+           "decode_s": decode_s, "wall_s": time.monotonic() - t0}
+    emit(res)
+    fail_unless("batch_invariance", {
+        **{f"greedy tokens alone = in batches of {b}": g["equal"] for b, g in greedy.items()},
+        f"beam {BEAM_SIZE} tokens alone = in a batch of {bb}": beam["equal"],
+        "served notes one at a time = concurrent": all(same_notes) and len(same_notes) == N_REQUESTS,
+        "the probe lists no op": not probe_after["differing_ops"],
+        "the probe before the repair lists ops": bool(probe_before["differing_ops"]),
+        "K1, K5f and the repair kernels launched": all(greedy_launches[k] for k in
+                                                       ("log_mel", "fused_attention", *REPAIR_WRAPPERS)),
+    })
+    return res
+
+
+def encode_ms(model: ADTModel, cfg: FrameworkConfig, batch: int) -> float:
+    """The median ms (CUDA events) of REPS encodes of `batch` seeded chunks."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    wave = torch.randn(batch, cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
+    with torch.inference_mode():
+        return median_ms(model.encode, [(wave,)] * REPS)
+
+
+def phase_repair_cost(statics: render.SynthStatics, sc) -> dict:
+    """What the batch-invariance repair costs, before (`before_repair`) and
+    after in this call, at full width with the eval config (K1, K5f on):
+    greedy decode ms a step and device ops a step at buckets 1 and 16, beam
+    BEAM_SIZE ms a step at 16, the encode ms at 16 (`decode_breakdown`) and
+    the median encode ms at buckets 16 and 64 (`encode_ms`), and the eval
+    phase's wall s (`eval_run`: 34 items at batch 16)."""
+    cfg = load_config(EVAL_YAML, show=False, model=KERNELS_ON)
+    out: dict = {}
+    for label in ("after", "before"):
+        with before_repair() if label == "before" else contextlib.nullcontext():
+            model = ADTModel(cfg.model, seed=SEED, device="cuda")
+            runs = {"greedy_bucket_1": decode_breakdown(model, cfg, 1),
+                    "greedy_bucket_16": decode_breakdown(model, cfg, 16),
+                    "beam_bucket_16": decode_breakdown(model, cfg, 16, decode=beam_decode(1.0, BEAM_SIZE))}
+            out[label] = {k: {"encode_ms": r["encode_ms"], "ms_per_step": r["ms_per_step"],
+                              "decode_steps": r["decode_steps"],
+                              "device_ops_per_step": r["device_kernels"] / r["profiled_max_steps"],
+                              "device_busy_share": r["device_busy_share"]} for k, r in runs.items()}
+            out[label]["encode_median_ms"] = {b: encode_ms(model, cfg, b) for b in (16, 64)}
+            del model
+            out[label]["eval_wall_s"] = eval_run(statics, sc, {})["wall_s"]
+    emit({"phase": "repair_cost", **out})
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2534,11 +3024,11 @@ def decode_dp_eval(statics: render.SynthStatics, sc, refs: dict) -> dict:
     its half of every batch of 16), greedy and beam BEAM_SIZE, on the eval
     phase's items. Its tokens, metrics.json and confusion CSV must equal
     the one-device run at the entries' batch of 8, which decodes the same
-    blocks of items (the ragged last batch's real items included). Against
-    the one-device run at batch 16 (`refs`: the eval and beam phases) the
-    rows that differ are counted, not held: on the card the full-width
-    decode is not batch-invariant (PERF.md §6, PR 9). -> the result, with
-    the greedy one-device batch-8 run for eval_ddp."""
+    blocks of items (the ragged last batch's real items included), and no
+    row may differ from the one-device run at batch 16 (`refs`: the eval and
+    beam phases): a row's tokens do not depend on the rows decoded beside
+    it. -> the result, with the greedy one-device batch-8 run for
+    eval_ddp."""
     mesh = mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"])
     res = {"phase": "decode_dp", "part": "eval", "mesh": [str(d) for d in mesh.devices], "runs": {}}
     same, entry_refs = {}, {}
@@ -2549,8 +3039,8 @@ def decode_dp_eval(statics: render.SynthStatics, sc, refs: dict) -> dict:
         full = refs[name]
         same[name] = {"tokens": same_rows(dp["rows"], ref8["rows"]), "metrics": dp["metrics"] == ref8["metrics"],
                       "files": dp["files"] == ref8["files"],
-                      "launches (each entry its half of a batch)": dp["launches"] == {
-                          k: 2 * n for k, n in full["launches"].items()}}
+                      "launches (each entry its half of a batch)": tpu_launches(dp["launches"]) == {
+                          k: 2 * n for k, n in tpu_launches(full["launches"]).items()}}
         res["runs"][name] = {
             "batch": bs, "wall_s": dp["wall_s"], "one_device_wall_s": {f"batch {bs}": full["wall_s"],
                                                                       f"batch {bs // 2}": ref8["wall_s"]},
@@ -2559,10 +3049,11 @@ def decode_dp_eval(statics: render.SynthStatics, sc, refs: dict) -> dict:
                 "rows_differing": sum(not np.array_equal(x, y) for x, y in zip(dp["rows"], full["rows"])),
                 "rows": len(full["rows"]), "f_measure": dp["metrics"]["all"]["f_measure"],
                 "one_device_f_measure": full["metrics"]["all"]["f_measure"]}}
-    res["batch_dependence"] = batch_dependence(load_config(EVAL_YAML, show=False, model=KERNELS_ON))
     emit(res)
-    fail_unless("decode_dp", {f"{n} {k} = one device at the entries' batch": ok for n, s in same.items()
-                              for k, ok in s.items()})
+    fail_unless("decode_dp", {
+        **{f"{n} {k} = one device at the entries' batch": ok for n, s in same.items() for k, ok in s.items()},
+        **{f"{n} tokens = one device at batch {r['batch']}": r[f"vs_one_device_at_batch_{r['batch']}"][
+            "rows_differing"] == 0 for n, r in res["runs"].items()}})
     torch.cuda.empty_cache()
     res["entry_batch_reference"] = entry_refs["greedy"]  # for eval_ddp
     return res
@@ -2572,10 +3063,9 @@ def decode_dp_serving(cfg: FrameworkConfig, serving: dict) -> dict:
     """A `ServingEngine` over a mesh of two entries of cuda:0 answers the
     serving phase's requests through the port's HTTP server: every answer
     well formed, K1 and K5f launched; a bucket the data axis does not divide
-    raises. Whether its notes equal the one-device engine's is reported, not
-    held: the micro-batches' shapes follow the requests' timing, and the
-    full-width decode on the card is not batch-invariant (decode_dp holds
-    the sharded decode to the one-device decode at the entries' batch)."""
+    raises. Its notes must equal the one-device engine's, although the
+    micro-batches' shapes follow the requests' timing: a chunk's tokens do
+    not depend on the rows decoded beside it."""
     mesh = mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"])
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
     refused = None
@@ -2596,6 +3086,7 @@ def decode_dp_serving(cfg: FrameworkConfig, serving: dict) -> dict:
         "a bucket of 1 refused": refused is not None and "not divisible by the mesh data axis (2)" in refused,
         "every bucket split over the two entries": stats["n_batches"] > 0
                                                    and all(b % 2 == 0 for b in stats["occupancy"]),
+        "the same notes as one device": all(res["same_notes_as_one_device"]),
     })
     del model
     torch.cuda.empty_cache()
@@ -2629,6 +3120,7 @@ def phase_synthesis(ptxas: dict) -> dict:
            "beam": phase_beam(statics, sc)}
     out["decode_dp"] = decode_dp_eval(statics, sc, {"greedy": out["eval"]["reference"],
                                                     "beam": out["beam"]["reference"]})
+    out["repair_cost"] = phase_repair_cost(statics, sc)
     out.update(phase_ddp(statics, sc, out["eval"]["reference"], out["decode_dp"]["entry_batch_reference"]))
     del statics, table, bank
     torch.cuda.empty_cache()
@@ -2942,16 +3434,18 @@ def main() -> int:
     att_train = {s: phase_attention(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     bwd_train = {s: phase_attention_bwd(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     ffn_train = {s: phase_ffn(rows, gen, s) for s, rows in TRAIN_FFN_ROWS.items()}
+    repairs = phase_repairs(gen, cfg)
     synth = phase_synthesis(ptxas)
     training = {c: phase_training(c) for c in TRAIN_YAMLS}
     training[SYNTH_NAME] = synth["training"]
     serving = phase_serving(cfg)
     dp_serving = decode_dp_serving(cfg, serving)
+    invariance = phase_batch_invariance(cfg)
     bench = phase_bench()
     clap = phase_clap()
 
     def ranks_sum(per_rank: dict) -> dict:
-        return {k: sum(n[k] for n in per_rank.values()) for k in kernel_counters()}
+        return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
 
     ddp, trainer_ddp = synth["ddp_step"], synth["trainer_ddp"]
     by_path = {"serving": serving["launches"], **{f"training-{c}": r["launches"] for c, r in training.items()},
@@ -2959,7 +3453,8 @@ def main() -> int:
                "inference": synth["inference"]["launches"],
                "trainer": synth["trainer"]["launches"]["straight"],
                "trainer-resumed": synth["trainer"]["launches"]["resumed"],
-               "trainer_tmidt": synth["trainer_tmidt"]["launches"], "beam": synth["beam"]["launches"],
+               "trainer_tmidt": synth["trainer_tmidt"]["launches"],
+               "beam": synth["beam"]["launches"],
                "beam-serving": synth["beam"]["serving"]["launches"],
                "ddp_step (2 ranks)": ranks_sum(ddp["launches"]), "ddp_step-nccl": ddp["nccl_launches"],
                "trainer_ddp (2 ranks)": ranks_sum(trainer_ddp["launches"]["straight"]),
@@ -2967,11 +3462,12 @@ def main() -> int:
                "eval_ddp (2 ranks)": ranks_sum(synth["eval_ddp"]["launches"]),
                "decode_dp": synth["decode_dp"]["runs"]["greedy"]["launches"],
                "decode_dp-beam": synth["decode_dp"]["runs"]["beam"]["launches"],
-               "decode_dp-serving": dp_serving["launches"], "clap": clap["in_process"]["launches"]}
+               "decode_dp-serving": dp_serving["launches"], "clap": clap["in_process"]["launches"],
+               "batch_invariance-greedy": invariance["greedy_launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        per_path = {p: n.get(kname, 0) for p, n in by_path.items()}
+        per_path = {p: n[kname] for p, n in by_path.items()}  # every run counts every kernel
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path, "shape": shape,
                 **{k: res[k] for k in keys}}
@@ -3001,6 +3497,19 @@ def main() -> int:
         entry("place_notes", "adt_str_tpu_torch/csrc/place_notes.cu",
               "adt_str_tpu/synth/pallas_place.py:189 place_notes",
               f"B={TRAIN_BATCH}, 128 note slots, 27 blend rows of 30720 bf16, chunk 61440", synth["place_notes"]),
+        # the batch-invariance kernels: no pallas_call is behind them; `replaces` names the JAX function whose
+        # arithmetic each computes on the port's inference path
+        entry("layer_norm", "adt_str_tpu_torch/csrc/layer_norm.cu",
+              "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:113 layer_norm",
+              f"decode step, bucket {bucket}: {bucket} rows of 768 bf16", repairs["layer_norm"]["decode"]),
+        entry("linear", "adt_str_tpu_torch/csrc/linear.cu",
+              "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:105 linear",
+              f"decode FFN linear1, bucket {bucket}: ({bucket}, 768) x (3072, 768)^T bf16",
+              repairs["linear"]["decode"]),
+        entry("attention_rows", "adt_str_tpu_torch/csrc/attention_rows.cu",
+              "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:223 attention_core",
+              f"decode self-attention, bucket {bucket}: 6 heads, 1 query over 512 cached keys, bf16",
+              repairs["attention_rows"]["decode_self"]),
     ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
         "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)

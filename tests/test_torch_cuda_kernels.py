@@ -94,10 +94,9 @@ def _assert_log_mel_matches_plain(wave, params, trim=True):
 
 @pytest.mark.parametrize("batch", [1, 12, 16, 24, 64])
 def test_log_mel_kernel_batches(cuda, batch):
-    """The serving, transcription and training batches: one frequency split
-    per grid size on 132 SMs (8 blocks share a frame tile at B 1, 4 at B 12
-    and 16, 2 at B 24, the 30 s transcription with a 1.28 s hop, none at
-    B 64)."""
+    """The serving, transcription and training batches (12 and 24: the 30 s
+    transcription plain and with a 1.28 s hop): one frequency split at
+    every batch, from a chunk's shape (4 blocks share a frame tile)."""
     _assert_log_mel_matches_plain(_wave(batch, 61440, seed=batch).to(cuda), SERVING_MEL)
 
 
@@ -587,3 +586,229 @@ def test_attention_kernels_at_the_trainers_token_buckets(cuda, case):
         mask = _causal(B, Tq, Tk, cuda) + pad[:, None, :].to(cuda)
     _assert_attention_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk))
     _assert_attention_bwd_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk))
+
+
+# ---------------------------------------------------- the batch-invariance kernels
+# LayerNorm, the inference product and the inference attention
+# (`ops/{layer_norm,linear,attention_rows}.py`): each against its plain
+# version, and each row's bits the same at every row count.
+
+from adt_str_tpu_torch.ops import attention_rows  # noqa: E402
+from adt_str_tpu_torch.ops import layer_norm as ln_ops  # noqa: E402
+from adt_str_tpu_torch.ops import linear as linear_ops  # noqa: E402
+
+ROW_COUNTS = (1, 2, 3, 4, 7, 8, 16, 31, 32, 63, 64)
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at |t| (8 significant bits); below 2^-6, that of 2^-6."""
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp(min=2.0**-6))) - 7)
+
+
+def _ln_inputs(rows, d, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g, device=device) * 2.0 + 0.5).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+    b = 0.1 * torch.randn(d, generator=g, device=device)
+    return x, w, b
+
+
+# bf16: 1 ulp of the plain output (an output below 2^-6 counts as 2^-6: there
+# y = p + b cancels and the two sides' fp32 statistics, summed in other
+# orders, leave p's last fp32 bits apart); fp32: 1e-5
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [48, 768, 1000, 1024])
+def test_layer_norm_kernel_matches_plain(cuda, d, dtype):
+    x, w, b = _ln_inputs(37, d, dtype, cuda)
+    before = ln_ops.layer_norm.launches
+    with torch.inference_mode():
+        out = ln_ops.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ln_ops.layer_norm.launches == before + 1 and out.dtype == dtype
+    ref = ln_ops.layer_norm_plain(x, w, b, 1e-5)
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(ref)).all()), (err / _bf16_ulp(ref)).max()
+    else:
+        assert err.max().item() <= 1e-5
+
+
+def test_layer_norm_kernel_rows_bit_equal_at_every_row_count(cuda):
+    x, w, b = _ln_inputs(64, 768, torch.bfloat16, cuda, seed=1)
+    with torch.inference_mode():
+        full = ln_ops.layer_norm(x[:, None], w, b, 1e-5)
+        for r in ROW_COUNTS:
+            assert torch.equal(ln_ops.layer_norm(x[:r, None].clone(), w, b, 1e-5), full[:r]), r
+
+
+def test_layer_norm_keeps_autograd_in_training_and_rejects_on_the_card(cuda):
+    """Training (grad enabled, an operand that requires it) runs the plain
+    version under autograd and launches nothing; on the inference path an
+    unsupported width or dtype raises."""
+    x, w, b = _ln_inputs(4, 768, torch.bfloat16, cuda)
+    w.requires_grad_(True)
+    before = ln_ops.layer_norm.launches
+    ln_ops.layer_norm(x, w, b, 1e-5).float().sum().backward()
+    assert ln_ops.layer_norm.launches == before and w.grad is not None
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="layer_norm kernel"):
+            ln_ops.layer_norm(torch.zeros(2, 1025, device=cuda), torch.ones(1025, device=cuda),
+                              torch.zeros(1025, device=cuda), 1e-5)
+        with pytest.raises(ValueError, match="layer_norm kernel"):
+            ln_ops.layer_norm(x.half(), w.detach(), b, 1e-5)
+
+
+def _linear_inputs(m, n, k, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=device).to(dtype)
+    w = (torch.randn(n, k, generator=g, device=device) / k**0.5).to(dtype)
+    b = (0.1 * torch.randn(n, generator=g, device=device)).to(dtype)
+    return x, w, b
+
+
+# bf16 against the fp32 product rounded as the plain version rounds it (the
+# product to bf16, then the bias): the sums run in other orders, so a rounding
+# may flip: 1 ulp of the product plus 1 of the output; fp32: 1e-5 of max(1, |y|)
+@pytest.mark.parametrize("m, n, k", [(1, 3072, 768), (16, 2304, 768), (80, 1400, 768), (3936, 768, 3072),
+                                     (5, 70, 40), (130, 129, 264)])
+def test_linear_kernel_matches_the_fp32_product(cuda, m, n, k):
+    x, w, b = _linear_inputs(m, n, k, torch.bfloat16, cuda)
+    before = linear_ops.linear.launches
+    with torch.inference_mode():
+        out = linear_ops.linear(x, w, b)
+        x32, w32, b32 = _linear_inputs(m, n, k, torch.float32, cuda, seed=1)
+        out32 = linear_ops.linear(x32, w32, b32)
+    torch.cuda.synchronize()
+    assert linear_ops.linear.launches == before + 2
+    prod = (x.float() @ w.float().T).to(torch.bfloat16)
+    ref = (prod + b).float()
+    assert bool(((out.float() - ref).abs() <= _bf16_ulp(prod) + _bf16_ulp(ref)).all())
+    ref32 = torch.addmm(b32.double(), x32.double(), w32.double().T)
+    assert ((out32.double() - ref32).abs() / ref32.abs().clamp(min=1.0)).max().item() <= 1e-5
+
+
+def test_linear_kernel_rows_bit_equal_at_every_row_count(cuda):
+    """The decode step's and the beam's rows (up to 64 x 5) and the encoder's
+    chunks of 246 frames."""
+    for rows_per, n, k in ((1, 3072, 768), (5, 2304, 768), (246, 768, 3072)):
+        x, w, b = _linear_inputs(64 * rows_per, n, k, torch.bfloat16, cuda, seed=rows_per)
+        with torch.inference_mode():
+            full = linear_ops.linear(x, w, b)
+            for r in ROW_COUNTS:
+                assert torch.equal(linear_ops.linear(x[: r * rows_per].clone(), w, b), full[: r * rows_per]), (rows_per, r)
+
+
+def test_linear_kernel_rejects_what_it_cannot_hold(cuda):
+    with torch.inference_mode(), pytest.raises(ValueError, match="linear kernel"):
+        linear_ops.linear(torch.zeros(2, 44, device=cuda, dtype=torch.bfloat16),
+                          torch.zeros(8, 44, device=cuda, dtype=torch.bfloat16))
+
+
+ATTENTION_ROWS_CASES = {  # (B, Tq, Tk, head dim, the decode step's position or None: no mask, dtype)
+    "decode-self": (16, 1, 512, 128, 255, torch.bfloat16),
+    "decode-cross": (16, 1, 246, 128, None, torch.bfloat16),
+    "beam-cross": (16, 5, 246, 128, None, torch.bfloat16),
+    "encoder": (2, 246, 246, 128, None, torch.bfloat16),
+    "fp32-small-head": (3, 2, 40, 64, 7, torch.float32),
+}
+
+
+def _rows_inputs(B, tq, tk, hd, step, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(B, 6, t, hd, generator=g, device=device).to(dtype) for t in (tq, tk, tk))
+    mask = None if step is None else torch.where(torch.arange(tk, device=device) > step, -1e4, 0.0)[None, None, None]
+    return q, k, v, mask
+
+
+# Both sides round the probabilities to bf16, and their fp32 sums in other
+# orders can flip one such rounding: that moves an output by a bf16 ulp of
+# the probability times v, and the output's own rounding may then flip. So
+# each output lies within 1 bf16 ulp of itself plus 2 ulps of its row's
+# largest probability times its column's largest |v|; a flip moves an output
+# by about 2^-8 / keys of its size, so at most 2% of the outputs differ at
+# all (a kernel that skips the probabilities' rounding moves about 40%, one
+# that rounds its scores to bf16 about 60%). fp32: within 1e-5.
+@pytest.mark.parametrize("case", list(ATTENTION_ROWS_CASES))
+def test_attention_rows_kernel_matches_plain(cuda, case):
+    q, k, v, mask = _rows_inputs(*ATTENTION_ROWS_CASES[case], cuda)
+    before = attention_rows.attention.launches
+    with torch.inference_mode():
+        out = attention_rows.attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attention_rows.attention.launches == before + 1
+    ref = attention_rows.attention_plain(q, k, v, mask).float()
+    err = (out.float() - ref).abs()
+    if q.dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+        return
+    p_max = attention_rows.attention_probs(q, k, mask).float().amax(-1, keepdim=True)
+    spacing = lambda t: torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0**-126))) - 7)  # noqa: E731
+    bound = spacing(ref) + 2 * spacing(p_max) * v.float().abs().amax(2, keepdim=True)
+    assert (err <= bound).all(), (err / bound).max().item()
+    assert (err > 0).double().mean().item() <= 0.02
+
+
+def test_attention_rows_kernel_rows_bit_equal_at_every_row_count(cuda):
+    for case in ("decode-self", "beam-cross"):
+        _, tq, tk, hd, step, dtype = ATTENTION_ROWS_CASES[case]
+        q, k, v, mask = _rows_inputs(64, tq, tk, hd, step, dtype, cuda, seed=2)
+        with torch.inference_mode():
+            full = attention_rows.attention(q, k, v, mask)
+            for r in ROW_COUNTS:
+                part = attention_rows.attention(q[:r].clone(), k[:r].clone(), v[:r].clone(), mask)
+                assert torch.equal(part, full[:r]), (case, r)
+
+
+def test_attention_rows_kernel_rejects_what_it_cannot_hold(cuda):
+    q, k, v, _ = _rows_inputs(1, 1, 8, 128, None, torch.bfloat16, cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="attention_rows kernel"):
+            attention_rows.attention(q, k.float(), v, None)
+        big = torch.zeros(1, 6, 5000, 128, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="attention_rows kernel"):
+            attention_rows.attention(q, big, big, None)
+
+
+def test_log_mel_kernel_row_bits_equal_at_every_batch(cuda):
+    """K1's split follows the batch (8, 4, 1 at B 1, 16, 64) but its band
+    sums run in frequency-tile order, so a chunk's bits are the same at B 1,
+    16 and 64 (serving buckets and the training batch)."""
+    wave = _wave(64, 61440, seed=7).to(cuda)
+    full = cuda_mel.log_mel(wave, SERVING_MEL)
+    for b in (1, 2, 16, 64):
+        assert torch.equal(cuda_mel.log_mel(wave[:b].clone(), SERVING_MEL), full[:b]), b
+
+
+@pytest.mark.parametrize("frontend", ["serving", "clap"])
+def test_log_mel_kernel_bits_equal_at_every_split(cuda, frontend, monkeypatch):
+    """Every split the wrapper can pick (1 up to the frequency tiles) gives
+    the same bits, the model's frontend and CLAP's dB frontend."""
+    from adt_str_tpu_torch.clap.features import _clap_mel_params
+
+    params, n, trim = (SERVING_MEL, 61440, True) if frontend == "serving" else (_clap_mel_params(), 480_000, False)
+    wave = _wave(4, n, seed=8).to(cuda)
+    n_tiles = cuda_mel.mel_table(params).shape[0] // cuda_mel.FREQ_TILE
+    outs = {}
+    for split in (1, 2, 3, 4, 8):
+        if split <= n_tiles:
+            monkeypatch.setattr(cuda_mel, "freq_split", lambda *_: split)
+            outs[split] = cuda_mel.log_mel(wave, params, trim)
+    assert len(outs) > 2 and all(torch.equal(o, outs[1]) for o in outs.values())
+
+
+def test_a_full_width_chunk_decodes_alone_as_in_a_batch_of_16(cuda):
+    """The serving config at full width (d 768, 6 heads of 128, 4 + 4
+    layers, K1 and K5f on), seeded random weights: one chunk's greedy tokens
+    alone and at row 5 of a batch of 16 other chunks are equal."""
+    from pathlib import Path
+
+    from adt_str_tpu_torch.config import FrameworkConfig
+    from adt_str_tpu_torch.models.adt import ADTModel
+    from adt_str_tpu_torch.models.decode import greedy_decode
+
+    cfg = FrameworkConfig.from_yaml(Path(__file__).resolve().parent.parent / "configs/serve/ENSTserving.yaml")
+    model = ADTModel(cfg.model, seed=0, device=cuda)
+    batch = _wave(16, cfg.shared.chunk_samples, seed=11).to(cuda)
+    alone = greedy_decode(model, batch[5:6].clone(), cfg.inference.max_length)
+    inside = greedy_decode(model, batch, cfg.inference.max_length)[5:6]
+    assert torch.equal(alone, inside)

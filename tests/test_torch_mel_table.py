@@ -5,8 +5,8 @@ product by a per-bin table (w0, w1, m0): an HTK triangular filterbank puts
 each bin in at most two adjacent bands. These tests hold the table to
 `mel_filterbank` at every frontend configuration the repo ships and at the
 card tests' small ones, replay the kernel's in-order band sums (with the
-frequency range split over blocks) in numpy against the dense product, and
-check the bases against the Pallas kernel's `_constants`.
+frequency range split over blocks) in numpy against the dense product and
+across splits, and check the bases against the Pallas kernel's `_constants`.
 """
 
 from pathlib import Path
@@ -92,33 +92,60 @@ def test_used_bins_are_the_weighted_bins(params):
         assert k == 1024
 
 
-def _kernel_mel(power, table, n_mels, split):
+def _kernel_mel(power, params, split):
     """numpy replay of the kernel's mel step for one frame: per band parity
-    h, one running sum over the bins in order, a band written when the next
-    bin moves on; each split block writes its partial sums (0 for bands it
-    does not reach) and the parts are added in split order."""
+    h, one running sum over the bins in order, restarted at each frequency
+    tile, a band written when the next bin moves on. With split 1 the block
+    adds a band's tile sums in tile order as it goes; with more, the split
+    blocks write each tile's band sums to that tile's part, and each band
+    adds its parts over its range of tiles (`band_tiles`) in tile order."""
+    table = cuda_mel.mel_table(params)
     w0, w1, m0 = _decode(table)
-    ft = cuda_mel.FREQ_TILE
+    ft, n_mels = cuda_mel.FREQ_TILE, params.n_mels
     n_tiles = table.shape[0] // ft
-    parts = np.zeros((split, n_mels), np.float32)
+    out = np.zeros(n_mels, np.float32)
+    parts = np.full((n_tiles, n_mels), np.nan, np.float32)  # a part the kernel leaves unwritten is never read
     for s in range(split):
-        lo, hi = s * n_tiles // split * ft, (s + 1) * n_tiles // split * ft
         for h in (0, 1):
-            cur, acc = -1, np.float32(0)
-            for j in range(lo, hi):
+            cur, acc, before = -1, np.float32(0), np.float32(0)
+            for j in range(s * n_tiles // split * ft, (s + 1) * n_tiles // split * ft):
+                if j % ft == 0 and j > s * n_tiles // split * ft:
+                    if split == 1:
+                        before = np.float32(before + acc)
+                    elif cur >= 0:
+                        parts[j // ft - 1, cur], cur = acc, -1
+                    acc = np.float32(0)
                 band = m0[j] + ((m0[j] ^ h) & 1)
                 if band != cur:
                     if cur >= 0:
-                        parts[s, cur] = acc
-                    cur, acc = band, np.float32(0)
+                        if split == 1:
+                            out[cur] = np.float32(before + acc)
+                        else:
+                            parts[j // ft, cur] = acc
+                    cur, acc, before = band, np.float32(0), np.float32(0)
                 wt = w0[j] if (m0[j] & 1) == h else w1[j]
                 acc = np.float32(acc + np.float32(wt * power[j]))
             if cur >= 0:
-                parts[s, cur] = acc
-    out = parts[0].copy()
-    for s in range(1, split):
-        out = out + parts[s]
+                if split == 1:
+                    out[cur] = np.float32(before + acc)
+                else:
+                    parts[(s + 1) * n_tiles // split - 1, cur] = acc
+    if split == 1:
+        return out
+    for m, (first, last) in enumerate(cuda_mel.band_tiles(params).numpy()):
+        if first <= last:
+            out[m] = parts[first, m]
+            for tile in range(first + 1, last + 1):
+                out[m] = np.float32(out[m] + parts[tile, m])
     return out
+
+
+def _power(table, params, seed):
+    rng = np.random.default_rng(seed)
+    power = np.zeros(table.shape[0], np.float32)
+    k = min(table.shape[0], params.n_freqs)
+    power[:k] = (rng.normal(size=k) ** 2 * 10.0 ** rng.uniform(-4, 3, size=k)).astype(np.float32)
+    return power
 
 
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
@@ -127,13 +154,38 @@ def test_in_order_band_sums_equal_the_dense_product(params, split):
     table = cuda_mel.mel_table(params)
     split = min(split, table.shape[0] // cuda_mel.FREQ_TILE)
     M = mel_filterbank(params.n_freqs, params.n_mels, params.sample_rate, params.f_min, params.f_max)
-    rng = np.random.default_rng(split)
-    power = np.zeros(table.shape[0], np.float32)
+    power = _power(table, params, split)
     k = min(table.shape[0], params.n_freqs)
-    power[:k] = (rng.normal(size=k) ** 2 * 10.0 ** rng.uniform(-4, 3, size=k)).astype(np.float32)
     dense = power[:k].astype(np.float64) @ M[:k].astype(np.float64)
-    got = _kernel_mel(power, table, params.n_mels, split)
+    got = _kernel_mel(power, params, split)
     np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0], CLAP], ids=["model", "small", "clap"])
+def test_band_sums_are_the_same_bits_at_every_split(params):
+    """The split follows the launch's size (`freq_split`), so a row's bits
+    must not follow it: the tile-order sums give equal bits at every split."""
+    table = cuda_mel.mel_table(params)
+    n_tiles = table.shape[0] // cuda_mel.FREQ_TILE
+    power = _power(table, params, 3)
+    one = _kernel_mel(power, params, 1)
+    assert np.isfinite(one).all()
+    for split in (2, 4, 8):
+        if split <= n_tiles:
+            np.testing.assert_array_equal(_kernel_mel(power, params, split), one)
+
+
+@pytest.mark.parametrize("params", [ALL_PARAMS[0], SMALL[0], CLAP], ids=["model", "small", "clap"])
+def test_band_tiles_are_the_tiles_whose_bins_reach_each_band(params):
+    """A band's parts lie in the contiguous range of tiles whose bins reach
+    it (bin j reaches bands m0 and m0 + 1), and every band of a filterbank
+    with weights is reached."""
+    _, _, m0 = _decode(cuda_mel.mel_table(params))
+    got = cuda_mel.band_tiles(params).numpy()
+    assert got.shape == (params.n_mels, 2) and got.dtype == np.int32
+    for m in range(params.n_mels):
+        tiles = np.flatnonzero((m0 == m) | (m0 + 1 == m)) // cuda_mel.FREQ_TILE
+        assert tiles.size and (got[m] == (tiles.min(), tiles.max())).all()
 
 
 def test_freq_split_fills_one_wave():
