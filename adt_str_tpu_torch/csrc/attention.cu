@@ -271,18 +271,6 @@ int heads_map(CUtensorMap* map, const void* p, int bh, int T, int rows) {
   return encode_tensor_map(map, p, 3, dims, strides, box);
 }
 
-// The kernel's shared-memory limit set on the current device, once.
-int prepare_device() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && !(dev < 64 && done[dev]))
-    e = cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 64) done[dev] = true;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int attention_max_keys() { return MAX_TK; }
@@ -300,7 +288,8 @@ extern "C" int launch_attention_fwd(const void* q, const void* k, const void* v,
   if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&k_map, k, B * H, Tk, BKV)) ||
       (err = heads_map(&v_map, v, B * H, Tk, BKV)) || (err = heads_map(&o_map, out, B * H, Tq, 64)))
     return err;
-  if ((err = prepare_device())) return err;
+  static hopper::SmemLimit limit;
+  if ((err = limit.ensure(attention_fwd_kernel, SMEM_BYTES))) return err;
   const int blocks = B * H * ((Tq + BQ - 1) / BQ);  // head fastest
   attention_fwd_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, o_map, static_cast<const float*>(mask), static_cast<float*>(lse), H, Tq, Tk,

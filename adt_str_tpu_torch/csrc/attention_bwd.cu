@@ -367,18 +367,6 @@ int heads_map(CUtensorMap* map, const void* p, int bh, int T, int rows) {
   return encode_tensor_map(map, p, 3, dims, strides, box);
 }
 
-// The kernel's shared-memory limit set on the current device, once.
-int prepare_device() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && !(dev < 64 && done[dev]))
-    e = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 64) done[dev] = true;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int attention_bwd_head_dim() { return D; }
@@ -400,7 +388,8 @@ extern "C" int launch_attention_bwd(const void* q, const void* k, const void* v,
   if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&do_map, dout, B * H, Tq, BQ)) ||
       (err = heads_map(&k_map, k, B * H, Tk, BK)) || (err = heads_map(&v_map, v, B * H, Tk, BK)))
     return err;
-  if ((err = prepare_device())) return err;
+  static hopper::SmemLimit limit;
+  if ((err = limit.ensure(attention_bwd_kernel, SMEM_BYTES))) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * H * Tq;
   attention_delta_kernel<<<(rows + DELTA_WARPS - 1) / DELTA_WARPS, DELTA_WARPS * 32, 0, st>>>(

@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu) and the
-// bulk-copy ring of place_notes.cu: mbarriers, TMA tile copies, 1-D bulk
-// copies, wgmma shared-memory descriptors and products, ldmatrix,
-// setmaxnreg, and the host-side tensor-map encoder. Raw PTX and the CUDA runtime only, no library: a
-// kernel that includes it still builds in seconds.
+// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu), the
+// bulk-copy ring of place_notes.cu and the cp.async + mma.sync rings of
+// linear.cu and attention_rows.cu: mbarriers, TMA tile copies, 1-D bulk
+// copies, cp.async, wgmma shared-memory descriptors and products, ldmatrix,
+// mma.sync, setmaxnreg, and on the host the tensor-map encoder and each
+// kernel's shared-memory limit on every device. Raw PTX and
+// the CUDA runtime only, no library: a kernel that includes it still builds
+// in seconds.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, which the
 // runtime hands out through cudaGetDriverEntryPoint(ByVersion): nothing is
@@ -21,6 +24,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
@@ -152,6 +156,20 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// 16 bytes global -> shared (both 16-byte aligned), or 16 zero bytes (no
+// read of `src`) when !valid; counted in the thread's cp.async groups:
+// cp_async_commit closes a group, cp_async_wait<n> waits until at most n of
+// the thread's groups are still in flight (a barrier then publishes them).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Orders this thread's ordinary shared-memory accesses before later accesses
@@ -303,6 +321,43 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "memory");
 }
 
+// Two 8 x 8 bf16 matrices (lanes 0-7 and 8-15 give the rows): the B operand
+// (16 x 8, k x n) of mma_16816 from a tile stored n-major (row n holds k
+// contiguous), with rows n0..n0+7 at columns k0 and k0 + 8.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices, each transposed: register j of lane l holds
+// rows 2 (l % 4), +1 at column l / 4 of matrix j. From a tile stored k-major
+// (row k holds n contiguous), matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
+// (k 0-7, n 8-15), (k 8-15, n 8-15) give the B operands of mma_16816 for
+// columns n0..n0+7 (registers 0, 1) and n0+8..n0+15 (registers 2, 3).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// ---- warp-level tensor-core product
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, col-major):
+// lane l holds c at rows l / 4 (c[0], c[1]) and l / 4 + 8 (c[2], c[3]),
+// columns 2 (l % 4), +1; a as ldmatrix_x4 gives it, b as ldmatrix_x2 does.
+// Each element's 16 products are added the same way wherever the element
+// sits in the tile.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- register rebalancing between the producer and consumer warpgroups
 // (all four warps of a warpgroup execute it; the kernel's branches by role
 // never reconverge)
@@ -315,6 +370,29 @@ template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 }
+
+// ---- host: a kernel's dynamic shared-memory limit, on every device
+
+// cudaFuncSetAttribute sets the limit on the current device only, and one
+// process may launch on several cards (the data-parallel decode runs a host
+// thread a card). So the limit is set once a device: a `static SmemLimit`
+// a kernel, whose flags are atomic (two threads that race set it twice,
+// which is harmless). Returns 0, or a cudaError_t.
+struct SmemLimit {
+  std::atomic<bool> done[64];  // zero at static storage
+
+  template <typename Kernel>
+  int ensure(Kernel* kernel, int bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64 && done[dev].load(std::memory_order_acquire)) return 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) done[dev].store(true, std::memory_order_release);
+    return 0;
+  }
+};
 
 // ---- host: tensor maps
 

@@ -12,118 +12,121 @@
 //     fp32: acc = 0; for k ascending: acc = fma(x[r, k], W[c, k], acc);  y = acc + b
 // with no split of K and no choice by M: an element's sum does not depend on
 // the tile it falls in or on the rows beside it (a tensor-core product adds
-// each element's 16 terms the same way wherever it sits in the tile).
+// each element's 16 terms the same way wherever it sits in the tile). The
+// tiles follow M, the order does not: the bits are those of the first
+// design's 64 x 64 tiles.
 //
-// Bound on an H100: at the decode step's few rows, the bytes of W (read
-// once); at the encoder's 246 rows a chunk, the bf16 operations. The design
-// is the simple one: 64 x 64 output tiles, four warps of 32 x 32, mma.sync
-// m16n8k16 fed by ldmatrix from a 3-stage cp.async ring of 64 x 32 tiles of
-// x and W (rows padded to 40 elements: conflict-free ldmatrix). fp32 runs
-// on the CUDA cores, 4 x 4 outputs a thread (no shipped config computes in
-// fp32; it is kept exact rather than fast).
+// Bound on an H100: at the decode step's few rows (16 a greedy bucket, 80 a
+// beam bucket), the bytes of W, read once; at the encoder's 246 rows a
+// chunk, the bf16 operations. A k step waits on the one before it (one
+// accumulator), so each output tile's chain of K / 16 products runs at the
+// mma's latency; the design puts as many chains on the card at once as the
+// rows allow and keeps W's bytes in flight ahead of them:
+//   - M <= 320 (decode): a warp owns one 8-column tile and every 16-row tile
+//     of the block (up to 5: the beam's 80 rows in one block, W read once a
+//     column), so a W column strip is read by one warp; at 16 rows, blocks
+//     of 2 warps where that still gives the 132 SMs a wave, else of 1 (16 x
+//     768 -> 768: 96 blocks of 8 columns); at more rows, blocks of 4 warps,
+//     so the x rows a block reads again stay within 2.5 times its W rows;
+//   - M > 320: 64 x 128 tiles, four warps of 64 x 32.
+// x and W stream through a cp.async ring of 128-deep k stages (rows padded
+// to 136 elements: conflict-free ldmatrix), 8 stages at one row tile (K =
+// 768 is then in flight at once), 4 at 2-5, 3 for the large tiles; mma.sync
+// m16n8k16 (no wgmma: at 16 rows its 64-row tiles would multiply padding,
+// and W's bytes bound the step). fp32 runs on the CUDA cores, 4 x 4 outputs
+// a thread (no shipped config computes in fp32; it is kept exact rather
+// than fast).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32, STAGES = 3, THREADS = 128;
-constexpr int LDS = BK + 8;  // bf16 row stride of a shared tile (80 bytes)
+using hopper::cp_async_16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::ldmatrix_x2;
+using hopper::ldmatrix_x4;
+using hopper::mma_16816;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int BK = 128, LDS = BK + 8;  // k depth of a stage; bf16 row stride of a staged tile (272 bytes)
 
-// 16 bytes global -> shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x (M, K) bf16, w (N, K) bf16, bias (N) bf16 or null, y (M, N) bf16; K % 8 == 0, 16-byte aligned rows
-__global__ void __launch_bounds__(THREADS) linear_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                                              const __nv_bfloat16* __restrict__ w,
-                                                              const __nv_bfloat16* __restrict__ bias,
-                                                              __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 As[STAGES][BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BN][LDS];
+// x (M, K) bf16, w (N, K) bf16, bias (N) bf16 or null, y (M, N) bf16; K % 8 == 0, 16-byte aligned rows.
+// A block of WARPS warps: rows [m0, m0 + 16 MT), columns [n0, n0 + 8 NT WARPS); warp w owns columns
+// n0 + 8 NT w .. + 8 NT and every row of the block.
+template <int MT, int NT, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                                                 const __nv_bfloat16* __restrict__ w,
+                                                                 const __nv_bfloat16* __restrict__ bias,
+                                                                 __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+  constexpr int THREADS = 32 * WARPS, BM = 16 * MT, BN = 8 * NT * WARPS;
+  constexpr int ROWS = BM + BN;                      // staged rows a stage: x's, then W's
+  constexpr int COPIES = ROWS * (BK / 8) / THREADS;  // 16-byte copies a thread a stage
+  static_assert(ROWS * (BK / 8) % THREADS == 0, "every thread copies as many chunks");
+  extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // the warp's 32 x 32 quarter of the tile
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_tiles = (K + BK - 1) / BK;
 
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * BK;
+  // A thread copies column `col` of the staged rows tid / 16 + i THREADS / 16: their sources are set
+  // once, so a stage's copies cost an add each (one warp a block must also keep its product chain fed).
+  const int col = (tid % (BK / 8)) * 8;
+  const __nv_bfloat16* src[COPIES];
+  bool row_ok[COPIES];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 64 rows x 4 chunks of 8 elements, for x and for W
-      const int c = tid + i * THREADS, row = c / 4, col = (c % 4) * 8;
-      const bool kin = k0 + col < K;
-      const bool va = kin && m0 + row < M, vb = kin && n0 + row < N;
-      cp_async_16(&As[stage][row][col], va ? x + static_cast<size_t>(m0 + row) * K + k0 + col : x, va);
-      cp_async_16(&Bs[stage][row][col], vb ? w + static_cast<size_t>(n0 + row) * K + k0 + col : w, vb);
-    }
+  for (int i = 0; i < COPIES; ++i) {
+    const int row = tid / (BK / 8) + i * (THREADS / (BK / 8));
+    const bool is_x = row < BM;
+    const int r = is_x ? m0 + row : n0 + row - BM;
+    row_ok[i] = r < (is_x ? M : N);
+    src[i] = (is_x ? x : w) + static_cast<size_t>(row_ok[i] ? r : 0) * K + col;
+  }
+  auto load = [&](int stage, int kt) {
+    __nv_bfloat16* dst = stages + (stage * ROWS + tid / (BK / 8)) * LDS + col;
+    const int k0 = kt * BK;
+    const bool k_ok = k0 + col < K;
+#pragma unroll
+    for (int i = 0; i < COPIES; ++i)
+      cp_async_16(dst + i * (THREADS / (BK / 8)) * LDS, src[i] + (k_ok ? k0 : 0), k_ok && row_ok[i]);
   };
 
-  float acc[2][4][4] = {};
+  float acc[MT][NT][4] = {};
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < k_tiles) load(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // and every warp is done with tile kt - 1, whose stage is refilled next
+    cp_async_wait<STAGES - 2>();  // stage kt has landed
+    __syncthreads();              // and every warp is done with stage kt - 1, whose buffer is refilled next
     if (kt + STAGES - 1 < k_tiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
-    const int s = kt % STAGES;
+    const __nv_bfloat16* xs = stages + (kt % STAGES) * ROWS * LDS;
+    const __nv_bfloat16* ws = xs + (BM + warp * NT * 8) * LDS;
+    const int steps = min(BK, K - kt * BK + 15) / 16;  // k steps of 16 that reach K: no step of padding alone
+#pragma unroll 8
+    for (int kk = 0; kk < steps; ++kk) {
+      uint32_t a[MT][4], b[NT][2];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4], b[4][2];
+      for (int mi = 0; mi < MT; ++mi) ldmatrix_x4(a[mi], xs + (mi * 16 + lane % 16) * LDS + kk * 16 + (lane / 16) * 8);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(a[mi], &As[s][wm * 32 + mi * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+      for (int ni = 0; ni < NT; ++ni) ldmatrix_x2(b[ni], ws + (ni * 8 + lane % 8) * LDS + kk * 16 + ((lane / 8) % 2) * 8);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        ldmatrix_x2(b[ni], &Bs[s][wn * 32 + ni * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < NT; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * 32 + mi * 16 + lane / 4 + 8 * (e / 2);
-        const int c = n0 + wn * 32 + ni * 8 + 2 * (lane % 4) + e % 2;
+        const int r = m0 + mi * 16 + lane / 4 + 8 * (e / 2);
+        const int c = n0 + (warp * NT + ni) * 8 + 2 * (lane % 4) + e % 2;
         if (r >= M || c >= N) continue;
         __nv_bfloat16 v = __float2bfloat16_rn(acc[mi][ni][e]);
         if (bias != nullptr) v = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v), __bfloat162float(bias[c])));
@@ -131,16 +134,16 @@ __global__ void __launch_bounds__(THREADS) linear_bf16_kernel(const __nv_bfloat1
       }
 }
 
-constexpr int FT = 16;  // fp32: k depth of a shared tile
+constexpr int FBM = 64, FBN = 64, FT = 16;  // fp32: output tile, k depth of a shared tile
 
 // x (M, K) fp32, w (N, K) fp32, bias (N) fp32 or null, y (M, N) fp32; 256 threads, 4 x 4 outputs each
 __global__ void __launch_bounds__(256) linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                                                          const float* __restrict__ bias, float* __restrict__ y, int M,
                                                          int N, int K) {
-  __shared__ float As[FT][BM + 4];
-  __shared__ float Bs[FT][BN + 4];
+  __shared__ float As[FT][FBM + 4];
+  __shared__ float Bs[FT][FBN + 4];
   const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += FT) {
 #pragma unroll
@@ -168,6 +171,21 @@ __global__ void __launch_bounds__(256) linear_f32_kernel(const float* __restrict
     }
 }
 
+constexpr int SM_COUNT = 132;  // H100 SXM; sets only the tile choice, never the order of a sum
+
+template <int MT, int NT, int WARPS, int STAGES>
+int launch_bf16(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, cudaStream_t s) {
+  constexpr int BM = 16 * MT, BN = 8 * NT * WARPS, BYTES = STAGES * (BM + BN) * LDS * 2;
+  static hopper::SmemLimit limit;
+  if (const int e = limit.ensure(linear_bf16_kernel<MT, NT, WARPS, STAGES>, BYTES)) return e;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  linear_bf16_kernel<MT, NT, WARPS, STAGES><<<grid, 32 * WARPS, BYTES, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch on `stream`; returns 0 or a cudaError_t. Contiguous x (M, K), w
@@ -179,14 +197,23 @@ extern "C" int launch_linear(const void* x, const void* w, const void* bias, voi
   if (dtype == 1 && (K % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    linear_bf16_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), M, N, K);
-  else
+  if (dtype == 0) {
+    const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
     linear_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x), static_cast<const float*>(w),
                                             static_cast<const float*>(bias), static_cast<float*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (M > 320) return launch_bf16<4, 4, 4, 3>(x, w, bias, y, M, N, K, st);
+  // One row tile: blocks of 2 warps if that still fills a wave, else of 1. More rows: 4 warps, so that
+  // the x rows each block reads again stay within 2.5 times the W rows it reads once.
+  switch ((M + 15) / 16) {
+    case 1:
+      return (N + 15) / 16 >= SM_COUNT ? launch_bf16<1, 1, 2, 8>(x, w, bias, y, M, N, K, st)
+                                       : launch_bf16<1, 1, 1, 8>(x, w, bias, y, M, N, K, st);
+    case 2: return launch_bf16<2, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    case 3: return launch_bf16<3, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    case 4: return launch_bf16<4, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    default: return launch_bf16<5, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+  }
 }

@@ -177,18 +177,6 @@ place_notes_kernel(const __nv_bfloat16* __restrict__ blend, const int* __restric
   }
 }
 
-// The kernel's shared-memory limit set on the current device, once.
-int prepare_device() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && !(dev < 64 && done[dev]))
-    e = cudaFuncSetAttribute(place_notes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 64) done[dev] = true;
-  return 0;
-}
-
 }  // namespace
 
 // The launch geometry, for reports: output samples a block owns, ring
@@ -209,7 +197,8 @@ extern "C" int launch_place_notes(const void* blend, const void* slot, const voi
   if (B < 1 || n_slots < 1 || chunk < 1 || n_notes < 0 || L < 0 || L % 8 != 0 ||
       reinterpret_cast<uintptr_t>(blend) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (const int err = prepare_device()) return err;
+  static hopper::SmemLimit limit;
+  if (const int err = limit.ensure(place_notes_kernel, SMEM_BYTES)) return err;
   const dim3 grid((chunk + TILE - 1) / TILE, B);
   place_notes_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(blend), static_cast<const int*>(slot), static_cast<const int*>(onset),

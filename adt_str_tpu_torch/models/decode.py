@@ -6,7 +6,9 @@ JAX `lax.while_loop` becomes a Python loop with the same semantics:
 
 - the self-attention cache is (L, B, H, max_len, head_dim), written in place
   at `step` before attending; cross-attention K/V are projected once;
-- self-attention runs over the whole cache with -1e4 on positions > step;
+- self-attention reads the cache's first step + 1 rows (`valid_keys`):
+  the whole cache with -1e4 on positions > step, as the plain version
+  computes it, in the same bits;
 - the input is `embedding * sqrt(d) + PE[step]` in the compute dtype;
 - the loop runs while `step < max_length - 1` and not every row finished;
   finished rows are filled with EOS.
@@ -87,18 +89,19 @@ def init_caches(model: ADTModel, memory: torch.Tensor, max_len: int, beam_size: 
 
 
 def _anc_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, anc: torch.Tensor,
-                   self_mask: torch.Tensor) -> torch.Tensor:
-    """Self-attention of B*K beam queries (B*K, H, 1, hd) over the slot-inner
-    caches k, v (B, H, T, K, hd): beam k's position-t row is the one slot
-    anc[b, k, t] wrote. The rows are gathered, not recomputed, so each beam
-    attends over exactly its history's cached values, as greedy does."""
+                   valid_keys: int) -> torch.Tensor:
+    """Self-attention of B*K beam queries (B*K, H, 1, hd) over the first
+    `valid_keys` positions of the slot-inner caches k, v (B, H, T, K, hd):
+    beam k's position-t row is the one slot anc[b, k, t] wrote. The rows are
+    gathered, not recomputed, so each beam attends over exactly its
+    history's cached values, as greedy does."""
     B, H, T_len, K, hd = k.shape
     idx = anc[:, :, None, :, None, None].expand(B, K, H, T_len, 1, hd)
 
     def select(c: torch.Tensor) -> torch.Tensor:
         return torch.gather(c[:, None].expand(B, K, H, T_len, K, hd), 4, idx).reshape(B * K, H, T_len, hd)
 
-    return T.attention_core(q, select(k), select(v), self_mask)
+    return T.attention_core(q, select(k), select(v), None, valid_keys=valid_keys)
 
 
 def decode_step(
@@ -110,12 +113,9 @@ def decode_step(
     beams over slot-inner caches and per-item cross K/V."""
     cfg, compute = model.config, model.compute_dtype
     d, H = cfg.d_model, cfg.nhead
-    max_len = caches.k_self.shape[3]
     K = None if anc is None else anc.shape[1]
     x = model.embed_tokens(token) + model.pe[step].to(compute)  # (B, d)
     x = x[:, None, :]
-    pos = torch.arange(max_len, device=x.device)
-    self_mask = torch.where(pos > step, T.NEG_MASK, 0.0)[None, None, None, :]
 
     for li, layer in enumerate(model.decoder.decoder.layers):
         sa = layer.self_attn
@@ -127,11 +127,11 @@ def decode_step(
         if anc is None:
             caches.k_self[li, :, :, step] = k_new
             caches.v_self[li, :, :, step] = v_new
-            attn = T.attention_core(q, caches.k_self[li], caches.v_self[li], self_mask)
+            attn = T.attention_core(q, caches.k_self[li], caches.v_self[li], None, valid_keys=step + 1)
         else:  # beam rows (item, slot) -> the slot-inner (item, H, slot, hd) position
             caches.k_self[li, :, :, step] = k_new.reshape(-1, K, H, k_new.shape[-1]).transpose(1, 2)
             caches.v_self[li, :, :, step] = v_new.reshape(-1, K, H, v_new.shape[-1]).transpose(1, 2)
-            attn = _anc_attention(q, caches.k_self[li], caches.v_self[li], anc, self_mask)
+            attn = _anc_attention(q, caches.k_self[li], caches.v_self[li], anc, step + 1)
         x = T.layer_norm(layer.norm1, x + T.linear(sa.out_proj, T.merge_heads(attn), fixed_order=True))
 
         ca = layer.multihead_attn

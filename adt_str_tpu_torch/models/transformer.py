@@ -114,14 +114,16 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_core(
     q, k, v, mask: Optional[torch.Tensor], dropout_rate: float = 0.0, dropout_key: Key = None,
-    train: bool = False,
+    train: bool = False, valid_keys: Optional[int] = None,
 ) -> torch.Tensor:
     """(B,H,Tq,hd) x (B,H,Tk,hd) attention outside K5 (`ops/attention_rows.py`);
-    `mask` is an additive float mask broadcastable to (B,H,Tq,Tk). In
-    training the probabilities take dropout, as `nn.MultiheadAttention` does."""
+    `mask` is an additive float mask broadcastable to (B,H,Tq,Tk), or
+    `valid_keys` stands for NEG_MASK on keys from it on (the decode step's
+    cache). In training the probabilities take dropout, as
+    `nn.MultiheadAttention` does."""
     if not train or dropout_rate == 0.0 or dropout_key is None:
-        return attention_rows.attention(q, k, v, mask)
-    probs = attention_rows.attention_probs(q, k, mask)
+        return attention_rows.attention(q, k, v, mask, valid_keys)
+    probs = attention_rows.attention_probs(q, k, attention_rows.keys_mask(mask, valid_keys, k.shape[2], q.device))
     return torch.matmul(dropout(probs, dropout_rate, dropout_key, train), v)
 
 

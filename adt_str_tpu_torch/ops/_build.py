@@ -11,7 +11,9 @@ or header is rebuilt and a stale library is never loaded. The kernels that
 use TMA encode their tensor maps with the driver's `cuTensorMapEncodeTiled`,
 fetched through `cudaGetDriverEntryPointByVersion`, so nothing links
 against libcuda. Pointers and the stream go in as `c_void_p`; each C entry
-point returns `cudaGetLastError()`, which `check` raises on.
+point returns `cudaGetLastError()`, which `check` raises on. `launch` calls
+an entry point on a device's current stream, and `records_grad` says when a
+wrapper must leave the call to autograd (no kernel here has a backward).
 
 Only the sources in the repo are compiled: no PyTorch headers (the build
 takes seconds, not minutes) and no library of finished kernels.
@@ -26,6 +28,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -101,3 +106,20 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero `cudaError_t` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def launch(device: torch.device, fn: Callable[..., int], *args) -> int:
+    """`fn(*args, stream)` on `device`'s current stream (its raw handle, an
+    int): a kernel's C entry point, whose `cudaError_t` it returns. The
+    current device is switched only when `device` is another one."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records an op on these operands: the training path."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)

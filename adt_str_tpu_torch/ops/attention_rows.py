@@ -1,19 +1,27 @@
-"""Inference attention a query row at a time (`csrc/attention_rows.cu`) and
-its plain version.
+"""Inference attention, the query rows of one item and head at a time
+(`csrc/attention_rows.cu`), and its plain version.
 
 No TPU kernel is behind this one: it repairs a fault of the port. The plain
 version (the JAX package's `attention_core`: fp32 scores from the upcast q
 and k, fp32 softmax, probabilities cast to v's dtype, then p . v) runs two
 batched cuBLAS products, whose algorithm follows the batch, so on the card
 the decode step's attention gave a row other bits beside other rows. The
-kernel computes each query row of each head on its own, every sum in an
-order fixed by the head dim and the key count.
+kernel computes each query row on its own, every sum in an order fixed by
+the head dim and the keys it reads.
+
+`valid_keys` (an int, or None: all keys) stands for the decode step's mask
+over its self-attention cache: keys 0..valid_keys-1 attend and every later
+key takes `NEG_MASK`, as the JAX package's `decode_step` masks positions
+past `step`. The plain version adds exactly that mask; the kernel reads only
+the valid keys, which gives the same bits (a masked key's probability
+underflows to 0 in fp32, and a product with 0 adds nothing).
 
 `attention` is the wrapper the model calls:
 - a CPU tensor runs `attention_plain`;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes bf16 or fp32 q, k, v of one dtype with
-  1..4,096 keys and a head dim of 1..256, and raises on anything else;
+  launches the kernel, which takes bf16 (head dim % 8 == 0) or fp32 q, k,
+  v of one dtype with 1..4,096 keys and a head dim of 1..256, and raises
+  on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `attention_plain` under autograd: the kernel has no backward.
 `attention.launches` counts kernel launches.
@@ -24,14 +32,27 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Optional
 
 import torch
 
 from adt_str_tpu_torch.ops import _build
-from adt_str_tpu_torch.ops.linear import records_grad
+from adt_str_tpu_torch.ops.cuda_attention import NEG_MASK
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def keys_mask(mask: Optional[torch.Tensor], valid_keys: Optional[int], tk: int,
+              device: torch.device) -> Optional[torch.Tensor]:
+    """The additive mask that `valid_keys` stands for ((1, 1, 1, tk) fp32:
+    0 on keys below it, NEG_MASK from it on), or `mask` when it is None; a
+    call gives one or the other, not both."""
+    if valid_keys is None:
+        return mask
+    if mask is not None:
+        raise ValueError("attention takes a mask or valid_keys, not both")
+    return torch.where(torch.arange(tk, device=device) >= valid_keys, NEG_MASK, 0.0)[None, None, None, :]
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -43,51 +64,89 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tenso
     return torch.softmax(scores, dim=-1).to(q.dtype)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+                    valid_keys: Optional[int] = None) -> torch.Tensor:
     """(B, H, Tq, hd) x (B, H, Tk, hd) attention -> (B, H, Tq, hd)."""
-    return torch.matmul(attention_probs(q, k, mask), v)
+    return torch.matmul(attention_probs(q, k, keys_mask(mask, valid_keys, k.shape[2], q.device)), v)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_attention_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.launch_attention_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
     lib.launch_attention_rows.restype = ctypes.c_int
     lib.attention_rows_max_keys.restype = lib.attention_rows_max_head_dim.restype = ctypes.c_int
     return lib
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+@functools.cache
+def _limits() -> tuple[int, int]:
+    """(most keys, largest head dim) the kernel takes."""
+    return _lib().attention_rows_max_keys(), _lib().attention_rows_max_head_dim()
+
+
+def _kernel_layout(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """`t` (or a copy) with a contiguous last dim and, in bf16, a 16-byte
+    aligned start and row strides, and the strides of its first three dims
+    (0 where a dim has one entry: never stepped)."""
+    s0, s1, s2, s3 = t.stride()
+    n0, n1, n2, _ = t.shape
+    strides = (s0 if n0 > 1 else 0, s1 if n1 > 1 else 0, s2 if n2 > 1 else 0)
+    if s3 == 1 and (t.dtype != torch.bfloat16 or (t.data_ptr() % 16 == 0
+                                                   and (strides[0] | strides[1] | strides[2]) % 8 == 0)):
+        return t, strides
+    t = t.clone(memory_format=torch.contiguous_format)
+    s0, s1, s2, _ = t.stride()
+    return t, (s0 if n0 > 1 else 0, s1 if n1 > 1 else 0, s2 if n2 > 1 else 0)
+
+
+def _mask_strides(mask: torch.Tensor, shape: tuple[int, int, int, int]) -> tuple[int, ...]:
+    """The element strides of `mask` broadcast to `shape` (0 on a broadcast dim)."""
+    lead = 4 - mask.dim()
+    if lead < 0 or any(n not in (1, m) for n, m in zip(mask.shape, shape[lead:])):
+        raise ValueError(f"attention: a mask of shape {tuple(mask.shape)} does not broadcast to {shape}")
+    return (0,) * lead + tuple(s if n > 1 else 0 for s, n in zip(mask.stride(), mask.shape))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              valid_keys: Optional[int] = None) -> torch.Tensor:
     """(B, H, Tq, hd) q, (B, H, Tk, hd) k and v, an additive mask
-    broadcastable to (B, H, Tq, Tk) or None -> (B, H, Tq, hd) in q's dtype;
-    see the module docstring for which version runs."""
-    if q.device.type == "cpu" or records_grad(q, k, v):
-        return attention_plain(q, k, v, mask)
-    if q.device.type != "cuda":
+    broadcastable to (B, H, Tq, Tk) or None, or `valid_keys` (see the module
+    docstring) -> (B, H, Tq, hd) in q's dtype; see the module docstring for
+    which version runs."""
+    if q.is_cpu or _build.records_grad(q, k, v):
+        return attention_plain(q, k, v, mask, valid_keys)
+    if not q.is_cuda:
         raise ValueError(f"attention runs on cpu or cuda tensors, not {q.device}")
     lib = _lib()
+    max_keys, max_hd = _limits()
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]
-    if (q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype or k.shape != (B, H, Tk, hd)
-            or v.shape != k.shape or not 1 <= Tk <= lib.attention_rows_max_keys()
-            or not 1 <= hd <= lib.attention_rows_max_head_dim()):
-        raise ValueError(f"the attention_rows kernel takes bf16 or fp32 q (B, H, Tq, hd), k and v (B, H, Tk, hd) "
-                         f"with 1 <= Tk <= {lib.attention_rows_max_keys()} and hd <= "
-                         f"{lib.attention_rows_max_head_dim()}; got q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
-                         f"{tuple(k.shape)}, v {v.dtype} {tuple(v.shape)}")
-    if any(t.device != q.device for t in (k, v) + (() if mask is None else (mask,))):
-        raise ValueError(f"attention: every operand must lie on {q.device}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    m = None if mask is None else mask.float().expand(B, H, Tq, Tk)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *(m.stride() if m is not None else (0,) * 4))
-    c_strides = (ctypes.c_longlong * 13)(*strides)
-    out = torch.empty((B, H, Tq, hd), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.launch_attention_rows(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if m is None else m.data_ptr(),
-                                        out.data_ptr(), c_strides, B, H, Tq, Tk, hd, math.sqrt(hd),
-                                        _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "attention_rows")
+    n_keys = Tk if valid_keys is None else valid_keys
+    dtype = q.dtype
+    if (dtype not in _DTYPE_CODE or k.dtype != dtype or v.dtype != dtype or k.shape != (B, H, Tk, hd)
+            or v.shape != k.shape or not 1 <= Tk <= max_keys or not 1 <= hd <= max_hd
+            or (dtype == torch.bfloat16 and hd % 8) or not 1 <= n_keys <= Tk
+            or (mask is not None and valid_keys is not None)):
+        raise ValueError(f"the attention_rows kernel takes bf16 (hd % 8 == 0) or fp32 q (B, H, Tq, hd), k and v "
+                         f"(B, H, Tk, hd) with 1 <= Tk <= {max_keys}, hd <= {max_hd} and a mask or "
+                         f"1 <= valid_keys <= Tk; got q {dtype} {tuple(q.shape)}, k {k.dtype} {tuple(k.shape)}, "
+                         f"v {v.dtype} {tuple(v.shape)}, valid_keys {valid_keys}, "
+                         f"mask {None if mask is None else tuple(mask.shape)}")
+    device = q.device
+    if k.device != device or v.device != device or (mask is not None and mask.device != device):
+        raise ValueError(f"attention: every operand must lie on {device}")
+    (q, sq), (k, sk), (v, sv) = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    m, sm = None, (0, 0, 0, 0)
+    if mask is not None:
+        m = mask if mask.dtype == torch.float32 else mask.float()
+        sm = _mask_strides(m, (B, H, Tq, Tk))
+    out = torch.empty((B, H, Tq, hd), dtype=dtype, device=device)
+    strides = struct.pack("13q", *sq, *sk, *sv, *sm)  # read by the C entry point before it returns
+    _build.check(_build.launch(device, lib.launch_attention_rows, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               None if m is None else m.data_ptr(), out.data_ptr(), strides, B, H, Tq, Tk,
+                               n_keys, hd, math.sqrt(hd), _DTYPE_CODE[dtype]), "attention_rows")
     attention.launches += 1
     return out
 

@@ -24,7 +24,6 @@ import functools
 import torch
 
 from adt_str_tpu_torch.ops import _build
-from adt_str_tpu_torch.ops.linear import records_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,7 +51,7 @@ def _lib() -> ctypes.CDLL:
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """(..., d) -> (..., d) in `x`'s dtype; see the module docstring for
     which version runs."""
-    if x.device.type == "cpu" or records_grad(x, weight, bias):
+    if x.device.type == "cpu" or _build.records_grad(x, weight, bias):
         return layer_norm_plain(x, weight, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cpu or cuda tensors, not {x.device}")

@@ -19,6 +19,11 @@ run `linear_plain`, cuBLAS.
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `linear_plain` under autograd: the kernel has no backward.
 `linear.launches` counts kernel launches.
+
+The decode step calls `linear` 25 times a step, so its launch path is kept
+short (`_build.launch`): no device switch when the tensor is on the current
+device, the raw current stream, no copy of an operand already in the
+kernel's layout.
 """
 
 from __future__ import annotations
@@ -52,17 +57,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
-    """Whether autograd records an op on these operands: the training path."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., K) x (N, K) weight (+ (N,) bias) -> (..., N) in `x`'s dtype; see
     the module docstring for which version runs."""
-    if x.device.type == "cpu" or records_grad(x, weight, bias):
+    if x.is_cpu or _build.records_grad(x, weight, bias):
         return linear_plain(x, weight, bias)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"linear runs on cpu or cuda tensors, not {x.device}")
     K, N = x.shape[-1], weight.shape[0]
     if (x.dtype not in _DTYPE_CODE or weight.dim() != 2 or weight.shape[1] != K
@@ -70,18 +70,20 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
         raise ValueError(f"the linear kernel takes bf16 (K % 8 == 0) or fp32 x (..., K) with an (N, K) weight and "
                          f"an (N,) bias; got {x.dtype} {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {None if bias is None else tuple(bias.shape)}")
-    if any(t is not None and t.device != x.device for t in (weight, bias)):
-        raise ValueError(f"linear: weight and bias must lie on {x.device}")
-    x2 = x.reshape(-1, K).contiguous()
-    w = weight.to(x.dtype).contiguous()
-    b = None if bias is None else bias.to(x.dtype).contiguous()
-    y = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().launch_linear(x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-                                   x2.shape[0], N, K, _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "linear")
+    device = x.device
+    if weight.device != device or (bias is not None and bias.device != device):
+        raise ValueError(f"linear: weight and bias must lie on {device}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    # w and b stay referenced until the launch: a cast copy freed before it could be handed to y
+    w = weight if weight.dtype == x.dtype and weight.is_contiguous() else weight.to(x.dtype).contiguous()
+    b = bias if bias is None or (bias.dtype == x.dtype and bias.is_contiguous()) else bias.to(x.dtype).contiguous()
+    y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=device)
+    _build.check(_build.launch(device, _lib().launch_linear, x.data_ptr(), w.data_ptr(),
+                               None if b is None else b.data_ptr(), y.data_ptr(), x.numel() // K, N, K,
+                               _DTYPE_CODE[x.dtype]), "linear")
     linear.launches += 1
-    return y.reshape(*x.shape[:-1], N)
+    return y
 
 
 linear.launches = 0

@@ -33,9 +33,14 @@ line:
    chosen as before the batch-invariance repair (from the batch);
    then the batch-invariance kernels, which no TPU kernel is behind
    (LayerNorm, the inference product, the inference attention): each
-   against its plain version at the serving bucket's decode step and
-   encoder and at the beam's rows, each row bit-equal at every row count
-   of 1-64, timed as above;
+   against its plain version at the serving bucket's decode step (every
+   product of the step: the in-projection, the 768 -> 768 projections,
+   FFN 1 and 2, the generator; self- and cross-attention) and encoder and
+   at the beam's rows (its in-projection, its cross rows, its gathered self
+   rows), each row bit-equal at every row count of 1-64, timed as above;
+   the self-attention also as the decode step reads it (`valid_keys`, the
+   valid cache rows only), bit-equal to the masked read of the whole cache
+   at decode steps 0-511;
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -175,6 +180,12 @@ line:
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
+
+`python3 chip_smoke.py --compare LABEL=DIR [LABEL=DIR ...] --order
+LABEL,LABEL,...` runs none of that: it measures the decode step's product
+and attention kernels of several trees (the roots of `git archive`s, each
+building into its own `build/kernels/`), one process a run in the given
+order (`compare_trees`).
 """
 
 from __future__ import annotations
@@ -657,18 +668,29 @@ def attention_rows_error(out, q, k, v, mask) -> dict:
     return res
 
 
+def step_mask(tk: int, step: int) -> torch.Tensor:
+    """The decode step's self-attention mask at `step`: -1e4 past it."""
+    return torch.where(torch.arange(tk, device="cuda") > step, -1e4, 0.0)[None, None, None]
+
+
+VALID_KEYS_STEPS = (0, 1, 62, 63, 64, 127, 128, 245, 256, 447, 510, 511)  # decode steps of the bit-equality check
+
+
 def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, shape: str,
                          counts=(1, 2, 4, 8, 16, 32, 64)) -> dict:
     """The attention-rows kernel at (batch, 6, tq, 128) queries over tk keys
     (`step`: the decode step's mask, -1e4 past it; None: no mask), bf16,
     against its plain version (`attention_rows_error`), its rows bit-equal
-    at each of `counts` leading rows of the largest, and timed against SDPA."""
+    at each of `counts` leading rows of the largest, and timed against SDPA.
+    With a step, also the read the decode step makes (`valid_keys` = step +
+    1, no mask): bit-equal to the masked read of all keys at each of
+    VALID_KEYS_STEPS below tk, its rows bit-equal as above, and timed
+    against SDPA over the valid keys (`valid_keys` in the result)."""
     def make(b):
         q = torch.randn(b, 6, tq, 128, generator=gen, device="cuda").to(torch.bfloat16)
         kk = torch.randn(b, 6, tk, 128, generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn(b, 6, tk, 128, generator=gen, device="cuda").to(torch.bfloat16)
-        mask = None if step is None else torch.where(torch.arange(tk, device="cuda") > step, -1e4, 0.0)[None, None, None]
-        return q, kk, v, mask
+        return q, kk, v, None if step is None else step_mask(tk, step)
 
     inputs = [make(batch) for _ in range(REPS)]
     out = launched_once(attention_rows.attention, *inputs[0])
@@ -686,7 +708,39 @@ def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, sh
     bh = batch * 6
     res.update(time_repair(attention_rows.attention, attention_rows.attention_plain, sdpa, inputs,
                            [(4.0 * bh * tq * tk * 128, PEAK_FP32)], 2 * bh * (2 * tq + 2 * tk) * 128 + tk * 4))
+    if step is not None:
+        res["valid_keys"] = attention_rows_valid_keys(inputs, big, counts, step, shape)
     emit({"phase": "kernel", "name": "attention_rows", "shape": shape, "batch": batch, "tq": tq, "tk": tk, **res})
+    return res
+
+
+def attention_rows_valid_keys(inputs: list, big: tuple, counts, step: int, shape: str) -> dict:
+    """The decode step's read (`valid_keys`, no mask) on the staged masked
+    inputs: bit-equal to the masked read of all keys at each step of
+    VALID_KEYS_STEPS, rows bit-equal at `counts`, and its times (the bound
+    counts the valid keys' bytes; the library call is SDPA over them)."""
+    q, kk, v, _ = inputs[0]
+    tk, n = kk.shape[2], step + 1
+    equal = {s: bool(torch.equal(attention_rows.attention(q, kk, v, valid_keys=s + 1),
+                                 attention_rows.attention(q, kk, v, step_mask(tk, s))))
+             for s in VALID_KEYS_STEPS if s < tk}
+
+    def valid(q, kk, v, _mask):
+        return attention_rows.attention(q, kk, v, valid_keys=n)
+
+    def plain(q, kk, v, _mask):
+        return attention_rows.attention_plain(q, kk, v, None, n)
+
+    def sdpa(q, kk, v, _mask):
+        return torch.nn.functional.scaled_dot_product_attention(q, kk[:, :, :n], v[:, :, :n])
+
+    inv = rows_invariant(valid, big, counts, (0, 0, 0, None))
+    res = {"keys": n, "equal_to_the_masked_read_at_step": equal, "rows_bit_equal": inv}
+    if not (all(equal.values()) and all(inv.values())):
+        raise RuntimeError(f"attention_rows kernel with valid_keys at {shape}: {res}")
+    bh, tq = q.shape[0] * q.shape[1], q.shape[2]
+    res.update(time_repair(valid, plain, sdpa, inputs, [(4.0 * bh * tq * n * 128, PEAK_FP32)],
+                           2 * bh * (2 * tq + 2 * n) * 128))
     return res
 
 
@@ -702,6 +756,12 @@ def phase_repairs(gen, cfg: FrameworkConfig) -> dict:
         "linear": {"decode": phase_linear(gen, bucket, 3072, 768, f"decode FFN linear1, bucket {bucket}"),
                    "decode_generator": phase_linear(gen, bucket, cfg.model.tgt_vocab_size, 768,
                                                     f"decode generator, bucket {bucket}"),
+                   "decode_in_projection": phase_linear(gen, bucket, 2304, 768,
+                                                        f"decode self in-projection, bucket {bucket}"),
+                   # the self out-, cross q- and cross out-projections
+                   "decode_projection": phase_linear(gen, bucket, 768, 768, f"decode 768 -> 768 projection, "
+                                                     f"bucket {bucket}"),
+                   "decode_ffn2": phase_linear(gen, bucket, 768, 3072, f"decode FFN linear2, bucket {bucket}"),
                    "beam": phase_linear(gen, bucket * K, 2304, 768, f"beam in-projection, {bucket} items x {K}",
                                         counts=(1, 2, 8, 16), rows_per=K),
                    # not on the path: the encoder keeps cuBLAS, which the probe finds row-independent there
@@ -712,7 +772,10 @@ def phase_repairs(gen, cfg: FrameworkConfig) -> dict:
             "decode_self": phase_attention_rows(gen, bucket, 1, L, L // 2, f"decode self, bucket {bucket}"),
             "decode_cross": phase_attention_rows(gen, bucket, 1, S, None, f"decode cross, bucket {bucket}"),
             "beam_cross": phase_attention_rows(gen, bucket, K, S, None, f"beam cross, {bucket} items x {K}",
-                                               counts=(1, 2, 8, 16))},
+                                               counts=(1, 2, 8, 16)),
+            "beam_self": phase_attention_rows(gen, bucket * K, 1, L, L // 2,
+                                              f"beam self (gathered rows), {bucket} items x {K}",
+                                              counts=(1, 2, 8, 16, 32, 64))},
     }
 
 
@@ -3414,6 +3477,151 @@ def clap_curation_on_card(tmp: Path) -> dict:
 
 
 
+# ---- several trees' decode-step kernels side by side (`--compare`)
+
+COMPARE_LINEAR = {  # name: (rows, N, K, rows per count of the bit-equality check)
+    "in-projection 16 x 768 -> 2304": (16, 2304, 768, 1),
+    "out- / q-projection 16 x 768 -> 768": (16, 768, 768, 1),
+    "FFN 1 16 x 768 -> 3072": (16, 3072, 768, 1),
+    "FFN 2 16 x 3072 -> 768": (16, 768, 3072, 1),
+    "generator 16 x 768 -> 1400": (16, 1400, 768, 1),
+    "beam in-projection 80 x 768 -> 2304": (80, 2304, 768, 5),
+}
+COMPARE_ATTENTION = {  # name: (rows, query rows, keys, the mask's step or None, counts)
+    "decode self 16 x 1 x 512, step 256": (16, 1, 512, 256, [1, 2, 4, 8, 16, 32, 64]),
+    "decode cross 16 x 1 x 246": (16, 1, 246, None, [1, 2, 4, 8, 16, 32, 64]),
+    "beam cross 16 items x 5 x 246": (16, 5, 246, None, [1, 2, 8, 16]),
+    "beam self 80 x 1 x 512, step 256": (80, 1, 512, 256, [1, 5, 10, 40, 80]),
+}
+
+# One run, in a tree's root: that tree's `chip_smoke.py` is imported for the functions every tree's smoke
+# has since the products and attentions became kernels (`phase_linear`, `phase_attention_rows`,
+# `decode_breakdown`, `beam_decode`), so an older tree needs no change. argv[1]: the JSON of
+# (COMPARE_LINEAR, COMPARE_ATTENTION); argv[2]: the file the run's outputs on fixed seeded inputs go to.
+COMPARE_RUN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
+from adt_str_tpu_torch.ops import _build, attention_rows, linear as linear_ops
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+linear_shapes, attention_shapes = json.loads(sys.argv[1])
+_build.build_all()
+keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "rows_bit_equal")
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+out = {"linear": {}, "attention_rows": {}, "decode": {}}
+for name, (m, n, k, per) in linear_shapes.items():
+    counts = (1, 2, 8, 16) if per > 1 else (1, 2, 4, 8, 16, 32, 64)
+    res = cs.phase_linear(gen, m, n, k, name, counts=counts, rows_per=per)
+    out["linear"][name] = {key: res[key] for key in keys}
+for name, (b, tq, tk, step, counts) in attention_shapes.items():
+    res = cs.phase_attention_rows(gen, b, tq, tk, step, name, counts=tuple(counts))
+    out["attention_rows"][name] = {key: res[key] for key in keys + ("valid_keys",) if key in res}
+cfg = cs.load_config(cs.EVAL_YAML, show=False, model=cs.KERNELS_ON)
+model = ADTModel(cfg.model, seed=cs.SEED, device="cuda")
+for label, batch, decode in (("greedy_bucket_1", 1, None), ("greedy_bucket_16", 16, None),
+                             ("beam_bucket_16", 16, cs.beam_decode(1.0, cs.BEAM_SIZE))):
+    r = cs.decode_breakdown(model, cfg, batch, **({} if decode is None else {"decode": decode}))
+    out["decode"][label] = {"ms_per_step": r["ms_per_step"], "decode_steps": r["decode_steps"],
+                            "device_ops_per_step": r["device_kernels"] / r["profiled_max_steps"],
+                            "device_busy_share": r["device_busy_share"]}
+g = torch.Generator(device="cuda").manual_seed(1234)
+kept = {}
+with torch.inference_mode():
+    for name, (m, n, k, per) in linear_shapes.items():
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn(n, generator=g, device="cuda")).to(torch.bfloat16)
+        kept["linear " + name] = linear_ops.linear(x, w, b).cpu()
+    for name, (b, tq, tk, step, counts) in attention_shapes.items():
+        q, k, v = (torch.randn(b, 6, t, 128, generator=g, device="cuda").to(torch.bfloat16) for t in (tq, tk, tk))
+        mask = None if step is None else torch.where(torch.arange(tk, device="cuda") > step, -1e4, 0.0)[None, None, None]
+        kept["attention_rows " + name] = attention_rows.attention(q, k, v, mask).cpu()
+    wave = torch.randn(16, cfg.shared.chunk_samples, generator=g, device="cuda") * 0.3
+    kept["greedy tokens"] = greedy_decode_from_memory(model, model.encode(wave), cfg.inference.max_length).cpu()
+torch.save(kept, sys.argv[2])
+print("COMPARE " + json.dumps(out), flush=True)
+"""
+
+
+def compare_run(root: Path, keep: Path) -> dict:
+    """One run of COMPARE_RUN in the tree at `root`, in a process of its own
+    (the tree's `adt_str_tpu_torch` and `csrc/` are the ones built and
+    loaded) -> its JSON line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", COMPARE_RUN, json.dumps([COMPARE_LINEAR, COMPARE_ATTENTION]),
+                           str(keep)], cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr[-4000:])
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("COMPARE ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"the run in {root} failed ({proc.returncode}):\n{proc.stdout[-4000:]}")
+    return json.loads(lines[-1][len("COMPARE "):])
+
+
+def equal_groups(runs: dict[str, dict], name: str) -> list[list[str]]:
+    """The runs whose output `name` is bit-equal, in groups, in run order."""
+    groups: list[tuple[torch.Tensor, list[str]]] = []
+    for run, kept in runs.items():
+        for first, members in groups:
+            if torch.equal(first, kept[name]):
+                members.append(run)
+                break
+        else:
+            groups.append((kept[name], [run]))
+    return [members for _, members in groups]
+
+
+def token_difference(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """How two runs' greedy token rows differ: the rows, and the first step
+    of each row that differs (its tokens after that follow other inputs)."""
+    diff = a != b
+    rows = diff.any(dim=1)
+    return {"rows_differing": int(rows.sum()), "of_rows": a.shape[0],
+            "first_step_differing": {int(r): int(diff[r].nonzero()[0]) for r in rows.nonzero().flatten()}}
+
+
+def compare_trees(argv: list[str]) -> int:
+    """`--compare LABEL=DIR ... --order LABEL,...`: one JSON line a run (its
+    kernels' checks and times, its decode loop), then one line that groups
+    the runs by bit-equal outputs on fixed seeded inputs (each product, each
+    attention, one batch's greedy tokens) and gives how each run's tokens
+    differ from the first run's. Every run is compared, two runs of one tree
+    too, so a run whose bits follow what ran before shows."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py", description=compare_trees.__doc__)
+    ap.add_argument("--compare", action="append", required=True, metavar="LABEL=DIR", help="a tree's root")
+    ap.add_argument("--order", required=True, help="labels in run order, comma-separated")
+    args = ap.parse_args(argv)
+    trees = dict(t.split("=", 1) for t in args.compare)
+    order = args.order.split(",")
+    if len(order) < 2:
+        raise SystemExit("--order needs two runs or more: one run has nothing to be compared with")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    runs: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, label in enumerate(order):
+            keep = Path(tmp) / f"{i}-{label}.pt"
+            print(json.dumps({"label": label, "run": i, **compare_run(Path(trees[label]).resolve(), keep)}),
+                  flush=True)
+            runs[f"{label}#{i}"] = torch.load(keep)
+    first = next(iter(runs))
+    print(json.dumps({"card": smi, "order": order,
+                      "bit_equal_groups": {name: equal_groups(runs, name) for name in runs[first]},
+                      "greedy_tokens_against": first,
+                      "greedy_tokens": {run: token_difference(runs[first]["greedy tokens"], kept["greedy tokens"])
+                                        for run, kept in runs.items() if run != first}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3508,8 +3716,10 @@ def main() -> int:
               repairs["linear"]["decode"]),
         entry("attention_rows", "adt_str_tpu_torch/csrc/attention_rows.cu",
               "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:223 attention_core",
-              f"decode self-attention, bucket {bucket}: 6 heads, 1 query over 512 cached keys, bf16",
-              repairs["attention_rows"]["decode_self"]),
+              f"decode self-attention, bucket {bucket}: 6 heads, 1 query over the "
+              f"{repairs['attention_rows']['decode_self']['valid_keys']['keys']} valid of 512 cached keys "
+              f"(valid_keys, bit-equal to the masked read of all 512), bf16",
+              {**repairs["attention_rows"]["decode_self"], **repairs["attention_rows"]["decode_self"]["valid_keys"]}),
     ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
         "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)
@@ -3518,4 +3728,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(compare_trees(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -6,6 +6,8 @@ tests/test_torch_cuda_kernels.py` (`--noconftest`: `tests/conftest.py`
 imports JAX, which that machine does not have). This file imports no JAX.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -670,7 +672,9 @@ def _linear_inputs(m, n, k, dtype, device, seed=0):
 # product to bf16, then the bias): the sums run in other orders, so a rounding
 # may flip: 1 ulp of the product plus 1 of the output; fp32: 1e-5 of max(1, |y|)
 @pytest.mark.parametrize("m, n, k", [(1, 3072, 768), (16, 2304, 768), (80, 1400, 768), (3936, 768, 3072),
-                                     (5, 70, 40), (130, 129, 264)])
+                                     (5, 70, 40), (130, 129, 264), (16, 768, 768), (16, 768, 3072),
+                                     (16, 1400, 768), (80, 2304, 768), (17, 777, 768), (33, 70, 3072),
+                                     (79, 1400, 3072), (320, 768, 768), (321, 2304, 768)])
 def test_linear_kernel_matches_the_fp32_product(cuda, m, n, k):
     x, w, b = _linear_inputs(m, n, k, torch.bfloat16, cuda)
     before = linear_ops.linear.launches
@@ -687,10 +691,27 @@ def test_linear_kernel_matches_the_fp32_product(cuda, m, n, k):
     assert ((out32.double() - ref32).abs() / ref32.abs().clamp(min=1.0)).max().item() <= 1e-5
 
 
+def test_linear_kernel_takes_fp32_parameters_as_the_model_passes_them(cuda):
+    """The model's parameters are fp32 and the decode step's activations
+    bf16: the wrapper casts the weight and the bias for the launch, and
+    those copies must outlive it (the output must never be handed the
+    bias's memory). Each call between other allocations gives the bits of
+    the bf16 parameters' call."""
+    for m, n, k in ((13, 768, 768), (24, 2304, 768), (16, 1400, 768)):
+        x, w, b = _linear_inputs(m, n, k, torch.bfloat16, cuda, seed=m)
+        w32, b32 = w.float().requires_grad_(True), b.float().requires_grad_(True)
+        with torch.inference_mode():
+            ref = linear_ops.linear(x, w, b)
+            for i in range(20):
+                scratch = [torch.empty(s, device=cuda) for s in (k, n, 3 * n + i)]  # noqa: F841
+                assert torch.equal(linear_ops.linear(x[:, None], w32, b32)[:, 0], ref), (m, n, k, i)
+
+
 def test_linear_kernel_rows_bit_equal_at_every_row_count(cuda):
     """The decode step's and the beam's rows (up to 64 x 5) and the encoder's
     chunks of 246 frames."""
-    for rows_per, n, k in ((1, 3072, 768), (5, 2304, 768), (246, 768, 3072)):
+    for rows_per, n, k in ((1, 3072, 768), (1, 768, 3072), (1, 1400, 768), (5, 2304, 768), (5, 768, 768),
+                           (246, 768, 3072)):
         x, w, b = _linear_inputs(64 * rows_per, n, k, torch.bfloat16, cuda, seed=rows_per)
         with torch.inference_mode():
             full = linear_ops.linear(x, w, b)
@@ -710,6 +731,14 @@ ATTENTION_ROWS_CASES = {  # (B, Tq, Tk, head dim, the decode step's position or 
     "beam-cross": (16, 5, 246, 128, None, torch.bfloat16),
     "encoder": (2, 246, 246, 128, None, torch.bfloat16),
     "fp32-small-head": (3, 2, 40, 64, 7, torch.float32),
+    "beam-self": (80, 1, 512, 128, 256, torch.bfloat16),
+    "one-key": (4, 1, 1, 128, None, torch.bfloat16),
+    "seven-keys": (4, 3, 7, 128, None, torch.bfloat16),
+    "511-keys": (2, 1, 511, 128, 300, torch.bfloat16),
+    "4096-keys-17-queries": (1, 17, 4096, 128, None, torch.bfloat16),
+    "head-dim-256": (2, 5, 300, 256, None, torch.bfloat16),
+    "head-dim-8": (2, 2, 40, 8, 7, torch.bfloat16),
+    "fp32-4096-keys": (1, 1, 4096, 128, 3000, torch.float32),
 }
 
 
@@ -749,7 +778,7 @@ def test_attention_rows_kernel_matches_plain(cuda, case):
 
 
 def test_attention_rows_kernel_rows_bit_equal_at_every_row_count(cuda):
-    for case in ("decode-self", "beam-cross"):
+    for case in ("decode-self", "beam-cross", "beam-self"):
         _, tq, tk, hd, step, dtype = ATTENTION_ROWS_CASES[case]
         q, k, v, mask = _rows_inputs(64, tq, tk, hd, step, dtype, cuda, seed=2)
         with torch.inference_mode():
@@ -757,6 +786,31 @@ def test_attention_rows_kernel_rows_bit_equal_at_every_row_count(cuda):
             for r in ROW_COUNTS:
                 part = attention_rows.attention(q[:r].clone(), k[:r].clone(), v[:r].clone(), mask)
                 assert torch.equal(part, full[:r]), (case, r)
+
+
+# The decode step reads its self-attention cache up to the valid keys
+# (`valid_keys` = step + 1); that must be bit-equal to the masked read of the
+# whole cache: a masked key's probability is exactly 0 in fp32, so its chunk
+# adds +0 to every sum.
+@pytest.mark.parametrize("rows, tk", [(16, 512), (80, 512), (3, 246), (2, 7), (1, 4096)])
+def test_attention_rows_valid_keys_equal_the_masked_read(cuda, rows, tk):
+    q, k, v, _ = _rows_inputs(rows, 1, tk, 128, None, torch.bfloat16, cuda, seed=3)
+    steps = sorted({0, 1, 2, 15, 16, 62, 63, 64, 65, 127, 128, 255, 256, 510, 511, 3000, tk - 2, tk - 1} & set(range(tk)))
+    with torch.inference_mode():
+        for step in steps:
+            masked = attention_rows.attention(q, k, v, torch.where(torch.arange(tk, device=cuda) > step, -1e4,
+                                                                   0.0)[None, None, None])
+            assert torch.equal(attention_rows.attention(q, k, v, valid_keys=step + 1), masked), step
+
+
+def test_attention_rows_valid_keys_rows_bit_equal_at_every_row_count(cuda):
+    q, k, v, _ = _rows_inputs(64, 1, 512, 128, None, torch.bfloat16, cuda, seed=4)
+    with torch.inference_mode():
+        for valid in (1, 100, 257, 512):
+            full = attention_rows.attention(q, k, v, valid_keys=valid)
+            for r in ROW_COUNTS:
+                part = attention_rows.attention(q[:r].clone(), k[:r].clone(), v[:r].clone(), valid_keys=valid)
+                assert torch.equal(part, full[:r]), (valid, r)
 
 
 def test_attention_rows_kernel_rejects_what_it_cannot_hold(cuda):
@@ -767,6 +821,14 @@ def test_attention_rows_kernel_rejects_what_it_cannot_hold(cuda):
         big = torch.zeros(1, 6, 5000, 128, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="attention_rows kernel"):
             attention_rows.attention(q, big, big, None)
+        for valid in (0, 9):
+            with pytest.raises(ValueError, match="attention_rows kernel"):
+                attention_rows.attention(q, k, v, valid_keys=valid)
+        with pytest.raises(ValueError, match="attention_rows kernel"):
+            attention_rows.attention(q, k, v, torch.zeros(8, device=cuda), valid_keys=4)
+        odd = torch.zeros(1, 6, 8, 12, device=cuda, dtype=torch.bfloat16)  # bf16 head dims in multiples of 8
+        with pytest.raises(ValueError, match="attention_rows kernel"):
+            attention_rows.attention(odd, odd, odd, None)
 
 
 def test_log_mel_kernel_row_bits_equal_at_every_batch(cuda):
@@ -812,3 +874,58 @@ def test_a_full_width_chunk_decodes_alone_as_in_a_batch_of_16(cuda):
     alone = greedy_decode(model, batch[5:6].clone(), cfg.inference.max_length)
     inside = greedy_decode(model, batch, cfg.inference.max_length)[5:6]
     assert torch.equal(alone, inside)
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+
+
+def test_kernels_launch_on_every_card_from_a_thread_each(cuda):
+    """A kernel's shared-memory limit is set for one device, and the
+    data-parallel decode launches on several cards in one process, a host
+    thread a card. Every launch template of the product (one row tile with
+    1 or 2 warps, 2-5 row tiles, more than 320 rows) and of the attention
+    (head dims 32, 64, 128, 256), and the encoder's fused attention (K5f),
+    run first on cuda:0 and then on every card at once from a thread each,
+    give cuda:0's bits on every card."""
+    devices = _second_card()
+    linears = [_linear_inputs(m, n, 768, torch.bfloat16, cuda, seed=m) for m, n in
+               ((16, 768), (16, 2304), (32, 768), (48, 768), (64, 768), (80, 2304), (400, 768))]
+    rows = [_rows_inputs(4, 5, 246, hd, 100, torch.bfloat16, cuda, seed=hd) for hd in (32, 64, 128, 256)]
+    encoder = _qkv(2, 6, 246, 246, cuda)
+
+    def run_all(dev):
+        on = lambda ts: [None if t is None else t.to(dev) for t in ts]  # noqa: E731
+        with torch.cuda.device(dev), torch.inference_mode():
+            outs = [linear_ops.linear(*on(args)) for args in linears]
+            outs += [attention_rows.attention(*on(args)) for args in rows]
+            outs += list(cuda_attention.fused_attention(*on(encoder), None, cuda_attention.virtual_keys(246, 246)))
+            torch.cuda.synchronize(dev)
+            return [o.cpu() for o in outs]
+
+    first = run_all(devices[0])
+    with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        for dev, outs in zip(devices, pool.map(run_all, devices)):
+            assert all(torch.equal(a, b) for a, b in zip(first, outs)), dev
+
+
+def test_data_parallel_decode_over_two_cards_equals_one_card(cuda):
+    """The serving config at full width, seeded random weights: 4 chunks
+    decoded over a mesh of cuda:0 and cuda:1 (a thread a card, 2 chunks
+    each) give the tokens of one card decoding all 4."""
+    from pathlib import Path
+
+    from adt_str_tpu_torch.config import FrameworkConfig
+    from adt_str_tpu_torch.models.adt import ADTModel
+    from adt_str_tpu_torch.models.decode import greedy_decode, greedy_decode_sharded
+    from adt_str_tpu_torch.parallel.mesh import DataMesh
+
+    devices = _second_card()
+    cfg = FrameworkConfig.from_yaml(Path(__file__).resolve().parent.parent / "configs/serve/ENSTserving.yaml")
+    model = ADTModel(cfg.model, seed=0, device=cuda)
+    batch = _wave(4, cfg.shared.chunk_samples, seed=12).to(cuda)
+    one = greedy_decode(model, batch, cfg.inference.max_length)
+    two = greedy_decode_sharded(model, batch, DataMesh(devices=tuple(devices[:2])), cfg.inference.max_length)
+    assert torch.equal(one.cpu(), two.cpu())

@@ -55,8 +55,8 @@ def test_library_path_is_stable(csrc):
 
 
 def test_repo_kernels_share_the_hopper_header():
-    """The five redesigned kernels include the one header the digest covers."""
-    for name in ("ffn_dropout", "attention", "attention_bwd", "log_mel", "place_notes"):
+    """The seven redesigned kernels include the one header the digest covers."""
+    for name in ("ffn_dropout", "attention", "attention_bwd", "log_mel", "place_notes", "linear", "attention_rows"):
         assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
     assert (_build.CSRC / "hopper.cuh").exists()
 
