@@ -461,8 +461,9 @@ class ExperimentConfig:
 
 @dataclass
 class MeshConfig:
-    """The parallel layout. The data axis is the ranks of a torchrun job
-    (-1: all of them); a model axis above 1 and `fsdp` raise
+    """The parallel layout. The ranks of a torchrun job form a data axis
+    (-1: all the ranks the model axis leaves) by a tensor-parallel model
+    axis (`parallel/mesh.py:make_mesh`); `fsdp` raises
     (`parallel/mesh.py:check_layout`)."""
 
     data_axis: int = -1  # -1: all remaining devices

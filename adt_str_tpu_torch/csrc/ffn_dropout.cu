@@ -12,6 +12,13 @@
 // compared with the threshold min(int(keep * 2^32), 2^32 - 1). The masks
 // are bit-identical to the JAX package's.
 //
+// Tensor parallelism (a rank's d_ff columns of a whole width d_ff_total):
+// the hidden mask is taken at the whole-width index r * d_ff_total + col0 + c,
+// and the partial mode stops GEMM 2 at the fp32 product hd W2_shard^T,
+// written as it is (no b2, no output mask, no rounding): b2 and the output
+// dropout follow the sum over the ranks. col0 = 0 and d_ff_total = d_ff
+// are the one-process kernel, bit for bit.
+//
 // Bound on an H100: at the decoder's training shapes (N = 64 * 511, d = 768,
 // d_ff = 3072) the two products are 4 * N * d * d_ff flops, 309 GFLOP
 // (312 us at 989 TFLOP/s), against about 0.1 ms of memory traffic: it is
@@ -62,6 +69,10 @@ constexpr uint32_t HASH_M1 = 0x85EBCA6Bu;
 
 static_assert(BN == BM, "A and B stage tiles share one size");
 
+// The epilogue of a GEMM: GEMM 1 (pre and hd), GEMM 2 (out), GEMM 2's
+// partial mode (fp32 out, stored from the registers).
+enum Mode { kHiddenMode = 0, kOutMode = 1, kPartialMode = 2 };
+
 // GEMM 1 stages two output tiles (pre, hd) a warpgroup, GEMM 2 one (out);
 // the ring takes what shared memory is left.
 template <bool kHidden>
@@ -103,12 +114,16 @@ __device__ __forceinline__ void put_pair(uint8_t* tile, int r, int c, float lo, 
 
 // The block's tiles of A (rows, K) B^T (B: (cols, K)), both bf16 K-major:
 // tiles blockIdx.x, + gridDim.x, ..., the j-th to consumer warpgroup j % 2.
-// kHidden: GEMM 1 (stores pre and hd); else GEMM 2 (stores out).
-template <bool kHidden>
+// kMode: kHiddenMode, GEMM 1 (stores pre and hd; the hidden mask's row
+// stride is mask_cols and its first column col0); kOutMode, GEMM 2 (stores
+// out); kPartialMode, GEMM 2's fp32 product into out32.
+template <int kMode>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUtensorMap* b_map,
                                            const CUtensorMap* o_map, const CUtensorMap* h_map,
-                                           const __nv_bfloat16* __restrict__ bias, int rows, int K, int cols,
-                                           uint32_t s0, uint32_t s1, uint32_t thresh, float inv_keep) {
+                                           const __nv_bfloat16* __restrict__ bias, float* __restrict__ out32,
+                                           int rows, int K, int cols, int mask_cols, int col0, uint32_t s0,
+                                           uint32_t s1, uint32_t thresh, float inv_keep) {
+  constexpr bool kHidden = kMode == kHiddenMode;
   constexpr int STAGES = Shape<kHidden>::STAGES, OUT_TILES = Shape<kHidden>::OUT_TILES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -191,6 +206,19 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
 #pragma unroll
       for (int jc = 0; jc < BN / 8; ++jc) {
         const int cl = 8 * jc + 2 * (l % 4);
+        if constexpr (kMode == kPartialMode) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 64 * hr + 16 * w + l / 4 + 8 * h;
+              if (m0 + r < rows)
+                *reinterpret_cast<float2*>(out32 + static_cast<size_t>(m0 + r) * cols + n0 + cl) =
+                    make_float2(acc[hr][4 * jc + 2 * h], acc[hr][4 * jc + 2 * h + 1]);
+            }
+          }
+          continue;
+        }
         const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + cl));
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
@@ -219,8 +247,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
           const uint32_t off = (cc >> 3) * HALF_BYTES + sw128_offset(r, (cc & 7) * 8);
           const uint4 raw = *reinterpret_cast<const uint4*>(outs + off);
           const __nv_bfloat162* pre2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-          const uint32_t idx =
-              static_cast<uint32_t>(m0 + r) * static_cast<uint32_t>(cols) + static_cast<uint32_t>(n0 + 8 * cc);
+          const uint32_t idx = static_cast<uint32_t>(m0 + r) * static_cast<uint32_t>(mask_cols) +
+                               static_cast<uint32_t>(col0 + n0 + 8 * cc);
           uint4 out;
           __nv_bfloat162* hd2 = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
@@ -233,6 +261,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
           *reinterpret_cast<uint4*>(outs + OUT_TILE_BYTES + off) = out;
         }
       }
+      if constexpr (kMode == kPartialMode) continue;  // stored from the registers: nothing staged
       fence_proxy_async();
       named_barrier(1 + wg, 128);
       if (t == 0) {
@@ -251,16 +280,21 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_dropout_kernel_gemm1(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w1_map,
                              const __grid_constant__ CUtensorMap pre_map, const __grid_constant__ CUtensorMap hd_map,
-                             const __nv_bfloat16* __restrict__ b1, int N, int d, int d_ff, uint32_t s0,
-                             uint32_t s1, uint32_t thresh, float inv_keep) {
-  gemm_tiles<true>(&x_map, &w1_map, &pre_map, &hd_map, b1, N, d, d_ff, s0, s1, thresh, inv_keep);
+                             const __nv_bfloat16* __restrict__ b1, int N, int d, int d_ff, int d_ff_total, int col0,
+                             uint32_t s0, uint32_t s1, uint32_t thresh, float inv_keep) {
+  gemm_tiles<kHiddenMode>(&x_map, &w1_map, &pre_map, &hd_map, b1, nullptr, N, d, d_ff, d_ff_total, col0, s0, s1,
+                          thresh, inv_keep);
 }
 
+// GEMM 2; kPartial: the fp32 product into out32 (out_map and b2 unused).
+template <bool kPartial>
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_dropout_kernel_gemm2(const __grid_constant__ CUtensorMap hd_map, const __grid_constant__ CUtensorMap w2_map,
                              const __grid_constant__ CUtensorMap out_map, const __nv_bfloat16* __restrict__ b2,
-                             int N, int d, int d_ff, uint32_t s0, uint32_t s1, uint32_t thresh, float inv_keep) {
-  gemm_tiles<false>(&hd_map, &w2_map, &out_map, nullptr, b2, N, d_ff, d, s0, s1, thresh, inv_keep);
+                             float* __restrict__ out32, int N, int d, int d_ff, uint32_t s0, uint32_t s1,
+                             uint32_t thresh, float inv_keep) {
+  gemm_tiles<kPartial ? kPartialMode : kOutMode>(&hd_map, &w2_map, &out_map, nullptr, b2, out32, N, d_ff, d, d, 0,
+                                                  s0, s1, thresh, inv_keep);
 }
 
 // A row-major (rows, cols) bf16 matrix read or written in boxes of
@@ -285,7 +319,9 @@ int prepare_device(int* sms) {
   if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm1, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Shape<true>::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Shape<false>::SMEM)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Shape<false>::SMEM)) != cudaSuccess)
     return static_cast<int>(e);
   if (dev < 64) known[dev] = *sms;
@@ -300,28 +336,37 @@ extern "C" int ffn_dropout_tile() { return BN; }
 // checks: bf16 contiguous x (N, d), w1 (d_ff, d), w2 (d, d_ff), b1 (d_ff,),
 // b2 (d,), d and d_ff multiples of 128, outputs out (N, d), pre and the
 // scratch hd (N, d_ff); seeds are the four scrambled words [h0, h1, o0, o1].
+// The hidden mask is that of columns col0.. of a d_ff_total-wide hidden;
+// b2 == nullptr is the partial mode: out is fp32 (N, d), hd W2^T alone.
 extern "C" int launch_ffn_dropout(const void* x, const void* w1, const void* b1, const void* w2,
                                   const void* b2, void* out, void* pre, void* hd, int N, int d, int d_ff,
-                                  unsigned int s_h0, unsigned int s_h1, unsigned int s_o0,
-                                  unsigned int s_o1, unsigned int thresh_h, unsigned int thresh_o,
-                                  float inv_keep_h, float inv_keep_o, void* stream) {
-  if (N < 1 || d % BN || d_ff % BN) return static_cast<int>(cudaErrorInvalidValue);
+                                  int d_ff_total, int col0, unsigned int s_h0, unsigned int s_h1,
+                                  unsigned int s_o0, unsigned int s_o1, unsigned int thresh_h,
+                                  unsigned int thresh_o, float inv_keep_h, float inv_keep_o, void* stream) {
+  if (N < 1 || d % BN || d_ff % BN || col0 < 0 || col0 + d_ff > d_ff_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool partial = b2 == nullptr;
   CUtensorMap x_map, w1_map, pre_map, hd_map, w2_map, out_map;
   int sms = 0, err = 0;
   if ((err = prepare_device(&sms)) || (err = matrix_map(&x_map, x, N, d)) ||
       (err = matrix_map(&w1_map, w1, d_ff, d)) || (err = matrix_map(&pre_map, pre, N, d_ff)) ||
       (err = matrix_map(&hd_map, hd, N, d_ff)) || (err = matrix_map(&w2_map, w2, d, d_ff)) ||
-      (err = matrix_map(&out_map, out, N, d)))
+      (err = matrix_map(&out_map, partial ? hd : out, N, d)))  // partial: a bf16 map never stored through
     return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mt = (N + BM - 1) / BM;
   ffn_dropout_kernel_gemm1<<<std::min(sms, mt * (d_ff / BN)), THREADS, Shape<true>::SMEM, st>>>(
-      x_map, w1_map, pre_map, hd_map, static_cast<const __nv_bfloat16*>(b1), N, d, d_ff, s_h0, s_h1, thresh_h,
-      inv_keep_h);
+      x_map, w1_map, pre_map, hd_map, static_cast<const __nv_bfloat16*>(b1), N, d, d_ff, d_ff_total, col0, s_h0,
+      s_h1, thresh_h, inv_keep_h);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ffn_dropout_kernel_gemm2<<<std::min(sms, mt * (d / BN)), THREADS, Shape<false>::SMEM, st>>>(
-      hd_map, w2_map, out_map, static_cast<const __nv_bfloat16*>(b2), N, d, d_ff, s_o0, s_o1, thresh_o,
-      inv_keep_o);
+  const int blocks = std::min(sms, mt * (d / BN));
+  if (partial)
+    ffn_dropout_kernel_gemm2<true><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
+        hd_map, w2_map, out_map, nullptr, static_cast<float*>(out), N, d, d_ff, s_o0, s_o1, thresh_o, inv_keep_o);
+  else
+    ffn_dropout_kernel_gemm2<false><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
+        hd_map, w2_map, out_map, static_cast<const __nv_bfloat16*>(b2), nullptr, N, d, d_ff, s_o0, s_o1, thresh_o,
+        inv_keep_o);
   return static_cast<int>(cudaGetLastError());
 }

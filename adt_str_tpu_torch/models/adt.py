@@ -20,6 +20,15 @@ Parameters are fp32; activations run in `config.compute_dtype`. With
 `config.remat`, training recomputes each layer's activations in the
 backward pass.
 
+Tensor parallelism (`tp`, a `parallel/tensor_parallel.py:ModelAxis`):
+`ADTModel(config, seed=s, tp=axis)` draws the whole model's weights, then
+keeps this rank's shard (`shard_model_`): each layer runs its heads, its
+FFN columns and the rows of the generator that are its vocabulary
+columns; `decode_logits` returns those columns and `forward_loss` takes
+the vocabulary-parallel CE (`cross_entropy_loss(..., tp=)`). The embedding,
+the LayerNorms, `project_to_mel`, the encoder's dense layer and the
+row-parallel biases are replicated. Decoding runs a model built whole.
+
 Training dropout takes its keys as data: `dropout_sites(config)` names the
 sites in the order of the JAX package's `jax.random.split` tree (forward_loss
 splits the rng into encoder and decoder keys; `encode` splits into input,
@@ -44,6 +53,7 @@ from adt_str_tpu_torch.config import ModelConfig
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.ops import cuda_mel
 from adt_str_tpu_torch.ops.mel import MelFrontendParams, log_mel_spectrogram
+from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 
 
 PAD_TOKEN = 1  # loss ignore_index
@@ -123,9 +133,12 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
 class ADTModel(nn.Module):
     """The 4+4-layer seq2seq transcriber; `ADTModel(config, seed=s,
     device=d)` draws seeded random weights with `adt.init_params`'
-    distributions on the CPU and moves them to `device` (None: cuda)."""
+    distributions on the CPU and moves them to `device` (None: cuda);
+    with `tp`, this rank's tensor-parallel shard of them."""
 
-    def __init__(self, config: ModelConfig, *, seed: int = 0, device=None):
+    tp: Optional[tp_lib.ModelAxis] = None
+
+    def __init__(self, config: ModelConfig, *, seed: int = 0, device=None, tp: Optional[tp_lib.ModelAxis] = None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
@@ -135,6 +148,8 @@ class ADTModel(nn.Module):
         pe = T.sinusoidal_positions(config.max_positions, config.d_model)
         self.register_buffer("pe", torch.from_numpy(pe), persistent=False)
         self.init_weights(seed)
+        if tp is not None:
+            tp_lib.shard_model_(self, tp)
         self.to(device)
 
     def init_weights(self, seed: int) -> None:
@@ -216,7 +231,8 @@ class ADTModel(nn.Module):
         keys: Optional[Sequence] = None,
         train: bool = False,
     ) -> torch.Tensor:
-        """(B, T) tokens + (B, S, d) memory -> (B, T, vocab) logits.
+        """(B, T) tokens + (B, S, d) memory -> (B, T, vocab) logits (under
+        `tp`, this rank's vocabulary columns).
         `keys`: the decoder's `6 * dec_layers + 1` site keys (None: no dropout)."""
         cfg, compute = self.config, self.compute_dtype
         n_layers = cfg.dec_layers
@@ -231,7 +247,7 @@ class ADTModel(nn.Module):
             x = self._layer(layer, x, mem, self_mask=self_mask, use_flash=cfg.use_flash_attention,
                             use_pallas_ffn=cfg.use_pallas_ffn, dropout_rate=cfg.dropout,
                             keys=keys[1 + 6 * i : 7 + 6 * i], train=train)
-        return T.linear(self.decoder.generator, x)
+        return T.linear(self.decoder.generator, tp_lib.copy_to_region(x, self.tp))
 
     def forward_loss(
         self,
@@ -258,15 +274,20 @@ class ADTModel(nn.Module):
         if token_lengths is not None:
             mask = mask + T.padding_mask_additive(token_lengths, seq_len)
         logits = self.decode_logits(tgt_input, memory, self_mask=mask, keys=dec_keys, train=train)
-        return cross_entropy_loss(logits, labels, reduction=reduction)
+        return cross_entropy_loss(logits, labels, reduction=reduction, tp=self.tp)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, reduction: str = "mean"):
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, reduction: str = "mean",
+                       tp: Optional[tp_lib.ModelAxis] = None):
     """fp32 CE over non-PAD labels with nan_to_num'd logits. "mean": the
-    token-masked mean; "sum": `(nll_sum, n_valid)`."""
-    logits = torch.nan_to_num(logits.float(), nan=0.0, posinf=1e4, neginf=-1e4)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    token-masked mean; "sum": `(nll_sum, n_valid)`. With `tp`, `logits` are
+    this rank's vocabulary columns (`vocab_parallel_cross_entropy`)."""
+    if tp is None:
+        logits = torch.nan_to_num(logits.float(), nan=0.0, posinf=1e4, neginf=-1e4)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    else:
+        nll = tp_lib.vocab_parallel_cross_entropy(logits, labels, tp)
     valid = (labels != PAD_TOKEN).float()
     s, n = (nll * valid).sum(), valid.sum()
     if reduction == "sum":

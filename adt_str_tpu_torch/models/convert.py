@@ -5,6 +5,10 @@
 JAX params pytree as numpy arrays and emits the reference PyTorch naming,
 transposing each `w` (JAX stores (d_in, d_out), PyTorch (d_out, d_in)).
 
+`shard_state_dict_from_jax_params` takes the JAX params straight to one
+rank's tensor-parallel shard (`parallel/tensor_parallel.py:shard_state_dict`),
+which `ADTModel(config, tp=axis)` loads with `strict=True`.
+
 `load_reference_checkpoint` mirrors
 `adt_str_tpu/training/checkpoint.py:load_params_from_reference_checkpoint`:
 `model.safetensors` (or `model.safetensor`) first, else `pytorch_model.bin`.
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from adt_str_tpu_torch import resolve_device
+from adt_str_tpu_torch.parallel.tensor_parallel import shard_state_dict
 
 _ST_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -76,6 +81,12 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> dict[str, torch.Ten
         put_ln(f"{prefix}.norm2", layer["norm2"])
         put_ln(f"{prefix}.norm3", layer["norm3"])
     return sd
+
+
+def shard_state_dict_from_jax_params(params: Mapping[str, Any], rank: int, size: int) -> dict[str, torch.Tensor]:
+    """JAX params pytree (numpy leaves) -> rank `rank`'s shard of the
+    reference-named state dict on a model axis of `size`."""
+    return shard_state_dict(state_dict_from_jax_params(params), rank, size)
 
 
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:

@@ -71,6 +71,9 @@ class DecoderCaches(NamedTuple):
 def init_caches(model: ADTModel, memory: torch.Tensor, max_len: int, beam_size: int | None = None) -> DecoderCaches:
     """Cross K/V projected from the (B, S, d) memory; zeroed self caches,
     slot-inner with a beam's K slots when `beam_size` is given."""
+    if model.tp is not None:
+        raise ValueError("decoding runs a model built whole: load a tensor-parallel run's checkpoint (written whole) "
+                         "into an ADTModel without tp")
     cfg, compute = model.config, model.compute_dtype
     layers = model.decoder.decoder.layers
     mem = memory.to(compute)
@@ -132,7 +135,7 @@ def decode_step(
             caches.k_self[li, :, :, step] = k_new.reshape(-1, K, H, k_new.shape[-1]).transpose(1, 2)
             caches.v_self[li, :, :, step] = v_new.reshape(-1, K, H, v_new.shape[-1]).transpose(1, 2)
             attn = _anc_attention(q, caches.k_self[li], caches.v_self[li], anc, step + 1)
-        x = T.layer_norm(layer.norm1, x + T.linear(sa.out_proj, T.merge_heads(attn), fixed_order=True))
+        x = T.layer_norm(layer.norm1, x, T.linear(sa.out_proj, T.merge_heads(attn), fixed_order=True))
 
         ca = layer.multihead_attn
         qc = ca.project(x, slice(0, d), fixed_order=True)
@@ -143,8 +146,8 @@ def decode_step(
             qcb = qc[:, :, 0].reshape(-1, K, H, hd).transpose(1, 2)
             cross = T.attention_core(qcb, caches.k_cross[li], caches.v_cross[li], None)
             cross = cross.transpose(1, 2).reshape(-1, H, hd)[:, :, None, :]
-        x = T.layer_norm(layer.norm2, x + T.linear(ca.out_proj, T.merge_heads(cross), fixed_order=True))
-        x = T.layer_norm(layer.norm3, x + T.ffn(layer, x, fixed_order=True))
+        x = T.layer_norm(layer.norm2, x, T.linear(ca.out_proj, T.merge_heads(cross), fixed_order=True))
+        x = T.layer_norm(layer.norm3, x, T.ffn(layer, x, fixed_order=True))
 
     return T.linear(model.decoder.generator, x, fixed_order=True)[:, 0, :]
 

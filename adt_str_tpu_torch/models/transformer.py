@@ -54,9 +54,11 @@ from torch import nn
 from adt_str_tpu_torch.ops import attention_rows, cuda_attention, cuda_ffn
 from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
-from adt_str_tpu_torch.ops.dropout_hash import hash_mask, seed_from_key
+from adt_str_tpu_torch.ops.dropout_hash import hash_mask, hash_mask_slice, seed_from_key
+from adt_str_tpu_torch.parallel.tensor_parallel import ModelAxis, copy_to_region, reduce_from_region, row_parallel_linear
 
 Key = Optional[tuple[int, int]]  # the two uint32 words of a site's key
+Shard = Optional[tuple[int, int, int]]  # (dim, first index, whole size): a tensor-parallel slice of a dropout site
 
 NEG_MASK = -1e4
 
@@ -68,9 +70,12 @@ def linear(mod: nn.Linear, x: torch.Tensor, fixed_order: bool = False) -> torch.
     return product(x, mod.weight, mod.bias)
 
 
-def layer_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with fp32 statistics, cast back to `x`'s dtype (`ops/layer_norm.py`)."""
-    return ln_ops.layer_norm(x, mod.weight, mod.bias, mod.eps)
+def layer_norm(mod: nn.LayerNorm, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, cast back to `x`'s dtype, of `x` or of
+    `x + residual` (the add fused into the kernel, `ops/layer_norm.py`)."""
+    if residual is None:
+        return ln_ops.layer_norm(x, mod.weight, mod.bias, mod.eps)
+    return ln_ops.add_layer_norm(x, residual, mod.weight, mod.bias, mod.eps)
 
 
 def _scale(x: torch.Tensor, keep: float) -> torch.Tensor:
@@ -79,27 +84,40 @@ def _scale(x: torch.Tensor, keep: float) -> torch.Tensor:
     return x * torch.tensor(1.0 / keep, dtype=x.dtype, device=x.device)
 
 
+def _mask(shape, seed: tuple[int, int], keep: float, device, shard: Shard) -> torch.Tensor:
+    """The keep-mask of a tensor of `shape`; with `shard` = (dim, start,
+    size), that of the slice [start, start + shape[dim]) of the whole tensor
+    whose `dim` is `size` long: each element hashed at its whole-tensor index."""
+    if shard is None:
+        return hash_mask(shape, seed, keep, device)
+    dim, start, size = shard
+    whole = list(shape)
+    whole[dim] = size
+    return hash_mask_slice(whole, dim, start, start + shape[dim], seed, keep, device)
+
+
 class _DropoutRegen(torch.autograd.Function):
     """Inverted dropout whose only residual is the seed: the backward
     regenerates the mask (JAX `_dropout_regen`)."""
 
     @staticmethod
-    def forward(ctx, x, keep: float, seed: tuple[int, int]):
-        ctx.keep, ctx.seed = keep, seed
-        m = hash_mask(x.shape, seed, keep, x.device)
+    def forward(ctx, x, keep: float, seed: tuple[int, int], shard: Shard):
+        ctx.keep, ctx.seed, ctx.shard = keep, seed, shard
+        m = _mask(x.shape, seed, keep, x.device, shard)
         return torch.where(m, _scale(x, keep), 0.0).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        m = hash_mask(g.shape, ctx.seed, ctx.keep, g.device)
-        return torch.where(m, _scale(g, ctx.keep), 0.0).to(g.dtype), None, None
+        m = _mask(g.shape, ctx.seed, ctx.keep, g.device, ctx.shard)
+        return torch.where(m, _scale(g, ctx.keep), 0.0).to(g.dtype), None, None, None
 
 
-def dropout(x: torch.Tensor, rate: float, key: Key, train: bool) -> torch.Tensor:
-    """Inverted dropout with the counter-hash mask of `key`'s two words."""
+def dropout(x: torch.Tensor, rate: float, key: Key, train: bool, shard: Shard = None) -> torch.Tensor:
+    """Inverted dropout with the counter-hash mask of `key`'s two words; `shard`:
+    x is a tensor-parallel slice of the site (`_mask`)."""
     if not train or rate == 0.0 or key is None:
         return x
-    return _DropoutRegen.apply(x, 1.0 - rate, seed_from_key(key))
+    return _DropoutRegen.apply(x, 1.0 - rate, seed_from_key(key), shard)
 
 
 def split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
@@ -114,17 +132,19 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_core(
     q, k, v, mask: Optional[torch.Tensor], dropout_rate: float = 0.0, dropout_key: Key = None,
-    train: bool = False, valid_keys: Optional[int] = None,
+    train: bool = False, valid_keys: Optional[int] = None, heads: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """(B,H,Tq,hd) x (B,H,Tk,hd) attention outside K5 (`ops/attention_rows.py`);
     `mask` is an additive float mask broadcastable to (B,H,Tq,Tk), or
     `valid_keys` stands for NEG_MASK on keys from it on (the decode step's
     cache). In training the probabilities take dropout, as
-    `nn.MultiheadAttention` does."""
+    `nn.MultiheadAttention` does; `heads` = (first head, all heads) when
+    these H are a tensor-parallel rank's, whose masks are those heads'."""
     if not train or dropout_rate == 0.0 or dropout_key is None:
         return attention_rows.attention(q, k, v, mask, valid_keys)
     probs = attention_rows.attention_probs(q, k, attention_rows.keys_mask(mask, valid_keys, k.shape[2], q.device))
-    return torch.matmul(dropout(probs, dropout_rate, dropout_key, train), v)
+    shard = None if heads is None else (1, *heads)
+    return torch.matmul(dropout(probs, dropout_rate, dropout_key, train, shard), v)
 
 
 def _fused_attention_ok(q: torch.Tensor, train: bool, dropout_rate: float) -> bool:
@@ -147,7 +167,14 @@ def _flash_attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
 
 class MultiheadAttention(nn.Module):
     """Packed q|k|v input projection (`in_proj_weight` rows 0:d, d:2d, 2d:3d)
-    and `out_proj`, as in `nn.MultiheadAttention`."""
+    and `out_proj`, as in `nn.MultiheadAttention`. Under tensor parallelism
+    (`tp`, set by `parallel/tensor_parallel.py:shard_model_`) it holds
+    `nhead` of the model's heads: dl = nhead * hd rows of each of q, k, v
+    (column-parallel, entered through `copy_to_region`) and those dl columns
+    of `out_proj` (row-parallel: `row_parallel_linear`, the bias after the
+    sum)."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
@@ -164,23 +191,36 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query, key_value, mask=None, use_flash: bool = False, dropout_rate: float = 0.0,
                 dropout_key: Key = None, train: bool = False) -> torch.Tensor:
-        d = query.shape[-1]
+        same = key_value is query
+        query = copy_to_region(query, self.tp)
+        key_value = query if same else copy_to_region(key_value, self.tp)
+        d = self.in_proj_weight.shape[0] // 3
         q = self.project(query, slice(0, d))
         k = self.project(key_value, slice(d, 2 * d))
         v = self.project(key_value, slice(2 * d, 3 * d))
         if use_flash and _fused_attention_ok(q, train, dropout_rate):
             out = _flash_attention(q, k, v, mask)
         else:
-            out = attention_core(q, k, v, mask, dropout_rate, dropout_key, train)
-        return linear(self.out_proj, merge_heads(out))
+            heads = None if self.tp is None else (self.tp.rank * self.nhead, self.tp.size * self.nhead)
+            out = attention_core(q, k, v, mask, dropout_rate, dropout_key, train, heads=heads)
+        if self.tp is None:
+            return linear(self.out_proj, merge_heads(out))
+        return row_parallel_linear(merge_heads(out), self.out_proj.weight, self.out_proj.bias, self.tp)
 
 
 def ffn(layer: nn.Module, x: torch.Tensor, dropout_rate: float = 0.0, key: Key = None,
         train: bool = False, fixed_order: bool = False) -> torch.Tensor:
     """linear2(dropout(gelu(linear1(x)))) with the exact erf GELU;
-    `fixed_order` as in `linear`."""
-    h = torch.nn.functional.gelu(linear(layer.linear1, x, fixed_order))
-    return linear(layer.linear2, dropout(h, dropout_rate, key, train), fixed_order)
+    `fixed_order` as in `linear`. Under tensor parallelism (`layer.tp`) the
+    layer holds d_ff / size columns of linear1 and rows of linear2: the
+    hidden's mask is that of its columns, linear2 is row-parallel."""
+    tp = getattr(layer, "tp", None)
+    h = torch.nn.functional.gelu(linear(layer.linear1, copy_to_region(x, tp), fixed_order))
+    if tp is None:
+        return linear(layer.linear2, dropout(h, dropout_rate, key, train), fixed_order)
+    cols = h.shape[-1]
+    h = dropout(h, dropout_rate, key, train, (h.dim() - 1, tp.rank * cols, tp.size * cols))
+    return row_parallel_linear(h, layer.linear2.weight, layer.linear2.bias, tp)
 
 
 def _fused_ffn_ok(x: torch.Tensor, train: bool, rate: float, key: Key) -> bool:
@@ -192,14 +232,26 @@ def _fused_ffn_ok(x: torch.Tensor, train: bool, rate: float, key: Key) -> bool:
 def ffn_dropout_block(layer: nn.Module, x: torch.Tensor, rate: float, key_h: Key, key_o: Key) -> torch.Tensor:
     """`dropout(linear2(dropout(gelu(linear1(x)))))` through K4
     (`ops/cuda_ffn.py`), with the same mask stream as `dropout` draws for
-    the same keys."""
+    the same keys. Under tensor parallelism K4 runs the layer's d_ff
+    columns (the hidden mask at their whole-width index, `col0`) in its
+    partial mode: fp32 `hd W2_shard^T`, summed over the group, then b2 and
+    the output dropout, rounded once, as the one-process kernel rounds."""
     b, t, d = x.shape
     seeds = seed_from_key(key_h) + seed_from_key(key_o)
-    out = cuda_ffn.FusedFfnDropout.apply(
-        x.reshape(b * t, d), layer.linear1.weight, layer.linear1.bias, layer.linear2.weight,
-        layer.linear2.bias, seeds, 1.0 - rate, 1.0 - rate,
+    tp = getattr(layer, "tp", None)
+    if tp is None:
+        out = cuda_ffn.FusedFfnDropout.apply(
+            x.reshape(b * t, d), layer.linear1.weight, layer.linear1.bias, layer.linear2.weight,
+            layer.linear2.bias, seeds, 1.0 - rate, 1.0 - rate,
+        )
+        return out.reshape(b, t, d)
+    cols = layer.linear1.weight.shape[0]
+    partial = cuda_ffn.FusedFfnDropout.apply(
+        copy_to_region(x, tp).reshape(b * t, d), layer.linear1.weight, layer.linear1.bias, layer.linear2.weight,
+        None, seeds, 1.0 - rate, 1.0 - rate, tp.rank * cols, tp.size * cols,
     )
-    return out.reshape(b, t, d)
+    y = reduce_from_region(partial, tp) + layer.linear2.bias.to(x.dtype).float()
+    return dropout(y, rate, key_o, True).to(x.dtype).reshape(b, t, d)
 
 
 def _ffn_residual(layer, x, rate, key_h: Key, key_o: Key, train: bool, use_pallas_ffn: bool):
@@ -218,6 +270,8 @@ def _keys(keys: Optional[Sequence[Key]], n: int) -> Sequence[Key]:
 
 
 class EncoderLayer(nn.Module):
+    tp: Optional[ModelAxis] = None  # the model axis of a tensor-parallel shard (`ffn`)
+
     def __init__(self, d_model: int, nhead: int, d_ff: int):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead)
@@ -231,12 +285,14 @@ class EncoderLayer(nn.Module):
         """`keys`: the layer's 4 site keys (None: no dropout)."""
         k = _keys(keys, 4)
         attn = self.self_attn(x, x, mask, use_flash, dropout_rate, k[3], train)
-        x = layer_norm(self.norm1, x + dropout(attn, dropout_rate, k[0], train))
+        x = layer_norm(self.norm1, x, dropout(attn, dropout_rate, k[0], train))
         ff = _ffn_residual(self, x, dropout_rate, k[1], k[2], train, use_pallas_ffn)
-        return layer_norm(self.norm2, x + ff)
+        return layer_norm(self.norm2, x, ff)
 
 
 class DecoderLayer(nn.Module):
+    tp: Optional[ModelAxis] = None  # the model axis of a tensor-parallel shard (`ffn`)
+
     def __init__(self, d_model: int, nhead: int, d_ff: int):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead)
@@ -253,11 +309,11 @@ class DecoderLayer(nn.Module):
         """`keys`: the layer's 6 site keys (None: no dropout)."""
         k = _keys(keys, 6)
         attn = self.self_attn(x, x, self_mask, use_flash, dropout_rate, k[4], train)
-        x = layer_norm(self.norm1, x + dropout(attn, dropout_rate, k[0], train))
+        x = layer_norm(self.norm1, x, dropout(attn, dropout_rate, k[0], train))
         cross = self.multihead_attn(x, memory, cross_mask, use_flash, dropout_rate, k[5], train)
-        x = layer_norm(self.norm2, x + dropout(cross, dropout_rate, k[1], train))
+        x = layer_norm(self.norm2, x, dropout(cross, dropout_rate, k[1], train))
         ff = _ffn_residual(self, x, dropout_rate, k[2], k[3], train, use_pallas_ffn)
-        return layer_norm(self.norm3, x + ff)
+        return layer_norm(self.norm3, x, ff)
 
 
 def sinusoidal_positions(maxlen: int, d_model: int) -> np.ndarray:

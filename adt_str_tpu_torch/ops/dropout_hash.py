@@ -33,17 +33,42 @@ def keep_threshold(keep: float) -> int:
     return min(int(keep * 2**32), 2**32 - 1)
 
 
+def _hash_keep(idx: torch.Tensor, seed: Sequence[int], keep: float) -> torch.Tensor:
+    """The keep decision of each int64 element index of `idx` (below 2**32)."""
+    h = (idx * HASH_GOLDEN + int(seed[0])) & U32
+    h = h ^ (h >> 16)
+    h = ((h * HASH_M1) ^ int(seed[1])) & U32
+    h = h ^ (h >> 15)
+    return h < keep_threshold(keep)
+
+
 def hash_mask(shape, seed: Sequence[int], keep: float, device=None) -> torch.Tensor:
     """Boolean keep-mask of `shape` from the two scrambled seed words: the
     hash of each element's flat C-order index (uint32 arithmetic)."""
     n = math.prod(int(d) for d in shape)
     if n > 2**32:
         raise ValueError(f"the hash indexes at most 2**32 elements, got {n}")
-    h = (torch.arange(n, dtype=torch.int64, device=device) * HASH_GOLDEN + int(seed[0])) & U32
-    h = h ^ (h >> 16)
-    h = ((h * HASH_M1) ^ int(seed[1])) & U32
-    h = h ^ (h >> 15)
-    return (h < keep_threshold(keep)).reshape(tuple(shape))
+    return _hash_keep(torch.arange(n, dtype=torch.int64, device=device), seed, keep).reshape(tuple(shape))
+
+
+def hash_mask_slice(global_shape, dim: int, start: int, stop: int, seed: Sequence[int], keep: float,
+                    device=None) -> torch.Tensor:
+    """`hash_mask(global_shape, ...)` narrowed to [start, stop) along `dim`,
+    computed for those elements alone: each is hashed at its flat index in
+    the unsharded tensor. A tensor-parallel shard (heads, FFN columns) so
+    draws the mask the one-process step draws."""
+    shape = [int(s) for s in global_shape]
+    dim = dim % len(shape)
+    if not 0 <= start <= stop <= shape[dim]:
+        raise ValueError(f"slice [{start}, {stop}) out of dim {dim} of {tuple(shape)}")
+    if math.prod(shape) > 2**32:
+        raise ValueError(f"the hash indexes at most 2**32 elements, got {math.prod(shape)}")
+    outer, inner = math.prod(shape[:dim]), math.prod(shape[dim + 1 :])
+    o = torch.arange(outer, dtype=torch.int64, device=device)[:, None, None]
+    j = torch.arange(start, stop, dtype=torch.int64, device=device)[None, :, None]
+    i = torch.arange(inner, dtype=torch.int64, device=device)[None, None, :]
+    idx = (o * shape[dim] + j) * inner + i
+    return _hash_keep(idx, seed, keep).reshape(*shape[:dim], stop - start, *shape[dim + 1 :])
 
 
 def fmix32(h: int) -> int:

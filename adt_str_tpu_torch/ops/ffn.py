@@ -12,6 +12,14 @@ with the counter-hash masks of `dropout_hash.hash_mask` over the flat index
 of the unpadded (N, d_ff) and (N, d) arrays, so they are bit-identical to
 the XLA path's `dropout` for the same keys. ("bf16" is the compute dtype.)
 
+Under tensor parallelism a rank holds d_ff columns of the whole width
+`d_ff_total`, from `col0`: its hidden mask is the hash at the whole-width
+index `r * d_ff_total + col0 + c` (`dropout_hash.hash_mask_slice`), and
+with `b2` None (the partial mode) the forward returns the fp32 product
+`hd W2_shard^T` alone: b2 and the output dropout come after the sum over
+the ranks (`models/transformer.py:ffn_dropout_block`). `col0` 0, the
+whole width and b2 given are the one-process call.
+
 `ffn_dropout_bwd_plain` mirrors `_vjp_bwd`: it recomputes from the saved
 `pre` with the exact erf, regenerates both masks, and forms the four
 products with fp32 results. JAX leaves those products to XLA, so they are
@@ -27,7 +35,7 @@ import math
 
 import torch
 
-from adt_str_tpu_torch.ops.dropout_hash import hash_mask
+from adt_str_tpu_torch.ops.dropout_hash import hash_mask, hash_mask_slice
 
 _SQRT_2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -59,34 +67,50 @@ def _dot_lib(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _dot32(a, b)
 
 
-def ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float) -> tuple[torch.Tensor, torch.Tensor]:
+def hidden_mask(n: int, d_ff: int, seeds, keep_h: float, device, col0: int = 0, d_ff_total=None) -> torch.Tensor:
+    """The (n, d_ff) hidden keep-mask of columns [col0, col0 + d_ff) of the
+    whole (n, d_ff_total) hidden (None: d_ff, the one-process width)."""
+    return hash_mask_slice((n, d_ff_total or d_ff), 1, col0, col0 + d_ff, seeds[0:2], keep_h, device)
+
+
+def ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
+                      d_ff_total=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(N, d) x -> (out (N, d), pre (N, d_ff)) in x's dtype; `seeds` are the
-    four scrambled words [h0, h1, o0, o1]."""
+    four scrambled words [h0, h1, o0, o1]. `b2` None: out is the fp32
+    partial product (see the module docstring, with `col0`, `d_ff_total`)."""
     cdt = x2.dtype
     n, d = x2.shape
     d_ff = w1.shape[0]
     pre = (_dot32(x2, w1.T) + b1.float()).to(cdt)
     h = gelu_as(pre.float())
-    mh = hash_mask((n, d_ff), seeds[0:2], keep_h, x2.device)
+    mh = hidden_mask(n, d_ff, seeds, keep_h, x2.device, col0, d_ff_total)
     hd = torch.where(mh, h * (1.0 / keep_h), 0.0).to(cdt)
+    if b2 is None:
+        return _dot32(hd, w2.T), pre
     out = _dot32(hd, w2.T) + b2.float()
     mo = hash_mask((n, d), seeds[2:4], keep_o, x2.device)
     return torch.where(mo, out * (1.0 / keep_o), 0.0).to(cdt), pre
 
 
-def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: float):
+def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: float, col0: int = 0,
+                          d_ff_total=None, partial: bool = False):
     """Cotangent g of `out` -> (dW1 (d_ff, d), db1, dW2 (d, d_ff), db2, dx),
-    the weight gradients in the kernel's layout and fp32, dx in g's dtype."""
+    the weight gradients in the kernel's layout and fp32, dx in g's dtype
+    (the compute dtype). `partial`: g is that of the fp32 partial product
+    (no output mask; db2 None)."""
     cdt = x2.dtype
     n, d = x2.shape
     d_ff = w1.shape[0]
     pre32 = pre.float()
-    mo = hash_mask((n, d), seeds[2:4], keep_o, g.device)
-    g_out = torch.where(mo, g.float() * (1.0 / keep_o), 0.0)
+    if partial:
+        g_out, db2 = g.float(), None
+    else:
+        mo = hash_mask((n, d), seeds[2:4], keep_o, g.device)
+        g_out = torch.where(mo, g.float() * (1.0 / keep_o), 0.0)
+        db2 = g_out.sum(dim=0)
     g_out_b = g_out.to(cdt)
-    db2 = g_out.sum(dim=0)
     g_hd = _dot_lib(g_out_b, w2)  # (n, d_ff)
-    mh = hash_mask((n, d_ff), seeds[0:2], keep_h, g.device)
+    mh = hidden_mask(n, d_ff, seeds, keep_h, g.device, col0, d_ff_total)
     inv_kh = torch.where(mh, 1.0 / keep_h, 0.0)
     phi = torch.exp(-0.5 * pre32 * pre32) * _INV_SQRT_2PI
     cdf = 0.5 * (1.0 + torch.erf(pre32 / _SQRT_2))
@@ -96,5 +120,5 @@ def ffn_dropout_bwd_plain(g, x2, w1, w2, pre, seeds, keep_h: float, keep_o: floa
     db1 = g_pre.sum(dim=0)
     dw1 = _dot_lib(g_pre_b.T, x2)
     dw2 = _dot_lib(g_out_b.T, hd_b)
-    dx = _dot_lib(g_pre_b, w1).to(g.dtype)
+    dx = _dot_lib(g_pre_b, w1).to(cdt)
     return dw1, db1, dw2, db2, dx

@@ -1,4 +1,5 @@
-"""Row LayerNorm with fp32 statistics (`csrc/layer_norm.cu`) and its plain version.
+"""Row LayerNorm with fp32 statistics, alone or after the residual add
+(`csrc/layer_norm.cu`), and their plain versions.
 
 No TPU kernel is behind this one: it repairs a fault of the port. The plain
 version takes its mean and variance with ATen's reductions, whose launch
@@ -6,20 +7,27 @@ shape follows the row count, so on the card a row's statistics, and from
 them the decode's tokens, changed with the rows decoded beside it. The
 kernel reduces each row with one warp in an order fixed by the width alone.
 
-`layer_norm` is the wrapper the model calls:
-- a CPU tensor runs `layer_norm_plain`;
+`layer_norm(x, ...)` and `add_layer_norm(x, r, ...)` (`LayerNorm(x + r)`,
+the sum rounded to `x`'s dtype first, as ATen's add rounds it, so the fused
+call is bit-equal to `layer_norm(x + r)`) are the wrappers the model calls:
+- a CPU tensor runs the plain version;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
   launches the kernel, which takes fp32 or bf16 rows of at most 1,024 and
   raises on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
-  runs `layer_norm_plain` under autograd: the kernel has no backward yet.
-`layer_norm.launches` counts kernel launches.
+  runs the plain version under autograd: the kernel has no backward.
+`layer_norm.launches` counts the kernel's launches from both wrappers.
+
+The decode step calls it 12 times a step, so its launch path is
+`_build.launch` (no device switch on the current device, the raw current
+stream) and copies no operand already in the kernel's layout.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -38,39 +46,69 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def add_layer_norm_plain(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         eps: float) -> torch.Tensor:
+    """`layer_norm_plain(x + r)`: the sum in `x`'s dtype, then the LayerNorm."""
+    return layer_norm_plain(x + r, weight, bias, eps)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("layer_norm")
     p = ctypes.c_void_p
-    lib.launch_layer_norm.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+    lib.launch_layer_norm.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                      p]
     lib.launch_layer_norm.restype = ctypes.c_int
     lib.layer_norm_max_d.restype = ctypes.c_int
     return lib
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """(..., d) -> (..., d) in `x`'s dtype; see the module docstring for
-    which version runs."""
-    if x.device.type == "cpu" or _build.records_grad(x, weight, bias):
-        return layer_norm_plain(x, weight, bias, eps)
-    if x.device.type != "cuda":
+def _launch(x: torch.Tensor, r: Optional[torch.Tensor], weight: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """The kernel on CUDA `x` (and `r`, the residual, or None)."""
+    if not x.is_cuda:
         raise ValueError(f"layer_norm runs on cpu or cuda tensors, not {x.device}")
     d = x.shape[-1]
     lib = _lib()
-    if x.dtype not in _DTYPE_CODE or not 0 < d <= lib.layer_norm_max_d() or weight.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"the layer_norm kernel takes fp32 or bf16 rows of 1..{lib.layer_norm_max_d()} with (d,) "
-                         f"weight and bias; got {x.dtype} {tuple(x.shape)}, weight {tuple(weight.shape)}")
-    if any(t.device != x.device for t in (weight, bias)):
-        raise ValueError(f"layer_norm: weight and bias must lie on {x.device}")
-    x = x.contiguous()
-    w, b = (t.float().contiguous() for t in (weight, bias))
+    max_d = lib.layer_norm_max_d()
+    if (x.dtype not in _DTYPE_CODE or not 0 < d <= max_d or weight.shape != (d,) or bias.shape != (d,)
+            or (r is not None and (r.shape != x.shape or r.dtype != x.dtype))):
+        raise ValueError(f"the layer_norm kernel takes fp32 or bf16 rows of 1..{max_d} (a residual of x's shape and "
+                         f"dtype) with (d,) weight and bias; got {x.dtype} {tuple(x.shape)}, residual "
+                         f"{None if r is None else (r.dtype, tuple(r.shape))}, weight {tuple(weight.shape)}")
+    device = x.device
+    if any(t.device != device for t in (weight, bias)) or (r is not None and r.device != device):
+        raise ValueError(f"layer_norm: weight, bias and residual must lie on {device}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if r is not None and not r.is_contiguous():
+        r = r.contiguous()
+    # w and b stay referenced until the launch: a cast copy freed before it could be handed to y
+    w = weight if weight.dtype == torch.float32 and weight.is_contiguous() else weight.float().contiguous()
+    b = bias if bias.dtype == torch.float32 and bias.is_contiguous() else bias.float().contiguous()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.launch_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d, eps,
-                                    _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "layer_norm")
+    _build.check(_build.launch(device, _lib().launch_layer_norm, x.data_ptr(), None if r is None else r.data_ptr(),
+                               w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d, eps,
+                               _DTYPE_CODE[x.dtype]), "layer_norm")
     layer_norm.launches += 1
     return y
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """(..., d) -> (..., d) in `x`'s dtype; see the module docstring for
+    which version runs."""
+    if x.is_cpu or _build.records_grad(x, weight, bias):
+        return layer_norm_plain(x, weight, bias, eps)
+    return _launch(x, None, weight, bias, eps)
+
+
+def add_layer_norm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """`LayerNorm(x + r)`: (..., d) x and r of one dtype -> (..., d); see the
+    module docstring for which version runs."""
+    if x.is_cpu or _build.records_grad(x, r, weight, bias):
+        return add_layer_norm_plain(x, r, weight, bias, eps)
+    return _launch(x, r, weight, bias, eps)
 
 
 layer_norm.launches = 0

@@ -1,7 +1,7 @@
-"""Data-parallel layout over torch devices and processes.
+"""Data- and tensor-parallel layout over torch devices and processes.
 
 Port of `adt_str_tpu/parallel/mesh.py:33-95, 205-237` (`maybe_initialize_distributed`,
-`make_mesh`, the batch's row placement), data axis only:
+`make_mesh`, the batch's row placement):
 
 - `maybe_initialize_distributed(device)` reads `torchrun`'s environment
   (`MASTER_ADDR`, `MASTER_PORT`, `RANK`, `WORLD_SIZE`, `LOCAL_RANK`) and
@@ -14,7 +14,13 @@ Port of `adt_str_tpu/parallel/mesh.py:33-95, 205-237` (`maybe_initialize_distrib
   the caller names (`cuda:0`) with gloo, since NCCL cannot hold two ranks
   on one card; the CPU with gloo.
 - `DataMesh` is the data axis: the process group (or none), this process's
-  rank and the world, and the local devices this process decodes on. A
+  index on the axis and the axis size, and the local devices this process
+  decodes on. In a process group of `n_data x n_model` ranks it is the 2-D
+  mesh of JAX's grid (`devices.reshape(n_data, n_model)`): the ranks of
+  one model group are consecutive, rank = data index * n_model + model
+  index; `group` is then this rank's data group (the ranks of its model
+  index), `model` its `parallel/tensor_parallel.py:ModelAxis` (None at
+  n_model 1), `global_rank` its rank in the job. A
   multi-process mesh holds one device a rank; a single-process mesh may
   hold several, and may repeat one (`["cpu", "cpu"]`, `["cuda:0",
   "cuda:0"]`), as JAX's virtual CPU devices do, to exercise the row split
@@ -24,8 +30,7 @@ Port of `adt_str_tpu/parallel/mesh.py:33-95, 205-237` (`maybe_initialize_distrib
 - Collectives on a gloo group stage CUDA tensors through host memory:
   gloo reduces and gathers on the CPU.
 
-The tensor-parallel `model` axis and FSDP are not ported
-(`TENSOR_PARALLEL_ITEM`, `FSDP_ITEM`): asking for either raises.
+FSDP is not ported (`FSDP_ITEM`): asking for it raises.
 """
 
 from __future__ import annotations
@@ -41,19 +46,18 @@ import torch
 import torch.distributed as dist
 
 from adt_str_tpu_torch import resolve_device
+from adt_str_tpu_torch.parallel.tensor_parallel import ModelAxis
 
 logger = logging.getLogger(__name__)
 
 TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
-TENSOR_PARALLEL_ITEM = ("the tensor-parallel model axis (Megatron layout, vocab-sharded generator) is ROADMAP.md "
-                        "queue 1 item 11")
 FSDP_ITEM = "FSDP (parameters sharded over the data axis) is ROADMAP.md queue 1 item 12"
 
 
 def check_layout(n_model: int = 1, fsdp: bool = False) -> None:
-    """Raise for the layouts the port does not have: a model axis or FSDP."""
-    if n_model > 1:
-        raise NotImplementedError(f"model axis {n_model}: {TENSOR_PARALLEL_ITEM}")
+    """Raise for the layouts the port does not have (FSDP) and a model axis below 1."""
+    if n_model < 1:
+        raise ValueError(f"model axis {n_model}: the axis holds one rank or more")
     if fsdp:
         raise NotImplementedError(FSDP_ITEM)
 
@@ -126,20 +130,27 @@ def destroy() -> None:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DataMesh:
-    """The data axis: `group` the process group (None: one process),
-    `rank` and `world` this process's place in it, `devices` the local
-    devices it holds (one a rank when `group` is set). Entries are ordered
-    by rank, then by local device; `n_data` counts them."""
+    """The data axis: `group` the process group of the axis (None: one
+    process), `rank` and `world` this process's place on it, `devices` the
+    local devices it holds (one a rank when `group` is set). Entries are
+    ordered by rank, then by local device; `n_data` counts them. `model`:
+    the tensor-parallel axis (None: none), `global_rank` the rank in the job."""
 
     devices: tuple[torch.device, ...]
     group: Any = None
     rank: int = 0
     world: int = 1
+    model: Optional[ModelAxis] = None
+    global_rank: int = 0
     _replicas: Any = dataclasses.field(default_factory=weakref.WeakKeyDictionary, repr=False)
 
     @property
     def n_data(self) -> int:
         return self.world * len(self.devices)
+
+    @property
+    def n_model(self) -> int:
+        return 1 if self.model is None else self.model.size
 
     @property
     def device(self) -> torch.device:
@@ -155,13 +166,21 @@ class DataMesh:
         return t.cpu() if self.backend == "gloo" else t
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """The reduction of `t` over the ranks, on `t`'s device and dtype:
-        in place where the backend takes `t` (NCCL; gloo and a host
+        """The reduction of `t` over the data axis, on `t`'s device and
+        dtype: in place where the backend takes `t` (NCCL; gloo and a host
         tensor), else through a host copy."""
-        if self.group is None:
+        if self.group is None or self.world == 1:
             return t
         buf = self._staged(t).contiguous()
         dist.all_reduce(buf, op=op, group=self.group)
+        return buf.to(t.device)
+
+    def all_reduce_job(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """As `all_reduce`, over every rank of the job (both axes)."""
+        if self.group is None:
+            return t
+        buf = self._staged(t).contiguous()
+        dist.all_reduce(buf, op=op, group=dist.group.WORLD)
         return buf.to(t.device)
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -175,10 +194,10 @@ class DataMesh:
         return torch.cat(parts).to(t.device)
 
     def barrier(self) -> None:
-        """Every rank waits for the others (a one-element all-reduce on the
-        backend's own device, so NCCL needs no guess of the card)."""
-        if self.group is not None:
-            self.all_reduce(torch.zeros(1, device=self.device))
+        """Every rank of the job waits for the others (a one-element
+        all-reduce on the backend's own device, so NCCL needs no guess of
+        the card)."""
+        self.all_reduce_job(torch.zeros(1, device=self.device))
 
     def local_rows(self, n_rows: int) -> slice:
         """This rank's contiguous stripe of a global batch of `n_rows`."""
@@ -205,21 +224,38 @@ class DataMesh:
 
 
 def make_mesh(n_data: int = -1, n_model: int = 1, devices: Optional[list] = None, fsdp: bool = False) -> DataMesh:
-    """The data axis over `devices`. In a process group: this rank's one
-    device (None: the current card, which `maybe_initialize_distributed`
-    set), `n_data` -1 or the world size. In one process: `devices` (None:
-    every visible card), the first `n_data` of them (-1: all)."""
+    """The mesh over `devices`. In a process group: this rank's one device
+    (None: the current card, which `maybe_initialize_distributed` set) on
+    the `n_data x n_model` grid of the ranks (`n_data` -1: the world over
+    `n_model`; a grid that is not the world raises); every rank calls it,
+    since it makes the axes' groups. In one process, the data axis alone:
+    `devices` (None: every visible card), the first `n_data` of them (-1:
+    all); a model axis there raises (it runs one process a rank)."""
     check_layout(n_model, fsdp)
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
-        if n_data not in (-1, world):
-            raise ValueError(f"n_data={n_data} but the process group has {world} ranks: one rank a data entry")
+        if n_data == -1:
+            n_data = max(1, world // n_model)
+        if n_data * n_model != world:
+            raise ValueError(f"mesh {n_data} x {n_model} needs {n_data * n_model} ranks, the process group has "
+                             f"{world}: one rank a mesh entry")
         if devices is None:
             devices = [torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available()
                        else resolve_device(None)]
         if len(devices) != 1:
             raise ValueError(f"a rank of a process group holds one device, got {devices}")
-        return DataMesh(devices=(torch.device(devices[0]),), group=dist.group.WORLD, rank=rank, world=world)
+        device = torch.device(devices[0])
+        if n_model == 1:
+            return DataMesh(devices=(device,), group=dist.group.WORLD, rank=rank, world=world, global_rank=rank)
+        data_index, model_index = divmod(rank, n_model)
+        # every rank makes every group, in one order (new_group's contract)
+        model_groups = [dist.new_group(list(range(i * n_model, (i + 1) * n_model))) for i in range(n_data)]
+        data_groups = [dist.new_group(list(range(j, world, n_model))) for j in range(n_model)]
+        return DataMesh(devices=(device,), group=data_groups[model_index], rank=data_index, world=n_data,
+                        model=ModelAxis(model_groups[data_index], model_index, n_model), global_rank=rank)
+    if n_model > 1:
+        raise ValueError(f"a model axis of {n_model} runs one process a rank: build the mesh inside a process "
+                         "group (torchrun)")
     if devices is None:
         resolve_device(None)  # raises without CUDA
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -245,15 +281,17 @@ def _weights_checksum(model: torch.nn.Module) -> torch.Tensor:
 
 
 def broadcast_model(mesh: Optional[DataMesh], model: torch.nn.Module) -> None:
-    """Copy rank 0's weights to every rank, once at start. The ranks built
-    or restored the same weights, so each rank's checksum must equal rank
-    0's first: a difference raises (the ranks were not seeded alike)."""
-    if mesh is None or mesh.group is None:
+    """Copy the data axis's first rank's weights (its shard, under a model
+    axis) to every rank of the axis, once at start. The ranks built or
+    restored the same weights, so each rank's checksum must equal the
+    first's: a difference raises (the ranks were not seeded alike)."""
+    if mesh is None or mesh.group is None or mesh.world == 1:
         return
+    src = mesh.global_rank % mesh.n_model  # the data group's first rank: data index 0, this model index
     mine = _weights_checksum(model)
     ref = mine.clone()
     buf = mesh._staged(ref.reshape(1))
-    dist.broadcast(buf, src=0, group=mesh.group)
+    dist.broadcast(buf, src=src, group=mesh.group)
     if int(buf.item()) != int(mine.item()):
         raise RuntimeError(f"rank {mesh.rank}'s weights differ from rank 0's (checksum {int(mine.item())} vs "
                            f"{int(buf.item())}): the ranks were not seeded or restored alike")
@@ -261,6 +299,6 @@ def broadcast_model(mesh: Optional[DataMesh], model: torch.nn.Module) -> None:
         tensors = list(model.state_dict().values())
         for t in tensors:
             staged = mesh._staged(t.detach())
-            dist.broadcast(staged, src=0, group=mesh.group)
+            dist.broadcast(staged, src=src, group=mesh.group)
             if staged is not t:
                 t.copy_(staged)

@@ -32,6 +32,15 @@ the rank into the step's rng), and the ranks reduce as JAX's data-manual
   gradients, so the ranks' weights stay bit-equal.
 
 The eval steps return the global token-weighted loss under a mesh.
+
+Under a model axis (`DataMesh.model`, a mesh of `n_data x n_model` ranks)
+the state's model is this rank's tensor-parallel shard
+(`ADTModel(..., tp=mesh.model)`): the forward and backward run the region
+operators of `parallel/tensor_parallel.py`, the loss is the
+vocabulary-parallel CE, the data-axis reductions above run over the data
+group (the ranks of one model index), and the optimizer's clip norm and
+non-finite guard span the model group (`training/optimizer.py`). The ranks
+of one model group take the same batch, keys and draws.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from adt_str_tpu_torch.config import ModelConfig, SynthConfig
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.synth.render import RenderDraws, SynthStatics, check_bins_loaded, render_batch
-from adt_str_tpu_torch.training.optimizer import OptState, Optimizer, apply_updates, global_norm
+from adt_str_tpu_torch.training.optimizer import OptState, Optimizer, apply_updates
 
 
 @dataclass
@@ -67,11 +76,14 @@ def _tokens_on(batch: dict, device: torch.device) -> tuple[torch.Tensor, Any]:
     return batch["tokens"].to(device), None if lengths is None else lengths.to(device)
 
 
-def _check(model: ADTModel, config: ModelConfig, device: torch.device) -> None:
+def _check(model: ADTModel, config: ModelConfig, device: torch.device, mesh: Optional[DataMesh] = None) -> None:
     if model.config != config:
         raise ValueError("the state's model was built from another ModelConfig")
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model lies on {next(model.parameters()).device}, the step runs on {device}")
+    if (None if mesh is None else mesh.model) is not model.tp:
+        raise ValueError("the model's tensor-parallel axis is not the mesh's: build it with "
+                         "ADTModel(..., tp=mesh.model)")
 
 
 def normalize_comm_dtype(comm_dtype) -> Optional[torch.dtype]:
@@ -119,6 +131,8 @@ def allreduce_grads(mesh: DataMesh, grads: list[torch.Tensor], comm_dtype: Optio
     """The gradients summed over the ranks (times `scale`): one flat buffer
     and one all-reduce, cast to `comm_dtype` for the transport when given
     (parameters, moments and the update stay fp32)."""
+    if mesh.world == 1:
+        return grads if scale is None else [g * scale for g in grads]
     flat = torch.cat([g.reshape(-1) for g in grads])
     if comm_dtype is None:
         flat = mesh.all_reduce(flat)
@@ -152,7 +166,7 @@ def _update(state: TrainState, opt: Optimizer, wavs, tokens, lengths, site_keys,
     grads = dict(zip(params, grads))
     updates, opt_state = opt.update(grads, state.opt_state, params)
     apply_updates(params, updates)
-    metrics = {"loss": reported, "grad_norm": global_norm(grads.values())}
+    metrics = {"loss": reported, "grad_norm": opt.grad_norm(grads)}
     if opt.skip_nonfinite > 0:
         metrics["notfinite_total"] = opt_state.total_notfinite
     return TrainState(model, opt_state, state.step + 1), metrics
@@ -171,7 +185,7 @@ def make_train_step(config: ModelConfig, opt: Optimizer, device=None, mesh=None,
     dp = None if mesh is None else (mesh, normalize_comm_dtype(comm_dtype), bool(ddp_loss_weighting))
 
     def step(state: TrainState, batch: dict, site_keys) -> tuple[TrainState, dict]:
-        _check(state.model, config, device)
+        _check(state.model, config, device, mesh)
         return _update(state, opt, batch["wavs"].to(device), *_tokens_on(batch, device), site_keys, dp)
 
     return step
@@ -191,7 +205,7 @@ def make_synth_train_step(config: ModelConfig, synth_config: SynthConfig, static
     _synth_statics_on(statics, synth_config, device)
 
     def step(state: TrainState, batch: dict, draws: RenderDraws, site_keys) -> tuple[TrainState, dict]:
-        _check(state.model, config, device)
+        _check(state.model, config, device, mesh)
         with torch.no_grad():
             wavs = render_batch(statics, batch["notes"], batch["note_mask"], draws, synth_config)
         return _update(state, opt, wavs, *_tokens_on(batch, device), site_keys, dp)
@@ -221,7 +235,7 @@ def make_eval_step(config: ModelConfig, device=None, mesh=None):
     mesh, device = _data_parallel(mesh, device)
 
     def step(model: ADTModel, batch: dict) -> torch.Tensor:
-        _check(model, config, device)
+        _check(model, config, device, mesh)
         with torch.no_grad():
             return _eval_loss(model, mesh, batch["wavs"].to(device), *_tokens_on(batch, device))
 
@@ -239,7 +253,7 @@ def make_synth_eval_step(config: ModelConfig, synth_config: SynthConfig, statics
     _synth_statics_on(statics, synth_config, device)
 
     def step(model: ADTModel, batch: dict, draws: RenderDraws) -> torch.Tensor:
-        _check(model, config, device)
+        _check(model, config, device, mesh)
         with torch.no_grad():
             wavs = render_batch(statics, batch["notes"], batch["note_mask"], draws, synth_config)
             return _eval_loss(model, mesh, wavs, *_tokens_on(batch, device))

@@ -17,7 +17,12 @@ second save of a step overwrites it. In a data-parallel run (`mesh` a
 process-group `DataMesh`) every rank calls the save: rank 0 alone writes
 and collects garbage, and a barrier follows, so no rank reads a
 half-written checkpoint; every rank restores the same files onto its own
-device. `gc_checkpoints` keeps the newest
+device. A tensor-parallel model (`model.tp`) saves the whole model: the
+model group of data index 0 gathers its shards of the weights and of
+Adam's moments (`parallel/tensor_parallel.py:gather_state_dict`), so the
+files are those of a one-process run and eval, serving and a one-process
+resume read them; a tensor-parallel restore cuts its shard out of them
+again. `gc_checkpoints` keeps the newest
 `max_checkpoints` by mtime; `latest_checkpoint` is the newest (auto-resume).
 A checkpoint whose `meta.json` was lost (a preemption between the two
 writes) restores with step and epoch read from its directory name. The JAX
@@ -27,7 +32,6 @@ the port through `models/convert.py:load_reference_checkpoint`.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import re
@@ -38,6 +42,7 @@ from typing import Optional
 import torch
 
 from adt_str_tpu_torch.models.convert import write_safetensors
+from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.training.optimizer import OptState
 
@@ -59,17 +64,24 @@ def save_checkpoint(output_dir: str | Path, model: torch.nn.Module, opt_state: O
                     max_checkpoints: Optional[int] = None, mesh: Optional[DataMesh] = None) -> str:
     """Write `output_dir/checkpoint-epoch-{epoch}-step-{step}` (overwriting
     it if it exists), then GC to the newest `max_checkpoints`. -> its path.
-    Under a process-group `mesh`: rank 0 writes, then every rank waits."""
+    Under a process-group `mesh`: rank 0 writes (a tensor-parallel model's
+    shards gathered first), then every rank waits."""
     output_dir = Path(output_dir)
     path = output_dir / checkpoint_name(epoch, step)
-    if mesh is None or mesh.rank == 0:
+    axis = getattr(model, "tp", None)
+    if axis is not None and mesh is None:
+        raise ValueError("a tensor-parallel model saves with its mesh: every rank calls the save")
+    weights, opt = model.state_dict(), dict(vars(opt_state))
+    if axis is not None and mesh.rank == 0:  # the model group of data index 0 gathers
+        weights = tp_lib.gather_state_dict(weights, axis)
+        opt.update({k: tp_lib.gather_state_dict(opt[k], axis) for k in ("mu", "nu", "acc")})
+    if mesh is None or mesh.global_rank == 0:
         path.mkdir(parents=True, exist_ok=True)
-        state = {"model": model.state_dict(), "opt_state": dataclasses.asdict(opt_state), "step": int(step),
-                 "epoch": int(epoch)}
+        state = {"model": weights, "opt_state": opt, "step": int(step), "epoch": int(epoch)}
         _replace_into(path / "state.pt", lambda p: torch.save(state, p))
         _replace_into(path / "meta.json",
                       lambda p: p.write_text(json.dumps({"step": int(step), "epoch": int(epoch)})))
-        _replace_into(path / "model.safetensors", lambda p: write_safetensors(model.state_dict(), p))
+        _replace_into(path / "model.safetensors", lambda p: write_safetensors(weights, p))
         if max_checkpoints:
             gc_checkpoints(output_dir, max_checkpoints)
     if mesh is not None:
@@ -95,13 +107,19 @@ def latest_checkpoint(output_dir: str | Path) -> Optional[str]:
 
 
 def restore_checkpoint(path: str | Path, model: torch.nn.Module, device=None) -> tuple[OptState, int, int]:
-    """Load the checkpoint's weights into `model` (strict) -> (its optimizer
-    state on `device`, step, epoch). `device` None: the model's device."""
+    """Load the checkpoint's weights into `model` (strict; a tensor-parallel
+    model takes its shard) -> (its optimizer state on `device`, step,
+    epoch). `device` None: the model's device."""
     path = Path(path)
     device = next(model.parameters()).device if device is None else torch.device(device)
     state = torch.load(path / "state.pt", map_location=device, weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
-    opt_state = OptState(**state["opt_state"])
+    weights, opt = state["model"], state["opt_state"]
+    if getattr(model, "tp", None) is not None:
+        rank, size = model.tp.rank, model.tp.size
+        weights = tp_lib.shard_state_dict(weights, rank, size)
+        opt.update({k: tp_lib.shard_state_dict(opt[k], rank, size) for k in ("mu", "nu", "acc")})
+    model.load_state_dict(weights, strict=True)
+    opt_state = OptState(**opt)
     meta_path = path / "meta.json"
     if meta_path.exists():
         meta = json.loads(meta_path.read_text())

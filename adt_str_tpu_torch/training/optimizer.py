@@ -22,6 +22,12 @@ here the same arithmetic is written as plain tensor ops over a
 The HF Trainer decay rule excludes biases and LayerNorm parameters; in the
 port LayerNorm's scale is called `weight`, so `decay_mask` goes by module
 type, not by name.
+
+A tensor-parallel model's optimizer (`make_optimizer` reads the model's
+`tp`) updates the rank's shard elementwise as above; the clip's global
+norm and the non-finite guard span the model group
+(`parallel/tensor_parallel.py:global_norm`, `all_finite`), so every rank of
+it clips by the whole model's norm and skips the same steps.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from torch import nn
 
 from adt_str_tpu_torch.config import TrainingConfig
+from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 
 Schedule = Callable[[int], float]
 Params = dict[str, torch.Tensor]
@@ -120,10 +127,24 @@ class Optimizer:
 
     def __init__(self, schedule: Schedule, *, max_grad_norm: float, weight_decay: float,
                  decay: dict[str, bool], accum_steps: int = 1, skip_nonfinite: int = 0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 model_axis: Optional[tp_lib.ModelAxis] = None):
         self.schedule, self.max_grad_norm, self.weight_decay = schedule, float(max_grad_norm), float(weight_decay)
         self.decay, self.accum_steps, self.skip_nonfinite = decay, max(1, int(accum_steps)), int(skip_nonfinite)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.model_axis = model_axis
+        self.sharded = tp_lib.sharded_names(decay) if model_axis is not None else frozenset()
+
+    def grad_norm(self, grads: Params) -> torch.Tensor:
+        """The global norm of `grads` (the whole model's, under a model axis)."""
+        if self.model_axis is None:
+            return global_norm(grads.values())
+        return tp_lib.global_norm(grads, self.model_axis, self.sharded)
+
+    def _all_finite(self, grads: Params) -> bool:
+        if self.model_axis is None:
+            return all(bool(torch.isfinite(g).all()) for g in grads.values())
+        return tp_lib.all_finite(grads, self.model_axis)
 
     def init(self, params: Params) -> OptState:
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
@@ -132,7 +153,7 @@ class Optimizer:
     def update(self, grads: Params, state: OptState, params: Params) -> tuple[Params, OptState]:
         """-> (updates to add to the params, new state)."""
         if self.skip_nonfinite > 0:
-            finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+            finite = self._all_finite(grads)
             count = 0 if finite else state.notfinite_count + 1
             state = dataclasses.replace(state, notfinite_count=count,
                                         total_notfinite=state.total_notfinite + (not finite))
@@ -149,7 +170,7 @@ class Optimizer:
         return self._inner(grads, state, params)
 
     def _inner(self, grads: Params, state: OptState, params: Params) -> tuple[Params, OptState]:
-        g_norm = global_norm(grads.values())
+        g_norm = self.grad_norm(grads)
         trigger = g_norm < self.max_grad_norm
         b1, b2 = self.b1, self.b2
         count = state.count + 1
@@ -183,5 +204,6 @@ def make_optimizer(config: TrainingConfig, total_steps: int, model: nn.Module) -
     accum = max(1, int(config.gradient_accumulation_steps))
     schedule = make_schedule(config, max(1, total_steps // accum))
     opt = Optimizer(schedule, max_grad_norm=config.max_grad_norm, weight_decay=config.weight_decay,
-                    decay=decay_mask(model), accum_steps=accum, skip_nonfinite=config.skip_nonfinite_updates)
+                    decay=decay_mask(model), accum_steps=accum, skip_nonfinite=config.skip_nonfinite_updates,
+                    model_axis=getattr(model, "tp", None))
     return opt, (lambda step: schedule(step // accum))

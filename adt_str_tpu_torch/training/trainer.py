@@ -9,9 +9,10 @@ Port of `adt_str_tpu/training/trainer.py` (`evaluate_loss`, `train`):
 - Lakh: the synthesis-fused step renders each batch's audio on the device
   (`make_synth_train_step`); TMIDT: real audio (`make_train_step`);
 - each step's dropout site keys and render draws come from generators
-  seeded by (`experiment.seed + 1`, step index[, rank]), counter-based like
-  JAX's `fold_in`, so a resumed run replays the same keys; the rank joins
-  the seed only when there is more than one;
+  seeded by (`experiment.seed + 1`, step index[, data index]),
+  counter-based like JAX's `fold_in`, so a resumed run replays the same
+  keys; the data index joins the seed only when the data axis has more
+  than one entry;
 - epoch order from `np.random.default_rng([seed, epoch])`; a resume skips
   the in-progress epoch's first batches by index (`skip`); batches are
   assembled on a prefetch thread, in pinned host memory on CUDA so that
@@ -43,7 +44,19 @@ writes the checkpoints and `eval_history.jsonl`, traces the profile window
 and starts wandb; a signal sets a local flag whose global OR (one
 all-reduce a step, read a step later) stops every rank after one common
 save. The group the trainer joined is destroyed at the end, also on
-error. A model axis or FSDP raises (`parallel/mesh.py:check_layout`).
+error. FSDP raises (`parallel/mesh.py:check_layout`).
+
+Tensor parallelism (`mesh.model_axis: n`, read as JAX reads it): the
+ranks form JAX's `n_data x n_model` grid (`make_mesh`, the ranks of one
+model group consecutive), each rank trains its shard of the model
+(`ADTModel(..., tp=mesh.model)`), and everything keyed above by the rank
+is keyed by the data index (`rank // n_model`) over `n_data`: the
+generators, the dataset's stride, the global batch and the holdout check,
+so both halves of one model see the same rows, keys and draws. Rank 0 of
+the job alone writes; a save gathers the shards
+(`training/checkpoint.py`), a resume cuts them again. On one card:
+`python -m torch.distributed.run --nproc_per_node 2 -m
+adt_str_tpu_torch.train <yaml with mesh.model_axis: 2> --device cuda:0`.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset, prefetch_
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.models.adt import ADTModel, draw_site_keys
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
+from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.parallel.train_step import (
     TrainState,
@@ -85,7 +99,8 @@ EVAL_DRAW_SEED = 0  # the eval stream's render draws: (EVAL_DRAW_SEED, batch ind
 
 
 def init_model(cfg: FrameworkConfig, device) -> ADTModel:
-    """The model a run starts from: seeded random weights (`experiment.seed`)."""
+    """The model a run starts from: seeded random weights (`experiment.seed`),
+    whole (a tensor-parallel rank cuts its shard from it)."""
     return ADTModel(cfg.model, seed=cfg.experiment.seed, device=device)
 
 
@@ -148,7 +163,7 @@ def _maybe_wandb(cfg: FrameworkConfig):
 
 
 def _rank_or_none(mesh: Optional[DataMesh]) -> Optional[int]:
-    """The rank that joins a generator's seed: none in one process."""
+    """The data index that joins a generator's seed: none on a data axis of one."""
     return None if mesh is None or mesh.world == 1 else mesh.rank
 
 
@@ -162,7 +177,8 @@ def evaluate_loss(model: ADTModel, model_cfg: ModelConfig, dataset, batch_size: 
     `eval_step` reuses a step across calls. `device` None: cuda. Under a
     process-group `mesh` each rank loads its stride of the prefix
     (`batch_size` rows a rank), every rank takes the same analytic number
-    of batches, and each gets the same global loss."""
+    of batches, and each gets the same global loss (ranks and world: the
+    data axis's; a model group's ranks evaluate the same rows)."""
     device = resolve_device(device)
     synth = synth_config is not None and statics is not None
     if eval_step is None:
@@ -206,15 +222,17 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
     (joined here from torchrun's environment, or by the caller) it trains
     data-parallel over the ranks."""
     setup_logging(cfg.logging.log_level)
-    mesh_lib.check_layout(cfg.mesh.model_axis, cfg.mesh.fsdp)
+    n_model = max(1, cfg.mesh.model_axis)
+    mesh_lib.check_layout(n_model, cfg.mesh.fsdp)
     joined = mesh_lib.maybe_initialize_distributed(device)
     quiet = None
     try:
         device = joined if joined is not None else resolve_device(device)
         mesh = None
-        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-            mesh = mesh_lib.make_mesh(devices=[device])
-            if mesh.rank > 0:
+        if (torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1) or n_model > 1:
+            n_data = cfg.mesh.data_axis if cfg.mesh.data_axis > 0 else -1
+            mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, devices=[device])
+            if mesh.global_rank > 0:
                 quiet = _WarningsOnly()
                 logger.addFilter(quiet)
         data_axis = 1 if mesh is None else mesh.world
@@ -234,7 +252,8 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
     if cfg.train_data is None:
         raise ValueError("a TrainDatasetConfig section is required")
     data_cfg = cfg.train_data
-    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)  # the data axis
+    lead = mesh is None or mesh.global_rank == 0  # the job's one writer
     tokenizer = MidiTokenizer(cfg.tokenizer)
     lakh = data_cfg.dataset_name == "Lakh"
     statics = None
@@ -257,10 +276,12 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
         logger.info("TMIDT dataset: %d items", len(dataset))
     else:
         raise ValueError(f"Dataset name {data_cfg.dataset_name} not supported")
-    wandb = _maybe_wandb(cfg) if rank == 0 else None
+    wandb = _maybe_wandb(cfg) if lead else None
 
     model_cfg = cfg.model
     model = init_model(cfg, device)
+    if mesh is not None and mesh.model is not None:
+        tp_lib.shard_model_(model, mesh.model)
     logger.info("model params: %.2f M", sum(p.numel() for p in model.parameters()) / 1e6)
 
     batch_size = cfg.training.batch_size  # rows a rank loads a step
@@ -275,8 +296,8 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
     total_steps = int(steps_per_epoch * float(cfg.training.num_epochs))
     if cfg.training.max_steps:
         total_steps = min(total_steps, cfg.training.max_steps)
-    logger.info("device=%s ranks=%d batch=%d a rank (%d global) steps/epoch=%d total_steps=%d", device, world,
-                batch_size, global_batch, steps_per_epoch, total_steps)
+    logger.info("device=%s mesh=%d x %d batch=%d a data index (%d global) steps/epoch=%d total_steps=%d", device,
+                world, 1 if mesh is None else mesh.n_model, batch_size, global_batch, steps_per_epoch, total_steps)
 
     opt, schedule = make_optimizer(cfg.training, total_steps, model)
     dp = dict(mesh=mesh, comm_dtype=cfg.training.grad_allreduce_dtype,
@@ -288,7 +309,7 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
     state = init_train_state(model, opt)
 
     output_dir = Path(cfg.logging.output_dir) / cfg.experiment.run_name
-    if rank == 0:
+    if lead:
         output_dir.mkdir(parents=True, exist_ok=True)
     start_step = 0
     resume = cfg.checkpoint.resume_from_checkpoint
@@ -318,7 +339,7 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
                     extra={"step_metrics": {"step": step_idx, "eval_loss": e_loss}})
         if wandb:
             wandb.log({"eval_loss": e_loss}, step=step_idx)
-        if rank == 0:  # one writer; every rank holds the same loss
+        if lead:  # one writer; every rank holds the same loss
             with open(output_dir / "eval_history.jsonl", "a") as f:
                 f.write(json.dumps({"step": step_idx, "eval_loss": e_loss}) + "\n")
 
@@ -348,10 +369,10 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
             return stop_requested["flag"]
         stop = pending_stop is not None and bool(pending_stop.item())
         flag = torch.tensor([int(stop_requested["flag"])], dtype=torch.int32, device=flag_device)
-        pending_stop = mesh.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        pending_stop = mesh.all_reduce_job(flag, op=torch.distributed.ReduceOp.MAX)
         return stop
 
-    profile_steps = (cfg.logging.profile_steps or []) if rank == 0 else []
+    profile_steps = (cfg.logging.profile_steps or []) if lead else []
     profiler = None
     step_idx = start_step
     t_last = time.perf_counter()

@@ -32,7 +32,8 @@ line:
    torch.profiler); K1 also its frequency split and its time with the split
    chosen as before the batch-invariance repair (from the batch);
    then the batch-invariance kernels, which no TPU kernel is behind
-   (LayerNorm, the inference product, the inference attention): each
+   (LayerNorm alone and with the residual add fused, the inference
+   product, the inference attention): each
    against its plain version at the serving bucket's decode step (every
    product of the step: the in-projection, the 768 -> 768 projections,
    FFN 1 and 2, the generator; self- and cross-attention) and encoder and
@@ -168,24 +169,43 @@ line:
    device at the entries' batch, and 8 token rows of 16-77 through the
    text tower on the card against the CPU, `semantic_match` rows summing
    to 1;
-9. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
+9. tp (`phase_tp`): tensor parallelism at full width. The kernels
+   at a rank's shapes against their plain versions (K1 at the TP batch of
+   8; K5f and K5b at 3 heads of 128; K4 at d_ff 1536 from col0 0 and 1536
+   of 3072 in its partial mode); two rank processes on cuda:0 over gloo (a
+   1 x 2 mesh) train TMIDT-flash and TMIDT-fused-ffn for 3 steps from the
+   same seeded weights, the first step within 1e-3 (loss) and 1e-2 (grad
+   norm) of the one-process step on the same weights, batch and keys, the
+   ranks' numbers and replicated weights bit-equal, the kernels launched
+   as the steps need; `trainer.train` at `mesh.model_axis: 2` for 2 steps
+   and a run resumed from the first save, bit-equal, its checkpoint
+   written whole and loading into a one-process model whose shards are the
+   ranks' weights; NCCL a card a rank where there are two cards, else a
+   line that says it was not run;
+10. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
    the three batch-invariance kernels) at the main-path shape named in its
    entry, with its launches in every main-path run (serving, the three
    training steps, bench, eval, inference, trainer, trainer-resumed,
    trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
    their ranks, the NCCL step, decode_dp greedy, beam and serving, clap,
-   batch_invariance's greedy runs);
+   batch_invariance's greedy runs, the tp phase's steps and trainer);
    K1's entry also holds its numbers at CLAP's frontend
-   (`at_clap_frontend`).
+   (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`), K4's in
+   its partial mode (`partial_d_ff_1536`), and `layer_norm`'s entry is the
+   fused call the decode step makes (LayerNorm(x + r)), its one-input
+   entry and the encoder's fused call beside it.
 
 Then the card's `nvidia-smi` line, and last `{"ok": true, "device": ...}`.
 Any failed phase raises: no `ok` line and a nonzero exit.
 
 `python3 chip_smoke.py --compare LABEL=DIR [LABEL=DIR ...] --order
-LABEL,LABEL,...` runs none of that: it measures the decode step's product
-and attention kernels of several trees (the roots of `git archive`s, each
-building into its own `build/kernels/`), one process a run in the given
-order (`compare_trees`).
+LABEL,LABEL,...` runs none of that: it measures the decode step's
+LayerNorm (and the fused add, where a tree has it), product and attention
+kernels of several trees (the roots of `git archive`s, each building into
+its own `build/kernels/`) and their decode loops, one process a run in the
+given order, and groups the runs by bit-equal outputs on seeded inputs
+(LayerNorms, products, attentions, greedy and beam tokens;
+`compare_trees`).
 """
 
 from __future__ import annotations
@@ -247,6 +267,7 @@ from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
+from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel import train_step as port_step
 from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_train_step, make_train_step
 from adt_str_tpu_torch.serve import build_engine
@@ -597,6 +618,63 @@ def phase_layer_norm(gen, rows: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64)
     return res
 
 
+def _add_ln_library(x, r, w, b, eps):
+    """`x + r` then `F.layer_norm` on fp32: the fused kernel's library yardstick."""
+    return torch.nn.functional.layer_norm((x + r).float(), (x.shape[-1],), w, b, eps)
+
+
+def _add_then_layer_norm(x, r, w, b, eps):
+    """The unfused form: ATen's add, then the kernel's one-input entry."""
+    return ln_ops.layer_norm(x + r, w, b, eps)
+
+
+def phase_add_layer_norm(gen, rows: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64), rows_per: int = 1,
+                         d: int = 768) -> dict:
+    """The fused `add_layer_norm` (LayerNorm(x + r), the residual add in the
+    kernel) at (rows, d) bf16, held three ways: against its plain version
+    within `phase_layer_norm`'s tolerance (fp32 rows within 1e-5);
+    bit-equal (`torch.equal`) to the unfused form, ATen's `x + r` then the
+    kernel's one-input entry; its rows bit-equal at each of `counts` leading
+    blocks of `rows_per` rows against all 64. Timed against the unfused form
+    and `x + r` then `F.layer_norm` on fp32; the bound counts x, r and y
+    once each."""
+    def make(n, dtype=torch.bfloat16):
+        x = (torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+        r = (torch.randn(n, d, generator=gen, device="cuda") * 1.5 - 0.25).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        return x, r, w, b, 1e-5
+
+    inputs = [make(rows) for _ in range(REPS)]
+    before = ln_ops.layer_norm.launches
+    out = ln_ops.add_layer_norm(*inputs[0])
+    torch.cuda.synchronize()
+    if ln_ops.layer_norm.launches != before + 1:
+        raise RuntimeError("add_layer_norm did not launch its kernel")
+    unfused = _add_then_layer_norm(*inputs[0])
+    ref = ln_ops.add_layer_norm_plain(*inputs[0])
+    err = (out.float() - ref.float()).abs()
+    ulp = bf16_ulp(ref.float().abs().clamp(min=2.0**-6))
+    x32 = make(rows, torch.float32)
+    err32 = (ln_ops.add_layer_norm(*x32) - ln_ops.add_layer_norm_plain(*x32)).abs().max()
+    inv = rows_invariant(lambda x, r, w, b: ln_ops.add_layer_norm(x, r, w, b, 1e-5), make(64 * rows_per)[:4],
+                         [n * rows_per for n in counts], (0, 0, None, None))
+    res = {"max_abs_err": err.max().item(), "ulps": (err / ulp).max().item(),
+           "tol": "1 bf16 ulp of max(|plain output|, 2^-6); fp32: 1e-5; bit-equal to x + r then the one-input kernel",
+           "fp32_max_abs_err": err32.item(), "bit_equal_to_unfused": bool(torch.equal(out, unfused)),
+           "fp32_bit_equal_to_unfused": bool(torch.equal(ln_ops.add_layer_norm(*x32), _add_then_layer_norm(*x32))),
+           "rows_bit_equal": {n // rows_per: v for n, v in inv.items()}, "rows_per_count": rows_per}
+    if not (bool((err <= ulp).all()) and res["fp32_max_abs_err"] <= 1e-5 and res["bit_equal_to_unfused"]
+            and res["fp32_bit_equal_to_unfused"] and all(inv.values())):
+        raise RuntimeError(f"add_layer_norm kernel at {shape}: {res}")
+    res.update(time_repair(ln_ops.add_layer_norm, ln_ops.add_layer_norm_plain, _add_ln_library, inputs,
+                           [(9.0 * rows * d, PEAK_FP32)], rows * d * 2 * 3 + 2 * d * 4))
+    res["unfused_ms"] = median_ms(_add_then_layer_norm, inputs)
+    res["unfused_device_ms"] = device_ms(_add_then_layer_norm, inputs)
+    emit({"phase": "kernel", "name": "add_layer_norm", "shape": shape, "rows": rows, "d": d, **res})
+    return res
+
+
 def phase_linear(gen, m: int, n: int, k: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64), rows_per=1) -> dict:
     """The product kernel at (m, k) x (n, k)^T + b, bf16, against the fp32
     product rounded as the plain version rounds it (the product to bf16,
@@ -753,6 +831,10 @@ def phase_repairs(gen, cfg: FrameworkConfig) -> dict:
         "layer_norm": {"decode": phase_layer_norm(gen, bucket, f"decode step, bucket {bucket}"),
                        "encoder": phase_layer_norm(gen, bucket * S, f"encoder, bucket {bucket} x {S} frames",
                                                    counts=(1, 2, 16), rows_per=S)},
+        # the residual LayerNorms of the decode step and the layers: the add fused in
+        "add_layer_norm": {"decode": phase_add_layer_norm(gen, bucket, f"decode step, bucket {bucket}"),
+                           "encoder": phase_add_layer_norm(gen, bucket * S, f"encoder, bucket {bucket} x {S} frames",
+                                                           counts=(1, 2, 16), rows_per=S)},
         "linear": {"decode": phase_linear(gen, bucket, 3072, 768, f"decode FFN linear1, bucket {bucket}"),
                    "decode_generator": phase_linear(gen, bucket, cfg.model.tgt_vocab_size, 768,
                                                     f"decode generator, bucket {bucket}"),
@@ -788,9 +870,9 @@ def _attention_mask(batch: int, tq: int, tk: int, causal: bool, gen):
     return (T.causal_mask_additive(tq, device="cuda") + T.padding_mask_additive(lengths, tk))[:, 0].contiguous()
 
 
-def _qkv(batch: int, tq: int, tk: int, gen):
-    H, D = 6, 128
-    return tuple(torch.randn(batch, H, t, D, generator=gen, device="cuda").to(torch.bfloat16) for t in (tq, tk, tk))
+def _qkv(batch: int, tq: int, tk: int, gen, heads: int = 6):
+    return tuple(torch.randn(batch, heads, t, 128, generator=gen, device="cuda").to(torch.bfloat16)
+                 for t in (tq, tk, tk))
 
 
 def _sdpa(q, k, v, mask, n_virtual):
@@ -799,10 +881,12 @@ def _sdpa(q, k, v, mask, n_virtual):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am)
 
 
-def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str) -> dict:
-    """K5f at one shape; the keys the JAX caller pads on are counted as the model counts them."""
+def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6) -> dict:
+    """K5f at one shape (6 heads; a tensor-parallel rank's 3); the keys the
+    JAX caller pads on are counted as the model counts them."""
     n_virtual = cuda_attention.virtual_keys(tq, tk)
-    inputs = [(*_qkv(batch, tq, tk, gen), _attention_mask(batch, tq, tk, causal, gen), n_virtual) for _ in range(REPS)]
+    inputs = [(*_qkv(batch, tq, tk, gen, heads), _attention_mask(batch, tq, tk, causal, gen), n_virtual)
+              for _ in range(REPS)]
     before = cuda_attention.fused_attention.launches
     out, lse = cuda_attention.fused_attention(*inputs[0])
     ref, ref_lse = cuda_attention.attention_plain(*inputs[0])
@@ -819,13 +903,13 @@ def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str)
     res["device_ms"] = device_ms(cuda_attention.fused_attention, inputs)
     res["plain_ms"] = median_ms(cuda_attention.attention_plain, inputs)
     res["library_ms"] = median_ms(_sdpa, inputs)
-    bh = batch * 6
+    bh = batch * heads
     res["bound_ms"], res["bound_by"] = bound(
         [(4.0 * bh * tq * tk * 128, PEAK_BF16), (5.0 * bh * tq * tk, PEAK_FP32)],  # products; scale, mask, max, exp, sum
         2 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
-    emit({"phase": "kernel", "name": "fused_attention", "shape": shape, "batch": batch, "tq": tq, "tk": tk,
-          "mask": causal, "n_virtual": n_virtual, **res})
+    emit({"phase": "kernel", "name": "fused_attention", "shape": shape, "batch": batch, "heads": heads, "tq": tq,
+          "tk": tk, "mask": causal, "n_virtual": n_virtual, **res})
     return res
 
 
@@ -833,12 +917,12 @@ def _sdpa_grads(out, q, k, v, do):
     return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
 
 
-def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str) -> dict:
+def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6) -> dict:
     """K5b at one shape, on the forward kernel's out and lse."""
     n_virtual = cuda_attention.virtual_keys(tq, tk)
     inputs = []
     for _ in range(REPS):
-        q, k, v = _qkv(batch, tq, tk, gen)
+        q, k, v = _qkv(batch, tq, tk, gen, heads)
         mask = _attention_mask(batch, tq, tk, causal, gen)
         out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -869,24 +953,29 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
         lib_inputs.append((_sdpa(q, k, v, mask, n_virtual), q, k, v, do))
     res["library_ms"] = median_ms(_sdpa_grads, lib_inputs)  # autograd through SDPA, same mask
     del lib_inputs
-    bh = batch * 6
+    bh = batch * heads
     res["bound_ms"], res["bound_by"] = bound(
         [(10.0 * bh * tq * tk * 128, PEAK_BF16), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
         4 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
-    emit({"phase": "kernel", "name": "fused_attention_bwd", "shape": shape, "batch": batch, "tq": tq, "tk": tk,
-          "mask": causal, "n_virtual": n_virtual, **res})
+    emit({"phase": "kernel", "name": "fused_attention_bwd", "shape": shape, "batch": batch, "heads": heads, "tq": tq,
+          "tk": tk, "mask": causal, "n_virtual": n_virtual, **res})
     return res
 
 
 def _ffn_library(x, w1, b1, w2, b2, *_):
-    """Two cuBLAS GEMMs with F.gelu between, masks excluded: K4's library yardstick."""
+    """Two cuBLAS GEMMs with F.gelu between, masks excluded: K4's library
+    yardstick (b2 None: the partial mode's, without the bias)."""
     return torch.nn.functional.linear(torch.nn.functional.gelu(torch.nn.functional.linear(x, w1, b1)), w2, b2)
 
 
-def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: float = 0.9) -> dict:
-    """K4 at one shape (the training config's dropout 0.1)."""
-    cpu = torch.Generator().manual_seed(SEED + rows)
+def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: float = 0.9,
+              col0: int | None = None, d_ff_total: int | None = None) -> dict:
+    """K4 at one shape (the training config's dropout 0.1). With `col0`: a
+    tensor-parallel rank's d_ff columns from col0 of `d_ff_total`, in the
+    partial mode (fp32 out without b2 and the output dropout)."""
+    partial = col0 is not None
+    cpu = torch.Generator().manual_seed(SEED + rows + (0 if col0 is None else col0 + 1))
 
     def args():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -895,7 +984,10 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
         b1 = (torch.randn(d_ff, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         words = torch.randint(0, 2**32, (2, 2), generator=cpu).tolist()
-        return x, w1, b1, w2, b2, seed_from_key(words[0]) + seed_from_key(words[1]), keep, keep
+        seeds = seed_from_key(words[0]) + seed_from_key(words[1])
+        if partial:
+            return x, w1, b1, w2, None, seeds, keep, keep, col0, d_ff_total
+        return x, w1, b1, w2, b2, seeds, keep, keep
 
     inputs = [args() for _ in range(REPS)]
     before = cuda_ffn.ffn_dropout.launches
@@ -914,7 +1006,11 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
            "pre_max_abs_err": pre_err.max().item(), "pre_within_1ulp": pre_ok,
            "zero_pattern_equal": bool(torch.equal(out == 0, ref == 0)),
            "dropped_share": (out == 0).float().mean().item()}
-    if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and pre_ok and res["zero_pattern_equal"]):
+    if partial:  # fp32 out, no output mask: the hidden mask shows in out's agreement (another col0 moves it)
+        res.update(zero_pattern_equal=None, dropped_share=None, col0=col0, d_ff_total=d_ff_total,
+                   out_dtype=str(out.dtype))
+    if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and pre_ok
+            and (partial or res["zero_pattern_equal"]) and (not partial or out.dtype == torch.float32)):
         raise RuntimeError(f"FFN kernel disagrees with its plain version at {shape}: {res}")
     res["ms"] = median_ms(cuda_ffn.ffn_dropout, inputs)
     res["device_ms"] = device_ms(cuda_ffn.ffn_dropout, inputs)  # GEMM 1 and GEMM 2
@@ -925,7 +1021,9 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
         # the two products; ~30 fp32-rate operations per hidden element (A-S
         # gelu, the hash, scaling) and ~12 per output element
         [(4.0 * rows * d * d_ff, PEAK_BF16), (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
-        2 * (rows * d * 2 + d * d_ff * 2) + 2 * (d_ff + d) + rows * d_ff * 2,
+        # x in, out (fp32 in the partial mode), both weights, the biases, pre out
+        rows * d * 2 + rows * d * (4 if partial else 2) + 2 * d * d_ff * 2 + 2 * (d_ff + (0 if partial else d))
+        + rows * d_ff * 2,
     )
     emit({"phase": "kernel", "name": "ffn_dropout", "shape": shape, "rows": rows, "d": d, "d_ff": d_ff, **res})
     return res
@@ -1241,7 +1339,8 @@ def swapped(swaps: list):
 # the batch-invariance kernels' wrappers and their plain versions: the inference path's LayerNorm,
 # products and attention (no TPU kernel is behind them)
 REPAIRS = [(ln_ops, "layer_norm", ln_ops.layer_norm_plain), (linear_ops, "linear", linear_ops.linear_plain),
-           (attention_rows, "attention", attention_rows.attention_plain)]
+           (attention_rows, "attention", attention_rows.attention_plain),
+           (ln_ops, "add_layer_norm", ln_ops.add_layer_norm_plain)]
 
 
 def plain_kernels():
@@ -2598,17 +2697,17 @@ def rank_eval(rank: int, job: dict) -> dict:
         mesh_lib.destroy()
 
 
-def run_ranks(job: dict) -> list:
-    """`rank_main` in DDP_WORLD spawned processes; each must exit 0 within
-    DDP_TIMEOUT. A rank that fails, or a hung collective, ends the phase:
-    the other ranks are killed at once, or at the deadline."""
+def run_ranks(job: dict, target=rank_main, world: int = DDP_WORLD, timeout: float = DDP_TIMEOUT) -> list:
+    """`target` (`rank_main`) in `world` spawned processes; each must exit 0
+    within `timeout`. A rank that fails, or a hung collective, ends the
+    phase: the other ranks are killed at once, or at the deadline."""
     job_path = Path(job["dir"]) / "job.pt"
     torch.save(job, job_path)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_main, args=(r, str(job_path)), daemon=True) for r in range(DDP_WORLD)]
+    procs = [ctx.Process(target=target, args=(r, str(job_path)), daemon=True) for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DDP_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         while time.monotonic() < deadline and any(p.is_alive() for p in procs):
             if any(p.exitcode not in (None, 0) for p in procs):
@@ -2621,9 +2720,9 @@ def run_ranks(job: dict) -> list:
                 p.kill()
                 p.join(30)
     codes = [p.exitcode for p in procs]
-    if hung or codes != [0] * DDP_WORLD:
-        raise RuntimeError(f"rank processes failed: exit codes {codes}, still running after {DDP_TIMEOUT} s: {hung}")
-    return [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    if hung or codes != [0] * world:
+        raise RuntimeError(f"rank processes failed: exit codes {codes}, still running after {timeout} s: {hung}")
+    return [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
 def phase_ddp(statics: render.SynthStatics, sc, eval_ref: dict, entry_ref: dict) -> dict:
@@ -2664,6 +2763,281 @@ def phase_ddp(statics: render.SynthStatics, sc, eval_ref: dict, entry_ref: dict)
         wall = time.monotonic() - t0
     return {"ddp_step": check_ddp_step(ranks, refs, wall), "trainer_ddp": check_trainer_ddp(ranks),
             "eval_ddp": check_eval_ddp(ranks, eval_ref, entry_ref)}
+
+
+# ------------------------------------------------- tensor parallelism (the mesh's model axis)
+
+TP_WORLD = 2  # one model group of 2 ranks (a 1 x 2 mesh)
+TP_BATCH = 8  # rows a step: gloo stages every activation all-reduce through host memory
+TP_STEPS = 3
+TP_TRAINER_STEPS = 2  # saved after 1 and 2; the resumed run takes step 2
+TP_TIMEOUT = 420
+TP_CONFIGS = ("flash", "fused-ffn")
+TP_TOL = {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-2}  # the TP step against the one-process step
+
+
+def state_digest(sd: dict) -> str:
+    """sha256 of a state dict's tensors in name order."""
+    h = hashlib.sha256()
+    for name in sorted(sd):
+        h.update(name.encode())
+        h.update(sd[name].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def replicated_digest(model: torch.nn.Module) -> str:
+    """The digest of the parameters a model axis replicates: equal on every rank of a model group."""
+    return state_digest({n: p for n, p in model.named_parameters() if tp_lib.split_of(n) is None})
+
+
+def tp_allreduce_ms(axis, n: int, device) -> dict:
+    """Median wall ms of the model group's all-reduce of `n` fp32 values (one
+    residual branch's activations) from `device`."""
+    t = torch.randn(n, device=device)
+    axis.all_reduce(t)
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        axis.all_reduce(t)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return {"ms": statistics.median(times), "all_ms": times, "mb": n * 4 / 1e6}
+
+
+def tp_rank_main(rank: int, job_path: str) -> None:
+    """A rank process of the tp phase: torchrun's environment, the TP steps
+    (`tp_rank_step`) and, over gloo, the trainer (`tp_rank_trainer`); its
+    results go to the job's directory as `rank{rank}.pt`."""
+    job = torch.load(job_path, weights_only=False)
+    os.environ.update(MASTER_ADDR="127.0.0.1", RANK=str(rank), WORLD_SIZE=str(TP_WORLD), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(TP_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"step": tp_rank_step(job)}
+    torch.cuda.empty_cache()
+    if job["trainer"]:
+        res["trainer"] = tp_rank_trainer(rank, job)
+    torch.save(res, Path(job["dir"]) / f"rank{rank}.pt")
+
+
+def tp_rank_step(job: dict) -> dict:
+    """TP_STEPS steps of each TP_CONFIGS config at full width on this rank's
+    shard (`make_train_step` over a 1 x TP_WORLD mesh) on the job's batch
+    and keys, the launches counted; the model group's all-reduce timed."""
+    os.environ["MASTER_PORT"] = str(job["ports"]["step"])
+    device = mesh_lib.maybe_initialize_distributed(job["device"])
+    try:
+        mesh = mesh_lib.make_mesh(n_data=1, n_model=TP_WORLD, devices=[device])
+        res = {"backend": mesh.backend, "device": str(device), "model_rank": mesh.model.rank,
+               "n_model": mesh.n_model, "n_data": mesh.n_data}
+        batch = {k: v.to(device) for k, v in job["batch"].items()}
+        for name in TP_CONFIGS:
+            cfg = load_config(TRAIN_YAMLS[name], train=True, show=False)
+            model = ADTModel(cfg.model, seed=SEED, device=device, tp=mesh.model)
+            counters = reset_counters()
+            r, _ = timed_steps(model, lambda opt, mc=cfg.model: make_train_step(mc, opt, mesh=mesh),
+                               lambda step, state, i, name=name: step(state, batch, job["keys"][name][i]), TP_STEPS)
+            r["launches"] = {k: c.launches for k, c in counters.items()}
+            r["expected_launches"] = add_launches(dict.fromkeys(counters, 0), per_step(cfg.model, False), TP_STEPS)
+            r["replicated_digest"] = replicated_digest(model)
+            r["shard_params"] = sum(p.numel() for p in model.parameters())
+            res[name] = r
+            del model
+            torch.cuda.empty_cache()
+        res["allreduce"] = tp_allreduce_ms(mesh.model, TP_BATCH * (TRAIN_TOKENS - 1) * 768, device)
+        return res
+    finally:
+        mesh_lib.destroy()
+
+
+def tp_rank_trainer(rank: int, job: dict) -> dict:
+    """This rank's part of the tp phase's trainer: `trainer.train` on
+    TMIDT-flash with `mesh.model_axis: 2` (it joins the group from torchrun's
+    environment), straight for TP_TRAINER_STEPS steps saving every step, then
+    resumed from the first save; the gathered weights' digest."""
+    out = Path(job["dir"]) / "trainer"
+    common = dict(training={"max_steps": TP_TRAINER_STEPS, "num_epochs": 1, "batch_size": TP_BATCH},
+                  mesh={"model_axis": TP_WORLD}, train_data={"holdout_fraction": 0.0},
+                  logging={"output_dir": str(out), "logging_steps": 1, "save_every_n_steps": 1})
+    first = out / "straight" / trainer_ckpt.checkpoint_name(0, 1)
+    cfgs = {"straight": load_config(TRAIN_YAMLS["flash"], show=False, experiment={"run_name": "straight"}, **common),
+            "resumed": load_config(TRAIN_YAMLS["flash"], show=False, experiment={"run_name": "resumed"},
+                                   checkpoint={"resume_from_checkpoint": str(first)}, **common)}
+    cfg = cfgs["straight"]
+    ds = TMIDTDataset(cfg.train_data, MidiTokenizer(cfg.tokenizer), rows=job["tmidt_rows"])
+    res = {}
+    for name, c in cfgs.items():
+        os.environ["MASTER_PORT"] = str(job["ports"][f"trainer_{name}"])
+        run = run_trainer(c, device="cuda:0", dataset=ds)
+        model = run["state"].model
+        res[name] = {"losses": [r["loss"] for r in run["steps"]], "launches": run["launches"],
+                     "wall_s": run["wall_s"], "step": run["state"].step, "digest": weights_digest(model),
+                     "shard_digest": state_digest(dict(model.named_parameters())),
+                     "axis": None if model.tp is None else [model.tp.rank, model.tp.size]}
+        del run, model
+        torch.cuda.empty_cache()
+    res["checkpoints"] = sorted(p.name for p in (out / "straight").glob("checkpoint-*"))
+    return res
+
+
+def tp_inputs() -> tuple[dict, dict]:
+    """The TP steps' batch (TP_BATCH random 2.56 s waves and 512-token rows)
+    and each step's site keys, on the host; the one-process step of each
+    config on them in this process (the same seeded weights, whole)."""
+    cfgs = {name: load_config(TRAIN_YAMLS[name], train=True, show=False) for name in TP_CONFIGS}
+    g = torch.Generator().manual_seed(SEED + 400)
+    wave = torch.randn(TP_BATCH, cfgs["flash"].shared.chunk_samples, generator=g) * 0.3
+    toks = token_batch(cfgs["flash"], g)
+    batch = {"wavs": wave, **{k: v[:TP_BATCH] for k, v in toks.items()}}
+    keys = {name: [draw_site_keys(cfg.model, torch.Generator().manual_seed(SEED + 401 + i)) for i in range(TP_STEPS)]
+            for name, cfg in cfgs.items()}
+    refs = {}
+    for name, cfg in cfgs.items():
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        r, _ = timed_steps(model, lambda opt, mc=cfg.model: make_train_step(mc, opt, device="cuda"),
+                           lambda step, state, i, name=name: step(state, on_card, keys[name][i]), 2)
+        refs[name] = {"loss": r["losses"][0], "grad_norm": r["grad_norms"][0], "step_ms": r["step_ms"]}
+        del model
+        torch.cuda.empty_cache()
+    return {"batch": batch, "keys": keys}, refs
+
+
+def tmidt_rows(n: int, cfg, seed: int) -> dict:
+    """`n` in-memory TMIDT items: seeded noise at the config's rate and GM note rows."""
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((n, cfg.shared.chunk_samples)) * 0.3).astype(np.float32)
+    return {"audio": [a.tobytes() for a in audio], "sample_rate": [cfg.shared.sample_rate] * n,
+            "notes": [r.tobytes() for r in gm_note_rows(n, seed + 1, 100)]}
+
+
+def phase_tp(params, gen) -> dict:
+    """Tensor parallelism at full width (`mesh.model_axis: 2`, Megatron
+    layout, `parallel/tensor_parallel.py`).
+
+    - The kernels at a rank's shapes, each held to its plain version: K1 at
+      the TP batch (replicated on each rank); K5f and K5b at 3 heads of 128
+      (the decoder's self-attention, 511 x 511, causal + padding); K4 at
+      d_ff 1536 a rank, col0 0 and 1536 of 3072, in the partial mode.
+    - Two rank processes on cuda:0 over gloo (one model group, a 1 x 2 mesh)
+      run TMIDT-flash (K1, K5f, K5b) and TMIDT-fused-ffn (K1, K4 partial)
+      for TP_STEPS steps at TP_BATCH rows from the same seeded weights: the
+      first step's loss and grad norm against the one-process step on the
+      same weights, batch and keys (loss 1e-3, grad norm 1e-2 relative), the
+      ranks' numbers and replicated weights bit-equal, the kernels launched
+      as the steps need; step ms and the group's all-reduce ms.
+    - `trainer.train` on TMIDT-flash in both ranks at `mesh.model_axis: 2`:
+      TP_TRAINER_STEPS steps saving every step, then a run resumed from the
+      first save: bit-equal to the straight run; the final checkpoint,
+      written whole, loads into a one-process model.
+    - NCCL, one card a rank, where the machine has two cards or more (the
+      steps alone); else it reports that it was not run.
+    Gloo stages every collective through host memory: these are parity
+    checks, not speed figures."""
+    heads = 3
+    tq = TRAIN_TOKENS - 1
+    kernels = {
+        "log_mel": phase_mel(params, TP_BATCH, gen),
+        "fused_attention": phase_attention(TP_BATCH, tq, tq, True, gen, f"TP rank: B={TP_BATCH}, 3 heads, decoder self "
+                                           f"{tq} x {tq}", heads=heads),
+        "fused_attention_bwd": phase_attention_bwd(TP_BATCH, tq, tq, True, gen, f"TP rank: B={TP_BATCH}, 3 heads, "
+                                                   f"decoder self {tq} x {tq}", heads=heads),
+        "ffn_dropout": {c: phase_ffn(TP_BATCH * tq, gen, f"TP rank: N={TP_BATCH * tq}, d_ff 1536 from col0 {c} of 3072, "
+                                     "partial", d_ff=1536, col0=c, d_ff_total=3072) for c in (0, 1536)},
+    }
+    host, refs = tp_inputs()
+    flash = load_config(TRAIN_YAMLS["flash"], show=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        ports = {k: free_port() for k in ("step", "trainer_straight", "trainer_resumed")}
+        job = {"dir": tmp, "device": "cuda:0", "ports": ports, "trainer": True, **host,
+               "tmidt_rows": tmidt_rows(3 * TP_BATCH, flash, SEED + 410)}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = run_ranks(job, tp_rank_main, TP_WORLD, TP_TIMEOUT)
+        wall = time.monotonic() - t0
+        last = Path(tmp) / "trainer" / "straight" / trainer_ckpt.checkpoint_name(0, TP_TRAINER_STEPS)
+        whole = ADTModel(flash.model, seed=SEED + 1, device="cuda")
+        trainer_ckpt.restore_checkpoint(last, whole)
+        from_safetensors = read_safetensors(last / "model.safetensors")
+        whole_params = dict(whole.named_parameters())
+        one_process = {"safetensors_equal": all(torch.equal(from_safetensors[n].cuda(), p)
+                                                for n, p in whole.state_dict().items()),
+                       "generator_rows": int(from_safetensors["decoder.generator.weight"].shape[0]),
+                       "shards_equal_the_ranks": [state_digest(tp_lib.shard_state_dict(whole_params, r, TP_WORLD))
+                                                  == ranks[r]["trainer"]["straight"]["shard_digest"]
+                                                  for r in range(TP_WORLD)]}
+        del whole, whole_params
+    nccl = None
+    if torch.cuda.device_count() >= TP_WORLD:
+        with tempfile.TemporaryDirectory() as tmp:
+            nccl_job = {**job, "dir": tmp, "device": None, "trainer": False, "ports": {"step": free_port()}}
+            nccl = [r["step"] for r in run_ranks(nccl_job, tp_rank_main, TP_WORLD, TP_TIMEOUT)]
+    steps = [r["step"] for r in ranks]
+    tr = [r["trainer"] for r in ranks]
+    first = {name: {"loss": steps[0][name]["losses"][0], "grad_norm": steps[0][name]["grad_norms"][0]}
+             for name in TP_CONFIGS}
+    diff = {name: {"loss_rel": abs(first[name]["loss"] - refs[name]["loss"]) / abs(refs[name]["loss"]),
+                   "grad_norm_rel": abs(first[name]["grad_norm"] - refs[name]["grad_norm"]) / refs[name]["grad_norm"]}
+            for name in TP_CONFIGS}
+    res = {"phase": "tp", "mesh": "1 x 2", "ranks": TP_WORLD, "backend": steps[0]["backend"],
+           "device": steps[0]["device"], "batch": TP_BATCH, "tokens": TRAIN_TOKENS, "ranks_wall_s": wall,
+           "kernels": {k: ({c: {f: r[f] for f in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms")}
+                                for c, r in v.items()} if k == "ffn_dropout" else
+                               {f: v[f] for f in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms")})
+                       for k, v in kernels.items()},
+           "parity": {name: {"tp": first[name], "one_process": refs[name], **diff[name], **TP_TOL}
+                      for name in TP_CONFIGS},
+           "losses": {name: steps[0][name]["losses"] for name in TP_CONFIGS},
+           "step_ms": {f"rank{i}": {name: s[name]["step_ms"] for name in TP_CONFIGS} for i, s in enumerate(steps)},
+           "one_process_step_ms": {name: refs[name]["step_ms"] for name in TP_CONFIGS},
+           "allreduce_ms": {f"rank{i}": s["allreduce"] for i, s in enumerate(steps)},
+           "shard_params": {name: steps[0][name]["shard_params"] for name in TP_CONFIGS},
+           "launches": {f"rank{i}": {name: s[name]["launches"] for name in TP_CONFIGS} for i, s in enumerate(steps)},
+           "trainer": {"losses": tr[0]["straight"]["losses"], "resumed_losses": tr[0]["resumed"]["losses"],
+                       "checkpoints": tr[0]["checkpoints"], "wall_s": [t["straight"]["wall_s"] for t in tr],
+                       "launches": {f"rank{i}": {k: t[k]["launches"] for k in ("straight", "resumed")}
+                                    for i, t in enumerate(tr)},
+                       "one_process_restore": one_process},
+           "nccl": ("not run: one card on this machine (NCCL holds one rank a card)" if nccl is None else
+                    {"backend": nccl[0]["backend"], "devices": [r["device"] for r in nccl],
+                     "losses": {name: nccl[0][name]["losses"] for name in TP_CONFIGS},
+                     "step_ms": {name: nccl[0][name]["step_ms"] for name in TP_CONFIGS},
+                     "allreduce_ms": nccl[0]["allreduce"]})}
+    emit(res)
+    checks = {
+        "gloo on cuda:0": all(s["backend"] == "gloo" and s["device"] == "cuda:0" for s in steps),
+        "the ranks hold model indices 0 and 1": [s["model_rank"] for s in steps] == [0, 1],
+        "the ranks report the same numbers": all(s[n]["losses"] == steps[0][n]["losses"]
+                                                 and s[n]["grad_norms"] == steps[0][n]["grad_norms"]
+                                                 for s in steps for n in TP_CONFIGS),
+        "the replicated weights bit-equal across the group": all(
+            s[n]["replicated_digest"] == steps[0][n]["replicated_digest"] for s in steps for n in TP_CONFIGS),
+        "finite losses": all(math.isfinite(x) for n in TP_CONFIGS for x in steps[0][n]["losses"]),
+        "kernels launched as the steps need": all(s[n]["launches"] == s[n]["expected_launches"]
+                                                  for s in steps for n in TP_CONFIGS),
+        "trainer: straight and resumed end at the same step": all(
+            t["straight"]["step"] == t["resumed"]["step"] == TP_TRAINER_STEPS for t in tr),
+        "trainer: the resumed run bit-equal to the straight run": all(
+            t["straight"]["digest"] == t["resumed"]["digest"] for t in tr),
+        "trainer: each rank its shard": [t["straight"]["axis"] for t in tr] == [[0, 2], [1, 2]],
+        "trainer: a checkpoint a step": tr[0]["checkpoints"] == [trainer_ckpt.checkpoint_name(0, i + 1)
+                                                                for i in range(TP_TRAINER_STEPS)],
+        "the checkpoint is whole and loads in one process": one_process["safetensors_equal"]
+                                                            and one_process["generator_rows"]
+                                                            == flash.model.tgt_vocab_size,
+        "the one-process model's shards are the ranks' weights": all(one_process["shards_equal_the_ranks"]),
+        **{f"{name}: TP step = the one-process step": diff[name]["loss_rel"] <= TP_TOL["loss_rtol"]
+           and diff[name]["grad_norm_rel"] <= TP_TOL["grad_norm_rtol"] for name in TP_CONFIGS},
+    }
+    if nccl is not None:
+        checks["NCCL: the gloo run's first losses"] = all(
+            abs(nccl[0][n]["losses"][0] - first[n]["loss"]) <= TP_TOL["loss_rtol"] * abs(first[n]["loss"])
+            for n in TP_CONFIGS)
+    fail_unless("tp", checks)
+    res["kernel_results"] = kernels
+    return res
 
 
 def fail_unless(phase: str, checks: dict, detail="") -> None:
@@ -2900,7 +3274,8 @@ def probe_targets() -> list:
             (T.MultiheadAttention, "project", None), (decode_mod, "_anc_attention", None),
             (decode_mod, "decode_step", None), (decode_mod, "init_caches", None),
             (cuda_mel, "log_mel", cuda_mel.log_mel), (T, "_flash_attention", T._flash_attention),
-            *[(mod, name, wrapper) for (mod, name, _), wrapper in zip(REPAIRS, REPAIR_WRAPPERS.values())]]
+            *[(mod, name, wrapper) for (mod, name, _), wrapper in zip(REPAIRS, REPAIR_WRAPPERS.values())],
+            (ln_ops, "add_layer_norm", ln_ops.add_layer_norm)]
 
 
 def probe_run(run, ref: OpProbe | None, steps: int) -> OpProbe:
@@ -3506,6 +3881,7 @@ import chip_smoke as cs
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.decode import greedy_decode_from_memory
 from adt_str_tpu_torch.ops import _build, attention_rows, linear as linear_ops
+from adt_str_tpu_torch.ops import layer_norm as ln_ops
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -3513,7 +3889,14 @@ linear_shapes, attention_shapes = json.loads(sys.argv[1])
 _build.build_all()
 keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "rows_bit_equal")
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-out = {"linear": {}, "attention_rows": {}, "decode": {}}
+out = {"linear": {}, "attention_rows": {}, "decode": {}, "layer_norm": {}}
+for name, rows, counts, per in (("decode 16 x 768", 16, (1, 2, 4, 8, 16, 32, 64), 1),
+                                ("encoder 16 x 246 x 768", 16 * 246, (1, 2, 16), 246)):
+    res = cs.phase_layer_norm(gen, rows, name, counts=counts, rows_per=per)
+    out["layer_norm"][name] = {key: res[key] for key in keys}
+    if hasattr(cs, "phase_add_layer_norm"):  # the fused entry, where the tree has it
+        res = cs.phase_add_layer_norm(gen, rows, name, counts=counts, rows_per=per)
+        out["layer_norm"]["add " + name] = {key: res[key] for key in keys + ("unfused_ms", "unfused_device_ms")}
 for name, (m, n, k, per) in linear_shapes.items():
     counts = (1, 2, 8, 16) if per > 1 else (1, 2, 4, 8, 16, 32, 64)
     res = cs.phase_linear(gen, m, n, k, name, counts=counts, rows_per=per)
@@ -3541,8 +3924,16 @@ with torch.inference_mode():
         q, k, v = (torch.randn(b, 6, t, 128, generator=g, device="cuda").to(torch.bfloat16) for t in (tq, tk, tk))
         mask = None if step is None else torch.where(torch.arange(tk, device="cuda") > step, -1e4, 0.0)[None, None, None]
         kept["attention_rows " + name] = attention_rows.attention(q, k, v, mask).cpu()
+    for name, rows in (("decode 16 x 768", 16), ("encoder 16 x 246 x 768", 16 * 246)):
+        x = (torch.randn(rows, 768, generator=g, device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(768, generator=g, device="cuda")
+        b = 0.1 * torch.randn(768, generator=g, device="cuda")
+        kept["layer_norm " + name] = ln_ops.layer_norm(x, w, b, 1e-5).cpu()
     wave = torch.randn(16, cfg.shared.chunk_samples, generator=g, device="cuda") * 0.3
-    kept["greedy tokens"] = greedy_decode_from_memory(model, model.encode(wave), cfg.inference.max_length).cpu()
+    memory = model.encode(wave)
+    kept["greedy tokens"] = greedy_decode_from_memory(model, memory, cfg.inference.max_length).cpu()
+    kept["beam tokens"] = cs.beam_decode(1.0, cs.BEAM_SIZE)(model, memory, cfg.inference.max_length,
+                                                            cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token).cpu()
 torch.save(kept, sys.argv[2])
 print("COMPARE " + json.dumps(out), flush=True)
 """
@@ -3618,8 +4009,19 @@ def compare_trees(argv: list[str]) -> int:
                       "bit_equal_groups": {name: equal_groups(runs, name) for name in runs[first]},
                       "greedy_tokens_against": first,
                       "greedy_tokens": {run: token_difference(runs[first]["greedy tokens"], kept["greedy tokens"])
-                                        for run, kept in runs.items() if run != first}}), flush=True)
+                                        for run, kept in runs.items() if run != first},
+                      "beam_tokens": {run: bool(torch.equal(runs[first]["beam tokens"], kept["beam tokens"]))
+                                      for run, kept in runs.items() if run != first}}), flush=True)
     return 0
+
+
+def tp_entry(tp: dict, kernel: str, col0: int | None = None) -> dict:
+    """A kernel's numbers at a tensor-parallel rank's shape (the tp phase)."""
+    res = tp["kernel_results"][kernel]
+    res = res if col0 is None else res[col0]
+    keys = ("max_abs_err", "tol", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"shape": f"tp phase, {'col0 ' + str(col0) if col0 is not None else '3 heads'}",
+            **{k: res[k] for k in keys if k in res}}
 
 
 def main() -> int:
@@ -3651,6 +4053,7 @@ def main() -> int:
     invariance = phase_batch_invariance(cfg)
     bench = phase_bench()
     clap = phase_clap()
+    tp = phase_tp(params, gen)
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
@@ -3671,7 +4074,10 @@ def main() -> int:
                "decode_dp": synth["decode_dp"]["runs"]["greedy"]["launches"],
                "decode_dp-beam": synth["decode_dp"]["runs"]["beam"]["launches"],
                "decode_dp-serving": dp_serving["launches"], "clap": clap["in_process"]["launches"],
-               "batch_invariance-greedy": invariance["greedy_launches"]}
+               "batch_invariance-greedy": invariance["greedy_launches"],
+               **{f"tp-{c} (2 ranks)": ranks_sum({r: n[c] for r, n in tp["launches"].items()}) for c in TP_CONFIGS},
+               "tp-trainer (2 ranks)": ranks_sum({f"{r}-{k}": n[k] for r, n in tp["trainer"]["launches"].items()
+                                                  for k in ("straight", "resumed")})}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3689,15 +4095,18 @@ def main() -> int:
              "launches": clap["in_process"]["launches"]["log_mel"],
              **{k: clap["k1"][k] for k in ("max_abs_err", "tol", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")}}},
-        entry("fused_attention", "adt_str_tpu_torch/csrc/attention.cu",
-              "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
-              f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", att_train["decoder-self"]),
-        entry("fused_attention_bwd", "adt_str_tpu_torch/csrc/attention_bwd.cu",
-              "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
-              f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", bwd_train["decoder-self"]),
-        entry("ffn_dropout", "adt_str_tpu_torch/csrc/ffn_dropout.cu",
-              "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
-              f"N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072", ffn_train["decoder"]),
+        {**entry("fused_attention", "adt_str_tpu_torch/csrc/attention.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
+                 f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", att_train["decoder-self"]),
+         "at_3_heads": tp_entry(tp, "fused_attention")},
+        {**entry("fused_attention_bwd", "adt_str_tpu_torch/csrc/attention_bwd.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
+                 f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", bwd_train["decoder-self"]),
+         "at_3_heads": tp_entry(tp, "fused_attention_bwd")},
+        {**entry("ffn_dropout", "adt_str_tpu_torch/csrc/ffn_dropout.cu",
+                 "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
+                 f"N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072", ffn_train["decoder"]),
+         "partial_d_ff_1536": {c: tp_entry(tp, "ffn_dropout", c) for c in (0, 1536)}},
         entry("gather_blend", "adt_str_tpu_torch/csrc/gather_blend.cu",
               "adt_str_tpu/synth/pallas_place.py:99 gather_blend",
               f"N={TRAIN_BATCH} x 27 requests of 30720 bf16 from a 100,035-row bank (5.72 GiB)",
@@ -3707,9 +4116,15 @@ def main() -> int:
               f"B={TRAIN_BATCH}, 128 note slots, 27 blend rows of 30720 bf16, chunk 61440", synth["place_notes"]),
         # the batch-invariance kernels: no pallas_call is behind them; `replaces` names the JAX function whose
         # arithmetic each computes on the port's inference path
-        entry("layer_norm", "adt_str_tpu_torch/csrc/layer_norm.cu",
-              "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:113 layer_norm",
-              f"decode step, bucket {bucket}: {bucket} rows of 768 bf16", repairs["layer_norm"]["decode"]),
+        {**entry("layer_norm", "adt_str_tpu_torch/csrc/layer_norm.cu",
+                 "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:113 layer_norm",
+                 f"decode step, bucket {bucket}: LayerNorm(x + r), the residual add fused, {bucket} rows of 768 bf16",
+                 repairs["add_layer_norm"]["decode"]),
+         "one_input": {k: repairs["layer_norm"]["decode"][k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                                                       "bound_ms", "bound_by", "library_ms")},
+         "encoder_fused": {k: repairs["add_layer_norm"]["encoder"][k] for k in ("max_abs_err", "ms", "device_ms",
+                                                                                "plain_ms", "bound_ms", "library_ms",
+                                                                                "unfused_ms", "unfused_device_ms")}},
         entry("linear", "adt_str_tpu_torch/csrc/linear.cu",
               "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:105 linear",
               f"decode FFN linear1, bucket {bucket}: ({bucket}, 768) x (3072, 768)^T bf16",

@@ -338,6 +338,35 @@ def test_ffn_dropout_kernel_matches_plain(cuda, n, d, d_ff, keep):
     assert (out.float() - ref.float()).abs().max().item() <= 2**-7 * ref.float().abs().max().item()
 
 
+# Tensor parallelism: a rank's 1536 of 3072 columns from col0, GEMM 2 in its
+# partial mode (fp32 hd W2_shard^T, no b2, no output mask). The hidden masks
+# are the plain version's at the whole-width index (pre and hd as above); the
+# fp32 partial is held to 2^-7 of its largest element, as out is above.
+@pytest.mark.parametrize("col0", [0, 1536])
+@pytest.mark.parametrize("n", [250, 64 * 246 + 1])
+def test_ffn_dropout_kernel_column_shard_in_the_partial_mode(cuda, n, col0):
+    args, seeds = _ffn_inputs(n, 768, 1536, cuda, seed=3)
+    x, w1, b1, w2, _ = args
+    before = cuda_ffn.ffn_dropout.launches
+    out, pre = cuda_ffn.ffn_dropout(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 3072)
+    torch.cuda.synchronize()
+    assert cuda_ffn.ffn_dropout.launches == before + 1 and out.dtype == torch.float32
+    ref, ref_pre = ffn_dropout_plain(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 3072)
+    pre_err = (pre.float() - ref_pre.float()).abs()
+    assert (pre_err <= 2**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all()
+    assert (out - ref).abs().max().item() <= 2**-7 * ref.abs().max().item()
+    # another col0 draws another hidden mask: the partial moves
+    other, _ = cuda_ffn.ffn_dropout(x, w1, b1, w2, None, seeds, 0.9, 0.9, 1536 - col0, 3072)
+    assert (other - ref).abs().max().item() > 2**-7 * ref.abs().max().item()
+
+
+def test_ffn_dropout_kernel_at_col0_zero_and_the_whole_width_is_bit_equal(cuda):
+    args, seeds = _ffn_inputs(300, 768, 1536, cuda, seed=4)
+    out, pre = cuda_ffn.ffn_dropout(*args, seeds, 0.9, 0.8)
+    out2, pre2 = cuda_ffn.ffn_dropout(*args, seeds, 0.9, 0.8, 0, 1536)
+    assert torch.equal(out, out2) and torch.equal(pre, pre2)
+
+
 def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 768, 512, cuda)
     with pytest.raises(ValueError, match="bf16"):
@@ -641,6 +670,59 @@ def test_layer_norm_kernel_rows_bit_equal_at_every_row_count(cuda):
         full = ln_ops.layer_norm(x[:, None], w, b, 1e-5)
         for r in ROW_COUNTS:
             assert torch.equal(ln_ops.layer_norm(x[:r, None].clone(), w, b, 1e-5), full[:r]), r
+
+
+def _residual(x, seed=7):
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return (torch.randn(x.shape, generator=g, device=x.device) * 1.5 - 0.25).to(x.dtype)
+
+
+# The fused add_layer_norm: the plain version's tolerance above, and bit-equal
+# to the kernel's one-input entry on x + r (the sum rounded as ATen rounds it).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rows, d", [(16, 768), (3936, 768), (37, 48), (37, 100), (37, 1000), (37, 1024)])
+def test_add_layer_norm_kernel_matches_plain_and_the_unfused_form(cuda, rows, d, dtype):
+    x, w, b = _ln_inputs(rows, d, dtype, cuda)
+    r = _residual(x)
+    before = ln_ops.layer_norm.launches
+    with torch.inference_mode():
+        fused = ln_ops.add_layer_norm(x, r, w, b, 1e-5)
+        unfused = ln_ops.layer_norm(x + r, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ln_ops.layer_norm.launches == before + 2 and fused.dtype == dtype
+    assert torch.equal(fused, unfused)
+    ref = ln_ops.add_layer_norm_plain(x, r, w, b, 1e-5)
+    err = (fused.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= _bf16_ulp(ref)).all()), (err / _bf16_ulp(ref)).max()
+    else:
+        assert err.max().item() <= 1e-5
+
+
+def test_add_layer_norm_kernel_rows_bit_equal_at_every_row_count(cuda):
+    x, w, b = _ln_inputs(64, 768, torch.bfloat16, cuda, seed=2)
+    r = _residual(x)
+    with torch.inference_mode():
+        full = ln_ops.add_layer_norm(x[:, None], r[:, None], w, b, 1e-5)
+        for n in ROW_COUNTS:
+            assert torch.equal(ln_ops.add_layer_norm(x[:n, None].clone(), r[:n, None].clone(), w, b, 1e-5),
+                               full[:n]), n
+
+
+def test_layer_norm_kernel_on_rows_off_16_byte_boundaries(cuda):
+    """A view that starts 2 bytes into its storage is copied an element at
+    a time: the same bits as the aligned copy of it."""
+    x, w, b = _ln_inputs(9, 768, torch.bfloat16, cuda, seed=3)
+    r = _residual(x)
+    flat_x = torch.empty(1 + x.numel(), dtype=x.dtype, device=cuda)
+    flat_r = torch.empty_like(flat_x)
+    flat_w, flat_b = torch.empty(769, device=cuda), torch.empty(769, device=cuda)
+    xo, ro = flat_x[1:].view_as(x).copy_(x), flat_r[1:].view_as(r).copy_(r)  # contiguous, 2 bytes off
+    wo, bo = flat_w[1:].copy_(w), flat_b[1:].copy_(b)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 == 2 and wo.data_ptr() % 16 == 4
+    with torch.inference_mode():
+        assert torch.equal(ln_ops.layer_norm(xo, wo, bo, 1e-5), ln_ops.layer_norm(x, w, b, 1e-5))
+        assert torch.equal(ln_ops.add_layer_norm(xo, ro, wo, bo, 1e-5), ln_ops.add_layer_norm(x, r, w, b, 1e-5))
 
 
 def test_layer_norm_keeps_autograd_in_training_and_rejects_on_the_card(cuda):

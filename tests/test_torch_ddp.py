@@ -378,9 +378,19 @@ def test_eval_steps_under_a_mesh_match_jax(ddp, kind):
     np.testing.assert_allclose(ranks[0]["eval"][kind], eval_refs[kind], rtol=1e-5)
 
 
-def test_layouts_the_port_does_not_have_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="tensor-parallel model axis .* item 11"):
+def test_layouts_the_port_does_not_have_raise(monkeypatch, tmp_path):
+    # the 2-D mesh is one rank a mesh entry: in one process a model axis raises, and in a process group a
+    # grid that is not the world raises while the whole world builds
+    with pytest.raises(ValueError, match="model axis of 2 runs one process a rank"):
         tmesh.make_mesh(n_data=1, n_model=2, devices=["cpu"])
+    init_gloo(0, 1, str(tmp_path / "store"))
+    try:
+        with pytest.raises(ValueError, match="mesh 1 x 2 needs 2 ranks, the process group has 1"):
+            tmesh.make_mesh(n_data=1, n_model=2, devices=["cpu"])
+        one = tmesh.make_mesh(n_data=-1, n_model=1, devices=["cpu"])
+        assert (one.n_data, one.n_model, one.model, one.global_rank) == (1, 1, None, 0)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(NotImplementedError, match="FSDP .* item 12"):
         tmesh.make_mesh(devices=["cpu"], fsdp=True)
     with pytest.raises(ValueError, match="unsupported grad_allreduce_dtype"):

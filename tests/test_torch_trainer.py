@@ -295,8 +295,8 @@ def test_sigterm_saves_and_stops(lakh_env, tmp_path):
 
 def test_one_device_only_and_no_silent_cpu(lakh_env, tmp_path, monkeypatch):
     cfg = lakh_config(lakh_env, tmp_path, 2)
-    cfg.mesh.model_axis = 2  # not ported (data parallelism is: test_torch_trainer_ddp.py)
-    with pytest.raises(NotImplementedError, match="tensor-parallel model axis"):
+    cfg.mesh.model_axis = 2  # a model axis runs one process a rank (test_torch_tensor_parallel.py trains it)
+    with pytest.raises(ValueError, match="model axis of 2 runs one process a rank"):
         trainer.train(cfg, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")  # a partial torchrun environment never trains as one process
     with pytest.raises(RuntimeError, match="partial torchrun environment"):
