@@ -463,8 +463,8 @@ class ExperimentConfig:
 class MeshConfig:
     """The parallel layout. The ranks of a torchrun job form a data axis
     (-1: all the ranks the model axis leaves) by a tensor-parallel model
-    axis (`parallel/mesh.py:make_mesh`); `fsdp` raises
-    (`parallel/mesh.py:check_layout`)."""
+    axis (`parallel/mesh.py:make_mesh`); `fsdp` shards the parameters and
+    the optimizer's moments over the data axis (`parallel/fsdp.py`)."""
 
     data_axis: int = -1  # -1: all remaining devices
     model_axis: int = 1

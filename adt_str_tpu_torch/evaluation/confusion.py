@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import csv
 
+import numpy as np
+
 
 class DrumConfusionMatrix:
     def __init__(self, label_mapping: dict[int, str], onset_tolerance: float = 0.05):
@@ -91,3 +93,11 @@ class DrumConfusionMatrix:
             for row in self.rows:
                 metrics = self._metrics_for_label(row) if row in self.labels else ("",) * 4
                 writer.writerow([row, *(self.counts[row][c] for c in self.columns), *metrics])
+
+    def get_matrix(self) -> tuple[list[str], list[str], np.ndarray]:
+        """-> (row labels, column labels, int64 counts of shape (rows,
+        columns)): the JAX class's `get_matrix()` DataFrame as
+        `(list(df.index), list(df.columns), df.values)`; rows are the labels
+        and "False Positive", columns the labels and "False Negative"."""
+        counts = np.array([[self.counts[r][c] for c in self.columns] for r in self.rows], dtype=np.int64)
+        return list(self.rows), list(self.columns), counts

@@ -29,6 +29,17 @@ the vocabulary-parallel CE (`cross_entropy_loss(..., tp=)`). The embedding,
 the LayerNorms, `project_to_mel`, the encoder's dense layer and the
 row-parallel biases are replicated. Decoding runs a model built whole.
 
+FSDP (`fsdp`, set by `parallel/fsdp.py:shard_model_`): at rest the model
+holds this rank's shards of the data-sharded parameters; the steps of
+`parallel/train_step.py` gather the whole weights around each forward
+pass (`fsdp.gathered`).
+
+Token inputs: ids (B, T) take the embedding lookup (`plain=True`, the
+reference's trained path); multi-hot rows (B, T, vocab) take the
+reference's `plain=False` `TokenEmbedding` product `tokens @ emb *
+sqrt(d)`, as `adt_str_tpu/models/adt.py:embed_tokens` does. Ids with
+`plain=False` raise, as there.
+
 Training dropout takes its keys as data: `dropout_sites(config)` names the
 sites in the order of the JAX package's `jax.random.split` tree (forward_loss
 splits the rng into encoder and decoder keys; `encode` splits into input,
@@ -137,6 +148,7 @@ class ADTModel(nn.Module):
     with `tp`, this rank's tensor-parallel shard of them."""
 
     tp: Optional[tp_lib.ModelAxis] = None
+    fsdp = None  # the parallel/fsdp.py:FsdpLayout of a model cut by fsdp.shard_model_
 
     def __init__(self, config: ModelConfig, *, seed: int = 0, device=None, tp: Optional[tp_lib.ModelAxis] = None):
         super().__init__()
@@ -213,12 +225,15 @@ class ADTModel(nn.Module):
         return T.dropout(x, cfg.dropout, keys[-1], train)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Embedding lookup * sqrt(d_model), in the compute dtype."""
-        if not self.config.plain:
-            raise NotImplementedError("plain=False (multi-hot token inputs) is not ported")
+        """Embedding lookup * sqrt(d_model), in the compute dtype; multi-hot
+        (B, T, vocab) rows -> `tokens @ emb * sqrt(d_model)`."""
         compute = self.compute_dtype
         emb = self.decoder.tgt_tok_emb.embedding.weight.to(compute)
         scale = torch.tensor(math.sqrt(self.config.d_model), dtype=compute, device=emb.device)
+        if tokens.dim() == 3:  # multi-hot (plain=False)
+            return torch.matmul(tokens.to(compute), emb) * scale
+        if not self.config.plain:
+            raise NotImplementedError("plain=False needs multi-hot (B, T, vocab) inputs (model.py:13-39)")
         # F.embedding's backward sums the rows of repeated tokens in fp32 in
         # one pass; `emb[tokens]`'s index_put backward serialises them
         return torch.nn.functional.embedding(tokens, emb) * scale
@@ -231,8 +246,9 @@ class ADTModel(nn.Module):
         keys: Optional[Sequence] = None,
         train: bool = False,
     ) -> torch.Tensor:
-        """(B, T) tokens + (B, S, d) memory -> (B, T, vocab) logits (under
-        `tp`, this rank's vocabulary columns).
+        """(B, T) token ids or (B, T, vocab) multi-hot rows + (B, S, d)
+        memory -> (B, T, vocab) logits (under `tp`, this rank's vocabulary
+        columns).
         `keys`: the decoder's `6 * dec_layers + 1` site keys (None: no dropout)."""
         cfg, compute = self.config, self.compute_dtype
         n_layers = cfg.dec_layers

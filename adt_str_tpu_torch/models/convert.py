@@ -7,7 +7,9 @@ transposing each `w` (JAX stores (d_in, d_out), PyTorch (d_out, d_in)).
 
 `shard_state_dict_from_jax_params` takes the JAX params straight to one
 rank's tensor-parallel shard (`parallel/tensor_parallel.py:shard_state_dict`),
-which `ADTModel(config, tp=axis)` loads with `strict=True`.
+which `ADTModel(config, tp=axis)` loads with `strict=True`;
+`fsdp_shard_state_dict_from_jax_params` goes on to the rank's FSDP shard
+(`parallel/fsdp.py`), which a model cut by `fsdp.shard_model_` loads.
 
 `load_reference_checkpoint` mirrors
 `adt_str_tpu/training/checkpoint.py:load_params_from_reference_checkpoint`:
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from adt_str_tpu_torch import resolve_device
+from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel.tensor_parallel import shard_state_dict
 
 _ST_DTYPES = {
@@ -87,6 +90,16 @@ def shard_state_dict_from_jax_params(params: Mapping[str, Any], rank: int, size:
     """JAX params pytree (numpy leaves) -> rank `rank`'s shard of the
     reference-named state dict on a model axis of `size`."""
     return shard_state_dict(state_dict_from_jax_params(params), rank, size)
+
+
+def fsdp_shard_state_dict_from_jax_params(params: Mapping[str, Any], data_rank: int, n_data: int,
+                                          model_rank: int = 0, n_model: int = 1) -> dict[str, torch.Tensor]:
+    """JAX params pytree (numpy leaves) -> the FSDP shard of the rank at
+    (`data_rank`, `model_rank`) on an `n_data x n_model` mesh: its
+    tensor-parallel shard, then its part of each data-sharded leaf."""
+    sd = shard_state_dict_from_jax_params(params, model_rank, n_model)
+    dims = fsdp_lib.data_dims({k: tuple(v.shape) for k, v in sd.items()}, n_data, n_model)
+    return fsdp_lib.shard_state_dict(sd, dims, data_rank, n_data)
 
 
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:

@@ -29,8 +29,9 @@ Port of `adt_str_tpu/parallel/mesh.py:33-95, 205-237` (`maybe_initialize_distrib
   trainer rank loads its own stride instead (`data/datasets.py`).
 - Collectives on a gloo group stage CUDA tensors through host memory:
   gloo reduces and gathers on the CPU.
-
-FSDP is not ported (`FSDP_ITEM`): asking for it raises.
+- FSDP (`make_mesh(..., fsdp=True)`, `mesh.fsdp: true`): the mesh records
+  the flag; `all_gather_flat` and `reduce_scatter_flat` move the flat
+  buffers of `parallel/fsdp.py` over the data group.
 """
 
 from __future__ import annotations
@@ -51,15 +52,12 @@ from adt_str_tpu_torch.parallel.tensor_parallel import ModelAxis
 logger = logging.getLogger(__name__)
 
 TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
-FSDP_ITEM = "FSDP (parameters sharded over the data axis) is ROADMAP.md queue 1 item 12"
 
 
-def check_layout(n_model: int = 1, fsdp: bool = False) -> None:
-    """Raise for the layouts the port does not have (FSDP) and a model axis below 1."""
+def check_layout(n_model: int = 1) -> None:
+    """Raise for a model axis below 1."""
     if n_model < 1:
         raise ValueError(f"model axis {n_model}: the axis holds one rank or more")
-    if fsdp:
-        raise NotImplementedError(FSDP_ITEM)
 
 
 def torchrun_env() -> Optional[dict]:
@@ -134,7 +132,8 @@ class DataMesh:
     process), `rank` and `world` this process's place on it, `devices` the
     local devices it holds (one a rank when `group` is set). Entries are
     ordered by rank, then by local device; `n_data` counts them. `model`:
-    the tensor-parallel axis (None: none), `global_rank` the rank in the job."""
+    the tensor-parallel axis (None: none), `global_rank` the rank in the job.
+    `fsdp`: the parameters are sharded over the data axis (`parallel/fsdp.py`)."""
 
     devices: tuple[torch.device, ...]
     group: Any = None
@@ -142,6 +141,7 @@ class DataMesh:
     world: int = 1
     model: Optional[ModelAxis] = None
     global_rank: int = 0
+    fsdp: bool = False
     _replicas: Any = dataclasses.field(default_factory=weakref.WeakKeyDictionary, repr=False)
 
     @property
@@ -193,6 +193,26 @@ class DataMesh:
         dist.all_gather(parts, buf, group=self.group)
         return torch.cat(parts).to(t.device)
 
+    def all_gather_flat(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's flat `t` (equal sizes) as the rows of a (world,
+        size) tensor in rank order, on `t`'s device: one all-gather."""
+        if self.group is None or self.world == 1:
+            return t.reshape(1, -1)
+        buf = self._staged(t).contiguous().reshape(-1)
+        out = torch.empty(self.world * buf.numel(), dtype=buf.dtype, device=buf.device)
+        dist.all_gather_into_tensor(out, buf, group=self.group)
+        return out.view(self.world, -1).to(t.device)
+
+    def reduce_scatter_flat(self, t: torch.Tensor) -> torch.Tensor:
+        """Row `rank` of the sum over the ranks of their (world, size) `t`,
+        on `t`'s device: one reduce-scatter."""
+        if self.group is None or self.world == 1:
+            return t[0]
+        buf = self._staged(t).contiguous()
+        out = torch.empty(buf.shape[1:], dtype=buf.dtype, device=buf.device)
+        dist.reduce_scatter_tensor(out, buf.reshape(-1), op=dist.ReduceOp.SUM, group=self.group)
+        return out.to(t.device)
+
     def barrier(self) -> None:
         """Every rank of the job waits for the others (a one-element
         all-reduce on the backend's own device, so NCCL needs no guess of
@@ -230,8 +250,9 @@ def make_mesh(n_data: int = -1, n_model: int = 1, devices: Optional[list] = None
     `n_model`; a grid that is not the world raises); every rank calls it,
     since it makes the axes' groups. In one process, the data axis alone:
     `devices` (None: every visible card), the first `n_data` of them (-1:
-    all); a model axis there raises (it runs one process a rank)."""
-    check_layout(n_model, fsdp)
+    all); a model axis there raises (it runs one process a rank). `fsdp`
+    marks the mesh for parameters sharded over its data axis."""
+    check_layout(n_model)
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         if n_data == -1:
@@ -246,13 +267,14 @@ def make_mesh(n_data: int = -1, n_model: int = 1, devices: Optional[list] = None
             raise ValueError(f"a rank of a process group holds one device, got {devices}")
         device = torch.device(devices[0])
         if n_model == 1:
-            return DataMesh(devices=(device,), group=dist.group.WORLD, rank=rank, world=world, global_rank=rank)
+            return DataMesh(devices=(device,), group=dist.group.WORLD, rank=rank, world=world, global_rank=rank,
+                            fsdp=fsdp)
         data_index, model_index = divmod(rank, n_model)
         # every rank makes every group, in one order (new_group's contract)
         model_groups = [dist.new_group(list(range(i * n_model, (i + 1) * n_model))) for i in range(n_data)]
         data_groups = [dist.new_group(list(range(j, world, n_model))) for j in range(n_model)]
         return DataMesh(devices=(device,), group=data_groups[model_index], rank=data_index, world=n_data,
-                        model=ModelAxis(model_groups[data_index], model_index, n_model), global_rank=rank)
+                        model=ModelAxis(model_groups[data_index], model_index, n_model), global_rank=rank, fsdp=fsdp)
     if n_model > 1:
         raise ValueError(f"a model axis of {n_model} runs one process a rank: build the mesh inside a process "
                          "group (torchrun)")
@@ -264,7 +286,7 @@ def make_mesh(n_data: int = -1, n_model: int = 1, devices: Optional[list] = None
         n_data = len(devices)
     if not 1 <= n_data <= len(devices):
         raise ValueError(f"mesh of {n_data} data entries needs {n_data} devices, have {len(devices)}")
-    return DataMesh(devices=tuple(devices[:n_data]))
+    return DataMesh(devices=tuple(devices[:n_data]), fsdp=fsdp)
 
 
 def _weights_checksum(model: torch.nn.Module) -> torch.Tensor:
@@ -282,7 +304,7 @@ def _weights_checksum(model: torch.nn.Module) -> torch.Tensor:
 
 def broadcast_model(mesh: Optional[DataMesh], model: torch.nn.Module) -> None:
     """Copy the data axis's first rank's weights (its shard, under a model
-    axis) to every rank of the axis, once at start. The ranks built or
+    axis) to every rank of the axis, once at start, before FSDP cuts them. The ranks built or
     restored the same weights, so each rank's checksum must equal the
     first's: a difference raises (the ranks were not seeded alike)."""
     if mesh is None or mesh.group is None or mesh.world == 1:

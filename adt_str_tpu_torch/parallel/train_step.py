@@ -41,6 +41,15 @@ vocabulary-parallel CE, the data-axis reductions above run over the data
 group (the ranks of one model index), and the optimizer's clip norm and
 non-finite guard span the model group (`training/optimizer.py`). The ranks
 of one model group take the same batch, keys and draws.
+
+Under FSDP (the state's model cut by `parallel/fsdp.py:shard_model_`, on a
+mesh made with `fsdp=True`) each rank holds its shards of the data-sharded
+parameters and moments. A step gathers the whole weights once (one flat
+all-gather over the data group), runs the forward and backward passes on
+them, puts the shards back, and reduce-scatters the gradients of the
+data-sharded leaves (one flat reduce-scatter, the same scaling and
+transport dtype as the all-reduce above, which the replicated leaves keep);
+the optimizer then updates the shards. The eval steps gather too.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 from adt_str_tpu_torch import resolve_device
 from adt_str_tpu_torch.config import ModelConfig, SynthConfig
 from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.synth.render import RenderDraws, SynthStatics, check_bins_loaded, render_batch
 from adt_str_tpu_torch.training.optimizer import OptState, Optimizer, apply_updates
@@ -84,6 +94,12 @@ def _check(model: ADTModel, config: ModelConfig, device: torch.device, mesh: Opt
     if (None if mesh is None else mesh.model) is not model.tp:
         raise ValueError("the model's tensor-parallel axis is not the mesh's: build it with "
                          "ADTModel(..., tp=mesh.model)")
+    layout = getattr(model, "fsdp", None)
+    if mesh is not None and mesh.fsdp and layout is None:
+        raise ValueError("the mesh shards the parameters (fsdp=True) but the model is whole: cut it with "
+                         "parallel.fsdp.shard_model_(model, mesh)")
+    if layout is not None and layout.sharded and layout.mesh is not mesh:
+        raise ValueError("the model's FSDP shards were cut for another mesh")
 
 
 def normalize_comm_dtype(comm_dtype) -> Optional[torch.dtype]:
@@ -154,15 +170,22 @@ def _update(state: TrainState, opt: Optimizer, wavs, tokens, lengths, site_keys,
     def loss_fn(reduction: str):
         return model.forward_loss(wavs, tokens, lengths, keys=site_keys, train=True, reduction=reduction)
 
-    if dp is None:
-        loss = loss_fn("mean")
-        reported = loss.detach()
+    layout = getattr(model, "fsdp", None)
+    with fsdp_lib.gathered(model):  # the whole weights for the forward and backward passes
+        if dp is None:
+            loss = loss_fn("mean")
+            reported = loss.detach()
+        else:
+            mesh, comm_dtype, ddp = dp
+            loss, reported = _global_mean(mesh, loss_fn, ddp)
         grads = torch.autograd.grad(loss, list(params.values()))
-    else:
-        mesh, comm_dtype, ddp = dp
-        loss, reported = _global_mean(mesh, loss_fn, ddp)
-        grads = allreduce_grads(mesh, list(torch.autograd.grad(loss, list(params.values()))), comm_dtype,
-                                1.0 / mesh.world if ddp else None)
+        del loss
+    if dp is not None:
+        scale = 1.0 / mesh.world if ddp else None
+        if layout is not None and layout.sharded:
+            grads = list(layout.reduce_grads(dict(zip(params, grads)), comm_dtype, scale, allreduce_grads).values())
+        else:
+            grads = allreduce_grads(mesh, list(grads), comm_dtype, scale)
     grads = dict(zip(params, grads))
     updates, opt_state = opt.update(grads, state.opt_state, params)
     apply_updates(params, updates)
@@ -223,8 +246,10 @@ def _eval_loss(model: ADTModel, mesh: Optional[DataMesh], wavs, tokens, lengths)
     """The teacher-forced loss without dropout; under a mesh the global
     token-weighted mean over the ranks' rows."""
     if mesh is None:
-        return model.forward_loss(wavs, tokens, lengths, train=False)
-    s, n = model.forward_loss(wavs, tokens, lengths, train=False, reduction="sum")
+        with fsdp_lib.gathered(model):
+            return model.forward_loss(wavs, tokens, lengths, train=False)
+    with fsdp_lib.gathered(model):
+        s, n = model.forward_loss(wavs, tokens, lengths, train=False, reduction="sum")
     total = mesh.all_reduce(torch.stack([s, n.to(s.dtype)]))
     return total[0] / torch.clamp(total[1], min=1.0)
 

@@ -311,6 +311,15 @@ def render_batch(statics: SynthStatics, notes: torch.Tensor, mask: torch.Tensor,
                                sample_rate=config.sample_rate, use_fx_prob=config.use_fx_prob)
 
 
+def render_segment(statics: SynthStatics, notes: torch.Tensor, mask: torch.Tensor, draws: RenderDraws,
+                   chunk_samples: int, sample_rate: int, **kwargs) -> torch.Tensor:
+    """One segment: (MAX_NOTES, 4) notes and their (MAX_NOTES,) mask, with
+    the `draws` of a batch of one -> (chunk_samples,) f32 audio; a wrapper
+    over `render_batch_arrays` (`adt_str_tpu/synth/render.py:render_segment`)."""
+    return render_batch_arrays(statics, notes[None], mask[None], draws, chunk_samples=chunk_samples,
+                               sample_rate=sample_rate, **kwargs)[0]
+
+
 def pad_notes(notes: np.ndarray, max_notes: int) -> tuple[np.ndarray, np.ndarray]:
     """Host helper: (n, 4) float notes -> fixed (max_notes, 4) + bool mask.
 

@@ -22,6 +22,10 @@ model group of data index 0 gathers its shards of the weights and of
 Adam's moments (`parallel/tensor_parallel.py:gather_state_dict`), so the
 files are those of a one-process run and eval, serving and a one-process
 resume read them; a tensor-parallel restore cuts its shard out of them
+again. An FSDP model (`model.fsdp`, `parallel/fsdp.py`) gathers its shards
+of the weights and of `mu`, `nu` and `acc` over the data group first
+(every rank takes part), then over the model group as above, so its files
+are those of a one-process run too; its restore cuts the rank's shard out
 again. `gc_checkpoints` keeps the newest
 `max_checkpoints` by mtime; `latest_checkpoint` is the newest (auto-resume).
 A checkpoint whose `meta.json` was lost (a preemption between the two
@@ -64,14 +68,17 @@ def save_checkpoint(output_dir: str | Path, model: torch.nn.Module, opt_state: O
                     max_checkpoints: Optional[int] = None, mesh: Optional[DataMesh] = None) -> str:
     """Write `output_dir/checkpoint-epoch-{epoch}-step-{step}` (overwriting
     it if it exists), then GC to the newest `max_checkpoints`. -> its path.
-    Under a process-group `mesh`: rank 0 writes (a tensor-parallel model's
-    shards gathered first), then every rank waits."""
+    Under a process-group `mesh`: rank 0 writes (an FSDP or tensor-parallel
+    model's shards gathered first), then every rank waits."""
     output_dir = Path(output_dir)
     path = output_dir / checkpoint_name(epoch, step)
-    axis = getattr(model, "tp", None)
-    if axis is not None and mesh is None:
-        raise ValueError("a tensor-parallel model saves with its mesh: every rank calls the save")
+    axis, layout = getattr(model, "tp", None), getattr(model, "fsdp", None)
+    if (axis is not None or layout is not None) and mesh is None:
+        raise ValueError("a tensor-parallel or FSDP model saves with its mesh: every rank calls the save")
     weights, opt = model.state_dict(), dict(vars(opt_state))
+    if layout is not None:  # every rank of each data group gathers
+        weights = layout.gather_state_dict(weights)
+        opt.update({k: layout.gather_state_dict(opt[k]) for k in ("mu", "nu", "acc")})
     if axis is not None and mesh.rank == 0:  # the model group of data index 0 gathers
         weights = tp_lib.gather_state_dict(weights, axis)
         opt.update({k: tp_lib.gather_state_dict(opt[k], axis) for k in ("mu", "nu", "acc")})
@@ -108,8 +115,8 @@ def latest_checkpoint(output_dir: str | Path) -> Optional[str]:
 
 def restore_checkpoint(path: str | Path, model: torch.nn.Module, device=None) -> tuple[OptState, int, int]:
     """Load the checkpoint's weights into `model` (strict; a tensor-parallel
-    model takes its shard) -> (its optimizer state on `device`, step,
-    epoch). `device` None: the model's device."""
+    or FSDP model takes its shard) -> (its optimizer state on `device`,
+    step, epoch). `device` None: the model's device."""
     path = Path(path)
     device = next(model.parameters()).device if device is None else torch.device(device)
     state = torch.load(path / "state.pt", map_location=device, weights_only=True)
@@ -118,6 +125,10 @@ def restore_checkpoint(path: str | Path, model: torch.nn.Module, device=None) ->
         rank, size = model.tp.rank, model.tp.size
         weights = tp_lib.shard_state_dict(weights, rank, size)
         opt.update({k: tp_lib.shard_state_dict(opt[k], rank, size) for k in ("mu", "nu", "acc")})
+    layout = getattr(model, "fsdp", None)
+    if layout is not None:
+        weights = layout.shard_state_dict(weights)
+        opt.update({k: layout.shard_state_dict(opt[k]) for k in ("mu", "nu", "acc")})
     model.load_state_dict(weights, strict=True)
     opt_state = OptState(**opt)
     meta_path = path / "meta.json"

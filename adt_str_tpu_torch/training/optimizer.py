@@ -28,6 +28,14 @@ A tensor-parallel model's optimizer (`make_optimizer` reads the model's
 norm and the non-finite guard span the model group
 (`parallel/tensor_parallel.py:global_norm`, `all_finite`), so every rank of
 it clips by the whole model's norm and skips the same steps.
+
+An FSDP model's optimizer (`make_optimizer` reads the model's `fsdp`
+layout, `parallel/fsdp.py`) works on the rank's shards: the parameters,
+gradients, `mu`, `nu` and `acc` of a data-sharded leaf are its shard, and
+the update is elementwise as above. The clip's norm sums a data-sharded
+leaf's squares over the data group and counts a replicated leaf once (then
+over the model group, as above, under a model axis); the non-finite guard
+counts over every rank of the job.
 """
 
 from __future__ import annotations
@@ -128,20 +136,47 @@ class Optimizer:
     def __init__(self, schedule: Schedule, *, max_grad_norm: float, weight_decay: float,
                  decay: dict[str, bool], accum_steps: int = 1, skip_nonfinite: int = 0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 model_axis: Optional[tp_lib.ModelAxis] = None):
+                 model_axis: Optional[tp_lib.ModelAxis] = None, fsdp=None):
         self.schedule, self.max_grad_norm, self.weight_decay = schedule, float(max_grad_norm), float(weight_decay)
         self.decay, self.accum_steps, self.skip_nonfinite = decay, max(1, int(accum_steps)), int(skip_nonfinite)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.model_axis = model_axis
         self.sharded = tp_lib.sharded_names(decay) if model_axis is not None else frozenset()
+        self.fsdp = fsdp if fsdp is not None and fsdp.sharded else None
+        self.data_sharded = frozenset(self.fsdp.sharded) if self.fsdp is not None else frozenset()
 
     def grad_norm(self, grads: Params) -> torch.Tensor:
-        """The global norm of `grads` (the whole model's, under a model axis)."""
+        """The global norm of `grads` (the whole model's, under a model axis
+        or FSDP)."""
+        if self.fsdp is not None:
+            return self._fsdp_norm(grads)
         if self.model_axis is None:
             return global_norm(grads.values())
         return tp_lib.global_norm(grads, self.model_axis, self.sharded)
 
+    def _fsdp_norm(self, grads: Params) -> torch.Tensor:
+        """The norm over FSDP shards: each data-sharded leaf's squares summed
+        over the data group, then each model-sharded leaf's over the model
+        group, the rest once."""
+        zero = torch.zeros((), device=next(iter(grads.values())).device)
+
+        def squares(pick):
+            return sum((torch.sum(g.float() * g.float()) for n, g in grads.items() if pick(n)), zero)
+
+        data, model = self.data_sharded, self.sharded
+        both = squares(lambda n: n in data and n in model)
+        data_only = squares(lambda n: n in data and n not in model)
+        summed = self.fsdp.mesh.all_reduce(torch.stack([both, data_only]))
+        model_part = summed[0] + squares(lambda n: n in model and n not in data)
+        if self.model_axis is not None:
+            model_part = self.model_axis.all_reduce(model_part)
+        return torch.sqrt(model_part + summed[1] + squares(lambda n: n not in data and n not in model))
+
     def _all_finite(self, grads: Params) -> bool:
+        if self.fsdp is not None:
+            bad = sum(int((~torch.isfinite(g)).any()) for g in grads.values())
+            mesh = self.fsdp.mesh
+            return int(mesh.all_reduce_job(torch.tensor([bad], device=mesh.device)).item()) == 0
         if self.model_axis is None:
             return all(bool(torch.isfinite(g).all()) for g in grads.values())
         return tp_lib.all_finite(grads, self.model_axis)
@@ -205,5 +240,5 @@ def make_optimizer(config: TrainingConfig, total_steps: int, model: nn.Module) -
     schedule = make_schedule(config, max(1, total_steps // accum))
     opt = Optimizer(schedule, max_grad_norm=config.max_grad_norm, weight_decay=config.weight_decay,
                     decay=decay_mask(model), accum_steps=accum, skip_nonfinite=config.skip_nonfinite_updates,
-                    model_axis=getattr(model, "tp", None))
+                    model_axis=getattr(model, "tp", None), fsdp=getattr(model, "fsdp", None))
     return opt, (lambda step: schedule(step // accum))

@@ -44,7 +44,7 @@ writes the checkpoints and `eval_history.jsonl`, traces the profile window
 and starts wandb; a signal sets a local flag whose global OR (one
 all-reduce a step, read a step later) stops every rank after one common
 save. The group the trainer joined is destroyed at the end, also on
-error. FSDP raises (`parallel/mesh.py:check_layout`).
+error.
 
 Tensor parallelism (`mesh.model_axis: n`, read as JAX reads it): the
 ranks form JAX's `n_data x n_model` grid (`make_mesh`, the ranks of one
@@ -57,6 +57,17 @@ the job alone writes; a save gathers the shards
 (`training/checkpoint.py`), a resume cuts them again. On one card:
 `python -m torch.distributed.run --nproc_per_node 2 -m
 adt_str_tpu_torch.train <yaml with mesh.model_axis: 2> --device cuda:0`.
+
+FSDP (`mesh.fsdp: true`, read as JAX reads it): after rank 0's weights
+are broadcast, each rank cuts its shards of the data-sharded parameters
+(`parallel/fsdp.py:shard_model_`) and its optimizer keeps `mu`, `nu` and
+`acc` sharded alike; the steps gather the whole weights, reduce-scatter
+the gradients and update the shards (`parallel/train_step.py`), the
+in-training eval gathers too; a save gathers the shards (every rank takes
+part) and a resume cuts them again. With one rank on the data axis nothing
+is sharded. On one card: `python -m torch.distributed.run
+--nproc_per_node 2 -m adt_str_tpu_torch.train <yaml with mesh.fsdp: true>
+--device cuda:0` (gloo); without `--device`, NCCL a card a rank.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ from adt_str_tpu_torch.config import FrameworkConfig, ModelConfig, SynthConfig
 from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset, prefetch_batches
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.models.adt import ADTModel, draw_site_keys
+from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
 from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel.mesh import DataMesh
@@ -223,7 +235,7 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
     data-parallel over the ranks."""
     setup_logging(cfg.logging.log_level)
     n_model = max(1, cfg.mesh.model_axis)
-    mesh_lib.check_layout(n_model, cfg.mesh.fsdp)
+    mesh_lib.check_layout(n_model)
     joined = mesh_lib.maybe_initialize_distributed(device)
     quiet = None
     try:
@@ -231,7 +243,7 @@ def train(cfg: FrameworkConfig, *, dataset=None, bank: Optional[OneShotBank] = N
         mesh = None
         if (torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1) or n_model > 1:
             n_data = cfg.mesh.data_axis if cfg.mesh.data_axis > 0 else -1
-            mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, devices=[device])
+            mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, devices=[device], fsdp=cfg.mesh.fsdp)
             if mesh.global_rank > 0:
                 quiet = _WarningsOnly()
                 logger.addFilter(quiet)
@@ -283,6 +295,12 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
     if mesh is not None and mesh.model is not None:
         tp_lib.shard_model_(model, mesh.model)
     logger.info("model params: %.2f M", sum(p.numel() for p in model.parameters()) / 1e6)
+    mesh_lib.broadcast_model(mesh, model)  # the whole weights, before FSDP cuts them
+    if mesh is not None and mesh.fsdp:
+        layout = fsdp_lib.shard_model_(model, mesh)
+        logger.info("FSDP: %d of %d parameters sharded over %d data ranks (%.2f M elements at rest on this rank)",
+                    len(layout.sharded), len(layout.whole), mesh.world,
+                    sum(p.numel() for p in model.parameters()) / 1e6)
 
     batch_size = cfg.training.batch_size  # rows a rank loads a step
     global_batch = batch_size * world
@@ -319,7 +337,6 @@ def _train(cfg: FrameworkConfig, dataset, bank: Optional[OneShotBank], device: t
         opt_state, start_step, _ = ckpt_lib.restore_checkpoint(resume, model, device)
         state = TrainState(model, opt_state, start_step)
         logger.info("resumed from %s at step %d", resume, start_step)
-    mesh_lib.broadcast_model(mesh, model)
 
     eval_every = cfg.logging.eval_every_n_steps
     eval_step_fn = None

@@ -5,7 +5,8 @@ Port of `adt_str_tpu/utils/mappings.py` (its own copy of the data; the other
 tables join when a slice needs them). The tables are data and must match
 the reference byte for byte for token and metric parity. The `*_LUT`
 tables are dense 128-entry versions of the dicts (-1 where a pitch is
-unmapped).
+unmapped). `MappingUtils` is the reference class's attribute surface over
+the tables.
 """
 
 from __future__ import annotations
@@ -94,6 +95,8 @@ ADTOF_MAPPING = {
     61: 61,  # Other
 }
 
+GM_CUSTOM_TO_GM_STANDARD = {v: k for k, v in GM_STANDARD_TO_GM_CUSTOM.items()}
+
 ADTOF_INVERSE_MAPPING = {
     35: [35, 36],
     38: [37, 38, 39, 40],
@@ -115,6 +118,8 @@ ADTOF_LABEL_MAPPING = {
     58: "Claves",
     61: "Other",
 }
+
+ADTOF_LABEL_TO_MIDI = {v: k for k, v in ADTOF_LABEL_MAPPING.items()}
 
 GM_REDUCED_NAME_CONVENTION = {
     35: "Acoustic Bass Drum",
@@ -229,3 +234,20 @@ def _make_lut(mapping: dict[int, int]) -> np.ndarray:
 
 GM_STANDARD_TO_GM_CUSTOM_LUT = _make_lut(GM_STANDARD_TO_GM_CUSTOM)
 ADTOF_LUT = _make_lut(ADTOF_MAPPING)
+
+
+class MappingUtils:
+    """The reference `MappingUtils` class's attributes (`utils/mapping_utils.py:1`),
+    as `adt_str_tpu/utils/mappings.py:MappingUtils` gives them."""
+
+    def __init__(self) -> None:
+        self.GM_standard_midi_to_Gm_custom_Mapping = GM_STANDARD_TO_GM_CUSTOM
+        self.GM_custom_midi_to_Gm_standard_Mapping = GM_CUSTOM_TO_GM_STANDARD
+        self.ADTOF_mapping = ADTOF_MAPPING
+        self.ADTOF_inverse_mapping = ADTOF_INVERSE_MAPPING
+        self.ADTOF_label_mapping = ADTOF_LABEL_MAPPING
+        self.ADTOF_label_to_midi_mapping = ADTOF_LABEL_TO_MIDI
+        self.GM_reduced_name_convention = GM_REDUCED_NAME_CONVENTION
+        self.MDB_to_Standard_MIDI = MDB_TO_STANDARD_MIDI
+        self.ENST_to_Standard_MIDI = ENST_TO_STANDARD_MIDI
+        self.TMIDT_to_Standard_MIDI = TMIDT_TO_STANDARD_MIDI

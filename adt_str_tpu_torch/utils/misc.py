@@ -1,14 +1,22 @@
-"""Host utilities: the one logging setup the port's CLIs share, and the
-switch that keeps fp32 matrix products true fp32.
+"""Host utilities: the one logging setup the port's CLIs share, the
+switch that keeps fp32 matrix products true fp32, and the reference's small
+file, array and HDF5 helpers.
 
-`setup_logging` ports `adt_str_tpu/utils/misc.py:setup_logging` (its own copy).
+`setup_logging`, `file_shuffle`, `my_vstack`, `pad_arrays`,
+`get_random_mode`, `create_one_hot`, `save_to_hdf` and
+`save_to_hdf_variations` port `adt_str_tpu/utils/misc.py` (its own copy;
+the HDF5 writers take an open h5py file or group).
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import random
+from collections import Counter
+from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -44,3 +52,65 @@ def fp32_products(fn):
             torch.backends.cudnn.allow_tf32 = prev[1]
 
     return wrapped
+
+
+def file_shuffle(files: list, seed_fix: bool) -> list:
+    """Sorted by path; with `seed_fix`, shuffled by `random.Random(1)`."""
+    files = sorted(files, key=lambda x: str(Path(x)))
+    if seed_fix:
+        random.Random(1).shuffle(files)
+    return files
+
+
+def my_vstack(array1, array2):
+    """`np.vstack` that passes an empty side through."""
+    if len(array1) == 0:
+        return array2
+    if len(array2) == 0:
+        return array1
+    return np.vstack((array1, array2))
+
+
+def pad_arrays(array1: np.ndarray, array2: np.ndarray):
+    """Zero-pad the shorter of two 1-D arrays to the longer's length."""
+    len1, len2 = len(array1), len(array2)
+    if len1 > len2:
+        array2 = np.pad(array2, (0, len1 - len2), mode="constant")
+    elif len2 > len1:
+        array1 = np.pad(array1, (0, len2 - len1), mode="constant")
+    return array1, array2
+
+
+def get_random_mode(lst, rng: random.Random | None = None):
+    """The most frequent element, a random one among ties (`rng`, else the
+    `random` module's generator)."""
+    counter = Counter(lst)
+    max_count = max(counter.values())
+    modes = [key for key, count in counter.items() if count == max_count]
+    return (rng or random).choice(modes)
+
+
+def create_one_hot(length: int, index: int) -> np.ndarray:
+    one_hot = np.zeros(length, dtype=np.float32)
+    one_hot[index] = 1.0
+    return one_hot
+
+
+def save_to_hdf(hf, inst_group, wav_seg, tokens) -> None:
+    """Write the next `seg{N}` group (`wav`, and `midi` when `tokens` is
+    given) under `inst_group` (None: the file's root)."""
+    group = hf if inst_group is None else hf.require_group(inst_group)
+    seg_group = group.create_group(f"seg{len(group.keys())}")
+    seg_group.create_dataset("wav", data=wav_seg)
+    if tokens is not None:
+        seg_group.create_dataset("midi", data=tokens)
+
+
+def save_to_hdf_variations(hf, inst_group, wav_seg, tokens) -> None:
+    """As `save_to_hdf`, with three token variations `midi0`-`midi2`."""
+    group = hf if inst_group is None else hf.require_group(inst_group)
+    seg_group = group.create_group(f"seg{len(group.keys())}")
+    seg_group.create_dataset("wav", data=wav_seg)
+    if tokens is not None:
+        for i in range(3):
+            seg_group.create_dataset(f"midi{i}", data=tokens[i])

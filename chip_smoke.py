@@ -5,7 +5,9 @@ synthesis-fused training step, its training job (`trainer.train`: epochs,
 checkpoints, resume, in-training eval), its evaluation harness with greedy
 and beam decoding, its offline transcription CLI, its bench, its data
 parallelism (two gloo ranks on the one card, one NCCL rank, decode split
-over a mesh) and its CLAP curation CLI (`adt_str_tpu_torch`) at full width,
+over a mesh), its tensor parallelism and FSDP (gloo ranks on the one
+card), its CLAP curation CLI and its YouTube demo CLI (`adt_str_tpu_torch`)
+at full width,
 holds its hand-written CUDA kernels against their plain PyTorch versions,
 and holds a chunk's decoded tokens independent of the rows decoded beside
 it.
@@ -182,13 +184,35 @@ line:
    written whole and loading into a one-process model whose shards are the
    ranks' weights; NCCL a card a rank where there are two cards, else a
    line that says it was not run;
-10. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
+10. fsdp (`phase_fsdp`): FSDP at full width (`mesh.fsdp: true`). Two
+   rank processes on cuda:0 over gloo (a 2 x 1 mesh, 4 of the 8 rows
+   each) train TMIDT-flash and TMIDT-fused-ffn for 3 steps from the same
+   seeded weights: the first step within 1e-3 (loss) and 1e-2 (grad norm)
+   of the one-process step on the same weights, rows and keys, and
+   against the DDP step on the same ranks the loss bit-equal and the grad
+   norm within 1e-5; each rank's resting bytes (parameters, mu, nu) under
+   FSDP and DDP, its peak memory, step ms and the two collectives' ms; four
+   ranks (2 x 2, TP inside FSDP) against the same one-process step;
+   `trainer.train` at `mesh.fsdp: true` for 2 steps and a run resumed from
+   the first save, bit-equal, its checkpoint written whole and loading into
+   a one-process model whose FSDP shards are the ranks' weights; NCCL a
+   card a rank where there are two cards, else a line that says it was
+   not run;
+11. youtube (`phase_youtube`): the demo CLI on 30 s of seeded drum-like
+   audio with `--skip-demucs`, the serving config and a checkpoint from the
+   port's writer, plain and with a 1.28 s hop (its MIDI and preview WAV
+   written, its note count equal to this process's); each chunk decoded
+   alone equal to its row of the batch; `--url` without yt-dlp fails; a
+   one-hot multi-hot `decode_logits` on the card equal to the id path's;
+12. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
    the three batch-invariance kernels) at the main-path shape named in its
    entry, with its launches in every main-path run (serving, the three
    training steps, bench, eval, inference, trainer, trainer-resumed,
    trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
    their ranks, the NCCL step, decode_dp greedy, beam and serving, clap,
-   batch_invariance's greedy runs, the tp phase's steps and trainer);
+   batch_invariance's greedy runs, the tp phase's steps and trainer, the
+   fsdp phase's steps, 2 x 2 grid and trainer, the youtube phase's batched
+   decodes);
    K1's entry also holds its numbers at CLAP's frontend
    (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`), K4's in
    its partial mode (`partial_d_ff_1536`), and `layer_norm`'s entry is the
@@ -252,7 +276,7 @@ from adt_str_tpu_torch.evaluation.metrics import aggregate_metrics, compute_metr
 from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel, collate_token_lengths, draw_site_keys, mel_params
-from adt_str_tpu_torch.models.convert import read_safetensors
+from adt_str_tpu_torch.models.convert import read_safetensors, write_safetensors
 from adt_str_tpu_torch.models.decode import (
     beam_search_decode,
     beam_search_decode_from_memory,
@@ -266,11 +290,13 @@ from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
+from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
 from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel import train_step as port_step
 from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_train_step, make_train_step
 from adt_str_tpu_torch.serve import build_engine
+from adt_str_tpu_torch.scripts import youtube_drum_pipeline as youtube_demo
 from adt_str_tpu_torch.synth import render
 from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
 from adt_str_tpu_torch.training import checkpoint as trainer_ckpt
@@ -3040,6 +3066,469 @@ def phase_tp(params, gen) -> dict:
     return res
 
 
+FSDP_WORLD = 2  # a 2 x 1 mesh: two data ranks, both on cuda:0 over gloo
+FSDP_BATCH = TP_BATCH  # global rows a step (4 a data rank): gloo stages every collective through host memory
+FSDP_STEPS = 3
+FSDP_GRID = (2, 2)  # four ranks: 2 data x 2 model
+FSDP_GRID_STEPS = 2
+FSDP_TRAINER_STEPS = 2  # saved after 1 and 2; the resumed run takes step 2
+FSDP_TIMEOUT = 480
+FSDP_CONFIGS = TP_CONFIGS
+FSDP_DDP_NORM_RTOL = 1e-5  # the FSDP step's grad norm against DDP's on the same ranks (another summation order)
+
+
+def resting_bytes(model: torch.nn.Module, opt_state) -> dict:
+    """Bytes this rank holds at rest: its parameters, Adam's mu and nu."""
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    return {"params": size(model.parameters()), "mu": size(opt_state.mu.values()),
+            "nu": size(opt_state.nu.values())}
+
+
+def fsdp_collective_ms(layout, model: torch.nn.Module) -> dict:
+    """Median wall ms of a step's two FSDP collectives on this rank: the
+    gather of the whole weights (`layout.gather`: pack, one all-gather,
+    unpack) and the gradient reduction (`layout.reduce_grads`: one
+    reduce-scatter of the data-sharded leaves, one all-reduce of the
+    replicated ones), on whole-size gradients."""
+    params = dict(model.named_parameters())
+    shards = {k: params[k].detach() for k in layout.sharded}
+    grads = {k: torch.randn(layout.whole[k], device=params[k].device) * 1e-3 for k in params}
+    out = {}
+    for name, fn in (("all_gather", lambda: layout.gather(shards)),
+                     ("reduce_scatter", lambda: layout.reduce_grads(grads, None, None, port_step.allreduce_grads))):
+        fn()
+        times = []
+        for _ in range(ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        out[name] = {"ms": statistics.median(times), "all_ms": times}
+    out["mb_a_rank"] = sum(math.prod(s) for s in layout.shard_shapes.values()) * 4 / 1e6
+    return out
+
+
+def fsdp_rank_main(rank: int, job_path: str) -> None:
+    """A rank process of the fsdp phase: torchrun's environment, the FSDP
+    steps (`fsdp_rank_step`) and, when the job asks, the trainer
+    (`fsdp_rank_trainer`); its results go to the job's directory as
+    `rank{rank}.pt`."""
+    job = torch.load(job_path, weights_only=False)
+    world = job["shape"][0] * job["shape"][1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"step": fsdp_rank_step(job)}
+    torch.cuda.empty_cache()
+    if job["trainer"]:
+        res["trainer"] = fsdp_rank_trainer(job)
+    torch.save(res, Path(job["dir"]) / f"rank{rank}.pt")
+
+
+def fsdp_rank_step(job: dict) -> dict:
+    """The job's configs on this rank: with `ddp`, one step of the DDP (or
+    TP) layout on the same ranks, then `steps` FSDP steps from the same
+    seeded weights on this data index's rows and keys, the launches
+    counted, the peak memory, the resting bytes and the collectives timed."""
+    os.environ["MASTER_PORT"] = str(job["ports"]["step"])
+    device = mesh_lib.maybe_initialize_distributed(job["device"])
+    try:
+        n_data, n_model = job["shape"]
+        fmesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, devices=[device], fsdp=True)
+        dmesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, devices=[device]) if job["ddp"] else None
+        rows = fmesh.local_rows(FSDP_BATCH)
+        batch = {k: v[rows].to(device) for k, v in job["batch"].items()}
+        res = {"backend": fmesh.backend, "device": str(device), "data_rank": fmesh.rank,
+               "model_rank": 0 if fmesh.model is None else fmesh.model.rank, "rows": [rows.start, rows.stop]}
+        for name in job["configs"]:
+            cfg = load_config(TRAIN_YAMLS[name], train=True, show=False)
+            keys = [k[fmesh.rank] for k in job["keys"][name]]
+
+            def call(step, state, i, keys=keys):
+                return step(state, batch, keys[i])
+
+            r = {}
+            if dmesh is not None:
+                model = ADTModel(cfg.model, seed=SEED, device=device, tp=dmesh.model)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                d, (_, state) = timed_steps(model, lambda opt, mc=cfg.model: make_train_step(mc, opt, mesh=dmesh),
+                                            call, 1)
+                r["ddp"] = {"loss": d["losses"][0], "grad_norm": d["grad_norms"][0], "step_ms": d["step_ms"],
+                            "resting_bytes": resting_bytes(model, state.opt_state),
+                            "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+                del model, state
+                torch.cuda.empty_cache()
+            model = ADTModel(cfg.model, seed=SEED, device=device, tp=fmesh.model)
+            layout = fsdp_lib.shard_model_(model, fmesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            counters = reset_counters()
+            f, (_, state) = timed_steps(model, lambda opt, mc=cfg.model: make_train_step(mc, opt, mesh=fmesh), call,
+                                        job["steps"])
+            f["launches"] = {k: c.launches for k, c in counters.items()}
+            f["expected_launches"] = add_launches(dict.fromkeys(counters, 0), per_step(cfg.model, False), job["steps"])
+            f["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+            f["resting_bytes"] = resting_bytes(model, state.opt_state)
+            f["sharded_leaves"], f["leaves"] = len(layout.sharded), len(layout.whole)
+            f["whole_bytes"] = 3 * sum(math.prod(s) * 4 for s in layout.whole.values())
+            f["replicated_bytes"] = 3 * sum(math.prod(layout.whole[k]) * 4 for k in layout.replicated)
+            del state
+            f["collectives"] = fsdp_collective_ms(layout, model)
+            r["fsdp"] = f
+            res[name] = r
+            del model
+            torch.cuda.empty_cache()
+        return res
+    finally:
+        mesh_lib.destroy()
+
+
+def fsdp_rank_trainer(job: dict) -> dict:
+    """This rank's part of the fsdp phase's trainer: `trainer.train` on
+    TMIDT-flash with `mesh.fsdp: true` (it joins the group from torchrun's
+    environment), straight for FSDP_TRAINER_STEPS steps saving every step,
+    then resumed from the first save; the digests of its shards."""
+    out = Path(job["dir"]) / "trainer"
+    common = dict(training={"max_steps": FSDP_TRAINER_STEPS, "num_epochs": 1, "batch_size": FSDP_BATCH // FSDP_WORLD},
+                  mesh={"fsdp": True}, train_data={"holdout_fraction": 0.0},
+                  logging={"output_dir": str(out), "logging_steps": 1, "save_every_n_steps": 1})
+    first = out / "straight" / trainer_ckpt.checkpoint_name(0, 1)
+    cfgs = {"straight": load_config(TRAIN_YAMLS["flash"], show=False, experiment={"run_name": "straight"}, **common),
+            "resumed": load_config(TRAIN_YAMLS["flash"], show=False, experiment={"run_name": "resumed"},
+                                   checkpoint={"resume_from_checkpoint": str(first)}, **common)}
+    ds = TMIDTDataset(cfgs["straight"].train_data, MidiTokenizer(cfgs["straight"].tokenizer), rows=job["tmidt_rows"])
+    res = {}
+    for name, c in cfgs.items():
+        os.environ["MASTER_PORT"] = str(job["ports"][f"trainer_{name}"])
+        run = run_trainer(c, device="cuda:0", dataset=ds)
+        model = run["state"].model
+        res[name] = {"losses": [r["loss"] for r in run["steps"]], "launches": run["launches"],
+                     "wall_s": run["wall_s"], "step": run["state"].step, "digest": weights_digest(model),
+                     "sharded_leaves": len(model.fsdp.sharded)}
+        del run, model
+        torch.cuda.empty_cache()
+    res["checkpoints"] = sorted(p.name for p in (out / "straight").glob("checkpoint-*"))
+    return res
+
+
+def fsdp_inputs() -> tuple[dict, dict]:
+    """The FSDP steps' batch (FSDP_BATCH random 2.56 s waves and 512-token
+    rows) and each step's site keys for each data index, on the host; the
+    one-process reference of each config's first step in this process: the
+    same seeded weights, the global token-weighted mean over the data
+    indices' rows, each half's dropout under its own keys."""
+    cfgs = {name: load_config(TRAIN_YAMLS[name], train=True, show=False) for name in FSDP_CONFIGS}
+    g = torch.Generator().manual_seed(SEED + 500)
+    wave = torch.randn(FSDP_BATCH, cfgs["flash"].shared.chunk_samples, generator=g) * 0.3
+    toks = token_batch(cfgs["flash"], g)
+    batch = {"wavs": wave, **{k: v[:FSDP_BATCH] for k, v in toks.items()}}
+    keys = {name: [[draw_site_keys(cfg.model, torch.Generator().manual_seed(SEED + 501 + 10 * i + d))
+                    for d in range(FSDP_WORLD)] for i in range(FSDP_STEPS)] for name, cfg in cfgs.items()}
+    half = FSDP_BATCH // FSDP_WORLD
+    refs = {}
+    for name, cfg in cfgs.items():
+        model = ADTModel(cfg.model, seed=SEED, device="cuda")
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rows = [slice(d * half, (d + 1) * half) for d in range(FSDP_WORLD)]
+        parts = [model.forward_loss(on_card["wavs"][r], on_card["tokens"][r], on_card["token_lengths"][r],
+                                    keys=keys[name][0][d], train=True, reduction="sum") for d, r in enumerate(rows)]
+        loss = sum(s for s, _ in parts) / torch.clamp(sum(n for _, n in parts), min=1.0)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+        torch.cuda.synchronize()
+        refs[name] = {"loss": loss.item(), "grad_norm": norm.item(), "fwd_bwd_ms": (time.monotonic() - t0) * 1e3}
+        del model, grads, parts, loss
+        torch.cuda.empty_cache()
+    return {"batch": batch, "keys": keys}, refs
+
+
+def phase_fsdp() -> dict:
+    """FSDP at full width (`mesh.fsdp: true`, `parallel/fsdp.py`): the
+    parameters and Adam's moments sharded over the data axis as JAX's
+    `fsdp_partition_specs` shards them.
+
+    - Two rank processes on cuda:0 over gloo (a 2 x 1 mesh) train
+      TMIDT-flash (K1, K5f, K5b) and TMIDT-fused-ffn (K1, K4) for
+      FSDP_STEPS steps at FSDP_BATCH global rows: the first step's loss and
+      grad norm against the one-process step on the same weights, rows and
+      keys (1e-3, 1e-2 relative, the tp phase's bounds), and against the
+      DDP step on the same ranks (the loss bit-equal, the grad norm within
+      1e-5); the ranks' numbers bit-equal; the kernels launched as the
+      steps need. Per rank: resting bytes of parameters, mu and nu under
+      FSDP and DDP, the peak memory, step ms, the gather's and the
+      gradient reduction's ms.
+    - Four rank processes (a 2 x 2 mesh, TP inside FSDP) run TMIDT-flash for
+      FSDP_GRID_STEPS steps against the same one-process step.
+    - `trainer.train` at `mesh.fsdp: true` in the two ranks for
+      FSDP_TRAINER_STEPS steps and a run resumed from the first save,
+      bit-equal; the checkpoint, written whole, loads into one process
+      whose FSDP shards are the ranks' weights.
+    - NCCL, one card a rank, where the machine has two cards or more (the
+      steps alone); else it reports that it was not run.
+    Gloo stages every collective through host memory: these are parity
+    checks and resting-memory counts, not speed figures."""
+    host, refs = fsdp_inputs()
+    flash = load_config(TRAIN_YAMLS["flash"], show=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        ports = {k: free_port() for k in ("step", "trainer_straight", "trainer_resumed")}
+        job = {"dir": tmp, "device": "cuda:0", "ports": ports, "shape": (FSDP_WORLD, 1), "configs": FSDP_CONFIGS,
+               "steps": FSDP_STEPS, "ddp": True, "trainer": True, **host,
+               "tmidt_rows": tmidt_rows(3 * FSDP_BATCH, flash, SEED + 510)}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = run_ranks(job, fsdp_rank_main, FSDP_WORLD, FSDP_TIMEOUT)
+        wall = time.monotonic() - t0
+        last = Path(tmp) / "trainer" / "straight" / trainer_ckpt.checkpoint_name(0, FSDP_TRAINER_STEPS)
+        whole = ADTModel(flash.model, seed=SEED + 1, device="cuda")
+        trainer_ckpt.restore_checkpoint(last, whole)
+        from_safetensors = read_safetensors(last / "model.safetensors")
+        sd = whole.state_dict()
+        dims = fsdp_lib.data_dims({k: tuple(v.shape) for k, v in sd.items()}, FSDP_WORLD)
+        shard_digests = []
+        for r in range(FSDP_WORLD):
+            part = fsdp_lib.shard_state_dict(sd, dims, r, FSDP_WORLD)
+            h = hashlib.sha256()
+            for n, t in part.items():  # weights_digest's order and bytes
+                h.update(n.encode())
+                h.update(t.detach().cpu().numpy().tobytes())
+            shard_digests.append(h.hexdigest())
+        one_process = {"safetensors_equal": all(torch.equal(from_safetensors[n].cuda(), p) for n, p in sd.items()),
+                       "embedding_shape": list(from_safetensors["decoder.tgt_tok_emb.embedding.weight"].shape),
+                       "shards_equal_the_ranks": [shard_digests[r] == ranks[r]["trainer"]["straight"]["digest"]
+                                                  for r in range(FSDP_WORLD)]}
+        del whole, sd
+    with tempfile.TemporaryDirectory() as tmp:
+        grid_job = {**job, "dir": tmp, "shape": FSDP_GRID, "configs": ("flash",), "steps": FSDP_GRID_STEPS,
+                    "ddp": False, "trainer": False, "ports": {"step": free_port()}}
+        t0 = time.monotonic()
+        grid = [r["step"] for r in run_ranks(grid_job, fsdp_rank_main, FSDP_GRID[0] * FSDP_GRID[1], FSDP_TIMEOUT)]
+        grid_wall = time.monotonic() - t0
+    nccl = None
+    if torch.cuda.device_count() >= FSDP_WORLD:
+        with tempfile.TemporaryDirectory() as tmp:
+            nccl_job = {**job, "dir": tmp, "device": None, "ddp": False, "trainer": False,
+                        "ports": {"step": free_port()}}
+            nccl = [r["step"] for r in run_ranks(nccl_job, fsdp_rank_main, FSDP_WORLD, FSDP_TIMEOUT)]
+    steps = [r["step"] for r in ranks]
+    tr = [r["trainer"] for r in ranks]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    first = {n: {"loss": steps[0][n]["fsdp"]["losses"][0], "grad_norm": steps[0][n]["fsdp"]["grad_norms"][0]}
+             for n in FSDP_CONFIGS}
+    vs_one = {n: {"loss_rel": rel(first[n]["loss"], refs[n]["loss"]),
+                  "grad_norm_rel": rel(first[n]["grad_norm"], refs[n]["grad_norm"])} for n in FSDP_CONFIGS}
+    vs_ddp = {n: {"loss_equal": all(s[n]["fsdp"]["losses"][0] == s[n]["ddp"]["loss"] for s in steps),
+                  "grad_norm_rel": max(rel(s[n]["fsdp"]["grad_norms"][0], s[n]["ddp"]["grad_norm"]) for s in steps)}
+              for n in FSDP_CONFIGS}
+    grid_first = {"loss": grid[0]["flash"]["fsdp"]["losses"][0], "grad_norm": grid[0]["flash"]["fsdp"]["grad_norms"][0]}
+    grid_vs_one = {"loss_rel": rel(grid_first["loss"], refs["flash"]["loss"]),
+                   "grad_norm_rel": rel(grid_first["grad_norm"], refs["flash"]["grad_norm"])}
+    per_rank = {f"rank{i}": {n: {"resting_bytes": {"fsdp": s[n]["fsdp"]["resting_bytes"],
+                                                   "ddp": s[n]["ddp"]["resting_bytes"]},
+                                 "whole_bytes": s[n]["fsdp"]["whole_bytes"],
+                                 "replicated_bytes": s[n]["fsdp"]["replicated_bytes"],
+                                 "max_memory_allocated": {"fsdp": s[n]["fsdp"]["max_memory_allocated"],
+                                                          "ddp": s[n]["ddp"]["max_memory_allocated"]},
+                                 "step_ms": s[n]["fsdp"]["step_ms"], "ddp_step_ms": s[n]["ddp"]["step_ms"],
+                                 "collectives": s[n]["fsdp"]["collectives"]}
+                             for n in FSDP_CONFIGS} for i, s in enumerate(steps)}
+    res = {"phase": "fsdp", "mesh": f"{FSDP_WORLD} x 1", "ranks": FSDP_WORLD, "backend": steps[0]["backend"],
+           "device": steps[0]["device"], "batch": FSDP_BATCH, "tokens": TRAIN_TOKENS, "ranks_wall_s": wall,
+           "sharded_leaves": {n: [steps[0][n]["fsdp"]["sharded_leaves"], steps[0][n]["fsdp"]["leaves"]]
+                              for n in FSDP_CONFIGS},
+           "parity": {n: {"fsdp": first[n], "one_process": refs[n], **vs_one[n], **TP_TOL,
+                          "vs_ddp": {**vs_ddp[n], "grad_norm_rtol": FSDP_DDP_NORM_RTOL}} for n in FSDP_CONFIGS},
+           "losses": {n: steps[0][n]["fsdp"]["losses"] for n in FSDP_CONFIGS}, "per_rank": per_rank,
+           "launches": {f"rank{i}": {n: s[n]["fsdp"]["launches"] for n in FSDP_CONFIGS} for i, s in enumerate(steps)},
+           "grid_2x2": {"ranks_wall_s": grid_wall, "first": grid_first, **grid_vs_one,
+                        "losses": grid[0]["flash"]["fsdp"]["losses"],
+                        "step_ms": {f"rank{i}": g["flash"]["fsdp"]["step_ms"] for i, g in enumerate(grid)},
+                        "resting_bytes": {f"rank{i}": g["flash"]["fsdp"]["resting_bytes"] for i, g in enumerate(grid)},
+                        "launches": {f"rank{i}": g["flash"]["fsdp"]["launches"] for i, g in enumerate(grid)}},
+           "trainer": {"losses": tr[0]["straight"]["losses"], "resumed_losses": tr[0]["resumed"]["losses"],
+                       "checkpoints": tr[0]["checkpoints"], "wall_s": [t["straight"]["wall_s"] for t in tr],
+                       "launches": {f"rank{i}": {k: t[k]["launches"] for k in ("straight", "resumed")}
+                                    for i, t in enumerate(tr)},
+                       "one_process_restore": one_process},
+           "nccl": ("not run: one card on this machine (NCCL holds one rank a card)" if nccl is None else
+                    {"backend": nccl[0]["backend"], "devices": [r["device"] for r in nccl],
+                     "losses": {n: nccl[0][n]["fsdp"]["losses"] for n in FSDP_CONFIGS},
+                     "step_ms": {n: nccl[0][n]["fsdp"]["step_ms"] for n in FSDP_CONFIGS},
+                     "collectives": {n: nccl[0][n]["fsdp"]["collectives"] for n in FSDP_CONFIGS}})}
+    emit(res)
+
+    def within_resting(s, n):
+        f = s[n]["fsdp"]
+        held = sum(f["resting_bytes"].values())
+        return held <= (f["whole_bytes"] - f["replicated_bytes"]) / FSDP_WORLD + f["replicated_bytes"] \
+            and held < sum(s[n]["ddp"]["resting_bytes"].values())
+
+    checks = {
+        "gloo on cuda:0": all(s["backend"] == "gloo" and s["device"] == "cuda:0" for s in steps + grid),
+        "the ranks hold data indices 0 and 1": [s["data_rank"] for s in steps] == [0, 1],
+        "the 2 x 2 grid's places": [(g["data_rank"], g["model_rank"]) for g in grid] == [(0, 0), (0, 1), (1, 0),
+                                                                                         (1, 1)],
+        "the ranks report the same numbers": all(s[n]["fsdp"]["losses"] == steps[0][n]["fsdp"]["losses"]
+                                                 and s[n]["fsdp"]["grad_norms"] == steps[0][n]["fsdp"]["grad_norms"]
+                                                 for s in steps for n in FSDP_CONFIGS),
+        "finite losses": all(math.isfinite(x) for n in FSDP_CONFIGS for x in steps[0][n]["fsdp"]["losses"]),
+        "kernels launched as the steps need": all(s[n]["fsdp"]["launches"] == s[n]["fsdp"]["expected_launches"]
+                                                  for s in steps for n in FSDP_CONFIGS)
+                                              and all(g["flash"]["fsdp"]["launches"]
+                                                      == g["flash"]["fsdp"]["expected_launches"] for g in grid),
+        "resting bytes at most 1/n_data of the whole plus the replicated leaves, below DDP's": all(
+            within_resting(s, n) for s in steps for n in FSDP_CONFIGS),
+        **{f"{n}: FSDP step = the one-process step": vs_one[n]["loss_rel"] <= TP_TOL["loss_rtol"]
+           and vs_one[n]["grad_norm_rel"] <= TP_TOL["grad_norm_rtol"] for n in FSDP_CONFIGS},
+        **{f"{n}: FSDP's first loss bit-equal to DDP's, the grad norm within 1e-5": vs_ddp[n]["loss_equal"]
+           and vs_ddp[n]["grad_norm_rel"] <= FSDP_DDP_NORM_RTOL for n in FSDP_CONFIGS},
+        "2 x 2: the step = the one-process step": grid_vs_one["loss_rel"] <= TP_TOL["loss_rtol"]
+                                                 and grid_vs_one["grad_norm_rel"] <= TP_TOL["grad_norm_rtol"],
+        "2 x 2: the ranks report the same losses": all(g["flash"]["fsdp"]["losses"] == grid[0]["flash"]["fsdp"]["losses"]
+                                                       for g in grid),
+        "trainer: straight and resumed end at the same step": all(
+            t["straight"]["step"] == t["resumed"]["step"] == FSDP_TRAINER_STEPS for t in tr),
+        "trainer: the resumed run bit-equal to the straight run": all(
+            t["straight"]["digest"] == t["resumed"]["digest"] for t in tr),
+        "trainer: the parameters sharded": all(t["straight"]["sharded_leaves"] > 0 for t in tr),
+        "trainer: a checkpoint a step": tr[0]["checkpoints"] == [trainer_ckpt.checkpoint_name(0, i + 1)
+                                                                for i in range(FSDP_TRAINER_STEPS)],
+        "the checkpoint is whole and loads in one process": one_process["safetensors_equal"]
+                                                            and one_process["embedding_shape"]
+                                                            == [flash.model.tgt_vocab_size, flash.model.d_model],
+        "the one-process model's FSDP shards are the ranks' weights": all(one_process["shards_equal_the_ranks"]),
+    }
+    if nccl is not None:
+        checks["NCCL: the gloo run's first losses"] = all(
+            rel(nccl[0][n]["fsdp"]["losses"][0], first[n]["loss"]) <= TP_TOL["loss_rtol"] for n in FSDP_CONFIGS)
+    fail_unless("fsdp", checks)
+    return res
+
+
+YOUTUBE_SEC = 30.0
+YOUTUBE_HOP_SEC = 1.28
+YOUTUBE_SR = 44_100  # the WAV's own rate: the demo resamples it to the config's
+
+
+def drum_wave(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Seeded drum-like audio: decaying noise bursts (kick-like low, snare-
+    and hat-like bright) on a jittered 8th-note grid at 120 bpm."""
+    rng = np.random.default_rng(seed)
+    wave = np.zeros(int(seconds * sr), np.float32)
+    t = np.arange(int(0.3 * sr)) / sr
+    shapes = [np.sin(2 * np.pi * 60 * t) * np.exp(-t / 0.08), rng.normal(size=t.size) * np.exp(-t / 0.05),
+              rng.normal(size=t.size) * np.exp(-t / 0.015)]
+    grid = np.arange(0.0, seconds - 0.3, 0.25)
+    for onset in grid + rng.uniform(0, 0.01, grid.size):
+        k = int(rng.integers(0, 3))
+        start = int(onset * sr)
+        wave[start : start + t.size] += (shapes[k] * rng.uniform(0.3, 1.0)).astype(np.float32)
+    return wave / np.abs(wave).max() * 0.8
+
+
+def phase_youtube() -> dict:
+    """The demo CLI (`python -m adt_str_tpu_torch.scripts.youtube_drum_pipeline`)
+    on the card in a subprocess: 30 s of seeded drum-like audio at 44.1 kHz,
+    `--skip-demucs`, the serving config (K1, K5f) and a seeded checkpoint
+    written by the port's safetensors writer; once plain and once with a
+    1.28 s hop: wall s, chunks, notes, files written. In this process the
+    same chunks in one batch (K1, K5f launched once, at the encoder's
+    layers) against each chunk decoded alone by `greedy_decode`: equal
+    tokens; the CLI's note count against this process's; `--url` without
+    yt-dlp must fail naming it; a one-hot multi-hot `decode_logits` on the
+    card against the id path (bf16: the one-hot product selects one
+    embedding row exactly, so within 1e-2 of the logits' largest, reported
+    with whether bit-equal)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "ckpt").mkdir()
+        cfg = load_config(SERVING_YAML, inference={"checkpoint_path": str(tmp / "ckpt")})
+        model = ADTModel(cfg.model, seed=SEED + 90, device="cuda").eval()
+        write_safetensors(model.state_dict(), tmp / "ckpt" / "model.safetensors")
+        write_wav(tmp / "song.wav", drum_wave(YOUTUBE_SEC, YOUTUBE_SR, SEED + 91), YOUTUBE_SR)
+        raw = cfg.raw
+        (tmp / "cfg.yaml").write_text(yaml_text({
+            "shared": raw["shared"], "tokenizer": raw["tokenizer"], "model": raw["model"],
+            "inference": {**raw["inference"], "checkpoint_path": str(tmp / "ckpt")}}))
+        cli = {}
+        for name, hop in (("plain", []), ("hop", ["--hop-sec", str(YOUTUBE_HOP_SEC)])):
+            out = tmp / name
+            proc, secs = run_cli(["-m", "adt_str_tpu_torch.scripts.youtube_drum_pipeline", "--input-audio",
+                                  str(tmp / "song.wav"), "--config", str(tmp / "cfg.yaml"), "--output-dir", str(out),
+                                  "--skip-demucs", *hop])
+            said = [ln for ln in proc.stdout.splitlines() if ln.startswith("Transcribed ")]
+            cli[name] = {"wall_s": secs, "notes": int(said[0].split()[1]) if said else None,
+                         "files": {p.name: p.stat().st_size for p in sorted(out.iterdir())}}
+        empty_bin = tmp / "bin"
+        empty_bin.mkdir()
+        url = subprocess.run([sys.executable, "-m", "adt_str_tpu_torch.scripts.youtube_drum_pipeline", "--url",
+                              "video-id-placeholder", "--config", str(tmp / "cfg.yaml"), "--output-dir",
+                              str(tmp / "url")], cwd=REPO, capture_output=True, text=True, timeout=300,
+                             env={**os.environ, "PATH": str(empty_bin)})
+        wav = normalize(load_and_resample(tmp / "song.wav", cfg.shared.sample_rate))
+    tokenizer = MidiTokenizer(cfg.tokenizer)
+    in_process = {}
+    for name, hop in (("plain", None), ("hop", YOUTUBE_HOP_SEC)):
+        starts, chunks = youtube_demo.chunk_batch(cfg, wav, hop)
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.monotonic()
+        tokens = youtube_demo.decode_chunks(model, cfg, tokenizer, chunks, "cuda")
+        batch_s = time.monotonic() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        notes = youtube_demo.run_model_on_chunks(model, cfg, tokenizer, wav, hop_sec=hop, device="cuda")
+        in_process[name] = {"chunks": len(starts), "batch_decode_s": batch_s, "launches": launches,
+                            "notes": len(notes), "tokens": tokens}
+    kw = dict(max_length=int(cfg.inference.max_length), start_token=tokenizer.BOS_token,
+              end_token=tokenizer.EOS_token)
+    _, chunks = youtube_demo.chunk_batch(cfg, wav, None)
+    alone = np.stack([greedy_decode(model, torch.from_numpy(c[None]).cuda(), **kw).cpu().numpy()[0] for c in chunks])
+    batch_tokens = in_process["plain"].pop("tokens")
+    in_process["hop"].pop("tokens")
+    differing = [i for i in range(len(chunks)) if not np.array_equal(alone[i], batch_tokens[i])]
+    # multi-hot rows on the card: one-hot rows of the id path's tokens
+    ids = torch.from_numpy(batch_tokens[:4, :64].astype(np.int64)).cuda()
+    with torch.no_grad():
+        memory = model.encode(torch.from_numpy(chunks[:4]).cuda())
+        by_ids = model.decode_logits(ids, memory).float()
+        hot = torch.nn.functional.one_hot(ids, cfg.model.tgt_vocab_size).to(model.compute_dtype)
+        by_rows = model.decode_logits(hot, memory).float()
+    multi_err = float((by_rows - by_ids).abs().max())
+    multi_tol = 1e-2 * float(by_ids.abs().max())
+    res = {"phase": "youtube", "config": SERVING_YAML, "audio_s": YOUTUBE_SEC, "wav_sr": YOUTUBE_SR,
+           "hop_sec": YOUTUBE_HOP_SEC, "cli": cli, "in_process": in_process,
+           "chunks_alone_equal_the_batch": {"chunks": len(chunks), "differing_rows": differing},
+           "url_without_yt_dlp": {"exit": url.returncode, "said": (url.stderr.strip().splitlines() or [""])[-1]},
+           "multi_hot": {"rows": list(hot.shape), "dtype": str(model.compute_dtype), "max_abs_err": multi_err,
+                         "tol": multi_tol, "bit_equal": bool(torch.equal(by_rows, by_ids))}}
+    emit(res)
+    n_layers = cfg.model.enc_layers
+    checks = {
+        "the CLI wrote the MIDI and the preview WAV": all(
+            c["files"].get("predicted_drums.mid", 0) > 22 and c["files"].get("synthesized_drums.wav", 0) > 44
+            for c in cli.values()),
+        "the CLI's notes = this process's": all(cli[n]["notes"] == in_process[n]["notes"] for n in cli),
+        "every chunk decoded alone = its row of the batch": not differing,
+        "K1 once and K5f once an encoder layer, per batch": all(
+            p["launches"]["log_mel"] == 1 and p["launches"]["fused_attention"] == n_layers
+            for p in in_process.values()),
+        "--url without yt-dlp fails naming it": url.returncode != 0 and "yt-dlp not found" in url.stderr,
+        "one-hot multi-hot logits = the id path's": multi_err <= multi_tol,
+    }
+    fail_unless("youtube", checks)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def fail_unless(phase: str, checks: dict, detail="") -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -4054,6 +4543,8 @@ def main() -> int:
     bench = phase_bench()
     clap = phase_clap()
     tp = phase_tp(params, gen)
+    fsdp = phase_fsdp()
+    youtube = phase_youtube()
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
@@ -4077,7 +4568,13 @@ def main() -> int:
                "batch_invariance-greedy": invariance["greedy_launches"],
                **{f"tp-{c} (2 ranks)": ranks_sum({r: n[c] for r, n in tp["launches"].items()}) for c in TP_CONFIGS},
                "tp-trainer (2 ranks)": ranks_sum({f"{r}-{k}": n[k] for r, n in tp["trainer"]["launches"].items()
-                                                  for k in ("straight", "resumed")})}
+                                                  for k in ("straight", "resumed")}),
+               **{f"fsdp-{c} (2 ranks)": ranks_sum({r: n[c] for r, n in fsdp["launches"].items()})
+                  for c in FSDP_CONFIGS},
+               "fsdp-2x2 (4 ranks)": ranks_sum(fsdp["grid_2x2"]["launches"]),
+               "fsdp-trainer (2 ranks)": ranks_sum({f"{r}-{k}": n[k] for r, n in fsdp["trainer"]["launches"].items()
+                                                    for k in ("straight", "resumed")}),
+               **{f"youtube-{k}": v["launches"] for k, v in youtube["in_process"].items()}}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -47,6 +47,7 @@ from adt_str_tpu_torch.config import ModelConfig, SynthConfig, TrainingConfig
 from adt_str_tpu_torch.models import adt as tadt
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
+from adt_str_tpu_torch.parallel import fsdp
 from adt_str_tpu_torch.parallel import mesh as tmesh
 from adt_str_tpu_torch.parallel import train_step as tstep
 from adt_str_tpu_torch.synth import render as trender
@@ -391,8 +392,10 @@ def test_layouts_the_port_does_not_have_raise(monkeypatch, tmp_path):
         assert (one.n_data, one.n_model, one.model, one.global_rank) == (1, 1, None, 0)
     finally:
         dist.destroy_process_group()
-    with pytest.raises(NotImplementedError, match="FSDP .* item 12"):
-        tmesh.make_mesh(devices=["cpu"], fsdp=True)
+    # FSDP on a one-rank data axis: the mesh records the flag and no leaf is sharded
+    fsdp_mesh = tmesh.make_mesh(devices=["cpu"], fsdp=True)
+    assert fsdp_mesh.fsdp and fsdp_mesh.n_data == 1
+    assert fsdp.FsdpLayout({"decoder.generator.weight": (4096, 768)}, fsdp_mesh).sharded == []
     with pytest.raises(ValueError, match="unsupported grad_allreduce_dtype"):
         tstep.normalize_comm_dtype("fp16")
     assert tstep.normalize_comm_dtype("f32") is None and tstep.normalize_comm_dtype("bf16") == torch.bfloat16
