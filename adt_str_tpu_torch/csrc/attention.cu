@@ -8,7 +8,8 @@
 //     lse_i = m_i + log(l_i)
 //     p_ij = bf16(exp(s_ij - m_i) / l_i)
 //     out_i = bf16(sum_j p_ij v_j)                        (fp32 accumulation)
-// q, k, v are bf16 (B, H, T, 128); 1 <= Tk <= 512. The n_virtual keys are
+// q, k, v are bf16 (B, H, T, 128), any Tq, Tk >= 1 (the keys stream through
+// the ring a tile at a time). The n_virtual keys are
 // those the JAX caller pads on (score exactly -1e4, v = 0): they are counted
 // in l and lse without being stored.
 //
@@ -58,7 +59,6 @@ constexpr int D = 128;        // head dim
 constexpr int BQ = 128;       // query rows per block (two warpgroups of 64)
 constexpr int BKV = 64;       // keys per K or V tile
 constexpr int SLOTS = 4;      // K/V ring
-constexpr int MAX_TK = 512;   // the shared limit of the forward and backward kernels
 constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; 2: producer
 constexpr float NEG_MASK = -1e4f;
 
@@ -273,16 +273,15 @@ int heads_map(CUtensorMap* map, const void* p, int bh, int T, int rows) {
 
 }  // namespace
 
-extern "C" int attention_max_keys() { return MAX_TK; }
 extern "C" int attention_head_dim() { return D; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. The caller checks: bf16
-// contiguous q, k, v with head dim 128, 1 <= Tk <= 512, n_virtual >= 0, a
+// contiguous q, k, v with head dim 128, Tq, Tk >= 1, n_virtual >= 0, a
 // contiguous fp32 (B, Tq, Tk) mask or null, outputs of the right shapes.
 extern "C" int launch_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                     void* out, void* lse, int B, int H, int Tq, int Tk,
                                     int n_virtual, float scale, void* stream) {
-  if (Tk < 1 || Tk > MAX_TK || Tq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tk < 1 || Tq < 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map, o_map;
   int err = 0;
   if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&k_map, k, B * H, Tk, BKV)) ||

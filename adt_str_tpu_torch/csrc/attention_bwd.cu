@@ -6,7 +6,7 @@
 //     p = exp(s - lse);  delta_i = sum_d do_id * out_id
 //     dv = p^T do;  dp = do v^T;  ds = p * (dp - delta) * scale
 //     dq = ds k;  dk = ds^T q
-// q, k, v, out, do are bf16 (B, H, T, 128), 1 <= Tk <= 512, any Tq >= 1;
+// q, k, v, out, do are bf16 (B, H, T, 128), any Tq, Tk >= 1;
 // the mask is fp32 (B, Tq, Tk), shared over heads; dq, dk, dv are bf16.
 //
 // Bound on an H100: at the decoder's training shapes (Tq = Tk = 511, B = 64,
@@ -67,7 +67,6 @@ constexpr int D = 128;         // head dim
 constexpr int BK = 128;        // keys per key tile (two warpgroups of 64)
 constexpr int BQ = 64;         // query rows per ring slot
 constexpr int SLOTS = 2;       // q / do / mask ring
-constexpr int MAX_TK = 512;
 constexpr int THREADS = 384;   // warpgroups 0, 1: consumers; warp 0 of 2: producer
 constexpr int DELTA_WARPS = 8;
 
@@ -374,7 +373,7 @@ extern "C" int attention_bwd_key_tile() { return BK; }
 
 // Launch the delta pass and the main kernel on `stream`; returns 0 or a
 // cudaError_t. The caller checks: bf16 contiguous q, k, v, out, do with head
-// dim 128, 1 <= Tk <= 512, Tq >= 1, a contiguous fp32 (B, Tq, Tk) mask or
+// dim 128, Tq, Tk >= 1, a contiguous fp32 (B, Tq, Tk) mask or
 // null, fp32 (B, H, Tq) lse; `delta` is an fp32 (B, H, Tq) scratch and
 // `dq_acc` an fp32 (B, H, Tq, 128) scratch (null when Tk <= 128), the
 // outputs bf16 of q's and k's shapes.
@@ -382,7 +381,7 @@ extern "C" int launch_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* out, const void* lse, const void* dout, void* delta,
                                     void* dq_acc, void* dq, void* dk, void* dv, int B, int H, int Tq,
                                     int Tk, float scale, void* stream) {
-  if (Tk < 1 || Tk > MAX_TK || Tq < 1 || (Tk > BK && dq_acc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tk < 1 || Tq < 1 || (Tk > BK && dq_acc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, do_map, k_map, v_map;
   int err = 0;
   if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&do_map, dout, B * H, Tq, BQ)) ||

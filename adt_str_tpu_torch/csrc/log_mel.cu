@@ -21,6 +21,18 @@
 //   - the frames are wgmma's register A operand, loaded with ldmatrix from
 //     row addresses f * hop apart (a wgmma descriptor cannot describe
 //     overlapping rows; hop * 2 bytes must be a multiple of 16);
+//   - any other hop and n_fft (JAX's kernel frames the wave in HBM and takes
+//     them all: 44.1 kHz at time_res 0.01 gives hop 441, 22.05 kHz hop 220)
+//     take two more routes of the same kernel (`Frames`). A hop that is not
+//     a multiple of 8 keeps the window in shared memory and builds each
+//     fragment register from two 2-byte loads (ldmatrix needs 16-byte rows).
+//     A window too large for shared memory (hop 960 at 48 kHz and time_res
+//     0.02: 127 * 960 + n_fft samples) is not staged: each fragment element
+//     is read from the wave in device memory (through L1 and L2, which hold
+//     the block's span), reflected and rounded to bf16 as the window fill
+//     does. An n_fft that is not a multiple of 64 runs its last stage past
+//     the frame: the bases' rows past n_fft come from TMA as zeros, so those
+//     samples add exact zeros;
 //   - the cos and sin bases stream through a 3-stage TMA ring in tiles of
 //     64 samples x 64 bins (read MN-major, as stored), each tile feeding
 //     both warpgroups (wgmma m64n64k16): every base tile is read once per
@@ -72,10 +84,18 @@ constexpr int BOX_BYTES = KC * BN * 2;           // 64 samples x 64 bins (8 KB)
 constexpr int STAGE_BYTES = 2 * BOX_BYTES;       // cos, then sin
 constexpr int PW_BYTES = TILE_F * LDP * 4;
 
-__host__ __device__ inline int window_len(int hop, int n_fft) { return (TILE_F - 1) * hop + n_fft; }
+// Where a block's frames come from: the window in shared memory through
+// ldmatrix (hop % 8 == 0), the window through 2-byte loads (any hop), or the
+// wave in device memory (a window too large for shared memory).
+enum Frames { kLdmatrix = 0, kScalar = 1, kGlobal = 2 };
 
-inline int smem_bytes(int hop, int n_fft) {
-  return 1024 + STAGES * STAGE_BYTES + PW_BYTES + (window_len(hop, n_fft) * 2 + 15) / 16 * 16 + 2 * STAGES * 8;
+__host__ __device__ inline int n_stages_of(int n_fft) { return (n_fft + KC - 1) / KC; }
+// the samples of a block's 128 frames, each read to its last stage's end
+__host__ __device__ inline int window_len(int hop, int n_fft) { return (TILE_F - 1) * hop + n_stages_of(n_fft) * KC; }
+
+inline int smem_bytes(int hop, int n_fft, bool window) {
+  return 1024 + STAGES * STAGE_BYTES + PW_BYTES + (window ? (window_len(hop, n_fft) * 2 + 15) / 16 * 16 : 0) +
+         2 * STAGES * 8;
 }
 
 __device__ __forceinline__ float log_tail(float x, float log_floor, float lo, float hi, int db_mode) {
@@ -84,6 +104,7 @@ __device__ __forceinline__ float log_tail(float x, float log_floor, float lo, fl
   return (l - lo) / (hi - lo);
 }
 
+template <int kFrames>
 __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
     const __grid_constant__ CUtensorMap cos_map,  // (n_fft, k_pad) bf16, boxes of 64 samples x 64 bins
     const __grid_constant__ CUtensorMap sin_map,
@@ -97,14 +118,14 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
   uint8_t* ring = smem;                                              // [STAGES][cos, sin][64 samples][64 bins]
   float* pw = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);  // [128 frames][LDP]
   __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(pw + TILE_F * LDP);
-  const int seg_len = window_len(hop, n_fft);
+  const int seg_len = kFrames == kGlobal ? 0 : window_len(hop, n_fft);
   uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(win) + (seg_len * 2 + 15) / 16 * 16);
   uint64_t* empty = full + STAGES;
 
   const int n_ft = (n_out + TILE_F - 1) / TILE_F;
   const int s_idx = blockIdx.x % split, ft = (blockIdx.x / split) % n_ft, b = blockIdx.x / (split * n_ft);
   const int tile_lo = s_idx * n_tiles / split, tile_hi = (s_idx + 1) * n_tiles / split;
-  const int n_stages = n_fft / KC;
+  const int n_stages = n_stages_of(n_fft);
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -138,15 +159,17 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
   // the window of the wave that holds the block's 128 frames (the wrapper
   // guarantees T > n_fft / 2); samples past the padded wave belong to frames
   // beyond n_out, which are never stored
-  {
-    const float* w = wave + static_cast<size_t>(b) * T;
-    const long base = static_cast<long>(frame_start + ft * TILE_F) * hop - n_fft / 2;
-    for (int i = threadIdx.x; i < seg_len; i += 256) {
-      long x = base + i;
-      if (x < 0) x = -x;
-      else if (x >= T) x = 2L * (T - 1) - x;
-      win[i] = __float2bfloat16_rn((x >= 0 && x < T) ? w[x] : 0.f);
-    }
+  const float* wave_b = wave + static_cast<size_t>(b) * T;
+  const long base = static_cast<long>(frame_start + ft * TILE_F) * hop - n_fft / 2;
+  // sample i of the block's window, reflected at both ends and rounded to bf16
+  auto sample = [&](long i) {
+    long x = base + i;
+    if (x < 0) x = -x;
+    else if (x >= T) x = 2L * (T - 1) - x;
+    return __float2bfloat16_rn((x >= 0 && x < T) ? wave_b[x] : 0.f);
+  };
+  if constexpr (kFrames != kGlobal) {
+    for (int i = threadIdx.x; i < seg_len; i += 256) win[i] = sample(i);
   }
   named_barrier(1, 256);
 
@@ -192,8 +215,30 @@ __global__ void __launch_bounds__(THREADS, 1) log_mel_kernel(
       sum = 0.f;
     }
     for (int st = 0; st < n_stages; ++st, ++g) {
+      if constexpr (kFrames == kLdmatrix) {
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) ldmatrix_x4(fa[kk], a_row + (st * KC + 16 * kk) * 2);
+        for (int kk = 0; kk < KC / 16; ++kk) ldmatrix_x4(fa[kk], a_row + (st * KC + 16 * kk) * 2);
+      } else {
+        // ldmatrix's fragment: register mi holds frame 16 w + 8 (mi & 1) + l / 4 of the
+        // warpgroup's 64, samples 16 kk + 8 (mi >> 1) + 2 (l % 4), +1 of the stage (low half first)
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            const long i = static_cast<long>(wg * 64 + 16 * w + 8 * (mi & 1) + l / 4) * hop + st * KC + 16 * kk +
+                           8 * (mi >> 1) + 2 * (l % 4);
+            __nv_bfloat16 lo, hi;
+            if constexpr (kFrames == kScalar) {
+              lo = win[i];
+              hi = win[i + 1];
+            } else {
+              lo = sample(i);
+              hi = sample(i + 1);
+            }
+            fa[kk][mi] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+                         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+          }
+      }
       const int s = g % STAGES;
       mbar_wait(&full[s], (g / STAGES) & 1);
       const uint8_t* slot = ring + s * STAGE_BYTES;
@@ -259,24 +304,30 @@ __global__ void log_mel_reduce_kernel(const float* __restrict__ parts, const int
 
 extern "C" int log_mel_freq_tile() { return FT; }
 extern "C" int log_mel_frame_tile() { return TILE_F; }
+extern "C" int log_mel_smem_bytes(int hop, int n_fft, int window) { return smem_bytes(hop, n_fft, window != 0); }
 
-// Launch on `stream`; returns 0 or a cudaError_t. The caller checks:
-// hop % 8 == 0, n_fft % 64 == 0, T > n_fft / 2, contiguous tensors; `cosb`
+// Launch on `stream` by route `frames` (`Frames`); returns 0 or a
+// cudaError_t. The caller checks: T > n_fft / 2, contiguous tensors; `cosb`
 // and `sinb` are (n_fft, k_pad) bf16 with k_pad % 8 == 0, `table` holds
 // n_tiles * 128 entries (w0, w1, m0 bits, 0) with m0 + 1 < n_mels and m0
 // nondecreasing; `band_tiles` holds each band's first and last tile (int32
 // pairs, ops/cuda_mel.py:band_tiles); with split > 1, `parts` is an fp32
-// (n_tiles, B, n_out, n_mels) scratch. A window (127 * hop + n_fft samples)
-// too large for shared memory returns cudaErrorInvalidValue.
+// (n_tiles, B, n_out, n_mels) scratch. Route kLdmatrix needs hop % 8 == 0;
+// kLdmatrix and kScalar need the window (127 * hop + n_fft samples, n_fft
+// rounded up to 64) in shared memory; else cudaErrorInvalidValue.
 extern "C" int launch_log_mel(const void* wave, const void* cosb, const void* sinb, const void* table,
                               const void* band_tiles, void* out, void* parts, int B, int T, int n_fft, int hop,
                               int k_pad, int n_tiles, int n_mels, int frame_start, int n_out, int split,
-                              float log_floor, float clamp_lo, float clamp_hi, int db_mode, void* stream) {
-  const int smem = smem_bytes(hop, n_fft);
-  if (smem > 232448 || n_fft % KC || hop % 8 || split < 1 || split > n_tiles ||
-      (split > 1 && (parts == nullptr || band_tiles == nullptr)))
+                              float log_floor, float clamp_lo, float clamp_hi, int db_mode, int frames,
+                              void* stream) {
+  const int smem = smem_bytes(hop, n_fft, frames != kGlobal);
+  if (smem > 232448 || frames < kLdmatrix || frames > kGlobal || (frames == kLdmatrix && hop % 8) || split < 1 ||
+      split > n_tiles || (split > 1 && (parts == nullptr || band_tiles == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  decltype(&log_mel_kernel<kLdmatrix>) kernel = &log_mel_kernel<kGlobal>;
+  if (frames == kLdmatrix) kernel = &log_mel_kernel<kLdmatrix>;
+  else if (frames == kScalar) kernel = &log_mel_kernel<kScalar>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap cos_map, sin_map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k_pad), static_cast<cuuint64_t>(n_fft)};
@@ -288,7 +339,7 @@ extern "C" int launch_log_mel(const void* wave, const void* cosb, const void* si
     return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * ((n_out + TILE_F - 1) / TILE_F) * split;
-  log_mel_kernel<<<blocks, THREADS, smem, st>>>(
+  kernel<<<blocks, THREADS, smem, st>>>(
       cos_map, sin_map, static_cast<const float*>(wave), static_cast<const float4*>(table),
       static_cast<float*>(split == 1 ? out : parts), B, T, n_fft, hop, n_tiles, n_mels, frame_start, n_out, split,
       log_floor, clamp_lo, clamp_hi, db_mode);

@@ -1,5 +1,5 @@
-"""K5: fused attention kernels (`csrc/attention.cu`, `csrc/attention_bwd.cu`)
-and their plain versions.
+"""K5: fused attention kernels (`csrc/attention.cu`, `csrc/attention_bwd.cu`,
+`csrc/attention_simt.cu`) and their plain versions.
 
 Replaces `adt_str_tpu/ops/pallas_attention.py:fused_attention`: the forward
 `_fwd` (K5f) and the backward `_vjp_bwd` (K5b). For (B, H, T, D) q, k, v and
@@ -25,10 +25,15 @@ lse includes them. The backward then needs nothing more: their dk and dv are
 discarded by the caller and their dq term is multiplied by k = 0.
 
 `fused_attention` and `fused_attention_bwd` are the wrappers: the CUDA
-kernels for CUDA tensors (bf16, head dim 128, 1..512 keys), the
-plain versions for CPU tensors, and nothing else. `FusedAttention` is the
-autograd Function around the two (the mask gets no gradient, as in JAX).
-Each wrapper's `launches` counts kernel launches.
+kernels for CUDA tensors, the plain versions for CPU tensors, and nothing
+else. On the card they take what JAX's gate sends its kernel at the model's
+dtypes: any Tq, Tk >= 1 in bf16 or fp32 at head dim 128 or 256
+(`kernel_for`). bf16 at head dim 128 runs the tensor-core kernels
+(`attention.cu`, `attention_bwd.cu`); fp32, and bf16 at head dim 256, run
+the CUDA-core kernels (`attention_simt.cu`) through `fused_attention_simt`
+and `fused_attention_bwd_simt`. `FusedAttention` is the autograd Function
+around the two (the mask gets no gradient, as in JAX). Each wrapper's
+`launches` counts the launches of its own kernel.
 """
 
 from __future__ import annotations
@@ -43,8 +48,24 @@ from adt_str_tpu_torch.ops import _build
 
 HEAD_DIM = 128  # `D` in csrc/attention.cu and csrc/attention_bwd.cu
 BWD_KEY_TILE = 128  # `BK` in csrc/attention_bwd.cu: past one key tile dq is summed in an fp32 scratch
-MAX_KEYS = 512  # `MAX_TK` in csrc/attention.cu: the fp32 score rows of a block fit in shared memory
+# (dtype, head dim) pairs of csrc/attention_simt.cu (`attention_simt_takes`)
+SIMT_TAKES = frozenset({(torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 256)})
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NEG_MASK = -1e4  # the score of a virtual (padded) key
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The K5 kernels that take q, k, v of `dtype` and `head_dim` on the
+    card, at any Tq, Tk >= 1: "hopper" (bf16 at head dim 128: TMA + wgmma)
+    or "simt" (fp32 at 128 or 256, bf16 at 256: CUDA cores). Raises a
+    ValueError on any other pair (fp16; head dims past 256)."""
+    if dtype == torch.bfloat16 and head_dim == HEAD_DIM:
+        return "hopper"
+    if (dtype, head_dim) in SIMT_TAKES:
+        return "simt"
+    raise ValueError(
+        f"the attention kernels take bf16 or fp32 q, k, v at head dim 128 or 256; got {dtype}, D={head_dim}"
+    )
 
 
 def virtual_keys(tq: int, tk: int) -> int:
@@ -98,8 +119,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     lib.launch_attention_fwd.restype = ctypes.c_int
-    lib.attention_head_dim.restype = lib.attention_max_keys.restype = ctypes.c_int
-    if lib.attention_head_dim() != HEAD_DIM or lib.attention_max_keys() != MAX_KEYS:
+    lib.attention_head_dim.restype = ctypes.c_int
+    if lib.attention_head_dim() != HEAD_DIM:
         raise RuntimeError("csrc/attention.cu limits differ from cuda_attention's")
     return lib
 
@@ -116,6 +137,23 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _simt_lib() -> ctypes.CDLL:
+    lib = _build.load("attention_simt")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.launch_attention_simt_fwd.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.launch_attention_simt_fwd.restype = ctypes.c_int
+    lib.launch_attention_simt_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
+    lib.launch_attention_simt_bwd.restype = ctypes.c_int
+    lib.attention_simt_takes.argtypes = [i, i]
+    lib.attention_simt_takes.restype = ctypes.c_int
+    takes = {(t, d) for t, code in _DTYPE_CODE.items() for d in (64, 128, 256, 384)
+             if lib.attention_simt_takes(code, d)}
+    if takes != SIMT_TAKES:
+        raise RuntimeError("csrc/attention_simt.cu takes other dtypes or head dims than cuda_attention's")
+    return lib
+
+
 def _check(q, k, v, mask, n_virtual: int) -> tuple[int, int, int, int, int]:
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -125,14 +163,11 @@ def _check(q, k, v, mask, n_virtual: int) -> tuple[int, int, int, int, int]:
         raise ValueError(f"mask must be (B, Tq, Tk) = {(B, Tq, Tk)}, got {tuple(mask.shape)}")
     if n_virtual < 0:
         raise ValueError(f"n_virtual must be >= 0, got {n_virtual}")
-    if q.device.type == "cuda" and (
-        any(t.dtype != torch.bfloat16 for t in (q, k, v)) or D != HEAD_DIM
-        or not 0 < Tk <= MAX_KEYS or Tq < 1
-    ):
-        raise ValueError(
-            f"the attention kernels take bf16 q, k, v with head dim {HEAD_DIM} and "
-            f"1..{MAX_KEYS} keys; got {q.dtype}, D={D}, Tq={Tq}, Tk={Tk}"
-        )
+    if q.device.type == "cuda":
+        if k.dtype != q.dtype or v.dtype != q.dtype or Tq < 1 or Tk < 1:
+            raise ValueError(f"the attention kernels take q, k, v of one dtype and Tq, Tk >= 1; got "
+                             f"{q.dtype}, {k.dtype}, {v.dtype}, Tq={Tq}, Tk={Tk}")
+        kernel_for(q.dtype, D)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused attention runs on cpu or cuda tensors, not {q.device}")
     return B, H, Tq, Tk, D
@@ -148,6 +183,8 @@ def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
     B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
+    if kernel_for(q.dtype, D) == "simt":
+        return fused_attention_simt(q, k, v, mask, n_virtual)
     lib = _lib()
     q, k, v = (t.contiguous() for t in (q, k, v))
     mask = _mask_arg(mask, q.device)
@@ -167,6 +204,31 @@ def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
 fused_attention.launches = 0
 
 
+def fused_attention_simt(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5f on the CUDA cores (`csrc/attention_simt.cu`) for the pairs of
+    `SIMT_TAKES` (`fused_attention` sends them here); `attention_plain`
+    for CPU tensors."""
+    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask, n_virtual)
+    if kernel_for(q.dtype, D) != "simt":
+        raise ValueError(f"the CUDA-core attention kernels do not take {q.dtype} at D={D}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    mask = _mask_arg(mask, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, 1, Tq), dtype=torch.float32, device=q.device)
+    err = _build.launch(
+        q.device, _simt_lib().launch_attention_simt_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H,
+        Tq, Tk, n_virtual, 1.0 / math.sqrt(D))
+    _build.check(err, "attention_simt_fwd")
+    fused_attention_simt.launches += 1
+    return out, lse
+
+
+fused_attention_simt.launches = 0
+
+
 def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5b: (dq, dk, dv) of `fused_attention` for the output cotangent `do`,
     through the CUDA kernels for CUDA tensors and `attention_bwd_plain` for
@@ -178,8 +240,11 @@ def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
         raise ValueError(f"out/do must be {tuple(q.shape)} and lse {(B, H, 1, Tq)}")
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, mask, out, lse, do)
-    if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise ValueError(f"the backward kernel takes bf16 out and do and fp32 lse; got {out.dtype}, {do.dtype}, {lse.dtype}")
+    if out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"the backward kernels take out and do in q's dtype and fp32 lse; got {q.dtype}, "
+                         f"{out.dtype}, {do.dtype}, {lse.dtype}")
+    if kernel_for(q.dtype, D) == "simt":
+        return fused_attention_bwd_simt(q, k, v, mask, out, lse, do)
     lib = _bwd_lib()
     q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
     mask = _mask_arg(mask, q.device)
@@ -199,6 +264,35 @@ def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
 
 
 fused_attention_bwd.launches = 0
+
+
+def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b on the CUDA cores (`csrc/attention_simt.cu`: the delta pass, a
+    dk/dv kernel over key tiles and a dq kernel over query tiles, no
+    atomics) for the pairs of `SIMT_TAKES`; `attention_bwd_plain` for CPU
+    tensors."""
+    B, H, Tq, Tk, D = _check(q, k, v, mask, 0)
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, 1, Tq):
+        raise ValueError(f"out/do must be {tuple(q.shape)} and lse {(B, H, 1, Tq)}")
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, mask, out, lse, do)
+    if kernel_for(q.dtype, D) != "simt" or out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"the CUDA-core attention backward does not take q {q.dtype} at D={D}, out {out.dtype}, "
+                         f"do {do.dtype}, lse {lse.dtype}")
+    q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
+    mask = _mask_arg(mask, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    err = _build.launch(
+        q.device, _simt_lib().launch_attention_simt_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H, Tq, Tk, 1.0 / math.sqrt(D))
+    _build.check(err, "attention_simt_bwd")
+    fused_attention_bwd_simt.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_bwd_simt.launches = 0
 
 
 class FusedAttention(torch.autograd.Function):

@@ -1,10 +1,13 @@
-"""K4: fused FFN + dropout forward kernel (`csrc/ffn_dropout.cu`).
+"""K4: fused FFN + dropout forward kernels (`csrc/ffn_dropout.cu`,
+`csrc/ffn_dropout_fp32.cu`).
 
-Replaces `adt_str_tpu/ops/pallas_ffn.py:fused_ffn_dropout`. `ffn_dropout`
-is the wrapper: the CUDA kernel for CUDA tensors (bf16, d and d_ff
-multiples of `TILE`, as the JAX kernel asks), `ops/ffn.py:ffn_dropout_plain`
-for CPU tensors, and nothing else; `ffn_dropout.launches` counts wrapper
-calls that launch the kernel (its two GEMMs). `FusedFfnDropout` is the
+Replaces `adt_str_tpu/ops/pallas_ffn.py:fused_ffn_dropout`, which runs in
+the compute dtype. `ffn_dropout` is the wrapper: the CUDA kernels for CUDA
+tensors (d and d_ff multiples of `TILE`, as the JAX kernel asks; bf16 on
+the tensor cores, fp32 on the CUDA cores through `ffn_dropout_fp32`:
+`kernel_for`), `ops/ffn.py:ffn_dropout_plain` for CPU tensors, and nothing
+else; each wrapper's `launches` counts its calls that launch its kernel
+(two GEMMs). `FusedFfnDropout` is the
 autograd Function the model calls: it casts the fp32 parameters to the
 compute dtype per call (as JAX does), passes both weights in the modules'
 own layouts, saves the bf16 `pre`, and takes its backward from
@@ -27,7 +30,21 @@ from adt_str_tpu_torch.ops import _build
 from adt_str_tpu_torch.ops.dropout_hash import keep_threshold
 from adt_str_tpu_torch.ops.ffn import ffn_dropout_bwd_plain, ffn_dropout_plain
 
-TILE = 128  # `BN` in csrc/ffn_dropout.cu: d and d_ff are walked in output tiles of it
+TILE = 128  # `BN` in csrc/ffn_dropout.cu and csrc/ffn_dropout_fp32.cu: d and d_ff are walked in output tiles of it
+
+
+def kernel_for(dtype: torch.dtype, d: int, d_ff: int) -> str:
+    """The K4 kernel that takes operands of `dtype` at widths d, d_ff on the
+    card: "hopper" (bf16: TMA + wgmma) or "fp32" (CUDA cores, no TF32).
+    Raises a ValueError on another dtype or widths that are not multiples
+    of `TILE` (JAX's gate sends d % 128 == 0 only)."""
+    if d % TILE or d_ff % TILE:
+        raise ValueError(f"the FFN kernels take d and d_ff multiples of {TILE}; got d={d}, d_ff={d_ff}")
+    if dtype == torch.bfloat16:
+        return "hopper"
+    if dtype == torch.float32:
+        return "fp32"
+    raise ValueError(f"the FFN kernels take bf16 or fp32 operands; got {dtype}")
 
 
 @functools.cache
@@ -42,13 +59,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
-                d_ff_total=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(N, d) x -> (out (N, d), pre (N, d_ff)) through K4. `w1` is (d_ff, d)
-    (`linear1.weight`'s layout), `w2` is (d, d_ff) (`linear2.weight`'s),
-    biases (d_ff,) and (d,), all in x's dtype; `seeds` the four scrambled
-    words [h0, h1, o0, o1]. `col0`, `d_ff_total` (None: d_ff) and `b2`
-    None (out: the fp32 partial product) as in the module docstring."""
+@functools.cache
+def _fp32_lib() -> ctypes.CDLL:
+    lib = _build.load("ffn_dropout_fp32")
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.launch_ffn_dropout_fp32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, u, u, u, u, f, f, p]
+    lib.launch_ffn_dropout_fp32.restype = ctypes.c_int
+    lib.ffn_dropout_fp32_tile.restype = ctypes.c_int
+    if lib.ffn_dropout_fp32_tile() != TILE:
+        raise RuntimeError("csrc/ffn_dropout_fp32.cu tile differs from cuda_ffn's")
+    return lib
+
+
+def _check(x2, w1, b1, w2, b2, seeds, col0: int, d_ff_total) -> tuple[int, int, int, int]:
+    """-> (N, d, d_ff, d_ff_total) after the shape checks of both kernels."""
     n, d = x2.shape
     d_ff = w1.shape[0]
     total = d_ff if d_ff_total is None else int(d_ff_total)
@@ -59,31 +83,70 @@ def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: i
             f"w2 {tuple(w2.shape)} b2 {None if b2 is None else tuple(b2.shape)} seeds {len(seeds)}, "
             f"columns {col0}..{col0 + d_ff} of {total}"
         )
-    if x2.is_cpu:
-        return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
-    if not x2.is_cuda:
+    if not (x2.is_cpu or x2.is_cuda):
         raise ValueError(f"ffn_dropout runs on cpu or cuda tensors, not {x2.device}")
-    operands = (x2, w1, b1, w2) if b2 is None else (x2, w1, b1, w2, b2)
-    if any(t.dtype != torch.bfloat16 for t in operands) or d % TILE or d_ff % TILE or n < 1:
-        raise ValueError(
-            f"the FFN kernel takes bf16 operands with d and d_ff multiples of {TILE}; "
-            f"got {x2.dtype}, d={d}, d_ff={d_ff}, N={n}"
-        )
+    if x2.is_cuda:
+        operands = (x2, w1, b1, w2) if b2 is None else (x2, w1, b1, w2, b2)
+        if any(t.dtype != x2.dtype for t in operands) or n < 1:
+            raise ValueError(f"the FFN kernels take operands of one dtype and N >= 1; got "
+                             f"{[t.dtype for t in operands]}, N={n}")
+        kernel_for(x2.dtype, d, d_ff)
+    return n, d, d_ff, total
+
+
+def _launch(fn, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both GEMMs of a K4 kernel's C entry `fn`: -> (out, pre)."""
+    n, d = x2.shape
+    d_ff = w1.shape[0]
     x2, w1, b1, w2 = (t.contiguous() for t in (x2, w1, b1, w2))
     b2 = None if b2 is None else b2.contiguous()
     out = torch.empty((n, d), dtype=torch.float32 if b2 is None else x2.dtype, device=x2.device)
     pre = torch.empty((n, d_ff), dtype=x2.dtype, device=x2.device)
     hd = torch.empty_like(pre)  # the dropped hidden, between the two GEMMs
     err = _build.launch(
-        x2.device, _lib().launch_ffn_dropout, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        x2.device, fn, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         None if b2 is None else b2.data_ptr(), out.data_ptr(), pre.data_ptr(), hd.data_ptr(), n, d, d_ff, total,
         col0, *(int(s) for s in seeds), keep_threshold(keep_h), keep_threshold(keep_o), 1.0 / keep_h, 1.0 / keep_o)
-    _build.check(err, "ffn_dropout")
+    _build.check(err, fn.__name__)
+    return out, pre
+
+
+def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
+                d_ff_total=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, d) x -> (out (N, d), pre (N, d_ff)) through K4. `w1` is (d_ff, d)
+    (`linear1.weight`'s layout), `w2` is (d, d_ff) (`linear2.weight`'s),
+    biases (d_ff,) and (d,), all in x's dtype; `seeds` the four scrambled
+    words [h0, h1, o0, o1]. `col0`, `d_ff_total` (None: d_ff) and `b2`
+    None (out: the fp32 partial product) as in the module docstring."""
+    n, d, d_ff, total = _check(x2, w1, b1, w2, b2, seeds, col0, d_ff_total)
+    if x2.is_cpu:
+        return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
+    if kernel_for(x2.dtype, d, d_ff) == "fp32":
+        return ffn_dropout_fp32(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
+    out, pre = _launch(_lib().launch_ffn_dropout, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total)
     ffn_dropout.launches += 1
     return out, pre
 
 
 ffn_dropout.launches = 0
+
+
+def ffn_dropout_fp32(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
+                     d_ff_total=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 in fp32 on the CUDA cores (`csrc/ffn_dropout_fp32.cu`), as
+    `ffn_dropout` for fp32 operands (`ffn_dropout` sends them here);
+    `ffn_dropout_plain` for CPU tensors."""
+    n, d, d_ff, total = _check(x2, w1, b1, w2, b2, seeds, col0, d_ff_total)
+    if x2.is_cpu:
+        return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
+    if x2.dtype != torch.float32:
+        raise ValueError(f"the fp32 FFN kernel takes fp32 operands; got {x2.dtype}")
+    out, pre = _launch(_fp32_lib().launch_ffn_dropout_fp32, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total)
+    ffn_dropout_fp32.launches += 1
+    return out, pre
+
+
+ffn_dropout_fp32.launches = 0
 
 
 class FusedFfnDropout(torch.autograd.Function):

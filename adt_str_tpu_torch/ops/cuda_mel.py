@@ -8,7 +8,14 @@ projection, then the "norm" or "db" tail, with or without the trim.
 
 `log_mel` is the wrapper the model calls: it launches the CUDA kernel for a
 CUDA tensor and runs `log_mel_plain` for a CPU tensor, and nothing else (no
-fallback from one to the other). `log_mel.launches` counts kernel launches.
+fallback from one to the other). On the card it takes any hop and n_fft, as
+JAX's kernel does, by one of three routes of the kernel (`frames_route`):
+"ldmatrix" (hop % 8 == 0 and the block's window of the wave fits in shared
+memory: the 24 kHz model and CLAP's 48 kHz frontend), "any_hop" (the window
+fits, any hop: 44.1 kHz at hop 441, 22.05 kHz at hop 220; `log_mel_any_hop`)
+and "long_hop" (a window too large for shared memory, frames read from the
+wave in device memory: 48 kHz at hop 960; `log_mel_long_hop`). Each
+wrapper's `launches` counts the launches of its route.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from adt_str_tpu_torch.ops.mel import MelFrontendParams, frame_signal, hann_wind
 FREQ_PAD = 64
 FREQ_TILE = 128
 TILE_FRAMES = 128
+SMEM_LIMIT = 232_448  # the dynamic shared memory a block can have on an H100
+# the kernel's `Frames`: where a block's frames come from
+ROUTES = {"ldmatrix": 0, "any_hop": 1, "long_hop": 2}
 _LN10 = np.float32(np.log(10.0))
 
 
@@ -167,34 +177,104 @@ def _device_table(params: MelFrontendParams, device: torch.device) -> tuple[torc
     return mel_table(params).to(device), band_tiles(params).to(device)
 
 
+def smem_bytes(hop: int, n_fft: int, window: bool = True) -> int:
+    """A block's dynamic shared memory (`csrc/log_mel.cu:smem_bytes`): the
+    base ring, the power tile and, with `window`, the bf16 window of the
+    wave that holds its 128 frames, each read to its last 64-sample stage."""
+    stages = -(-n_fft // 64)
+    win = -(-((TILE_FRAMES - 1) * hop + stages * 64) * 2 // 16) * 16 if window else 0
+    return 1024 + 3 * 2 * 64 * 64 * 2 + TILE_FRAMES * 65 * 4 + win + 3 * 2 * 8
+
+
+def frames_route(params: MelFrontendParams) -> str:
+    """The K1 route that takes `params` on the card (any hop >= 1 and n_fft
+    >= 2; see the module docstring)."""
+    hop, n_fft = params.hop_length, params.n_fft
+    if hop < 1 or n_fft < 2:
+        raise ValueError(f"the log-mel kernel needs hop >= 1 and n_fft >= 2; got hop={hop} n_fft={n_fft}")
+    if smem_bytes(hop, n_fft) > SMEM_LIMIT:
+        return "long_hop"
+    return "ldmatrix" if hop % 8 == 0 else "any_hop"
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("log_mel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.launch_log_mel.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.launch_log_mel.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f, i, i, p]
     lib.launch_log_mel.restype = ctypes.c_int
-    lib.log_mel_freq_tile.restype = lib.log_mel_frame_tile.restype = ctypes.c_int
+    lib.log_mel_freq_tile.restype = lib.log_mel_frame_tile.restype = lib.log_mel_smem_bytes.restype = ctypes.c_int
+    lib.log_mel_smem_bytes.argtypes = [i, i, i]
     if lib.log_mel_freq_tile() != FREQ_TILE or lib.log_mel_frame_tile() != TILE_FRAMES:
         raise RuntimeError("csrc/log_mel.cu tiles differ from cuda_mel's")
+    for hop, n_fft, window in ((240, 2048, 1), (441, 2000, 1), (960, 4096, 0)):
+        if lib.log_mel_smem_bytes(hop, n_fft, window) != smem_bytes(hop, n_fft, bool(window)):
+            raise RuntimeError("csrc/log_mel.cu shared memory differs from cuda_mel.smem_bytes")
     return lib
+
+
+def _check(wave: torch.Tensor, params: MelFrontendParams) -> str:
+    """-> the route of a CUDA wave ("" for a CPU wave) after the checks."""
+    if wave.dim() != 2:
+        raise ValueError(f"wave must be (B, T), got {tuple(wave.shape)}")
+    if wave.device.type == "cpu":
+        return ""
+    if wave.device.type != "cuda":
+        raise ValueError(f"log_mel runs on cpu or cuda tensors, not {wave.device}")
+    if wave.shape[1] <= params.n_fft // 2:
+        raise ValueError(f"the log-mel kernel needs T > n_fft/2 (reflect padding); got n_fft={params.n_fft} "
+                         f"T={wave.shape[1]}")
+    return frames_route(params)
 
 
 def log_mel(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) -> torch.Tensor:
     """(B, T) wave -> (B, frames, n_mels) fp32 through K1: the CUDA kernel
-    for a CUDA tensor, `log_mel_plain` for a CPU tensor."""
-    if wave.dim() != 2:
-        raise ValueError(f"wave must be (B, T), got {tuple(wave.shape)}")
-    if wave.device.type == "cpu":
+    for a CUDA tensor, by the route `frames_route` picks (counted on that
+    route's wrapper, `ROUTE_WRAPPERS`), `log_mel_plain` for a CPU tensor."""
+    route = _check(wave, params)
+    if not route:
         return log_mel_plain(wave, params, trim)
-    if wave.device.type != "cuda":
-        raise ValueError(f"log_mel runs on cpu or cuda tensors, not {wave.device}")
+    out = _launch(wave, params, trim, route)
+    ROUTE_WRAPPERS[route].launches += 1
+    return out
+
+
+def log_mel_any_hop(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) -> torch.Tensor:
+    """K1's "any_hop" route (the window in shared memory, 2-byte fragment
+    loads), for the hops `frames_route` sends it; `log_mel_plain` for a CPU
+    tensor."""
+    return _by_route(log_mel_any_hop, "any_hop", wave, params, trim)
+
+
+def log_mel_long_hop(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) -> torch.Tensor:
+    """K1's "long_hop" route (frames read from the wave in device memory),
+    for the windows too large for shared memory; `log_mel_plain` for a CPU
+    tensor."""
+    return _by_route(log_mel_long_hop, "long_hop", wave, params, trim)
+
+
+log_mel.launches = log_mel_any_hop.launches = log_mel_long_hop.launches = 0
+# each route's wrapper, which counts its launches
+ROUTE_WRAPPERS = {"ldmatrix": log_mel, "any_hop": log_mel_any_hop, "long_hop": log_mel_long_hop}
+
+
+def _by_route(wrapper, route: str, wave: torch.Tensor, params: MelFrontendParams, trim: bool) -> torch.Tensor:
+    """`wrapper`'s call: the plain version for a CPU wave, else one launch by
+    `route` (which must be the one `frames_route` picks), counted on it."""
+    picked = _check(wave, params)
+    if not picked:
+        return log_mel_plain(wave, params, trim)
+    if picked != route:
+        raise ValueError(f"hop {params.hop_length}, n_fft {params.n_fft} take the {picked!r} route, not {route!r}")
+    out = _launch(wave, params, trim, route)
+    wrapper.launches += 1
+    return out
+
+
+def _launch(wave: torch.Tensor, params: MelFrontendParams, trim: bool, route: str) -> torch.Tensor:
+    """One launch of the kernel by `route` on a checked CUDA wave."""
     B, T = wave.shape
     n_fft, hop = params.n_fft, params.hop_length
-    if hop % 8 or n_fft % 64 or T <= n_fft // 2:
-        raise ValueError(
-            "the log-mel kernel needs hop % 8 == 0, n_fft % 64 == 0 and T > n_fft/2; "
-            f"got hop={hop} n_fft={n_fft} T={T}"
-        )
     lib = _lib()
     start, n_out = _frame_range(params, T, trim)
     if n_out <= 0:
@@ -213,12 +293,8 @@ def log_mel(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) ->
             wave.data_ptr(), C.data_ptr(), S.data_ptr(), table.data_ptr(), tiles.data_ptr(), out.data_ptr(),
             None if parts is None else parts.data_ptr(), B, T, n_fft, hop, C.shape[1], n_tiles,
             params.n_mels, start, n_out, split,
-            params.log_floor, params.clamp_lo, params.clamp_hi, int(params.log_mode == "db"),
+            params.log_floor, params.clamp_lo, params.clamp_hi, int(params.log_mode == "db"), ROUTES[route],
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "log_mel")
-    log_mel.launches += 1
     return out
-
-
-log_mel.launches = 0

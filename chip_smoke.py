@@ -44,6 +44,13 @@ line:
    the self-attention also as the decode step reads it (`valid_keys`, the
    valid cache rows only), bit-equal to the masked read of the whole cache
    at decode steps 0-511;
+   and (`phase_domain_kernels`) the variants that take what the shipped
+   configs do not send: K1's any_hop route (44.1 kHz hop 441, 22.05 kHz
+   hop 220) and long_hop route (48 kHz hop 960) at B = 16, each bit-equal
+   at every split; K5f and K5b on the CUDA cores in fp32 at the training
+   shapes and at 3 heads of 256 (bf16 and fp32); the tensor-core K5f and
+   K5b past 512 keys (1,014 and 1,023, B = 64; K5f at the long serving
+   batch of 4); K4 in fp32 at N = 64 * 246 and 64 * 511;
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -204,18 +211,38 @@ line:
    written, its note count equal to this process's); each chunk decoded
    alone equal to its row of the batch; `--url` without yt-dlp fails; a
    one-hot multi-hot `decode_logits` on the card equal to the id path's;
-12. one `{"kernels": [...]}` line: each kernel (the six TPU kernels', then
-   the three batch-invariance kernels) at the main-path shape named in its
-   entry, with its launches in every main-path run (serving, the three
+12. the configs JAX's gates send to its kernels beyond the shipped
+   ones: 3 steps of TMIDT-flash and TMIDT-fused-ffn at `compute_dtype:
+   float32` (64 x 512; the CUDA-core K5f and K5b, or fp32 K4), each step
+   within 1e-5 (loss) and 1e-4 (grad norm) of the plain fp32 path;
+   TMIDT-flash at `input_sec: 10.24` and 1,024 tokens for 3 steps at batch
+   64 (K5 past 512 keys), held as the bf16 training phases are; the
+   serving config at fp32 (3 x 10 s: greedy tokens equal to the plain fp32
+   path's, a differing row only where the plain path's top two logits at
+   its first differing step lie within 1e-4), at 10.24 s chunks and
+   max_length 1,024 (a 30 s request each; the encoder memory against the
+   plain path, the tokens reported) and at 44.1 kHz (K1's any_hop route
+   within 1e-4 of its plain version; the memory against the plain path;
+   the tokens held as at fp32, a tie at bf16 rounding being a top two
+   within 2^-5 of the top logit) and at 48 kHz with `time_res: 0.02` (hop
+   960: K1's long_hop route; held as at 44.1 kHz), each served over HTTP
+   with its kernel variants launched;
+13. one `{"kernels": [...]}` line: each kernel variant (the TPU kernels'
+   by route, dtype and core, then the three batch-invariance kernels) at
+   the main-path shape named in its entry, with its launches in every
+   main-path run (serving, the three
    training steps, bench, eval, inference, trainer, trainer-resumed,
    trainer_tmidt, beam, beam-serving, the data-parallel phases summed over
    their ranks, the NCCL step, decode_dp greedy, beam and serving, clap,
    batch_invariance's greedy runs, the tp phase's steps and trainer, the
    fsdp phase's steps, 2 x 2 grid and trainer, the youtube phase's batched
-   decodes);
+   decodes, the fp32 and long training steps, the fp32, long, 44.1 kHz
+   and 48 kHz serving runs);
    K1's entry also holds its numbers at CLAP's frontend
-   (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`), K4's in
-   its partial mode (`partial_d_ff_1536`), and `layer_norm`'s entry is the
+   (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`) and past
+   512 keys (`past_512_keys`), K4's in its partial mode
+   (`partial_d_ff_1536`), the CUDA-core K5's other shapes
+   (`other_shapes`), and `layer_norm`'s entry is the
    fused call the decode step makes (LayerNorm(x + r)), its one-input
    entry and the encoder's fused call beside it.
 
@@ -261,6 +288,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from adt_str_tpu_torch import bench as port_bench
+from adt_str_tpu_torch import torch_dtype
 from adt_str_tpu_torch import inference as port_inference
 from adt_str_tpu_torch.clap import curation as clap_curation
 from adt_str_tpu_torch.clap import features as clap_features
@@ -270,6 +298,7 @@ from adt_str_tpu_torch.clap.text_model import ClapTextArch
 from adt_str_tpu_torch.clap.text_model import get_text_features as clap_text_features
 from adt_str_tpu_torch.config import FrameworkConfig, TrainingConfig
 from adt_str_tpu_torch.data.datasets import LakhDataset, TMIDTDataset
+from adt_str_tpu_torch.domain.segmenter import chunk_wave
 from adt_str_tpu_torch.domain.tokenizer import MidiTokenizer
 from adt_str_tpu_torch.evaluation.harness import run_inference
 from adt_str_tpu_torch.evaluation.metrics import aggregate_metrics, compute_metrics
@@ -289,6 +318,7 @@ from adt_str_tpu_torch.ops import _build, attention_rows, cuda_attention, cuda_f
 from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
+from adt_str_tpu_torch.ops.mel import MelFrontendParams
 from adt_str_tpu_torch.ops.place import gather_blend_plain, place_notes_plain
 from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel import mesh as mesh_lib
@@ -339,6 +369,10 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 REPS = 12
 SEED = 0
+# the bf16 kernel path's step tolerances (PERF.md §2): it rounds at other points than the plain path
+# (K5b's bf16 p and ds, pre and p rounding flips); measured on the H100, 3e-6 of the loss and 1e-4 of
+# the gradient norm at most
+PARITY_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}
 N_REQUESTS = 3
 REQUEST_SEC = 10.0
 
@@ -405,6 +439,12 @@ def load_config(path: str, train: bool = False, show: bool = True, **sections: d
         for k, v in fields.items():
             overrides[f"{section}.{k}"] = {"config": getattr(old, k), "smoke": v}
         setattr(cfg, section, dataclasses.replace(old, **fields))
+        if section == "shared":  # `shared` is splatted into these sections (`FrameworkConfig.from_dict`)
+            for part in ("model", "synthetiser", "train_data", "eval_data"):
+                sub = getattr(cfg, part)
+                names = {f.name for f in dataclasses.fields(sub)} if sub is not None else set()
+                if fields.keys() & names:
+                    setattr(cfg, part, dataclasses.replace(sub, **{k: v for k, v in fields.items() if k in names}))
     if train:
         t = cfg.training
         overrides["training.schedule"] = {
@@ -506,14 +546,16 @@ def time_log_mel(inputs: list, tol: float, frame_tol: float | None = None) -> di
     is a deep dip of the spectrum (a cancelling sum) that order moves its dB
     value by more than the loud bands' tolerance."""
     wave, params, trim = inputs[0]
-    before = cuda_mel.log_mel.launches
+    route = cuda_mel.frames_route(params)
+    counter = cuda_mel.ROUTE_WRAPPERS[route]
+    before = counter.launches
     out = cuda_mel.log_mel(*inputs[0])
     ref = cuda_mel.log_mel_plain(*inputs[0])
     torch.cuda.synchronize()
-    if cuda_mel.log_mel.launches != before + 1:
-        raise RuntimeError("log_mel did not launch its kernel")
+    if counter.launches != before + 1:
+        raise RuntimeError(f"log_mel did not launch its {route} kernel")
     err = (out - ref).abs()
-    res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol}
+    res = {"route": route, "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol}
     ok = err <= tol
     if frame_tol is not None:
         power, ref_power = 10.0 ** (out.double() / 10), 10.0 ** (ref.double() / 10)
@@ -560,10 +602,11 @@ def log_mel_splits(inputs: list, out: torch.Tensor) -> dict:
 
 
 def phase_mel(params, batch: int, gen) -> dict:
-    T = 61440
+    T = int(2.56 * params.sample_rate)  # a chunk: 61,440 samples at the model's 24 kHz
     inputs = [(torch.randn(batch, T, generator=gen, device="cuda") * 0.3, params, True) for _ in range(REPS)]
     res = time_log_mel(inputs, 1e-4)  # same bf16 operands, fp32 accumulation in another order
-    emit({"phase": "kernel", "name": "log_mel", "batch": batch, **res})
+    emit({"phase": "kernel", "name": cuda_mel.ROUTE_WRAPPERS[res["route"]].__name__, "batch": batch,
+          "sample_rate": params.sample_rate, "hop": params.hop_length, "n_fft": params.n_fft, **res})
     return res
 
 
@@ -896,9 +939,29 @@ def _attention_mask(batch: int, tq: int, tk: int, causal: bool, gen):
     return (T.causal_mask_additive(tq, device="cuda") + T.padding_mask_additive(lengths, tk))[:, 0].contiguous()
 
 
-def _qkv(batch: int, tq: int, tk: int, gen, heads: int = 6):
-    return tuple(torch.randn(batch, heads, t, 128, generator=gen, device="cuda").to(torch.bfloat16)
+def _qkv(batch: int, tq: int, tk: int, gen, heads: int = 6, head_dim: int = 128, dtype=torch.bfloat16):
+    return tuple(torch.randn(batch, heads, t, head_dim, generator=gen, device="cuda").to(dtype)
                  for t in (tq, tk, tk))
+
+
+def attention_wrappers(dtype, head_dim: int) -> tuple:
+    """The forward and backward wrappers whose kernels take (dtype, head dim)."""
+    if cuda_attention.kernel_for(dtype, head_dim) == "simt":
+        return cuda_attention.fused_attention_simt, cuda_attention.fused_attention_bwd_simt
+    return cuda_attention.fused_attention, cuda_attention.fused_attention_bwd
+
+
+def attention_tols(dtype, head_dim: int) -> tuple[float, float]:
+    """(out's abs tolerance, the gradients' tolerance relative to each one's
+    largest element). bf16 on the tensor cores: p rounds to bf16 on both
+    sides and a rare ulp flip moves out by ~1 bf16 ulp (1.6e-2); the
+    backward's bf16 p and ds (2^-9) and bf16 outputs (2^-8): 2^-6. The
+    CUDA-core kernels: fp32, other summation orders, 1e-5 and 1e-5; bf16 at
+    head dim 256: out as above, gradients from fp32 p and ds rounded once
+    (2^-8)."""
+    if cuda_attention.kernel_for(dtype, head_dim) == "hopper":
+        return 1.6e-2, 2.0**-6
+    return (1e-5, 1e-5) if dtype == torch.float32 else (1.6e-2, 2.0**-8)
 
 
 def _sdpa(q, k, v, mask, n_virtual):
@@ -907,20 +970,23 @@ def _sdpa(q, k, v, mask, n_virtual):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am)
 
 
-def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6) -> dict:
-    """K5f at one shape (6 heads; a tensor-parallel rank's 3); the keys the
-    JAX caller pads on are counted as the model counts them."""
+def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6,
+                    head_dim: int = 128, dtype=torch.bfloat16) -> dict:
+    """K5f at one shape (6 heads; a tensor-parallel rank's 3; 3 of 256) and
+    dtype, through the kernel that takes it; the keys the JAX caller pads on
+    are counted as the model counts them."""
     n_virtual = cuda_attention.virtual_keys(tq, tk)
-    inputs = [(*_qkv(batch, tq, tk, gen, heads), _attention_mask(batch, tq, tk, causal, gen), n_virtual)
-              for _ in range(REPS)]
-    before = cuda_attention.fused_attention.launches
+    inputs = [(*_qkv(batch, tq, tk, gen, heads, head_dim, dtype), _attention_mask(batch, tq, tk, causal, gen),
+               n_virtual) for _ in range(REPS)]
+    wrapper = attention_wrappers(dtype, head_dim)[0]
+    before = wrapper.launches
     out, lse = cuda_attention.fused_attention(*inputs[0])
     ref, ref_lse = cuda_attention.attention_plain(*inputs[0])
     torch.cuda.synchronize()
-    if cuda_attention.fused_attention.launches != before + 1:
-        raise RuntimeError("fused_attention did not launch its kernel")
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{wrapper.__name__} did not launch its kernel")
     err = (out.float() - ref.float()).abs()
-    tol = 1.6e-2  # p rounds to bf16 on both sides; a rare ulp flip moves out by ~1 bf16 ulp
+    tol = attention_tols(dtype, head_dim)[0]
     res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol,
            "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
     if not (torch.isfinite(out.float()).all() and res["max_abs_err"] <= tol and res["lse_max_abs_err"] <= 1e-4):
@@ -929,13 +995,16 @@ def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str,
     res["device_ms"] = device_ms(cuda_attention.fused_attention, inputs)
     res["plain_ms"] = median_ms(cuda_attention.attention_plain, inputs)
     res["library_ms"] = median_ms(_sdpa, inputs)
-    bh = batch * heads
+    bh, esize = batch * heads, out.element_size()
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32  # the card's peak for the operands' type
     res["bound_ms"], res["bound_by"] = bound(
-        [(4.0 * bh * tq * tk * 128, PEAK_BF16), (5.0 * bh * tq * tk, PEAK_FP32)],  # products; scale, mask, max, exp, sum
-        2 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
+        # products; scale, mask, max, exp, sum
+        [(4.0 * bh * tq * tk * head_dim, peak), (5.0 * bh * tq * tk, PEAK_FP32)],
+        2 * bh * (tq + tk) * head_dim * esize + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
-    emit({"phase": "kernel", "name": "fused_attention", "shape": shape, "batch": batch, "heads": heads, "tq": tq,
-          "tk": tk, "mask": causal, "n_virtual": n_virtual, **res})
+    emit({"phase": "kernel", "name": wrapper.__name__, "shape": shape, "batch": batch, "heads": heads,
+          "head_dim": head_dim, "dtype": str(dtype), "tq": tq, "tk": tk, "mask": causal, "n_virtual": n_virtual,
+          **res})
     return res
 
 
@@ -943,25 +1012,25 @@ def _sdpa_grads(out, q, k, v, do):
     return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
 
 
-def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6) -> dict:
-    """K5b at one shape, on the forward kernel's out and lse."""
+def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6,
+                        head_dim: int = 128, dtype=torch.bfloat16) -> dict:
+    """K5b at one shape and dtype, on the forward kernel's out and lse."""
     n_virtual = cuda_attention.virtual_keys(tq, tk)
     inputs = []
     for _ in range(REPS):
-        q, k, v = _qkv(batch, tq, tk, gen, heads)
+        q, k, v = _qkv(batch, tq, tk, gen, heads, head_dim, dtype)
         mask = _attention_mask(batch, tq, tk, causal, gen)
         out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         inputs.append((q, k, v, mask, out, lse, do))
-    before = cuda_attention.fused_attention_bwd.launches
+    wrapper = attention_wrappers(dtype, head_dim)[1]
+    before = wrapper.launches
     got = cuda_attention.fused_attention_bwd(*inputs[0])
     refs = cuda_attention.attention_bwd_plain(*inputs[0])
     torch.cuda.synchronize()
-    if cuda_attention.fused_attention_bwd.launches != before + 1:
-        raise RuntimeError("fused_attention_bwd did not launch its kernels")
-    # p and ds enter the kernel's products as bf16 (relative 2^-9) where the
-    # plain version keeps fp32, and both round dq, dk, dv to bf16 (2^-8)
-    tol_rel = 2.0**-6
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{wrapper.__name__} did not launch its kernels")
+    tol_rel = attention_tols(dtype, head_dim)[1]
     errs = {n: (g.float() - r.float()).abs() for n, g, r in zip(("dq", "dk", "dv"), got, refs)}
     scale = {n: r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), refs)}
     res = {"max_abs_err": max(e.max().item() for e in errs.values()),
@@ -979,13 +1048,15 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
         lib_inputs.append((_sdpa(q, k, v, mask, n_virtual), q, k, v, do))
     res["library_ms"] = median_ms(_sdpa_grads, lib_inputs)  # autograd through SDPA, same mask
     del lib_inputs
-    bh = batch * heads
+    bh, esize = batch * heads, got[0].element_size()
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32  # the card's peak for the operands' type
     res["bound_ms"], res["bound_by"] = bound(
-        [(10.0 * bh * tq * tk * 128, PEAK_BF16), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
-        4 * bh * (tq + tk) * 128 * 2 + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
+        [(10.0 * bh * tq * tk * head_dim, peak), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
+        4 * bh * (tq + tk) * head_dim * esize + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
-    emit({"phase": "kernel", "name": "fused_attention_bwd", "shape": shape, "batch": batch, "heads": heads, "tq": tq,
-          "tk": tk, "mask": causal, "n_virtual": n_virtual, **res})
+    emit({"phase": "kernel", "name": wrapper.__name__, "shape": shape, "batch": batch, "heads": heads,
+          "head_dim": head_dim, "dtype": str(dtype), "tq": tq, "tk": tk, "mask": causal, "n_virtual": n_virtual,
+          **res})
     return res
 
 
@@ -996,19 +1067,22 @@ def _ffn_library(x, w1, b1, w2, b2, *_):
 
 
 def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: float = 0.9,
-              col0: int | None = None, d_ff_total: int | None = None) -> dict:
-    """K4 at one shape (the training config's dropout 0.1). With `col0`: a
-    tensor-parallel rank's d_ff columns from col0 of `d_ff_total`, in the
-    partial mode (fp32 out without b2 and the output dropout)."""
+              col0: int | None = None, d_ff_total: int | None = None, dtype=torch.bfloat16) -> dict:
+    """K4 at one shape (the training config's dropout 0.1) and dtype,
+    through the kernel that takes it. With `col0`: a tensor-parallel rank's
+    d_ff columns from col0 of `d_ff_total`, in the partial mode (fp32 out
+    without b2 and the output dropout)."""
     partial = col0 is not None
     cpu = torch.Generator().manual_seed(SEED + rows + (0 if col0 is None else col0 + 1))
+    fp32 = cuda_ffn.kernel_for(dtype, d, d_ff) == "fp32"
+    wrapper = cuda_ffn.ffn_dropout_fp32 if fp32 else cuda_ffn.ffn_dropout
 
     def args():
-        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
-        w1 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
-        w2 = (torch.randn(d, d_ff, generator=gen, device="cuda") / math.sqrt(d_ff)).to(torch.bfloat16)
-        b1 = (torch.randn(d_ff, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        w1 = (torch.randn(d_ff, d, generator=gen, device="cuda") / math.sqrt(d)).to(dtype)
+        w2 = (torch.randn(d, d_ff, generator=gen, device="cuda") / math.sqrt(d_ff)).to(dtype)
+        b1 = (torch.randn(d_ff, generator=gen, device="cuda") * 0.1).to(dtype)
+        b2 = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
         words = torch.randint(0, 2**32, (2, 2), generator=cpu).tolist()
         seeds = seed_from_key(words[0]) + seed_from_key(words[1])
         if partial:
@@ -1016,18 +1090,23 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
         return x, w1, b1, w2, b2, seeds, keep, keep
 
     inputs = [args() for _ in range(REPS)]
-    before = cuda_ffn.ffn_dropout.launches
+    before = wrapper.launches
     out, pre = cuda_ffn.ffn_dropout(*inputs[0])
     ref, ref_pre = ffn.ffn_dropout_plain(*inputs[0])
     torch.cuda.synchronize()
-    if cuda_ffn.ffn_dropout.launches != before + 1:
-        raise RuntimeError("ffn_dropout did not launch its kernel")
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{wrapper.__name__} did not launch its kernel")
     # the same bf16 operands with fp32 accumulation in another order: pre and
     # out may each flip one bf16 rounding (<= 2^-7 of the value); pre also
-    # carries the fp32 cancellation error near 0; the masks are the same hash
+    # carries the fp32 cancellation error near 0; the masks are the same hash.
+    # fp32: FMA products against cuBLAS's fp32 products (TF32 off) in another
+    # order, 1e-5 of the largest element
     err, pre_err = (out.float() - ref.float()).abs(), (pre.float() - ref_pre.float()).abs()
-    tol = 2.0**-7 * ref.float().abs().max().item()
-    pre_ok = bool((pre_err <= 2.0**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all())
+    tol = (1e-5 if fp32 else 2.0**-7) * ref.float().abs().max().item()
+    if fp32:
+        pre_ok = bool(pre_err.max() <= 1e-5 * ref_pre.abs().max())
+    else:
+        pre_ok = bool((pre_err <= 2.0**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all())
     res = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(), "tol": tol,
            "pre_max_abs_err": pre_err.max().item(), "pre_within_1ulp": pre_ok,
            "zero_pattern_equal": bool(torch.equal(out == 0, ref == 0)),
@@ -1042,16 +1121,18 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     res["device_ms"] = device_ms(cuda_ffn.ffn_dropout, inputs)  # GEMM 1 and GEMM 2
     res["plain_ms"] = median_ms(ffn.ffn_dropout_plain, inputs)
     res["library_ms"] = median_ms(_ffn_library, inputs)
-    res["library"] = "two cuBLAS GEMMs + F.gelu, masks excluded"
+    res["library"] = f"two cuBLAS GEMMs + F.gelu, masks excluded{', TF32 off' if fp32 else ''}"
+    es = 4 if fp32 else 2
     res["bound_ms"], res["bound_by"] = bound(
         # the two products; ~30 fp32-rate operations per hidden element (A-S
         # gelu, the hash, scaling) and ~12 per output element
-        [(4.0 * rows * d * d_ff, PEAK_BF16), (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
+        [(4.0 * rows * d * d_ff, PEAK_FP32 if fp32 else PEAK_BF16), (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
         # x in, out (fp32 in the partial mode), both weights, the biases, pre out
-        rows * d * 2 + rows * d * (4 if partial else 2) + 2 * d * d_ff * 2 + 2 * (d_ff + (0 if partial else d))
-        + rows * d_ff * 2,
+        rows * d * es + rows * d * (4 if partial else es) + 2 * d * d_ff * es + es * (d_ff + (0 if partial else d))
+        + rows * d_ff * es,
     )
-    emit({"phase": "kernel", "name": "ffn_dropout", "shape": shape, "rows": rows, "d": d, "d_ff": d_ff, **res})
+    emit({"phase": "kernel", "name": wrapper.__name__, "shape": shape, "rows": rows, "d": d, "d_ff": d_ff,
+          "dtype": str(dtype), **res})
     return res
 
 
@@ -1390,8 +1471,14 @@ def before_repair():
 
 
 def kernel_counters() -> dict:
-    return {"log_mel": cuda_mel.log_mel, "fused_attention": cuda_attention.fused_attention,
-            "fused_attention_bwd": cuda_attention.fused_attention_bwd, "ffn_dropout": cuda_ffn.ffn_dropout,
+    """The TPU kernels' wrappers, one a kernel variant: K1 by its route, K5 on
+    the tensor cores or the CUDA cores, K4 in bf16 or fp32."""
+    return {"log_mel": cuda_mel.log_mel, "log_mel_any_hop": cuda_mel.log_mel_any_hop,
+            "log_mel_long_hop": cuda_mel.log_mel_long_hop, "fused_attention": cuda_attention.fused_attention,
+            "fused_attention_bwd": cuda_attention.fused_attention_bwd,
+            "fused_attention_simt": cuda_attention.fused_attention_simt,
+            "fused_attention_bwd_simt": cuda_attention.fused_attention_bwd_simt, "ffn_dropout": cuda_ffn.ffn_dropout,
+            "ffn_dropout_fp32": cuda_ffn.ffn_dropout_fp32,
             "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
 
 
@@ -1411,25 +1498,26 @@ def tpu_launches(launches: dict) -> dict:
     return {k: launches[k] for k in kernel_counters()}
 
 
-def train_batch(cfg: FrameworkConfig, seed: int) -> dict:
-    """TRAIN_BATCH random 2.56 s waves and `token_batch`'s tokens."""
+def train_batch(cfg: FrameworkConfig, seed: int, tokens: int = TRAIN_TOKENS, batch: int = TRAIN_BATCH) -> dict:
+    """`batch` random waves of the config's chunk (2.56 s as shipped) and
+    `token_batch`'s tokens."""
     g = torch.Generator().manual_seed(seed)
-    wave = torch.randn(TRAIN_BATCH, cfg.shared.chunk_samples, generator=g) * 0.3
-    return {"wavs": wave.cuda(), **token_batch(cfg, g)}
+    wave = torch.randn(batch, cfg.shared.chunk_samples, generator=g) * 0.3
+    return {"wavs": wave.cuda(), **token_batch(cfg, g, tokens, batch)}
 
 
-def token_batch(cfg: FrameworkConfig, g: torch.Generator) -> dict:
-    """TRAIN_BATCH random token rows: BOS, random tokens, EOS at a random
+def token_batch(cfg: FrameworkConfig, g: torch.Generator, tokens: int = TRAIN_TOKENS, batch: int = TRAIN_BATCH) -> dict:
+    """`batch` random rows of `tokens`: BOS, random tokens, EOS at a random
     length (one row full), PAD; collated lengths."""
     tok = cfg.tokenizer
-    eos_at = torch.randint(TRAIN_TOKENS // 4, TRAIN_TOKENS, (TRAIN_BATCH,), generator=g)
-    eos_at[0] = TRAIN_TOKENS - 1
-    pos = torch.arange(TRAIN_TOKENS)[None]
-    body = torch.randint(4, cfg.model.tgt_vocab_size, (TRAIN_BATCH, TRAIN_TOKENS), generator=g)
-    tokens = torch.where(pos < eos_at[:, None], body, tok.pad_token)
-    tokens = torch.where(pos == eos_at[:, None], tok.EOS_token, tokens)
-    tokens[:, 0] = tok.BOS_token
-    return {"tokens": tokens.cuda(), "token_lengths": collate_token_lengths(eos_at + 1).cuda()}
+    eos_at = torch.randint(tokens // 4, tokens, (batch,), generator=g)
+    eos_at[0] = tokens - 1
+    pos = torch.arange(tokens)[None]
+    body = torch.randint(4, cfg.model.tgt_vocab_size, (batch, tokens), generator=g)
+    rows = torch.where(pos < eos_at[:, None], body, tok.pad_token)
+    rows = torch.where(pos == eos_at[:, None], tok.EOS_token, rows)
+    rows[:, 0] = tok.BOS_token
+    return {"tokens": rows.cuda(), "token_lengths": collate_token_lengths(eos_at + 1).cuda()}
 
 
 def _group(name: str) -> str:
@@ -1438,6 +1526,8 @@ def _group(name: str) -> str:
     that the library rule below would file under cuBLAS."""
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
+                       ("attention_fwd_simt", "K5f attention fwd"), ("attention_dkdv_simt", "K5b attention bwd"),
+                       ("attention_dq_simt", "K5b attention bwd"), ("ffn_gemm_fp32", "K4 fused FFN"),
                        ("log_mel_", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
                        ("place_notes_kernel", "K3 note placement")):
         if key in name:
@@ -1461,9 +1551,11 @@ def _group(name: str) -> str:
 
 
 # the device-time group (`_group`) of each kernel wrapper's kernels
-KERNEL_GROUPS = {"log_mel": "K1 log-mel", "gather_blend": "K2 gather + blend", "place_notes": "K3 note placement",
-                 "ffn_dropout": "K4 fused FFN", "fused_attention": "K5f attention fwd",
-                 "fused_attention_bwd": "K5b attention bwd"}
+KERNEL_GROUPS = {"log_mel": "K1 log-mel", "log_mel_any_hop": "K1 log-mel", "log_mel_long_hop": "K1 log-mel",
+                 "gather_blend": "K2 gather + blend", "place_notes": "K3 note placement",
+                 "ffn_dropout": "K4 fused FFN", "ffn_dropout_fp32": "K4 fused FFN",
+                 "fused_attention": "K5f attention fwd", "fused_attention_simt": "K5f attention fwd",
+                 "fused_attention_bwd": "K5b attention bwd", "fused_attention_bwd_simt": "K5b attention bwd"}
 
 
 def device_time_by_group(events: list, launched: dict) -> dict:
@@ -1530,15 +1622,20 @@ def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
                           weight_decay=cfg.training.weight_decay, max_grad_norm=cfg.training.max_grad_norm)
 
 
-def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dict:
-    """TRAIN_STEPS steps of `call(step, state, i) -> (state, metrics)` from
-    `fresh() -> (step, state)`, checked against the first step through the
-    plain versions (from the same weights and randomness) and the kernels'
-    expected launches."""
+def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps: int = TRAIN_STEPS,
+                 tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True) -> dict:
+    """`steps` steps of `call(step, state, i) -> (state, metrics)` from
+    `fresh() -> (step, state)`, each of the first `plain_steps` checked
+    against the same step through the plain versions (from the same weights
+    and randomness) within `tol`, and the kernels' expected launches; with
+    `profile`, one more step traced (`step_profile`)."""
     step, state = fresh()
+    plain = []
     with plain_kernels():
-        _, m = call(step, state, 0)
-        plain0 = {k: float(v) for k, v in m.items()}
+        for i in range(plain_steps):
+            state, m = call(step, state, i)
+            plain.append({k: float(v) for k, v in m.items()})
+    plain0 = plain[0]
     del step, state, m
     torch.cuda.empty_cache()
 
@@ -1547,7 +1644,7 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dic
     torch.cuda.reset_peak_memory_stats()
     counters = reset_counters()  # a training step launches no batch-invariance kernel: expected 0
     losses, norms, step_ms = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.monotonic()
         state, m = call(step, state, i)
         losses.append(float(m["loss"]))
@@ -1556,55 +1653,55 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict) -> dic
         step_ms.append((time.monotonic() - t0) * 1e3)
     launches = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    expected = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counters}
-    # bf16 training: the kernel path rounds at other points than the plain
-    # path (K5b's bf16 p and ds, pre and p rounding flips); measured on the
-    # H100, 3e-6 of the loss and 1e-4 of the gradient norm at most
-    tol = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}
+    expected = {k: per_step.get(k, 0) * steps for k in counters}
     vs_plain = {"loss": losses[0], "plain_loss": plain0["loss"], "grad_norm": norms[0],
                 "plain_grad_norm": plain0["grad_norm"], **tol}
-    profile = step_profile(lambda: call(step, state, TRAIN_STEPS), name)
-    res = {"phase": "training", "config": name, "batch": TRAIN_BATCH, "tokens": TRAIN_TOKENS,
-           "steps": TRAIN_STEPS, "lr": f"constant {TRAIN_LR}, no warmup (every update applies)",
+    each = [{"loss_rel": abs(losses[i] - r["loss"]) / abs(r["loss"]),
+             "grad_norm_rel": abs(norms[i] - r["grad_norm"]) / r["grad_norm"]} for i, r in enumerate(plain)]
+    res = {"phase": "training", "config": name, "batch": TRAIN_BATCH, "steps": steps,
+           "lr": f"constant {TRAIN_LR}, no warmup (every update applies)", "compute_dtype": mc.compute_dtype,
            "dropout": mc.dropout, **extra, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "median_step_ms": statistics.median(step_ms), "launches": launches, "expected_launches": expected,
-           "vs_plain_first_step": vs_plain, "peak_mem_gib": peak_gib, "profile_one_step": profile,
+           "vs_plain_first_step": vs_plain, "peak_mem_gib": peak_gib,
            "model_params": sum(p.numel() for p in state.model.parameters())}
+    if plain_steps > 1:
+        res["vs_plain_each_step"] = each
+    if profile:
+        res["profile_one_step"] = step_profile(lambda: call(step, state, steps), name)
     emit(res)
     if not all(math.isfinite(x) for x in losses + norms):
         raise RuntimeError(f"{name}: a loss or gradient norm is not finite")
     if not losses[-1] < losses[0]:
-        raise RuntimeError(f"{name}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        raise RuntimeError(f"{name}: the loss did not fall over {steps} steps: {losses}")
     if launches != expected:
         raise RuntimeError(f"{name}: kernel launches {launches}, expected {expected}")
-    if not (abs(losses[0] - plain0["loss"]) <= tol["loss_rtol"] * abs(plain0["loss"])
-            and abs(norms[0] - plain0["grad_norm"]) <= tol["grad_norm_rtol"] * plain0["grad_norm"]):
-        raise RuntimeError(f"{name}: the kernel path disagrees with the plain path: {vs_plain}")
+    if not all(e["loss_rel"] <= tol["loss_rtol"] and e["grad_norm_rel"] <= tol["grad_norm_rtol"] for e in each):
+        raise RuntimeError(f"{name}: the kernel path disagrees with the plain path: {vs_plain}, {each}")
     del step, state
     torch.cuda.empty_cache()
     return res
 
 
-def phase_training(name: str) -> dict:
-    """TRAIN_STEPS steps of one real-audio training configuration through its kernels."""
-    cfg = load_config(TRAIN_YAMLS[name], train=True)
+def phase_training(name: str, label: str | None = None, steps: int = TRAIN_STEPS, tokens: int = TRAIN_TOKENS,
+                   tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True, **sections) -> dict:
+    """`steps` steps of one real-audio training configuration through its
+    kernels (`sections`: the config's overrides, as `load_config` takes
+    them; `label` names the run), held as `run_training` holds them."""
+    cfg = load_config(TRAIN_YAMLS[name], train=True, **sections)
     mc = cfg.model
-    per_step = {"log_mel": 1}
-    if mc.use_pallas_ffn and mc.dropout > 0:
-        per_step["ffn_dropout"] = mc.enc_layers + mc.dec_layers
-    if mc.use_flash_attention and mc.dropout == 0:
-        per_step["fused_attention"] = per_step["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
     tcfg = _constant_lr(cfg)
-    batch = train_batch(cfg, SEED + 10)
+    batch = train_batch(cfg, SEED + 10, tokens)
     gen = torch.Generator().manual_seed(SEED + 11)
-    keys = [draw_site_keys(mc, gen) for _ in range(TRAIN_STEPS + 1)]
+    keys = [draw_site_keys(mc, gen) for _ in range(steps + 1)]
 
     def fresh():
         model = ADTModel(mc, seed=SEED, device="cuda")
-        opt, _ = make_optimizer(tcfg, TRAIN_STEPS, model)
+        opt, _ = make_optimizer(tcfg, steps, model)
         return make_train_step(mc, opt, device="cuda"), init_train_state(model, opt)
 
-    return run_training(name, mc, per_step, fresh, lambda step, state, i: step(state, batch, keys[i]), {})
+    return run_training(label or name, mc, per_step(mc, synth=False), fresh,
+                        lambda step, state, i: step(state, batch, keys[i]),
+                        {"tokens": tokens, "chunk_samples": cfg.shared.chunk_samples}, steps, tol, plain_steps, profile)
 
 
 def phase_synth_training(cfg: FrameworkConfig, statics: render.SynthStatics) -> dict:
@@ -1629,7 +1726,7 @@ def phase_synth_training(cfg: FrameworkConfig, statics: render.SynthStatics) -> 
              "fx_rows_per_step": [int(d.use_fx.sum()) for d in draws[:TRAIN_STEPS]],
              "fx_budget": render.fx_budget(TRAIN_BATCH, sc.use_fx_prob)}
     return run_training(SYNTH_NAME, mc, per_step, fresh,
-                        lambda step, state, i: step(state, batch, draws[i], keys[i]), extra)
+                        lambda step, state, i: step(state, batch, draws[i], keys[i]), {"tokens": TRAIN_TOKENS, **extra})
 
 
 def memory_error(mem: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -1663,19 +1760,26 @@ def encoder_vs_plain(model: ADTModel, chunks: torch.Tensor) -> dict:
     return out
 
 
-def serve_requests(engine, cfg: FrameworkConfig, sequential: bool = False) -> tuple[list, float, dict, dict]:
+def request_waves(cfg: FrameworkConfig, seconds: float = REQUEST_SEC) -> list[np.ndarray]:
+    """The N_REQUESTS seeded raw f32 PCM waves of `seconds` that the serving
+    phases POST, at the config's sample rate."""
+    rng = np.random.default_rng(SEED + 1)
+    n = int(seconds * cfg.shared.sample_rate)
+    return [(rng.normal(size=n) * 0.3).astype("<f4") for _ in range(N_REQUESTS)]
+
+
+def serve_requests(engine, cfg: FrameworkConfig, sequential: bool = False, seconds: float = REQUEST_SEC,
+                   required=("log_mel", "fused_attention")) -> tuple[list, float, dict, dict]:
     """N_REQUESTS concurrent POSTs (`sequential`: one after the other) of
-    REQUEST_SEC of seeded raw f32 PCM to the port's HTTP server around
-    `engine` (closed afterwards); each must answer 200 with well-formed
-    notes, and K1, K5f and the batch-invariance kernels must launch. ->
-    (results, wall s, launches, engine stats)."""
+    `request_waves` to the port's HTTP server around `engine` (closed
+    afterwards); each must answer 200 with well-formed notes, and the
+    `required` TPU kernels (K1 and K5f as shipped) and the batch-invariance
+    kernels must launch. -> (results, wall s, launches, engine stats)."""
     server = make_server(engine, "127.0.0.1", 0)
     start_in_thread(server)
     host, port = server.server_address[:2]
     url = f"http://{host}:{port}/v1/transcribe"
-    rng = np.random.default_rng(SEED + 1)
-    n = int(REQUEST_SEC * cfg.shared.sample_rate)
-    bodies = [(rng.normal(size=n) * 0.3).astype("<f4").tobytes() for _ in range(N_REQUESTS)]
+    bodies = [w.tobytes() for w in request_waves(cfg, seconds)]
     results: list = [None] * N_REQUESTS
     counters = reset_counters()
     try:
@@ -1697,8 +1801,8 @@ def serve_requests(engine, cfg: FrameworkConfig, sequential: bool = False) -> tu
     for i, r in enumerate(results):
         if r is None or r[0] != 200:
             raise RuntimeError(f"request {i} failed: {r}")
-        check_notes(json.loads(r[1]), REQUEST_SEC, cfg.model.tgt_vocab_size)
-    if not all(launches[k] for k in ("log_mel", "fused_attention", *REPAIR_WRAPPERS)):
+        check_notes(json.loads(r[1]), seconds, cfg.model.tgt_vocab_size)
+    if not all(launches[k] for k in (*required, *REPAIR_WRAPPERS)):
         raise RuntimeError(f"a kernel of the path was not launched while serving: {launches}")
     return results, wall, launches, stats
 
@@ -2364,7 +2468,6 @@ DDP_SHIPPED_STEPS = 3
 DDP_TRAINER_STEPS = 6  # saved and evaluated after 3 and 6; the resumed run takes 4-6
 DDP_TIMEOUT = 360  # seconds the rank processes may take, all their phases together
 ALLREDUCE_REPS = 5
-PARITY_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 2e-3}  # the kernel path's step tolerances (PERF.md §2)
 
 
 def free_port() -> int:
@@ -2395,14 +2498,18 @@ def close_to(got: dict, ref: dict) -> bool:
 
 
 def per_step(mc, synth: bool) -> dict:
-    """The kernel launches of one training step of `mc`."""
-    n = {"log_mel": 1}
+    """The kernel launches of one training step of `mc`, by the variant its
+    frontend and compute dtype take (K1's route; K4 in bf16 or fp32; K5 on
+    the tensor cores or the CUDA cores)."""
+    n = {cuda_mel.ROUTE_WRAPPERS[cuda_mel.frames_route(mel_params(mc))].__name__: 1}
     if synth:
         n.update(gather_blend=1, place_notes=1)
+    dtype = torch_dtype(mc.compute_dtype)
     if mc.use_pallas_ffn and mc.dropout > 0:
-        n["ffn_dropout"] = mc.enc_layers + mc.dec_layers
+        n["ffn_dropout_fp32" if dtype == torch.float32 else "ffn_dropout"] = mc.enc_layers + mc.dec_layers
     if mc.use_flash_attention and mc.dropout == 0:
-        n["fused_attention"] = n["fused_attention_bwd"] = mc.enc_layers + 2 * mc.dec_layers
+        fwd, bwd = attention_wrappers(dtype, mc.d_model // mc.nhead)
+        n[fwd.__name__] = n[bwd.__name__] = mc.enc_layers + 2 * mc.dec_layers
     return n
 
 
@@ -3529,6 +3636,136 @@ def phase_youtube() -> dict:
     return res
 
 
+
+# ------------------------------------------- the kernels' domain (fp32, long keys, any hop)
+
+FP32 = {"compute_dtype": "float32"}
+FP32_STEPS = 3
+FP32_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4}  # every fp32 step against the plain fp32 step
+TIE_TOL = 1e-4  # fp32 logits whose top two lie closer may take either token in another summation order
+# bf16 logits are rounded to 8 significant bits: a top two within 4 bf16 ulps of the top (2^-5 of it) is a
+# tie at bf16 rounding, which the kernel and plain paths' other rounding points may break either way
+BF16_TIE_REL = 2.0**-5
+LONG_SEC = 10.24  # 1 + 245,760 // 240 - 11 = 1,014 encoder frames
+LONG_TOKENS = 1024
+LONG_STEPS = 3
+LONG_REQUEST_SEC = 30.0
+LONG = {"shared": {"input_sec": LONG_SEC}}
+SR_44K1 = 44_100  # hop int(0.01 * 44100) = 441: K1's any_hop route
+LONG_HOP = {"sample_rate": 48_000, "time_res": 0.02}  # hop 960: a window past shared memory, K1's long_hop route
+# the tensor-core kernels past 512 keys (the fp32 rows take `TRAIN_ATTENTION`'s shapes)
+LONG_ATTENTION = {"encoder-1014": (1014, 1014, False), "decoder-self-1023": (1023, 1023, True),
+                  "cross-1023x1014": (1023, 1014, False)}
+
+
+def phase_training_fp32(name: str) -> dict:
+    """FP32_STEPS steps of a TMIDT config at `compute_dtype: float32` (64 x
+    512 tokens): K5f and K5b on the CUDA cores (flash) or K4 in fp32
+    (fused-ffn), every step against the plain fp32 path (TF32 off)."""
+    return phase_training(name, f"training-fp32-{name}", FP32_STEPS, tol=FP32_TOL, plain_steps=FP32_STEPS,
+                          profile=False, model=FP32)
+
+
+def phase_training_long() -> dict:
+    """TMIDT-flash at `input_sec: 10.24` and 1,024 tokens (K5f and K5b on
+    1,014 and 1,023 keys: encoder, decoder self, cross), LONG_STEPS steps at
+    batch 64, held as the bf16 training phases are."""
+    return phase_training("flash", "training-long-flash", LONG_STEPS, LONG_TOKENS, profile=False, **LONG)
+
+
+def tokens_vs_plain(model: ADTModel, cfg: FrameworkConfig, chunks: torch.Tensor) -> dict:
+    """Greedy tokens of `chunks` through the kernels against the plain path
+    on the card. A row that differs is reported with its first differing
+    step, the plain path's top two logits there (the prefix through
+    `decode_logits`) and the largest difference of the two paths' logits
+    there; `ok` unless such a top two lie further apart than a tie: TIE_TOL
+    in fp32, BF16_TIE_REL of the top logit in bf16."""
+    bos, eos, length = cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token, cfg.inference.max_length
+    fp32 = model.compute_dtype == torch.float32
+
+    def last_logits(tokens, r, step):
+        memory = model.encode(chunks[r : r + 1])
+        mask = T.causal_mask_additive(step, device=chunks.device)
+        return model.decode_logits(tokens[r : r + 1, :step].long(), memory, mask)[0, -1].float()
+
+    with torch.inference_mode():
+        got = greedy_decode(model, chunks, length, bos, eos)
+        with plain_kernels():
+            ref = greedy_decode(model, chunks, length, bos, eos)
+        rows = []
+        for r in (got != ref).any(dim=1).nonzero().flatten().tolist():
+            step = int((got[r] != ref[r]).nonzero()[0])
+            with plain_kernels():
+                plain = last_logits(ref, r, step)
+            kernel = last_logits(ref, r, step)
+            top = torch.topk(plain, 2).values
+            tol = TIE_TOL if fp32 else BF16_TIE_REL * abs(float(top[0]))
+            rows.append({"row": r, "first_step": step, "top2": top.tolist(), "top2_gap": float(top[0] - top[1]),
+                         "tie_tol": tol, "paths_logit_max_diff": float((kernel - plain).abs().max())})
+    return {"rows": int(chunks.shape[0]), "longest_row": int((ref != eos).sum(dim=1).max()),
+            "rows_equal": int(chunks.shape[0]) - len(rows), "differing": rows,
+            "ok": all(x["top2_gap"] <= x["tie_tol"] for x in rows)}
+
+
+def phase_serving_variant(label: str, cfg: FrameworkConfig, required: tuple, seconds: float = REQUEST_SEC,
+                          hold_tokens: bool = True) -> dict:
+    """The serving path at a config the shipped YAML does not take through
+    these kernels: N_REQUESTS concurrent requests of `seconds` through the
+    HTTP server (the `required` kernel variants must launch); on the same
+    chunks, K1 against its plain version (1e-4), the encoder memory against
+    the plain path (`memory_error`) and the greedy tokens against the plain
+    path's (`tokens_vs_plain`; held with `hold_tokens`, else reported)."""
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    chunk = cfg.shared.chunk_samples
+    chunks = torch.from_numpy(np.stack([c for w in request_waves(cfg, seconds) for _, c, _ in chunk_wave(w, chunk)]))
+    chunks = chunks.cuda()
+    params = mel_params(cfg.model)
+    mel_err = (cuda_mel.log_mel(chunks, params) - cuda_mel.log_mel_plain(chunks, params)).abs().max().item()
+    with torch.inference_mode():
+        mem = model.encode(chunks)
+        with plain_kernels():
+            ref = model.encode(chunks)
+    res = {"phase": label, "compute_dtype": cfg.model.compute_dtype, "sample_rate": cfg.shared.sample_rate,
+           "hop": params.hop_length, "mel_route": cuda_mel.frames_route(params), "input_sec": cfg.shared.input_sec,
+           "encoder_frames": int(mem.shape[1]), "max_length": cfg.inference.max_length, "requests": N_REQUESTS,
+           "request_sec": seconds, "chunks": int(chunks.shape[0]), "log_mel_max_abs_err": mel_err,
+           "log_mel_tol": 1e-4, "memory_vs_plain": memory_error(mem, ref)}
+    res["tokens_vs_plain"] = tokens_vs_plain(model, cfg, chunks)
+    res["tokens_held"] = hold_tokens
+    del mem, ref
+    results, wall, launches, stats = serve_requests(build_engine(cfg, model), cfg, seconds=seconds, required=required)
+    res.update(wall_s=round(wall, 3), request_s=[round(r[2], 3) for r in results],
+               n_notes=[json.loads(r[1])["n_notes"] for r in results], launches=launches, engine_stats=stats)
+    emit(res)
+    if not (mel_err <= 1e-4 and res["memory_vs_plain"]["ok"] and (res["tokens_vs_plain"]["ok"] or not hold_tokens)):
+        raise RuntimeError(f"{label}: the kernel path disagrees with the plain path")
+    return res
+
+
+def phase_domain_kernels(gen) -> dict:
+    """The new kernel variants against their plain versions and timed, at
+    the shapes the domain phases give them."""
+    mel = {}
+    for sr, tr, batch in ((SR_44K1, 0.01, 16), (22_050, 0.01, 16), (48_000, 0.02, 16)):
+        params = MelFrontendParams(sample_rate=sr, win_length=2048, hop_length=int(tr * sr), n_mels=128)
+        mel[f"{sr}-hop{params.hop_length}"] = phase_mel(params, batch, gen)
+    att = {}
+    for s, (tq, tk, causal) in TRAIN_ATTENTION.items():
+        att[f"fp32-{s}"] = {"fwd": phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32),
+                            "bwd": phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}",
+                                                       dtype=torch.float32)}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = f"{str(dtype)[6:]}-d256-decoder-self"
+        att[key] = {"fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, key, 3, 256, dtype),
+                    "bwd": phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, key, 3, 256, dtype)}
+    for s, (tq, tk, causal) in LONG_ATTENTION.items():
+        att[f"bf16-{s}"] = {"fwd": phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"bf16 {s}"),
+                            "bwd": phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"bf16 {s}")}
+    att["bf16-encoder-1014-serving"] = {"fwd": phase_attention(4, 1014, 1014, False, gen, "bf16 encoder 1014, B 4")}
+    ffn32 = {s: phase_ffn(rows, gen, f"fp32 {s}", dtype=torch.float32) for s, rows in TRAIN_FFN_ROWS.items()}
+    return {"mel": mel, "attention": att, "ffn": ffn32}
+
+
 def fail_unless(phase: str, checks: dict, detail="") -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -4504,6 +4741,13 @@ def compare_trees(argv: list[str]) -> int:
     return 0
 
 
+def at_shape(res: dict) -> dict:
+    """A kernel phase's numbers for a `kernels` entry beside its main shape."""
+    keys = ("shape", "batch", "rows", "tq", "tk", "heads", "head_dim", "dtype", "route", "max_abs_err", "tol", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {k: res[k] for k in keys if k in res}
+
+
 def tp_entry(tp: dict, kernel: str, col0: int | None = None) -> dict:
     """A kernel's numbers at a tensor-parallel rank's shape (the tp phase)."""
     res = tp["kernel_results"][kernel]
@@ -4533,6 +4777,7 @@ def main() -> int:
     att_train = {s: phase_attention(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     bwd_train = {s: phase_attention_bwd(TRAIN_BATCH, *shape, gen, s) for s, shape in TRAIN_ATTENTION.items()}
     ffn_train = {s: phase_ffn(rows, gen, s) for s, rows in TRAIN_FFN_ROWS.items()}
+    domain = phase_domain_kernels(gen)
     repairs = phase_repairs(gen, cfg)
     synth = phase_synthesis(ptxas)
     training = {c: phase_training(c) for c in TRAIN_YAMLS}
@@ -4545,6 +4790,19 @@ def main() -> int:
     tp = phase_tp(params, gen)
     fsdp = phase_fsdp()
     youtube = phase_youtube()
+    # the configs JAX's gates send to its kernels beyond the shipped ones
+    fp32_training = {c: phase_training_fp32(c) for c in TRAIN_YAMLS}
+    long_training = phase_training_long()
+    fp32_serving = phase_serving_variant("serving-fp32", load_config(SERVING_YAML, model=FP32),
+                                         ("log_mel", "fused_attention_simt"))
+    long_serving = phase_serving_variant(
+        "serving-long", load_config(SERVING_YAML, shared={"input_sec": LONG_SEC},
+                                    inference={"max_length": LONG_TOKENS}),
+        ("log_mel", "fused_attention"), seconds=LONG_REQUEST_SEC, hold_tokens=False)
+    serving_44k1 = phase_serving_variant("serving-44k1", load_config(SERVING_YAML, shared={"sample_rate": SR_44K1}),
+                                         ("log_mel_any_hop", "fused_attention"))
+    serving_48k = phase_serving_variant("serving-48k-hop960", load_config(SERVING_YAML, shared=LONG_HOP),
+                                        ("log_mel_long_hop", "fused_attention"))
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
@@ -4574,14 +4832,18 @@ def main() -> int:
                "fsdp-2x2 (4 ranks)": ranks_sum(fsdp["grid_2x2"]["launches"]),
                "fsdp-trainer (2 ranks)": ranks_sum({f"{r}-{k}": n[k] for r, n in fsdp["trainer"]["launches"].items()
                                                     for k in ("straight", "resumed")}),
-               **{f"youtube-{k}": v["launches"] for k, v in youtube["in_process"].items()}}
+               **{f"youtube-{k}": v["launches"] for k, v in youtube["in_process"].items()},
+               **{f"training-fp32-{c}": r["launches"] for c, r in fp32_training.items()},
+               "training-long-flash": long_training["launches"], "serving-fp32": fp32_serving["launches"],
+               "serving-long": long_serving["launches"], "serving-44k1": serving_44k1["launches"],
+               "serving-48k-hop960": serving_48k["launches"]}
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         per_path = {p: n[kname] for p, n in by_path.items()}  # every run counts every kernel
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path, "shape": shape,
-                **{k: res[k] for k in keys}}
+                **{k: res[k] for k in keys}, **{k: res[k] for k in ("device_ms",) if k in res}}
 
     emit({"kernels": [
         {**entry("log_mel", "adt_str_tpu_torch/csrc/log_mel.cu", "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
@@ -4595,15 +4857,41 @@ def main() -> int:
         {**entry("fused_attention", "adt_str_tpu_torch/csrc/attention.cu",
                  "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
                  f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", att_train["decoder-self"]),
-         "at_3_heads": tp_entry(tp, "fused_attention")},
+         "at_3_heads": tp_entry(tp, "fused_attention"),
+         "past_512_keys": {s: at_shape(domain["attention"][f"bf16-{s}"]["fwd"]) for s in LONG_ATTENTION}},
         {**entry("fused_attention_bwd", "adt_str_tpu_torch/csrc/attention_bwd.cu",
                  "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
                  f"B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask", bwd_train["decoder-self"]),
-         "at_3_heads": tp_entry(tp, "fused_attention_bwd")},
+         "at_3_heads": tp_entry(tp, "fused_attention_bwd"),
+         "past_512_keys": {s: at_shape(domain["attention"][f"bf16-{s}"]["bwd"]) for s in LONG_ATTENTION}},
         {**entry("ffn_dropout", "adt_str_tpu_torch/csrc/ffn_dropout.cu",
                  "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
                  f"N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072", ffn_train["decoder"]),
          "partial_d_ff_1536": {c: tp_entry(tp, "ffn_dropout", c) for c in (0, 1536)}},
+        {**entry("log_mel_any_hop", "adt_str_tpu_torch/csrc/log_mel.cu (route any_hop)",
+                 "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
+                 "B=16 chunks of 2.56 s at 44.1 kHz, hop 441, n_fft 2048", domain["mel"]["44100-hop441"]),
+         "at_22050_hop_220": at_shape(domain["mel"]["22050-hop220"])},
+        entry("log_mel_long_hop", "adt_str_tpu_torch/csrc/log_mel.cu (route long_hop)",
+              "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
+              "B=16 chunks of 2.56 s at 48 kHz, hop 960, n_fft 2048", domain["mel"]["48000-hop960"]),
+        {**entry("fused_attention_simt", "adt_str_tpu_torch/csrc/attention_simt.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
+                 f"fp32, B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask",
+                 domain["attention"]["fp32-decoder-self"]["fwd"]),
+         "other_shapes": {k: at_shape(v["fwd"]) for k, v in domain["attention"].items()
+                          if k.startswith(("fp32", "float32", "bfloat16")) and k != "fp32-decoder-self"}},
+        {**entry("fused_attention_bwd_simt", "adt_str_tpu_torch/csrc/attention_simt.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
+                 f"fp32, B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask",
+                 domain["attention"]["fp32-decoder-self"]["bwd"]),
+         "other_shapes": {k: at_shape(v["bwd"]) for k, v in domain["attention"].items()
+                          if k.startswith(("fp32", "float32", "bfloat16")) and k != "fp32-decoder-self"}},
+        {**entry("ffn_dropout_fp32", "adt_str_tpu_torch/csrc/ffn_dropout_fp32.cu",
+                 "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
+                 f"fp32, N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072",
+                 domain["ffn"]["decoder"]),
+         "encoder_rows": at_shape(domain["ffn"]["encoder"])},
         entry("gather_blend", "adt_str_tpu_torch/csrc/gather_blend.cu",
               "adt_str_tpu/synth/pallas_place.py:99 gather_blend",
               f"N={TRAIN_BATCH} x 27 requests of 30720 bf16 from a 100,035-row bank (5.72 GiB)",

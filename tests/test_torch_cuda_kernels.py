@@ -292,11 +292,18 @@ def test_fused_attention_autograd_launches_both_kernels(cuda):
 
 
 def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
-    q = torch.zeros(1, 1, 600, 128, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="keys"):
-        cuda_attention.fused_attention(q, q, q)
-    with pytest.raises(ValueError, match="bf16"):
-        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 128, device=cuda),) * 3)
+    """600 keys and fp32 now have kernels (`test_attention_*_past_512_keys`,
+    `test_attention_simt_*`); fp16, head dims past 256, operands of two
+    dtypes and the bf16 kernels' entry at fp32 still raise."""
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 128, dtype=torch.float16, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 384, device=cuda),) * 3)
+    q = torch.zeros(1, 1, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_attention.fused_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="CUDA-core"):
+        cuda_attention.fused_attention_simt(*(q.bfloat16(),) * 3)
 
 
 def _ffn_inputs(n, d, d_ff, cuda, seed=0):
@@ -368,9 +375,13 @@ def test_ffn_dropout_kernel_at_col0_zero_and_the_whole_width_is_bit_equal(cuda):
 
 
 def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
+    """fp32 operands now have a kernel (`test_ffn_dropout_fp32_*`); mixed
+    dtypes, fp16 and widths off 128 still raise."""
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 768, 512, cuda)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="one dtype"):
         cuda_ffn.ffn_dropout(x.float(), w1, b1, w2, b2, seeds, 0.9, 0.9)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        cuda_ffn.ffn_dropout(*(t.half() for t in (x, w1, b1, w2, b2)), seeds, 0.9, 0.9)
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 200, 512, cuda)
     with pytest.raises(ValueError, match="multiples of 128"):
         cuda_ffn.ffn_dropout(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
@@ -1011,3 +1022,204 @@ def test_data_parallel_decode_over_two_cards_equals_one_card(cuda):
     one = greedy_decode(model, batch, cfg.inference.max_length)
     two = greedy_decode_sharded(model, batch, DataMesh(devices=tuple(devices[:2])), cfg.inference.max_length)
     assert torch.equal(one.cpu(), two.cpu())
+
+
+# ---- the kernels' domain widened to every input JAX's gates send them:
+# fp32 (CUDA-core K5 and K4), head dim 256, keys past 512, any hop and n_fft.
+
+
+def _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(B, H, T, D, generator=g).to(cuda, dtype) for T in (Tq, Tk, Tk))
+
+
+# (B, H, Tq, Tk, head dim, dtype, mask): fp32 at the model's shapes and past
+# 512 keys (the 10.24 s encoder's 1,014), bf16 and fp32 at head dim 256 (3
+# heads of 256 at d 768), ragged and single-key edges of the 64- (32-) row
+# tiles, and a row whose real keys are all masked.
+SIMT_CASES = {
+    "fp32-encoder": (2, 6, 246, 246, 128, torch.float32, None),
+    "fp32-decoder-self": (2, 6, 511, 511, 128, torch.float32, "causal"),
+    "fp32-cross": (2, 6, 511, 246, 128, torch.float32, None),
+    "fp32-encoder-1014": (1, 2, 1014, 1014, 128, torch.float32, None),
+    "fp32-decoder-self-1023": (1, 2, 1023, 1023, 128, torch.float32, "causal"),
+    "fp32-d256": (2, 3, 511, 246, 256, torch.float32, None),
+    "bf16-d256": (2, 3, 511, 511, 256, torch.bfloat16, "causal"),
+    "bf16-d256-1014": (1, 3, 1014, 1014, 256, torch.bfloat16, None),
+    "fp32-one-key": (1, 1, 30, 1, 128, torch.float32, None),
+    "fp32-ragged": (1, 2, 65, 33, 256, torch.float32, None),
+    "fp32-masked-row": (1, 2, 30, 30, 128, torch.float32, "masked-row"),
+}
+
+
+def _simt_inputs(case, cuda):
+    B, H, Tq, Tk, D, dtype, kind = SIMT_CASES[case]
+    q, k, v = _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=Tq + Tk + D)
+    mask = None if kind is None else _causal(B, Tq, Tk, cuda, 3 if kind == "masked-row" else None)
+    return q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk)
+
+
+# Tolerances of the CUDA-core kernels: fp32 FMA products and the accurate exp
+# against the plain version's fp32 products, in another summation order:
+# outputs and lse within 1e-5, each gradient within 1e-5 of its largest
+# element (measured on the H100: 7e-7, 1e-6 and 1.5e-6), plus 2^-17 of the
+# magnitude its terms allow (`_gradient_magnitudes`) where ds = p (dp -
+# delta) cancels (one key: dq is rounding noise of 1e-7). bf16 at head dim
+# 256: p rounds to bf16 on both sides (1.6e-2, as the bf16 kernel); the
+# gradients keep p and ds in fp32 as the plain version does, and only the
+# outputs round to bf16 (2^-8 of the largest element, plus 2^-12 of the
+# magnitude as the bf16 kernel's tests allow).
+def _simt_tols(dtype):
+    return (1e-5, 1e-5, 2**-17) if dtype == torch.float32 else (1.6e-2, 2**-8, 2**-12)
+
+
+@pytest.mark.parametrize("case", list(SIMT_CASES))
+def test_attention_simt_kernels_match_plain(cuda, case):
+    q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
+    out_tol, grad_tol, size_tol = _simt_tols(q.dtype)
+    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
+    hopper = (cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, q.dtype)
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert cuda_attention.fused_attention_simt.launches == f0 + 1
+    assert cuda_attention.fused_attention_bwd_simt.launches == b0 + 1
+    assert (cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches) == hopper
+    ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
+    assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    sizes = _gradient_magnitudes(q, k, v, mask, out, lse, do)
+    for name, got, r, size in zip(("dq", "dk", "dv"), grads, refs, sizes):
+        assert got.dtype == q.dtype and torch.isfinite(got.float()).all(), name
+        err = (got.float() - r.float()).abs().max().item()
+        assert err <= grad_tol * r.float().abs().max().item() + size_tol * size, (name, err, size)
+
+
+@pytest.mark.parametrize("case", ["fp32-decoder-self", "bf16-d256"])
+def test_attention_simt_backward_is_deterministic(cuda, case):
+    """No atomics: dk/dv and dq each come from one block."""
+    q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
+    first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    second = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_attention_autograd_at_fp32_launches_the_simt_kernels(cuda):
+    q, k, v, mask, n_virtual = _simt_inputs("fp32-ragged", cuda)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
+    cuda_attention.FusedAttention.apply(q, k, v, mask, n_virtual).sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == (
+        f0 + 1, b0 + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# The tensor-core kernels past 512 keys (their old cap): the 10.24 s
+# encoder (1,014 keys), its decoder at 1,024 tokens (1,023 x 1,023 causal),
+# the cross attention, and max_positions; tolerances as above for bf16.
+@pytest.mark.parametrize("tq, tk, causal", [(1014, 1014, False), (1023, 1023, True), (1023, 1014, False),
+                                            (600, 513, False), (64, 2048, False), (2048, 2048, True)])
+def test_attention_kernels_past_512_keys(cuda, tq, tk, causal):
+    q, k, v = _qkv(1, 2, tq, tk, cuda, seed=tq * 7 + tk)
+    mask = _causal(1, tq, tk, cuda) if causal else None
+    b0 = cuda_attention.fused_attention_bwd.launches
+    _assert_attention_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(tq, tk))
+    _assert_attention_bwd_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(tq, tk))
+    assert cuda_attention.fused_attention_bwd.launches == b0 + 1
+
+
+def _ffn_inputs_fp32(n, d, d_ff, cuda, seed=0):
+    args, seeds = _ffn_inputs(n, d, d_ff, cuda, seed)
+    return tuple(t.float() for t in args), seeds
+
+
+# Tolerances of the fp32 K4: fp32 FMA products against the plain version's
+# fp32 cuBLAS products (TF32 off) in another summation order, and the
+# accurate gelu: out and pre within 1e-5 of their largest element (measured
+# on the H100: 2e-6); the masks are the same hash (zero patterns equal).
+@pytest.mark.parametrize("n, d, d_ff, keep", [(100, 768, 512, 0.65), (2 * 511, 768, 3072, 0.9), (37, 768, 512, 0.9),
+                                              (64 * 246 + 1, 768, 3072, 0.9), (130, 1024, 384, 0.7)],
+                         ids=["small", "training-width", "under-64-rows", "encoder-rows-plus-1", "d1024"])
+def test_ffn_dropout_fp32_kernel_matches_plain(cuda, n, d, d_ff, keep):
+    args, seeds = _ffn_inputs_fp32(n, d, d_ff, cuda)
+    before, hopper = cuda_ffn.ffn_dropout_fp32.launches, cuda_ffn.ffn_dropout.launches
+    out, pre = cuda_ffn.ffn_dropout(*args, seeds, keep, keep)
+    torch.cuda.synchronize()
+    assert cuda_ffn.ffn_dropout_fp32.launches == before + 1 and cuda_ffn.ffn_dropout.launches == hopper
+    ref, ref_pre = ffn_dropout_plain(*args, seeds, keep, keep)
+    assert out.dtype == pre.dtype == torch.float32
+    assert torch.equal(out == 0, ref == 0)
+    assert (pre - ref_pre).abs().max().item() <= 1e-5 * ref_pre.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("col0", [0, 1536])
+def test_ffn_dropout_fp32_kernel_column_shard_in_the_partial_mode(cuda, col0):
+    (x, w1, b1, w2, _), seeds = _ffn_inputs_fp32(250, 768, 1536, cuda, seed=3)
+    out, pre = cuda_ffn.ffn_dropout(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 3072)
+    torch.cuda.synchronize()
+    ref, ref_pre = ffn_dropout_plain(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 3072)
+    assert (pre - ref_pre).abs().max().item() <= 1e-5 * ref_pre.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# K1's other routes: hops that are not multiples of 8 (44.1 kHz, 22.05 kHz
+# at time_res 0.01), a window past shared memory (48 kHz at 0.02, n_fft
+# 2048 and 4096), an n_fft off 64; tolerance as the ldmatrix route's.
+ROUTE_MEL = {
+    "44k1-hop441": (MelFrontendParams(sample_rate=44100, win_length=2048, hop_length=441, n_mels=128), "any_hop"),
+    "22k05-hop220": (MelFrontendParams(sample_rate=22050, win_length=2048, hop_length=220, n_mels=128), "any_hop"),
+    "48k-hop960": (MelFrontendParams(sample_rate=48000, win_length=2048, hop_length=960, n_mels=128), "long_hop"),
+    "48k-hop960-nfft4096": (MelFrontendParams(sample_rate=48000, win_length=4096, hop_length=960, n_mels=128),
+                            "long_hop"),
+    "16k-nfft500": (MelFrontendParams(sample_rate=16000, win_length=500, hop_length=80, n_mels=64), "ldmatrix"),
+    "44k1-nfft2000-db": (MelFrontendParams(sample_rate=44100, win_length=2000, hop_length=441, n_mels=64,
+                                           log_mode="db"), "any_hop"),
+}
+ROUTE_COUNTERS = {"ldmatrix": "log_mel", "any_hop": "log_mel_any_hop", "long_hop": "log_mel_long_hop"}
+
+
+@pytest.mark.parametrize("kept", [1, 129, 250])
+@pytest.mark.parametrize("case", list(ROUTE_MEL))
+def test_log_mel_kernel_routes_match_plain(cuda, case, kept):
+    params, route = ROUTE_MEL[case]
+    assert cuda_mel.frames_route(params) == route
+    n = (kept + 2 * params.window_pad_idxs) * params.hop_length + params.hop_length // 2
+    wave = _wave(3, n, seed=kept).to(cuda)
+    counter = getattr(cuda_mel, ROUTE_COUNTERS[route])
+    before = counter.launches
+    out = cuda_mel.log_mel(wave, params)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = cuda_mel.log_mel_plain(wave, params)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (1e-3 if params.log_mode == "db" else 1e-4)
+
+
+@pytest.mark.parametrize("case", ["44k1-hop441", "48k-hop960"])
+def test_log_mel_kernel_routes_bits_equal_at_every_split_and_batch(cuda, case, monkeypatch):
+    params, _ = ROUTE_MEL[case]
+    wave = _wave(16, int(2.56 * params.sample_rate), seed=9).to(cuda)
+    full = cuda_mel.log_mel(wave, params)
+    for b in (1, 2, 16):
+        assert torch.equal(cuda_mel.log_mel(wave[:b].clone(), params), full[:b]), b
+    n_tiles = cuda_mel.mel_table(params).shape[0] // cuda_mel.FREQ_TILE
+    for split in (1, 2, 4, 8):
+        if split <= n_tiles:
+            monkeypatch.setattr(cuda_mel, "freq_split", lambda *_: split)
+            assert torch.equal(cuda_mel.log_mel(wave, params), full), split
+
+
+def test_log_mel_route_wrappers_refuse_another_route(cuda):
+    wave = _wave(1, 61440, seed=1).to(cuda)
+    with pytest.raises(ValueError, match="ldmatrix"):
+        cuda_mel.log_mel_any_hop(wave, SERVING_MEL)
+    with pytest.raises(ValueError, match="ldmatrix"):
+        cuda_mel.log_mel_long_hop(wave, SERVING_MEL)

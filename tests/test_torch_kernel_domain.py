@@ -1,0 +1,272 @@
+"""The inputs that JAX's gates send to its Pallas kernels, on the port's side,
+on the CPU: fp32 compute for K4 and K5, keys past 512 and head dim 256 for
+K5, any hop and n_fft for K1.
+
+- each kernel's plain version (which its wrapper runs for CPU tensors, and
+  which the card holds each kernel variant to) against the JAX kernel in
+  interpret mode, at those inputs;
+- a small model (2+2 layers, 2 heads of 128, fp32 compute, every kernel
+  flag on, 5.28 s chunks: 518 encoder frames) whose `forward_loss`, gradients
+  and greedy tokens match the JAX package's;
+- a table of (dtype, head dim, keys, hop, n_fft) points that JAX's gates send
+  to a kernel, each of which the wrappers' published limit functions
+  (`cuda_attention.kernel_for`, `cuda_ffn.kernel_for`,
+  `cuda_mel.frames_route`) accept, so no ValueError is left on the card
+  that JAX's kernels do not have, at the model's dtypes and head dims.
+
+Inputs are made with numpy (or JAX's own init) from a seed and fed to both
+sides.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from adt_str_tpu.config import ModelConfig as JModelConfig
+from adt_str_tpu.models import adt as jadt
+from adt_str_tpu.models import decode as jdecode
+from adt_str_tpu.models import transformer as JT
+from adt_str_tpu.ops import mel as jmel
+from adt_str_tpu.ops.pallas_mel import pallas_log_mel
+from adt_str_tpu_torch.config import ModelConfig
+from adt_str_tpu_torch.models import decode as tdecode
+from adt_str_tpu_torch.models import transformer as TT
+from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
+from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel
+from adt_str_tpu_torch.ops import mel as tmel
+from test_torch_model import jax_flags_on_memory
+from test_torch_train_step import assert_grads_close, jax_site_keys, jbatch, make_batch, tbatch
+
+# Tolerances: fp32 on both sides in other summation orders. K5: outputs 1e-5,
+# gradients 1e-4 of each gradient's largest element (as
+# test_torch_attention_bwd.py); K1 "norm" outputs 1e-5 (as test_torch_mel.py:
+# the same bf16 frames and bases, fp32 sums in another order); K4 as
+# test_torch_ffn.py (2e-5 forward, 1e-4 gradients).
+OUT_TOL, GRAD_TOL = 1e-5, 1e-4
+
+
+def _attention_inputs(Tq, Tk, D, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(1, 1, t, D)).astype(np.float32) for t in (Tq, Tk, Tk, Tq)]  # q, k, v, dout
+    return [jnp.asarray(a) for a in arrs], [torch.from_numpy(a) for a in arrs]
+
+
+@pytest.mark.parametrize("Tq, Tk, D, causal", [(1014, 1014, 128, False), (1023, 1023, 128, True),
+                                               (60, 100, 256, False), (64, 64, 256, True)],
+                         ids=["encoder-1014", "decoder-self-1023", "d256-cross", "d256-causal"])
+def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal):
+    """fp32 q, k, v past 512 keys and at head dim 256, through both packages'
+    `_flash_attention` (JAX pads to a multiple of 8 and masks the padded
+    keys; the port counts them): outputs and the three gradients."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _attention_inputs(Tq, Tk, D, seed=Tq + D)
+    mask = np.triu(np.full((Tq, Tk), -1e4, np.float32), k=1)[None, None] if causal else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref, vjp = jax.vjp(lambda q, k, v: JT._flash_attention(q, k, v, jmask), jq, jk, jv)
+    ref_grads = vjp(jdo)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    assert cuda_attention.kernel_for(tq.dtype, D) == "simt"
+    out = TT._flash_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
+    out.backward(tdo)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=OUT_TOL, rtol=0)
+    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads):
+        r = np.asarray(r)
+        np.testing.assert_allclose(t.grad.numpy(), r, atol=GRAD_TOL * np.abs(r).max(), rtol=0, err_msg=name)
+
+
+def test_k5_simt_wrappers_run_plain_for_cpu_tensors():
+    _, (q, k, v, do) = _attention_inputs(40, 70, 256, seed=5)
+    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
+    out, lse = cuda_attention.fused_attention_simt(q, k, v, None, 2)
+    ref, ref_lse = cuda_attention.attention_plain(q, k, v, None, 2)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    grads = cuda_attention.fused_attention_bwd_simt(q, k, v, None, out, lse, do)
+    refs = cuda_attention.attention_bwd_plain(q, k, v, None, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, refs))
+    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == (f0, b0)
+
+
+D_K4, RATE = 256, 0.1
+
+
+def test_k4_fp32_plain_matches_pallas_interpret():
+    """`ffn_dropout_fp32`'s plain version (fp32 operands, the model's
+    dropout 0.1) against the JAX kernel in interpret mode: forward, zero
+    pattern and every gradient, through `ffn_dropout_block` on both sides."""
+    kp, kx, kh, ko = jax.random.split(jax.random.PRNGKey(3), 4)
+    p = JT.ffn_init(kp, D_K4, 4 * D_K4)
+    x = jax.random.normal(kx, (2, 37, D_K4), jnp.float32)
+
+    def jloss(p, x):
+        return jnp.sum(jnp.sin(JT.ffn_dropout_block(p, x, RATE, kh, ko, interpret=True)))
+
+    ref = np.asarray(JT.ffn_dropout_block(p, x, RATE, kh, ko, interpret=True))
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(p, x)
+    layer = torch.nn.Module()
+    layer.linear1, layer.linear2 = torch.nn.Linear(D_K4, 4 * D_K4), torch.nn.Linear(4 * D_K4, D_K4)
+    with torch.no_grad():
+        for name in ("linear1", "linear2"):
+            getattr(layer, name).weight.copy_(torch.from_numpy(np.asarray(p[name]["w"]).T.copy()))
+            getattr(layer, name).bias.copy_(torch.from_numpy(np.array(p[name]["b"])))
+    tx = torch.from_numpy(np.array(x)).requires_grad_()
+    words = [tuple(int(w) for w in np.asarray(jax.random.key_data(k)).reshape(-1)) for k in (kh, ko)]
+    assert cuda_ffn.kernel_for(tx.dtype, D_K4, 4 * D_K4) == "fp32"
+    out = TT.ffn_dropout_block(layer, tx, RATE, *words)
+    np.testing.assert_array_equal(out.detach().numpy() == 0.0, ref == 0.0)
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-5, atol=2e-5)
+    torch.sin(out).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-4)
+    for name in ("linear1", "linear2"):
+        mod = getattr(layer, name)
+        np.testing.assert_allclose(mod.weight.grad.numpy().T, np.asarray(gp[name]["w"]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(mod.bias.grad.numpy(), np.asarray(gp[name]["b"]), rtol=1e-4, atol=1e-4)
+
+
+# (sample rate, hop, n_fft): 44.1 and 22.05 kHz at time_res 0.01 (hops not
+# multiples of 8), 48 kHz at 0.02 (a window past shared memory), and an
+# n_fft that is not a multiple of 64
+MEL_CASES = {"44k1-hop441": (44100, 441, 2048), "22k05-hop220": (22050, 220, 2048),
+             "48k-hop960": (48000, 960, 2048), "44k1-nfft2000": (44100, 441, 2000)}
+MEL_ROUTES = {"44k1-hop441": "any_hop", "22k05-hop220": "any_hop", "48k-hop960": "long_hop", "44k1-nfft2000": "any_hop"}
+
+
+@pytest.mark.parametrize("case", list(MEL_CASES))
+def test_k1_plain_at_any_hop_matches_pallas_interpret(case):
+    sr, hop, n_fft = MEL_CASES[case]
+    kw = dict(sample_rate=sr, win_length=n_fft, hop_length=hop, n_mels=128)
+    rng = np.random.default_rng(hop)
+    t = np.arange(int(0.8 * sr)) / sr
+    wave = np.stack([0.5 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.normal(size=t.shape),
+                     0.2 * rng.normal(size=t.shape)]).astype(np.float32)
+    ref = np.asarray(pallas_log_mel(jnp.asarray(wave), jmel.MelFrontendParams(**kw), interpret=True))
+    params = tmel.MelFrontendParams(**kw)
+    assert cuda_mel.frames_route(params) == MEL_ROUTES[case]
+    out = cuda_mel.log_mel(torch.from_numpy(wave), params).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+# The small model: 2 heads of 128 (d 256), fp32, every kernel flag on, 5.28 s
+# at 4 kHz with hop 40 and win 320: 1 + 528 frames less 2 * 5 + 1 trimmed =
+# 518 encoder frames, past the 512 keys the card's K5 once took.
+SMALL = dict(sample_rate=4000, win_length=320, time_res=0.01, input_sec=5.28, enc_layers=2, dec_layers=2,
+             nhead=2, d_query=128, tgt_vocab_size=40, n_mels=16, compute_dtype="float32", max_positions=1024,
+             use_pallas_mel=True, use_flash_attention=True, use_pallas_ffn=True)
+
+
+def _build(kw, seed=0):
+    jcfg, tcfg = JModelConfig(**kw), ModelConfig(**kw)
+    params = jadt.init_params(jax.random.PRNGKey(seed), jcfg)
+    model = ADTModel(tcfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)), strict=True)
+    return params, jcfg, model, tcfg
+
+
+def test_small_model_has_518_frames_and_takes_every_kernel():
+    cfg = ModelConfig(**SMALL)
+    params = tmel.MelFrontendParams(sample_rate=4000, win_length=320, hop_length=40, n_mels=16)
+    assert params.out_frames(cfg.chunk_samples) == 518
+    assert cuda_attention.kernel_for(torch.float32, cfg.d_model // cfg.nhead) == "simt"
+    assert cuda_ffn.kernel_for(torch.float32, cfg.d_model, cfg.ffn_dim) == "fp32"
+    assert cuda_mel.frames_route(params) == "ldmatrix"
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["k5-trains", "k4-trains"])
+def test_small_model_forward_loss_and_grads_match_jax(dropout):
+    """Train mode: at dropout 0 the attention runs K5's forward and backward
+    (plain versions here) over 518 keys; at 0.1 the FFN runs K4 (the
+    attention keeps its probability dropout, as in JAX). JAX's
+    `forward_loss` takes its XLA path on the CPU, which computes the same
+    function (`test_torch_train_step.py`); K1 stays on the XLA rfft there,
+    so the port's mel flag is off for the loss (no gradient reaches it)."""
+    kw = dict(SMALL, dropout=dropout, use_pallas_mel=False)
+    params, jcfg, model, tcfg = _build(kw)
+    b = make_batch(tcfg, B=2, T=20, seed=1)
+    jb = jbatch(b)
+    rng = jax.random.PRNGKey(5)
+
+    def jloss(p):
+        return jadt.forward_loss(p, jb["wavs"], jb["tokens"], jb["token_lengths"], jcfg, rng=rng, train=True)
+
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jloss))(params)
+    tb = tbatch(b)
+    loss = model.forward_loss(tb["wavs"], tb["tokens"], tb["token_lengths"],
+                              keys=torch.from_numpy(jax_site_keys(rng, jcfg)), train=True)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=2e-6)
+    assert_grads_close({n: p.grad for n, p in model.named_parameters()},
+                       state_dict_from_jax_params(jax.tree.map(np.asarray, ref_grads)))
+
+
+def test_small_model_greedy_tokens_equal_jax():
+    """The JAX side decodes from the memory its Pallas kernels (interpret
+    mode: K1 at 518 frames, K5 over 518 keys) produce; the port runs its
+    kernels' plain versions. The generator is scaled by 4 so that greedy
+    emits varied tokens (as test_torch_decode.py)."""
+    params, jcfg, model, _ = _build(SMALL)
+    params["decoder"]["generator"]["w"] = params["decoder"]["generator"]["w"] * 4.0
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)), strict=True)
+    rng = np.random.default_rng(2)
+    w = (rng.normal(size=(2, jcfg.chunk_samples)) * 0.3).astype(np.float32)
+    memory = jax_flags_on_memory(params, jcfg, w)
+    assert memory.shape[1] == 518
+    ref = np.asarray(jdecode.greedy_decode_from_memory(params, memory, jcfg, 12))
+    out = tdecode.greedy_decode(model, torch.from_numpy(w), max_length=12)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert len(np.unique(ref[:, 1:])) > 1
+
+
+# The points of JAX's gates at the model's dtypes: every compute dtype a
+# config names in the repo (bfloat16, float32), the head dims of d 768 at 6
+# and 3 heads, key counts from one to `max_positions` (2048), and the
+# frontends of 16-48 kHz at time_res 0.005-0.02 and win_length 512-4096.
+DTYPES = (torch.bfloat16, torch.float32)
+HEAD_DIMS = (128, 256)
+KEYS = (1, 246, 511, 512, 513, 1014, 1023, 2048)
+RATES = (16000, 22050, 24000, 32000, 44100, 48000)
+TIME_RES = (0.005, 0.01, 0.02)
+WIN_LENGTHS = (512, 1000, 1024, 2048, 4096)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+def test_every_gated_attention_and_ffn_point_has_a_kernel(dtype):
+    for D, tk in itertools.product(HEAD_DIMS, KEYS):
+        q = torch.zeros(1, 1, 1, D, dtype=dtype)
+        k = torch.zeros(1, 1, tk, D, dtype=dtype)
+        assert JT._fused_attention_ok(jnp.zeros((1, 1, 1, D)), False, 0.0)  # JAX's gate sends it
+        assert TT._fused_attention_ok(q, False, 0.0)
+        route = cuda_attention.kernel_for(dtype, D)
+        assert route == ("hopper" if (dtype, D) == (torch.bfloat16, 128) else "simt")
+        cuda_attention._check(q, k, k, None, cuda_attention.virtual_keys(1, tk))
+    for d, d_ff in ((768, 3072), (256, 1024), (768, 1536)):
+        assert cuda_ffn.kernel_for(dtype, d, d_ff) == ("hopper" if dtype == torch.bfloat16 else "fp32")
+
+
+def test_every_gated_frontend_has_a_kernel_route():
+    routes = {}
+    for sr, tr, win in itertools.product(RATES, TIME_RES, WIN_LENGTHS):
+        params = tmel.MelFrontendParams(sample_rate=sr, win_length=win, hop_length=int(tr * sr), n_mels=128)
+        route = cuda_mel.frames_route(params)
+        assert route == "long_hop" or cuda_mel.smem_bytes(params.hop_length, win) <= cuda_mel.SMEM_LIMIT
+        assert route != "ldmatrix" or params.hop_length % 8 == 0
+        assert cuda_mel.mel_table(params).shape[0] % cuda_mel.FREQ_TILE == 0  # the kernel's table builds
+        routes.setdefault(route, []).append((sr, params.hop_length, win))
+    assert set(routes) == {"ldmatrix", "any_hop", "long_hop"}
+    assert (24000, 240, 2048) in routes["ldmatrix"] and (44100, 441, 2048) in routes["any_hop"]
+    assert (48000, 960, 2048) in routes["long_hop"]
+
+
+def test_what_the_card_still_refuses():
+    """Outside the model's dtypes and head dims: fp16 and head dims past 256
+    (JAX's gate would send them; ROADMAP lists them as what still raises)."""
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_attention.kernel_for(torch.float32, 384)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_attention.kernel_for(torch.float16, 128)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        cuda_ffn.kernel_for(torch.float16, 768, 3072)
