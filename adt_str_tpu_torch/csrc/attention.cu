@@ -6,10 +6,11 @@
 //     m_i = max(max_j s_ij, -1e4 if n_virtual > 0)
 //     l_i = sum_j exp(s_ij - m_i) + n_virtual * exp(-1e4 - m_i)
 //     lse_i = m_i + log(l_i)
-//     p_ij = bf16(exp(s_ij - m_i) / l_i)
-//     out_i = bf16(sum_j p_ij v_j)                        (fp32 accumulation)
-// q, k, v are bf16 (B, H, T, 128), any Tq, Tk >= 1 (the keys stream through
-// the ring a tile at a time). The n_virtual keys are
+//     p_ij = T(exp(s_ij - m_i) / l_i)                    (T: q's type, bf16 or fp16)
+//     out_i = T(sum_j p_ij v_j)                           (fp32 accumulation)
+// q, k, v are bf16 or fp16 (B, H, T, D) at head dim D = 128 or 256, any
+// Tq, Tk >= 1 (the keys stream through the ring a tile at a time); p and out
+// are rounded to q's type. The n_virtual keys are
 // those the JAX caller pads on (score exactly -1e4, v = 0): they are counted
 // in l and lse without being stored.
 //
@@ -18,6 +19,15 @@
 // 51 GFLOP (52 us at 989 TFLOP/s), while q, k, v, out and the fp32 mask are
 // about 270 MB (81 us at 3.35 TB/s): it is bound by memory, the mask (67 MB,
 // shared by the heads) being its largest input. The design:
+//   - the kernel is a template on the element type (bf16, fp16: the same
+//     rounding points, wgmma's .bf16 or .f16 form) and on D. A tile of 64
+//     head-dim columns (128-byte rows, the swizzle atom) is one TMA box, so
+//     a D-wide tile is D / 64 of them. At D 256 the Q tile is 64 KB and the
+//     4-slot K/V ring 4 x 32 KB (193 KB of shared memory in all), and a
+//     consumer's O accumulator (64 x 256 fp32) is 128 registers a thread,
+//     two m64n128 products a k-step: setmaxnreg gives the consumers 232
+//     registers and the producer 40. At D 256, 3 heads (d 768), the same
+//     shapes take the same flops and bytes as D 128 at 6 heads;
 //   - one block per 128 query rows of one (batch, head); blocks are ordered
 //     head fastest, so the six blocks of one (batch, query tile) run
 //     together and read their mask tile from HBM once;
@@ -55,18 +65,24 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 128;        // head dim
 constexpr int BQ = 128;       // query rows per block (two warpgroups of 64)
 constexpr int BKV = 64;       // keys per K or V tile
 constexpr int SLOTS = 4;      // K/V ring
 constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; 2: producer
 constexpr float NEG_MASK = -1e4f;
 
-constexpr int Q_HALF = BQ * 64 * 2;        // 64 head-dim columns of the Q tile (16 KB)
-constexpr int KV_HALF = BKV * 64 * 2;      // 64 head-dim columns of a K or V tile (8 KB)
-constexpr int SLOT_BYTES = 2 * KV_HALF;
-constexpr int SMEM_BYTES = 1024 + 2 * Q_HALF + SLOTS * SLOT_BYTES + (1 + 2 * SLOTS) * 8;
+constexpr int Q_ATOM = BQ * 64 * 2;    // 64 head-dim columns of the Q tile (16 KB)
+constexpr int KV_ATOM = BKV * 64 * 2;  // 64 head-dim columns of a K or V tile (8 KB)
 
+template <int D>
+struct Shape {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int SLOT_BYTES = ATOMS * KV_ATOM;
+  static constexpr int SMEM = 1024 + ATOMS * Q_ATOM + SLOTS * SLOT_BYTES + (1 + 2 * SLOTS) * 8;
+};
+static_assert(Shape<128>::SMEM <= 232448 && Shape<256>::SMEM <= 232448, "shared memory of one block");
+
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
     const __grid_constant__ CUtensorMap q_map,   // (B*H, Tq, D)
     const __grid_constant__ CUtensorMap k_map,   // (B*H, Tk, D)
@@ -75,10 +91,11 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
     const float* __restrict__ mask,              // (B, Tq, Tk) or null
     float* __restrict__ lse,                     // (B, H, Tq)
     int H, int Tq, int Tk, int n_virtual, float scale) {
+  constexpr int ATOMS = Shape<D>::ATOMS, SLOT_BYTES = Shape<D>::SLOT_BYTES, NH = D / 128;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  uint8_t* qs = smem;                    // [2 halves][128 rows][64]
-  uint8_t* ring = smem + 2 * Q_HALF;     // [SLOTS][2 halves][64 keys][64]
+  uint8_t* qs = smem;                        // [ATOMS][128 rows][64]
+  uint8_t* ring = smem + ATOMS * Q_ATOM;     // [SLOTS][ATOMS][64 keys][64]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + SLOTS * SLOT_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + SLOTS;
@@ -102,9 +119,8 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
   if (wg == 2) {  // producer: Q, then K_0..K_{nk-1} (pass 1), then K_0, V_0, K_1, V_1, ... (pass 2)
     setmaxnreg_dec<40>();
     if (t == 0) {
-      mbar_arrive_expect_tx(q_full, 2 * Q_HALF);
-      tma_load_3d(qs, &q_map, q_full, 0, q0, bh);
-      tma_load_3d(qs + Q_HALF, &q_map, q_full, 64, q0, bh);
+      mbar_arrive_expect_tx(q_full, ATOMS * Q_ATOM);
+      for (int a = 0; a < ATOMS; ++a) tma_load_3d(qs + a * Q_ATOM, &q_map, q_full, 64 * a, q0, bh);
       for (int i = 0; i < 3 * nk; ++i) {
         const bool is_v = i >= nk && (i - nk) % 2 == 1;
         const int key0 = (i < nk ? i : (i - nk) / 2) * BKV;
@@ -113,8 +129,7 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
         uint8_t* slot = ring + s * SLOT_BYTES;
         mbar_wait(&empty[s], ((i / SLOTS) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], SLOT_BYTES);
-        tma_load_3d(slot, map, &full[s], 0, key0, bh);
-        tma_load_3d(slot + KV_HALF, map, &full[s], 64, key0, bh);
+        for (int a = 0; a < ATOMS; ++a) tma_load_3d(slot + a * KV_ATOM, map, &full[s], 64 * a, key0, bh);
       }
     }
   } else {  // consumers: query rows wg * 64 .. + 63 of the tile
@@ -148,22 +163,25 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
       }
     };
     // S = (q . k) * scale + mask for the K tile at ring position pos, rounded
-    // as the plain version rounds it; -inf past Tk. The mask loads, issued
-    // first, land while the products run.
+    // as the plain version rounds it; -inf past Tk. At D 128 the mask loads,
+    // issued first, land while the products run; at D 256 they follow the
+    // products (held across them, they made ptxas serialize the products
+    // and spill).
     auto scores = [&](int pos, int key0) {
-      load_mask(key0);
+      if constexpr (D == 128) load_mask(key0);
       wait_full(pos);
       const uint8_t* kt = ring + (pos % SLOTS) * SLOT_BYTES;
       fence_regs(S);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma_64x64_ss(S, desc_sw128(qs + (kk / 4) * Q_HALF + wg * (Q_HALF / 2) + (kk % 4) * 32, 16, 1024),
-                     desc_sw128(kt + (kk / 4) * KV_HALF + (kk % 4) * 32, 16, 1024), kk > 0);
+        mma_64x64_ss<T>(S, desc_sw128(qs + (kk / 4) * Q_ATOM + wg * (Q_ATOM / 2) + (kk % 4) * 32, 16, 1024),
+                        desc_sw128(kt + (kk / 4) * KV_ATOM + (kk % 4) * 32, 16, 1024), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(S);
       release(pos);
+      if constexpr (D == 256) load_mask(key0);  // after the products: O's 128 registers leave no room for both
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i & 1);
@@ -204,34 +222,38 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
       row_lse[r] = m[r] + logf(sum);
     }
 
-    // pass 2: p = bf16(exp(s - m) / l), out += p V
-    float O[64];
+    // pass 2: p = T(exp(s - m) / l), out += p V (NH products of 128 columns a k-step)
+    float O[NH][64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) O[i] = 0.f;
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) O[hh][i] = 0.f;
     for (int kt = 0; kt < nk; ++kt) {
       scores(nk + 2 * kt, kt * BKV);
       uint32_t P[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int r = i & 1;  // P[i] packs S[2i], S[2i + 1]: row (i & 1)
-        __nv_bfloat162 pb = __floats2bfloat162_rn(__fmul_rn(__expf(S[2 * i] - m[r]), inv_l[r]),
-                                                  __fmul_rn(__expf(S[2 * i + 1] - m[r]), inv_l[r]));
-        P[i] = *reinterpret_cast<uint32_t*>(&pb);
+        P[i] = pack2<T>(__fmul_rn(__expf(S[2 * i] - m[r]), inv_l[r]), __fmul_rn(__expf(S[2 * i + 1] - m[r]), inv_l[r]));
       }
       const int pos_v = nk + 2 * kt + 1;
       wait_full(pos_v);
       const uint8_t* vt = ring + (pos_v % SLOTS) * SLOT_BYTES;
-      fence_regs(O);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) fence_regs(O[hh]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
         const uint32_t a[4] = {P[4 * kk], P[4 * kk + 1], P[4 * kk + 2], P[4 * kk + 3]};
-        // V tile rows 16 kk.. of both 64-column halves: MN blocks KV_HALF apart, 8-key groups 1,024 B apart
-        mma_64x128_rs_tb(O, a, desc_sw128(vt + kk * 16 * 128, KV_HALF, 1024), 1);
+        // V tile rows 16 kk.. of the 128 columns of half hh: MN blocks KV_ATOM apart, 8-key groups 1,024 B apart
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          mma_64x128_rs_tb<T>(O[hh], a, desc_sw128(vt + 2 * hh * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(O);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) fence_regs(O[hh]);
       release(pos_v);
     }
 
@@ -239,11 +261,11 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
     fence_proxy_async();
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const int c = 8 * j + 2 * (l % 4);
+      const int c = 8 * j + 2 * (l % 4), hh = j / 16, jj = j % 16;
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<__nv_bfloat162*>(qs + (c >> 6) * Q_HALF + sw128_offset(rl + 8 * r, c & 63)) =
-            __floats2bfloat162_rn(O[4 * j + 2 * r], O[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(qs + (c >> 6) * Q_ATOM + sw128_offset(rl + 8 * r, c & 63)) =
+            pack2<T>(O[hh][4 * jj + 2 * r], O[hh][4 * jj + 2 * r + 1]);
     }
     if (l % 4 == 0) {
 #pragma unroll
@@ -255,43 +277,56 @@ __global__ void __launch_bounds__(THREADS, 1) attention_fwd_kernel(
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (t == 0 && q0 + 64 * wg < Tq) {
-      tma_store_3d(&o_map, qs + wg * (Q_HALF / 2), 0, q0 + 64 * wg, bh);
-      tma_store_3d(&o_map, qs + Q_HALF + wg * (Q_HALF / 2), 64, q0 + 64 * wg, bh);
+      for (int a = 0; a < ATOMS; ++a) tma_store_3d(&o_map, qs + a * Q_ATOM + wg * (Q_ATOM / 2), 64 * a, q0 + 64 * wg, bh);
       store_commit();
       store_wait_read();
     }
   }
 }
 
-// (B*H, T, D) bf16 read or written in boxes of (64, rows, 1)
-int heads_map(CUtensorMap* map, const void* p, int bh, int T, int rows) {
-  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(T) * D * 2};
+// (B*H, T, D) bf16 or fp16 read or written in boxes of (64, rows, 1)
+int heads_map(CUtensorMap* map, const void* p, int bh, int T, int D, int rows, bool half) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(T) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  return encode_tensor_map(map, p, 3, dims, strides, box);
+  return encode_tensor_map(map, p, 3, dims, strides, box, half);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B, int H, int Tq,
+           int Tk, int n_virtual, float scale, cudaStream_t st) {
+  constexpr bool half = is_half<T>;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  int err = 0;
+  if ((err = heads_map(&q_map, q, B * H, Tq, D, BQ, half)) || (err = heads_map(&k_map, k, B * H, Tk, D, BKV, half)) ||
+      (err = heads_map(&v_map, v, B * H, Tk, D, BKV, half)) || (err = heads_map(&o_map, out, B * H, Tq, D, 64, half)))
+    return err;
+  static hopper::SmemLimit limit;
+  if ((err = limit.ensure(attention_fwd_kernel<T, D>, Shape<D>::SMEM))) return err;
+  const int blocks = B * H * ((Tq + BQ - 1) / BQ);  // head fastest
+  attention_fwd_kernel<T, D><<<blocks, THREADS, Shape<D>::SMEM, st>>>(
+      q_map, k_map, v_map, o_map, static_cast<const float*>(mask), static_cast<float*>(lse), H, Tq, Tk, n_virtual,
+      scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int attention_head_dim() { return D; }
+// dtype codes: 1 bf16, 2 fp16. The (dtype, head dim) pairs this kernel takes.
+extern "C" int attention_takes(int dtype, int D) { return (dtype == 1 || dtype == 2) && (D == 128 || D == 256); }
 
-// Launch on `stream`; returns 0 or a cudaError_t. The caller checks: bf16
-// contiguous q, k, v with head dim 128, Tq, Tk >= 1, n_virtual >= 0, a
-// contiguous fp32 (B, Tq, Tk) mask or null, outputs of the right shapes.
+// Launch on `stream`; returns 0 or a cudaError_t. The caller checks:
+// contiguous q, k, v of `dtype` at a head dim `attention_takes`, Tq, Tk >= 1,
+// n_virtual >= 0, a contiguous fp32 (B, Tq, Tk) mask or null, outputs of the
+// right shapes.
 extern "C" int launch_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
-                                    void* out, void* lse, int B, int H, int Tq, int Tk,
+                                    void* out, void* lse, int dtype, int D, int B, int H, int Tq, int Tk,
                                     int n_virtual, float scale, void* stream) {
-  if (Tk < 1 || Tq < 1) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q_map, k_map, v_map, o_map;
-  int err = 0;
-  if ((err = heads_map(&q_map, q, B * H, Tq, BQ)) || (err = heads_map(&k_map, k, B * H, Tk, BKV)) ||
-      (err = heads_map(&v_map, v, B * H, Tk, BKV)) || (err = heads_map(&o_map, out, B * H, Tq, 64)))
-    return err;
-  static hopper::SmemLimit limit;
-  if ((err = limit.ensure(attention_fwd_kernel, SMEM_BYTES))) return err;
-  const int blocks = B * H * ((Tq + BQ - 1) / BQ);  // head fastest
-  attention_fwd_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, o_map, static_cast<const float*>(mask), static_cast<float*>(lse), H, Tq, Tk,
-      n_virtual, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (Tk < 1 || Tq < 1 || !attention_takes(dtype, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return D == 128 ? launch<__nv_bfloat16, 128>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st)
+                    : launch<__nv_bfloat16, 256>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
+  return D == 128 ? launch<__half, 128>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st)
+                  : launch<__half, 256>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
 }

@@ -37,8 +37,13 @@
 // accumulator an output. A decode block holds one query row (16 at most):
 // the mma's 16 rows are mostly padding, which costs nothing against the
 // bytes, and at 16 x 6 blocks a bucket of 16 fills 96 of the 132 SMs.
-// fp32 q, k, v (no shipped config) take the simple CUDA-core kernel: a block
-// a query row, a warp a key, a thread an output dim, t ascending.
+// The 16-bit design is a template on T (bf16 or fp16: mma.sync's .bf16 or
+// .f16 form, the same rounding points) at head dims up to 256. fp32 q, k, v
+// (no shipped config), and bf16 or fp16 at head dims past 256 (2 heads or 1
+// at d 768: the mma design's ring and partials outgrow shared memory and its
+// registers there), take the simple CUDA-core kernel, a template on T: a
+// block a query row, a warp a key, a thread an output dim, t ascending, p
+// rounded to T before p . v as the plain version rounds it.
 
 #include "hopper.cuh"
 
@@ -55,7 +60,8 @@ using hopper::ldmatrix_x4_trans;
 using hopper::mma_16816;
 
 constexpr int MAX_KEYS = 4096;
-constexpr int MAX_HD = 256;
+constexpr int MMA_MAX_HD = 256;  // the mma design's head dims
+constexpr int MAX_HD = 1024;     // the CUDA-core kernel's
 constexpr int SMEM_MAX = 232448;
 
 constexpr int THREADS = 256, WARPS = THREADS / 32;
@@ -80,7 +86,7 @@ struct Strides {  // elements; the last dim of q, k, v is contiguous
   long long q[3], k[3], v[3], m[4];
 };
 
-// Shared memory of the bf16 kernel at padded head dim HDP (a power of two,
+// Shared memory of the 16-bit kernel at padded head dim HDP (a power of two,
 // 32..256), `qb` query rows a block and `tiles` key tiles: the ring, the
 // query tile, the scores, the chunk partials, the warps' row sums and the
 // rows' max and sum.
@@ -90,19 +96,18 @@ inline int smem_bytes(int hdp, int qb, int tiles) {
   return 2 * (STAGES * KT + QROWS) * ldk(hdp) + 4 * (qb * lds(tiles) + CHUNKS * qb * ldk(hdp) + WARPS * qb + 2 * qb);
 }
 
-template <int HDP>
+template <typename T, int HDP>
 __global__ void __launch_bounds__(THREADS)
-attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                    __nv_bfloat16* __restrict__ out, Strides st, int H, int Tq, int n_keys, int hd, int qb,
-                    float scale) {
+attention_rows_bf16(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys, int hd,
+                    int qb, float scale) {
   constexpr int LDK = ldk(HDP), LDP = ldk(HDP), KSTEPS = HDP / 16;
   constexpr int HALF_TILES = HDP / 16;           // n-tiles of 8 dims in half the head dims
   constexpr int ACC = QROWS * HDP / THREADS;     // outputs a thread accumulates
   extern __shared__ __align__(16) uint8_t smem[];
   const int tiles = (n_keys + KT - 1) / KT, LDS = lds(tiles);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qs = ring + STAGES * KT * LDK;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* qs = ring + STAGES * KT * LDK;
   float* sc = reinterpret_cast<float*>(qs + QROWS * LDK);
   float* part = sc + qb * LDS;
   float* red = part + CHUNKS * qb * LDP;  // [row][warp]
@@ -112,8 +117,8 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t2 = (lane & 3) * 2;
   const long long n = blockIdx.x / H;
   const int h = blockIdx.x % H, q0 = blockIdx.y * qb, rows = min(qb, Tq - q0);
-  const __nv_bfloat16* kb = k + n * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vb = v + n * st.v[0] + h * st.v[1];
+  const T* kb = k + n * st.k[0] + h * st.k[1];
+  const T* vb = v + n * st.v[0] + h * st.v[1];
   const float* mb = mask == nullptr ? nullptr : mask + n * st.m[0] + h * st.m[1] + q0 * st.m[2];
 
   // The query rows (rows past `rows` and dims past hd as zeros), in the first copy group.
@@ -125,10 +130,10 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   // Ring tile `it`: K's tile it, then V's tile it - tiles; keys past n_keys as zeros.
   auto load = [&](int stage, int it) {
     const bool is_v = it >= tiles;
-    const __nv_bfloat16* base = is_v ? vb : kb;
+    const T* base = is_v ? vb : kb;
     const long long stride = is_v ? st.v[2] : st.k[2];
     const int t0 = (is_v ? it - tiles : it) * KT;
-    __nv_bfloat16* dst = ring + stage * KT * LDK;
+    T* dst = ring + stage * KT * LDK;
     for (int c = tid; c < KT * HDP / 8; c += THREADS) {
       const int r = c / (HDP / 8), col = (c % (HDP / 8)) * 8;
       const bool ok = t0 + r < n_keys && col < hd;
@@ -151,7 +156,7 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     __syncthreads();              // everyone's part, and every warp is done with tile it - 1
     if (it + STAGES - 1 < total) load((it + STAGES - 1) % STAGES, it + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* tile = ring + (it % STAGES) * KT * LDK;
+    const T* tile = ring + (it % STAGES) * KT * LDK;
 
     if (it < tiles) {  // phase 1: this warp's 8 keys of the tile, every query row
       float c[4] = {0.f, 0.f, 0.f, 0.f};
@@ -160,7 +165,7 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         uint32_t a[4], b[2];
         ldmatrix_x4(a, qs + (lane & 15) * LDK + ks * 16 + (lane >> 4) * 8);
         ldmatrix_x2(b, tile + (warp * 8 + (lane & 7)) * LDK + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_16816(c, a, b[0], b[1]);
+        mma_16816<T>(c, a, b[0], b[1]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -213,12 +218,11 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     } else {  // phase 2: chunk j of the tile, half `half` of the head dims
       const int j = warp % CHUNKS, half = warp / CHUNKS, key0 = (it - tiles) * KT + j * CHUNK;
       auto p = [&](int r, int t) { return r < rows && t < n_keys ? sc[r * LDS + t] : 0.f; };
-      uint32_t a[4];  // the probabilities rounded to bf16: rows g, g + 8; keys key0 + t2, +1, +8, +9
+      uint32_t a[4];  // the probabilities rounded to T: rows g, g + 8; keys key0 + t2, +1, +8, +9
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int r = g + 8 * (x & 1), t = key0 + t2 + 8 * (x >> 1);
-        const __nv_bfloat162 pr = __floats2bfloat162_rn(p(r, t), p(r, t + 1));
-        a[x] = *reinterpret_cast<const uint32_t*>(&pr);
+        a[x] = hopper::pack2<T>(p(r, t), p(r, t + 1));
       }
       float c[HALF_TILES][4];
 #pragma unroll
@@ -227,8 +231,8 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int nt = 0; nt < HALF_TILES; nt += 2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, tile + (j * CHUNK + (lane & 15)) * LDK + half * (HDP / 2) + nt * 8 + (lane >> 4) * 8);
-        mma_16816(c[nt], a, b[0], b[1]);
-        mma_16816(c[nt + 1], a, b[2], b[3]);
+        mma_16816<T>(c[nt], a, b[0], b[1]);
+        mma_16816<T>(c[nt + 1], a, b[2], b[3]);
       }
       float* pj = part + j * qb * LDP;
 #pragma unroll
@@ -250,37 +254,40 @@ attention_rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
   cp_async_wait<0>();
 
-  __nv_bfloat16* o = out + ((n * H + h) * Tq + q0) * static_cast<long long>(hd);
+  T* o = out + ((n * H + h) * Tq + q0) * static_cast<long long>(hd);
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
     const int e = tid + i * THREADS, r = e / HDP, d = e % HDP;
-    if (r < rows && d < hd) o[r * hd + d] = __float2bfloat16_rn(acc[i]);
+    if (r < rows && d < hd) o[r * hd + d] = hopper::from_float<T>(acc[i]);
   }
 }
 
-// fp32: a block a query row, a warp a key for the scores, a thread an output
-// dim for p . v (t ascending); the scores in shared memory.
+// The CUDA-core kernel (fp32; bf16 and fp16 past head dim 256): a block a
+// query row, a warp a key for the scores, a thread an output dim for p . v
+// (t ascending); the scores in shared memory; p rounded to T (a no-op in
+// fp32), the output to T.
 constexpr int F32_THREADS = 128, F32_WARPS = F32_THREADS / 32;
 
+template <typename T>
 __global__ void __launch_bounds__(F32_THREADS)
-attention_rows_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                   const float* __restrict__ mask, float* __restrict__ out, Strides st, int H, int Tq, int n_keys,
+attention_rows_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
                    int hd, float scale) {
   __shared__ float qs[MAX_HD];
   __shared__ float p[MAX_KEYS];
   __shared__ float red[F32_WARPS];
   const int i = blockIdx.y, h = blockIdx.x % H, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long n = blockIdx.x / H;
-  const float* qr = q + n * st.q[0] + h * st.q[1] + i * st.q[2];
-  for (int j = tid; j < hd; j += F32_THREADS) qs[j] = qr[j];
+  const T* qr = q + n * st.q[0] + h * st.q[1] + i * st.q[2];
+  for (int j = tid; j < hd; j += F32_THREADS) qs[j] = hopper::to_float(qr[j]);
   __syncthreads();
 
-  const float* kb = k + n * st.k[0] + h * st.k[1];
+  const T* kb = k + n * st.k[0] + h * st.k[1];
   const float* mr = mask == nullptr ? nullptr : mask + n * st.m[0] + h * st.m[1] + i * st.m[2];
   for (int t = warp; t < n_keys; t += F32_WARPS) {
-    const float* kr = kb + t * st.k[2];
+    const T* kr = kb + t * st.k[2];
     float s = 0.f;
-    for (int j = lane; j < hd; j += 32) s = __fmaf_rn(qs[j], kr[j], s);
+    for (int j = lane; j < hd; j += 32) s = __fmaf_rn(qs[j], hopper::to_float(kr[j]), s);
     s = __fdiv_rn(warp_sum(s), scale);
     if (lane == 0) p[t] = mr == nullptr ? s : __fadd_rn(s, mr[t * st.m[3]]);
   }
@@ -308,33 +315,58 @@ attention_rows_f32(const float* __restrict__ q, const float* __restrict__ k, con
   sum = red[0];
 #pragma unroll
   for (int w = 1; w < F32_WARPS; ++w) sum = __fadd_rn(sum, red[w]);
-  for (int t = tid; t < n_keys; t += F32_THREADS) p[t] = __fdiv_rn(p[t], sum);
+  for (int t = tid; t < n_keys; t += F32_THREADS) p[t] = hopper::to_float(hopper::from_float<T>(__fdiv_rn(p[t], sum)));
   __syncthreads();
 
-  const float* vb = v + n * st.v[0] + h * st.v[1];
-  float* o = out + ((n * H + h) * Tq + i) * static_cast<long long>(hd);
+  const T* vb = v + n * st.v[0] + h * st.v[1];
+  T* o = out + ((n * H + h) * Tq + i) * static_cast<long long>(hd);
   for (int j = tid; j < hd; j += F32_THREADS) {
     float a = 0.f;
-    for (int t = 0; t < n_keys; ++t) a = __fmaf_rn(p[t], vb[t * st.v[2] + j], a);
-    o[j] = a;
+    for (int t = 0; t < n_keys; ++t) a = __fmaf_rn(p[t], hopper::to_float(vb[t * st.v[2] + j]), a);
+    o[j] = hopper::from_float<T>(a);
   }
 }
 
-template <int HDP>
+template <typename T, int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
                 int H, int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
   static hopper::SmemLimit limit;
-  if (const int e = limit.ensure(attention_rows_bf16<HDP>, SMEM_MAX)) return e;
+  if (const int e = limit.ensure(attention_rows_bf16<T, HDP>, SMEM_MAX)) return e;
   const int tiles = (n_keys + KT - 1) / KT;
   int qb = Tq < QROWS ? Tq : QROWS;  // a row's sums do not depend on the rows beside it in the block
   while (qb > 1 && smem_bytes(HDP, qb, tiles) > SMEM_MAX) qb = (qb + 1) / 2;
   const int bytes = smem_bytes(HDP, qb, tiles);
   if (bytes > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(N * H, (Tq + qb - 1) / qb);
-  attention_rows_bf16<HDP><<<grid, THREADS, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), m, static_cast<__nv_bfloat16*>(out), st, H, Tq, n_keys, hd, qb, scale);
+  attention_rows_bf16<T, HDP><<<grid, THREADS, bytes, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                                           static_cast<const T*>(v), m, static_cast<T*>(out), st, H,
+                                                           Tq, n_keys, hd, qb, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
+                int H, int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
+  attention_rows_f32<T><<<dim3(N * H, Tq), F32_THREADS, 0, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                                                static_cast<const T*>(v), m, static_cast<T*>(out), st,
+                                                                H, Tq, n_keys, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_16(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N, int H,
+              int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
+  if (hd > MMA_MAX_HD) return launch_simt<T>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  const auto aligned = [](const void* p, long long stride) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 8 == 0;
+  };
+  if (hd % 8 || !aligned(q, st.q[0] | st.q[1] | st.q[2]) || !aligned(k, st.k[0] | st.k[1] | st.k[2]) ||
+      !aligned(v, st.v[0] | st.v[1] | st.v[2]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 32) return launch_bf16<T, 32>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  if (hd <= 64) return launch_bf16<T, 64>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  if (hd <= 128) return launch_bf16<T, 128>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  return launch_bf16<T, 256>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
 }
 
 }  // namespace
@@ -343,18 +375,19 @@ extern "C" int attention_rows_max_keys() { return MAX_KEYS; }
 extern "C" int attention_rows_max_head_dim() { return MAX_HD; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. q (N, H, Tq, hd), k and v
-// (N, H, Tk, hd) of `dtype` (0: fp32, 1: bf16) with the strides (elements)
-// of their first three dims in `strides[0:3]`, `[3:6]`, `[6:9]` and a
-// contiguous last dim; `mask` null or fp32 with the strides of its
+// (N, H, Tk, hd) of `dtype` (0: fp32, 1: bf16, 2: fp16) with the strides
+// (elements) of their first three dims in `strides[0:3]`, `[3:6]`, `[6:9]`
+// and a contiguous last dim; `mask` null or fp32 with the strides of its
 // (N, H, Tq, Tk) broadcast in `strides[9:13]`; `out` a contiguous
 // (N, H, Tq, hd) of `dtype`. Only keys 0..n_keys-1 are read
-// (1 <= n_keys <= Tk <= 4096). bf16: hd % 8 == 0 and 16-byte aligned
-// pointers and row strides; hd <= 256; N * H < 2^31.
+// (1 <= n_keys <= Tk <= 4096). hd <= 1024; bf16 and fp16 at hd <= 256 (the
+// mma design): hd % 8 == 0 and 16-byte aligned pointers and row strides;
+// N * H < 2^31.
 extern "C" int launch_attention_rows(const void* q, const void* k, const void* v, const void* mask, void* out,
                                      const long long* strides, int N, int H, int Tq, int Tk, int n_keys, int hd,
                                      float scale, int dtype, void* stream) {
   if (N < 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tk > MAX_KEYS || n_keys <= 0 || n_keys > Tk || hd <= 0 ||
-      hd > MAX_HD || static_cast<long long>(N) * H > 0x7fffffffLL || Tq > 65535 || (dtype != 0 && dtype != 1))
+      hd > MAX_HD || static_cast<long long>(N) * H > 0x7fffffffLL || Tq > 65535 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   Strides st;
@@ -366,21 +399,7 @@ extern "C" int launch_attention_rows(const void* q, const void* k, const void* v
   for (int d = 0; d < 4; ++d) st.m[d] = strides[9 + d];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
-  if (dtype == 0) {
-    attention_rows_f32<<<dim3(N * H, Tq), F32_THREADS, 0, s>>>(static_cast<const float*>(q),
-                                                               static_cast<const float*>(k),
-                                                               static_cast<const float*>(v), m,
-                                                               static_cast<float*>(out), st, H, Tq, n_keys, hd, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const auto aligned = [](const void* p, long long stride) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 8 == 0;
-  };
-  if (hd % 8 || !aligned(q, st.q[0] | st.q[1] | st.q[2]) || !aligned(k, st.k[0] | st.k[1] | st.k[2]) ||
-      !aligned(v, st.v[0] | st.v[1] | st.v[2]))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 32) return launch_bf16<32>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
-  if (hd <= 64) return launch_bf16<64>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
-  if (hd <= 128) return launch_bf16<128>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
-  return launch_bf16<256>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  if (dtype == 0) return launch_simt<float>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  if (dtype == 1) return launch_16<__nv_bfloat16>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  return launch_16<__half>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
 }

@@ -1,13 +1,13 @@
 // K5 on the CUDA cores: fused attention, forward and backward, for the
-// inputs the tensor-core kernels (attention.cu, attention_bwd.cu: bf16, head
-// dim 128) do not take: fp32 q, k, v at head dim 128 or 256, and bf16 at
-// head dim 256.
+// inputs the tensor-core kernels (attention.cu, attention_bwd.cu: bf16 and
+// fp16 at head dim 128 or 256) do not take: fp32 q, k, v at head dims
+// 128..768, and bf16 and fp16 at head dims 384..768 (multiples of 128).
 //
 // Replaces adt_str_tpu/ops/pallas_attention.py:_fwd (_fwd_kernel) and
 // :_vjp_bwd (_bwd_kernel) for those inputs. JAX's kernel runs in any dtype
 // and at any head dim that is a multiple of 128 (transformer.py's gate);
-// fp32 comes from `model.compute_dtype: float32`, head dim 256 from 3 heads
-// at d 768. The arithmetic is that of ops/cuda_attention.py's plain
+// fp32 comes from `model.compute_dtype: float32`, head dims 384 and 768
+// from 2 heads and 1 head at d 768. The arithmetic is that of ops/cuda_attention.py's plain
 // versions, with every product in fp32 FMA (no TF32):
 //     s = (q . k) * scale + mask;  m = max(max_j s, -1e4 if n_virtual > 0)
 //     l = sum_j exp(s - m) + n_virtual * exp(-1e4 - m);  lse = m + log(l)
@@ -23,10 +23,12 @@
 // five products 128 GFLOP, 1.9 ms. The fp32 operands are 4 bytes: q, k, v,
 // out and the mask are 0.27 GB (0.08 ms at 3.35 TB/s). So it is bound by
 // fp32 operations, and the design is the plain tiled one:
-//   - a tile of B rows by B keys (B = 64 at head dim 128, 32 at 256, so a
-//     tile row of fp32 head-dim values is 32 KB either way), 256 threads in
+//   - a tile of B rows by B keys (B = 64 at head dim 128, 32 at 256, 16 at
+//     384..768: a multiple of 16, and the backward's six fp32 tiles fit one
+//     block's 232,448 B up to D 768 and no further), 256 threads in
 //     a 16 x 16 grid, each thread an R x R block of the score tile (rows
-//     ty + 16 i, keys tx + 16 j) and an R x D/16 block of its output;
+//     ty + 16 i, keys tx + 16 j, R = B / 16) and an R x D/16 block of its
+//     output;
 //   - operands staged in shared memory as fp32, each row padded by one word
 //     so that a warp's 16 rows or keys fall in 16 banks;
 //   - the forward walks the key tiles twice, exactly as the plain version
@@ -36,8 +38,9 @@
 //     delta pass; one block a key tile that walks the query tiles and keeps
 //     dk and dv in registers; one block a query tile that walks the key
 //     tiles and keeps dq in registers (s and dp are formed in both).
-// Head dims other than 128 and 256, and fp16, are not instantiated: the
-// wrapper raises on them.
+// The instantiated (dtype, head dim) pairs are those of
+// `attention_simt_takes`; the wrapper raises on any other (head dims past
+// 768: the limit of one block's shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,22 +56,17 @@ constexpr int THREADS = 256;  // a 16 x 16 grid
 constexpr float NEG_MASK = -1e4f;
 constexpr int DELTA_WARPS = 8;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+using hopper::from_float;
+using hopper::to_float;
 
 template <int D>
 struct Tiles {
-  static constexpr int B = 8192 / D;  // rows and keys a tile: 64 at D 128, 32 at D 256
+  static constexpr int B = D <= 128 ? 64 : D <= 256 ? 32 : 16;  // rows and keys a tile
   static constexpr int R = B / 16;    // a thread's rows (and keys) of a score tile
   static constexpr int C = D / 16;    // a thread's head-dim columns of an output row
   static constexpr int LD = D + 1;    // padded fp32 row of a (B, D) tile
   static constexpr int LB = B + 1;    // padded fp32 row of a (B, B) tile
+  static_assert(B % 16 == 0 && D % 16 == 0, "R = B / 16 rows and keys, C = D / 16 columns a thread");
 };
 
 // rows row0.. of a (rows, D) matrix -> a (B, D) fp32 tile with padded rows;
@@ -78,7 +76,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   using S = Tiles<D>;
   for (int e = threadIdx.x; e < S::B * D; e += THREADS) {
     const int r = e / D, d = e % D;
-    dst[r * S::LD + d] = row0 + r < rows ? to_f(src[static_cast<size_t>(row0 + r) * D + d]) : 0.f;
+    dst[r * S::LD + d] = row0 + r < rows ? to_float(src[static_cast<size_t>(row0 + r) * D + d]) : 0.f;
   }
 }
 
@@ -199,7 +197,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_simt(const T* __restric
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j)
-        ps[(ty + 16 * i) * LB + tx + 16 * j] = to_f(from_f<T>(__fdiv_rn(expf(s[i][j] - m[i]), l[i])));
+        ps[(ty + 16 * i) * LB + tx + 16 * j] = to_float(from_float<T>(__fdiv_rn(expf(s[i][j] - m[i]), l[i])));
     __syncthreads();  // the K tile is read and p written: V takes the K tile's place
     load_tile<T, D>(kvs, vb, kt * B, Tk);
     __syncthreads();
@@ -223,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_simt(const T* __restric
     if (qi >= Tq) continue;
     T* orow = out + (bh * Tq + qi) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_f<T>(o[i][c]);
+    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_float<T>(o[i][c]);
     if (tx == 0) lse[bh * Tq + qi] = row_lse[i];
   }
 }
@@ -239,7 +237,7 @@ __global__ void __launch_bounds__(DELTA_WARPS * 32) attention_delta_simt(const T
   const T* g = dout + static_cast<size_t>(row) * D;
   float sum = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+  for (int d = lane; d < D; d += 32) sum = fmaf(to_float(o[d]), to_float(g[d]), sum);
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
   if (lane == 0) delta[row] = sum;
@@ -340,8 +338,8 @@ __global__ void __launch_bounds__(THREADS) attention_dkdv_simt(
     const size_t row = (bh * Tk + key) * D;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      dk[row + tx + 16 * c] = from_f<T>(gk[i][c]);
-      dv[row + tx + 16 * c] = from_f<T>(gv[i][c]);
+      dk[row + tx + 16 * c] = from_float<T>(gk[i][c]);
+      dv[row + tx + 16 * c] = from_float<T>(gv[i][c]);
     }
   }
 }
@@ -427,7 +425,7 @@ __global__ void __launch_bounds__(THREADS) attention_dq_simt(
     if (qi >= Tq) continue;
     const size_t row = (bh * Tq + qi) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c) dq[row + tx + 16 * c] = from_f<T>(gq[i][c]);
+    for (int c = 0; c < C; ++c) dq[row + tx + 16 * c] = from_float<T>(gq[i][c]);
   }
 }
 
@@ -439,11 +437,11 @@ constexpr int dkdv_smem() {
 }
 template <int D>
 constexpr int dq_smem() { return (4 * Tiles<D>::B * Tiles<D>::LD + Tiles<D>::B * Tiles<D>::LB) * 4; }
-static_assert(dkdv_smem<128>() <= 232448 && dkdv_smem<256>() <= 232448, "shared memory of one block");
 
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B, int H, int Tq,
         int Tk, int n_virtual, float scale, cudaStream_t st) {
+  static_assert(fwd_smem<D>() <= 232448, "shared memory of one block");
   static hopper::SmemLimit limit;
   int err = limit.ensure(attention_fwd_simt<T, D>, fwd_smem<D>());
   if (err) return err;
@@ -458,6 +456,7 @@ template <typename T, int D>
 int bwd(const void* q, const void* k, const void* v, const void* mask, const void* out, const void* lse,
         const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
         cudaStream_t st) {
+  static_assert(dkdv_smem<D>() <= 232448 && dq_smem<D>() <= 232448, "shared memory of one block");
   static hopper::SmemLimit dkdv_limit, dq_limit;
   int err = 0;
   if ((err = dkdv_limit.ensure(attention_dkdv_simt<T, D>, dkdv_smem<D>())) ||
@@ -479,9 +478,18 @@ int bwd(const void* q, const void* k, const void* v, const void* mask, const voi
 
 }  // namespace
 
-// dtype codes: 0 fp32, 1 bf16. The instantiated (dtype, head dim) pairs.
+// The (dtype, head dim) pairs instantiated here, each as one case:
+// X(code, element type, D). dtype codes: 0 fp32, 1 bf16, 2 fp16.
+#define SIMT_PAIRS(X)                                                                                           \
+  X(0, float, 128) X(0, float, 256) X(0, float, 384) X(0, float, 512) X(0, float, 640) X(0, float, 768)         \
+  X(1, __nv_bfloat16, 384) X(1, __nv_bfloat16, 512) X(1, __nv_bfloat16, 640) X(1, __nv_bfloat16, 768)            \
+  X(2, __half, 384) X(2, __half, 512) X(2, __half, 640) X(2, __half, 768)
+
 extern "C" int attention_simt_takes(int dtype, int D) {
-  return (dtype == 0 && (D == 128 || D == 256)) || (dtype == 1 && D == 256);
+#define SIMT_TAKES(code, T, d) if (dtype == code && D == d) return 1;
+  SIMT_PAIRS(SIMT_TAKES)
+#undef SIMT_TAKES
+  return 0;
 }
 
 // Launch the forward on `stream`; returns 0 or a cudaError_t. The caller
@@ -493,10 +501,10 @@ extern "C" int launch_attention_simt_fwd(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   if (Tq < 1 || Tk < 1 || n_virtual < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return fwd<float, 128>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
-  if (dtype == 0 && D == 256) return fwd<float, 256>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
-  if (dtype == 1 && D == 256)
-    return fwd<__nv_bfloat16, 256>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
+#define SIMT_FWD(code, T, d) \
+  if (dtype == code && D == d) return fwd<T, d>(q, k, v, mask, out, lse, B, H, Tq, Tk, n_virtual, scale, st);
+  SIMT_PAIRS(SIMT_FWD)
+#undef SIMT_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -510,11 +518,10 @@ extern "C" int launch_attention_simt_bwd(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   if (Tq < 1 || Tk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return bwd<float, 128>(q, k, v, mask, out, lse, dout, delta, dq, dk, dv, B, H, Tq, Tk, scale, st);
-  if (dtype == 0 && D == 256)
-    return bwd<float, 256>(q, k, v, mask, out, lse, dout, delta, dq, dk, dv, B, H, Tq, Tk, scale, st);
-  if (dtype == 1 && D == 256)
-    return bwd<__nv_bfloat16, 256>(q, k, v, mask, out, lse, dout, delta, dq, dk, dv, B, H, Tq, Tk, scale, st);
+#define SIMT_BWD(code, T, d) \
+  if (dtype == code && D == d) \
+    return bwd<T, d>(q, k, v, mask, out, lse, dout, delta, dq, dk, dv, B, H, Tq, Tk, scale, st);
+  SIMT_PAIRS(SIMT_BWD)
+#undef SIMT_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

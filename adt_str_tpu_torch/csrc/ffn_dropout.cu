@@ -1,12 +1,20 @@
 // K4: fused FFN + dropout forward for Hopper (sm_90a).
 //
 // Replaces adt_str_tpu/ops/pallas_ffn.py:fused_ffn_dropout (_fwd_call,
-// _fwd_kernel). For x (N, d) bf16, W1 (d_ff, d) (linear1.weight), W2
-// (d, d_ff) (linear2.weight), b1, b2 (bf16) and four seed words:
-//     pre = bf16(x W1^T + b1)                          (fp32 accumulation; an output)
-//     hd  = bf16(keep_h(r, c) ? gelu(pre) / keep_h : 0) (gelu with the
-//                                                       Abramowitz-Stegun erf)
-//     out = bf16(keep_o(r, c) ? (hd W2^T + b2) / keep_o : 0)
+// _fwd_kernel). For x (N, d), W1 (d_ff, d) (linear1.weight), W2
+// (d, d_ff) (linear2.weight), b1, b2, all of one type T (bf16 or fp16: the
+// kernel is a template on it, wgmma's .bf16 or .f16 form, the same rounding
+// points) and four seed words:
+//     pre = T(x W1^T + b1)                          (fp32 accumulation; an output)
+//     hd  = T(keep_h(r, c) ? gelu(pre) / keep_h : 0) (gelu with the
+//                                                    Abramowitz-Stegun erf)
+//     out = T(keep_o(r, c) ? (hd W2^T + b2) / keep_o : 0)
+// fp16's range: pre past 65,504 would round to inf where bf16 keeps it (no
+// trained layer comes near; the plain path's fp16 rounds the same way).
+// d_ff that is not a multiple of 128: the wrapper (ops/cuda_ffn.py) pads W1's
+// rows, b1 and W2's columns with zeros to the next multiple, so the padded
+// columns give pre = 0, gelu(0) = 0 and hd = 0 and add nothing to GEMM 2;
+// the hidden mask stays keyed on the real width (d_ff_total, col0).
 // keep_*(r, c) is the counter hash of ops/dropout_hash.py on the flat
 // index r * cols + c of the unpadded (N, cols) array, in uint32 arithmetic,
 // compared with the threshold min(int(keep * 2^32), 2^32 - 1). The masks
@@ -106,21 +114,21 @@ __device__ __forceinline__ float gelu_as(float p) {
   return p * 0.5f * (1.0f + erf);
 }
 
+template <typename T>
 __device__ __forceinline__ void put_pair(uint8_t* tile, int r, int c, float lo, float hi) {
   // (r, c) of a 128 x 128 output tile: column half c / 64, then the swizzled row
-  *reinterpret_cast<__nv_bfloat162*>(tile + (c >> 6) * HALF_BYTES + sw128_offset(r, c & 63)) =
-      __floats2bfloat162_rn(lo, hi);
+  *reinterpret_cast<uint32_t*>(tile + (c >> 6) * HALF_BYTES + sw128_offset(r, c & 63)) = pack2<T>(lo, hi);
 }
 
-// The block's tiles of A (rows, K) B^T (B: (cols, K)), both bf16 K-major:
+// The block's tiles of A (rows, K) B^T (B: (cols, K)), both T K-major:
 // tiles blockIdx.x, + gridDim.x, ..., the j-th to consumer warpgroup j % 2.
 // kMode: kHiddenMode, GEMM 1 (stores pre and hd; the hidden mask's row
 // stride is mask_cols and its first column col0); kOutMode, GEMM 2 (stores
 // out); kPartialMode, GEMM 2's fp32 product into out32.
-template <int kMode>
+template <typename T, int kMode>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUtensorMap* b_map,
                                            const CUtensorMap* o_map, const CUtensorMap* h_map,
-                                           const __nv_bfloat16* __restrict__ bias, float* __restrict__ out32,
+                                           const T* __restrict__ bias, float* __restrict__ out32,
                                            int rows, int K, int cols, int mask_cols, int col0, uint32_t s0,
                                            uint32_t s1, uint32_t thresh, float inv_keep) {
   constexpr bool kHidden = kMode == kHiddenMode;
@@ -185,8 +193,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
 #pragma unroll
         for (int k = 0; k < BK / 16; ++k) {
           const uint64_t b = desc_sw128(st + TILE_BYTES + k * 32, 16, 1024);
-          mma_64x128_ss(acc[0], desc_sw128(st + k * 32, 16, 1024), b, 1);
-          mma_64x128_ss(acc[1], desc_sw128(st + TILE_BYTES / 2 + k * 32, 16, 1024), b, 1);
+          mma_64x128_ss<T>(acc[0], desc_sw128(st + k * 32, 16, 1024), b, 1);
+          mma_64x128_ss<T>(acc[1], desc_sw128(st + TILE_BYTES / 2 + k * 32, 16, 1024), b, 1);
         }
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done: release it
@@ -219,7 +227,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
           }
           continue;
         }
-        const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + cl));
+        const float2 bb = unpack2<T>(*reinterpret_cast<const uint32_t*>(bias + n0 + cl));
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
 #pragma unroll
@@ -227,12 +235,12 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
             const int r = 64 * hr + 16 * w + l / 4 + 8 * h;
             const float v0 = acc[hr][4 * jc + 2 * h] + bb.x, v1 = acc[hr][4 * jc + 2 * h + 1] + bb.y;
             if constexpr (kHidden) {
-              put_pair(outs, r, cl, v0, v1);  // pre, rounded to bf16
+              put_pair<T>(outs, r, cl, v0, v1);  // pre, rounded to T
             } else {
               const uint32_t idx =
                   static_cast<uint32_t>(m0 + r) * static_cast<uint32_t>(cols) + static_cast<uint32_t>(n0 + cl);
-              put_pair(outs, r, cl, keep(idx, s0, s1, thresh) ? v0 * inv_keep : 0.f,
-                       keep(idx + 1, s0, s1, thresh) ? v1 * inv_keep : 0.f);
+              put_pair<T>(outs, r, cl, keep(idx, s0, s1, thresh) ? v0 * inv_keep : 0.f,
+                          keep(idx + 1, s0, s1, thresh) ? v1 * inv_keep : 0.f);
             }
           }
         }
@@ -246,17 +254,17 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
           const int r = c / (BN / 8), cc = c % (BN / 8);
           const uint32_t off = (cc >> 3) * HALF_BYTES + sw128_offset(r, (cc & 7) * 8);
           const uint4 raw = *reinterpret_cast<const uint4*>(outs + off);
-          const __nv_bfloat162* pre2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const uint32_t* pre2 = reinterpret_cast<const uint32_t*>(&raw);
           const uint32_t idx = static_cast<uint32_t>(m0 + r) * static_cast<uint32_t>(mask_cols) +
                                static_cast<uint32_t>(col0 + n0 + 8 * cc);
           uint4 out;
-          __nv_bfloat162* hd2 = reinterpret_cast<__nv_bfloat162*>(&out);
+          uint32_t* hd2 = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float2 p = __bfloat1622float2(pre2[e]);
+            const float2 p = unpack2<T>(pre2[e]);
             const float g0 = gelu_as(p.x) * inv_keep, g1 = gelu_as(p.y) * inv_keep;
-            hd2[e] = __floats2bfloat162_rn(keep(idx + 2 * e, s0, s1, thresh) ? g0 : 0.f,
-                                           keep(idx + 2 * e + 1, s0, s1, thresh) ? g1 : 0.f);
+            hd2[e] = pack2<T>(keep(idx + 2 * e, s0, s1, thresh) ? g0 : 0.f,
+                              keep(idx + 2 * e + 1, s0, s1, thresh) ? g1 : 0.f);
           }
           *reinterpret_cast<uint4*>(outs + OUT_TILE_BYTES + off) = out;
         }
@@ -277,36 +285,38 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* a_map, const CUten
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_dropout_kernel_gemm1(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w1_map,
                              const __grid_constant__ CUtensorMap pre_map, const __grid_constant__ CUtensorMap hd_map,
-                             const __nv_bfloat16* __restrict__ b1, int N, int d, int d_ff, int d_ff_total, int col0,
+                             const T* __restrict__ b1, int N, int d, int d_ff, int d_ff_total, int col0,
                              uint32_t s0, uint32_t s1, uint32_t thresh, float inv_keep) {
-  gemm_tiles<kHiddenMode>(&x_map, &w1_map, &pre_map, &hd_map, b1, nullptr, N, d, d_ff, d_ff_total, col0, s0, s1,
+  gemm_tiles<T, kHiddenMode>(&x_map, &w1_map, &pre_map, &hd_map, b1, nullptr, N, d, d_ff, d_ff_total, col0, s0, s1,
                           thresh, inv_keep);
 }
 
 // GEMM 2; kPartial: the fp32 product into out32 (out_map and b2 unused).
-template <bool kPartial>
+template <typename T, bool kPartial>
 __global__ void __launch_bounds__(THREADS, 1)
     ffn_dropout_kernel_gemm2(const __grid_constant__ CUtensorMap hd_map, const __grid_constant__ CUtensorMap w2_map,
-                             const __grid_constant__ CUtensorMap out_map, const __nv_bfloat16* __restrict__ b2,
+                             const __grid_constant__ CUtensorMap out_map, const T* __restrict__ b2,
                              float* __restrict__ out32, int N, int d, int d_ff, uint32_t s0, uint32_t s1,
                              uint32_t thresh, float inv_keep) {
-  gemm_tiles<kPartial ? kPartialMode : kOutMode>(&hd_map, &w2_map, &out_map, nullptr, b2, out32, N, d_ff, d, d, 0,
+  gemm_tiles<T, kPartial ? kPartialMode : kOutMode>(&hd_map, &w2_map, &out_map, nullptr, b2, out32, N, d_ff, d, d, 0,
                                                   s0, s1, thresh, inv_keep);
 }
 
-// A row-major (rows, cols) bf16 matrix read or written in boxes of
+// A row-major (rows, cols) bf16 or fp16 matrix read or written in boxes of
 // (64 columns, 128 rows).
-int matrix_map(CUtensorMap* map, const void* p, int rows, int cols) {
+int matrix_map(CUtensorMap* map, const void* p, int rows, int cols, bool half) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, 128};
-  return encode_tensor_map(map, p, 2, dims, strides, box);
+  return encode_tensor_map(map, p, 2, dims, strides, box, half);
 }
 
-// The device's SM count, and its kernels' shared-memory limits set, once.
+// The device's SM count, and the T kernels' shared-memory limits set, once.
+template <typename T>
 int prepare_device(int* sms) {
   static int known[64] = {};
   int dev = 0;
@@ -317,15 +327,45 @@ int prepare_device(int* sms) {
     return 0;
   }
   if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Shape<true>::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Shape<false>::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(ffn_dropout_kernel_gemm2<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 Shape<false>::SMEM)) != cudaSuccess)
     return static_cast<int>(e);
   if (dev < 64) known[dev] = *sms;
   return 0;
+}
+
+template <typename T>
+int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* out, void* pre,
+           void* hd, int N, int d, int d_ff, int d_ff_total, int col0, unsigned int s_h0, unsigned int s_h1,
+           unsigned int s_o0, unsigned int s_o1, unsigned int thresh_h, unsigned int thresh_o, float inv_keep_h,
+           float inv_keep_o, cudaStream_t st) {
+  constexpr bool half = is_half<T>;
+  const bool partial = b2 == nullptr;
+  CUtensorMap x_map, w1_map, pre_map, hd_map, w2_map, out_map;
+  int sms = 0, err = 0;
+  if ((err = prepare_device<T>(&sms)) || (err = matrix_map(&x_map, x, N, d, half)) ||
+      (err = matrix_map(&w1_map, w1, d_ff, d, half)) || (err = matrix_map(&pre_map, pre, N, d_ff, half)) ||
+      (err = matrix_map(&hd_map, hd, N, d_ff, half)) || (err = matrix_map(&w2_map, w2, d, d_ff, half)) ||
+      (err = matrix_map(&out_map, partial ? hd : out, N, d, half)))  // partial: a map never stored through
+    return err;
+  const int mt = (N + BM - 1) / BM;
+  ffn_dropout_kernel_gemm1<T><<<std::min(sms, mt * (d_ff / BN)), THREADS, Shape<true>::SMEM, st>>>(
+      x_map, w1_map, pre_map, hd_map, static_cast<const T*>(b1), N, d, d_ff, d_ff_total, col0, s_h0, s_h1, thresh_h,
+      inv_keep_h);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = std::min(sms, mt * (d / BN));
+  if (partial)
+    ffn_dropout_kernel_gemm2<T, true><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
+        hd_map, w2_map, out_map, nullptr, static_cast<float*>(out), N, d, d_ff, s_o0, s_o1, thresh_o, inv_keep_o);
+  else
+    ffn_dropout_kernel_gemm2<T, false><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
+        hd_map, w2_map, out_map, static_cast<const T*>(b2), nullptr, N, d, d_ff, s_o0, s_o1, thresh_o, inv_keep_o);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -333,40 +373,24 @@ int prepare_device(int* sms) {
 extern "C" int ffn_dropout_tile() { return BN; }
 
 // Launch both GEMMs on `stream`; returns 0 or a cudaError_t. The caller
-// checks: bf16 contiguous x (N, d), w1 (d_ff, d), w2 (d, d_ff), b1 (d_ff,),
-// b2 (d,), d and d_ff multiples of 128, outputs out (N, d), pre and the
-// scratch hd (N, d_ff); seeds are the four scrambled words [h0, h1, o0, o1].
-// The hidden mask is that of columns col0.. of a d_ff_total-wide hidden;
-// b2 == nullptr is the partial mode: out is fp32 (N, d), hd W2^T alone.
+// checks: contiguous x (N, d), w1 (d_ff, d), w2 (d, d_ff), b1 (d_ff,), b2
+// (d,) of `dtype` (1: bf16, 2: fp16), d and d_ff multiples of 128 (d_ff
+// padded with zeros past the real columns, see the header), outputs out
+// (N, d), pre and the scratch hd (N, d_ff); seeds are the four scrambled
+// words [h0, h1, o0, o1]. The hidden mask is that of columns col0.. of a
+// d_ff_total-wide hidden (the wrapper checks that the real columns lie in
+// it); b2 == nullptr is the partial mode: out is fp32 (N, d), hd W2^T alone.
 extern "C" int launch_ffn_dropout(const void* x, const void* w1, const void* b1, const void* w2,
                                   const void* b2, void* out, void* pre, void* hd, int N, int d, int d_ff,
                                   int d_ff_total, int col0, unsigned int s_h0, unsigned int s_h1,
                                   unsigned int s_o0, unsigned int s_o1, unsigned int thresh_h,
-                                  unsigned int thresh_o, float inv_keep_h, float inv_keep_o, void* stream) {
-  if (N < 1 || d % BN || d_ff % BN || col0 < 0 || col0 + d_ff > d_ff_total)
+                                  unsigned int thresh_o, float inv_keep_h, float inv_keep_o, int dtype,
+                                  void* stream) {
+  if (N < 1 || d % BN || d_ff % BN || col0 < 0 || col0 >= d_ff_total || (dtype != 1 && dtype != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool partial = b2 == nullptr;
-  CUtensorMap x_map, w1_map, pre_map, hd_map, w2_map, out_map;
-  int sms = 0, err = 0;
-  if ((err = prepare_device(&sms)) || (err = matrix_map(&x_map, x, N, d)) ||
-      (err = matrix_map(&w1_map, w1, d_ff, d)) || (err = matrix_map(&pre_map, pre, N, d_ff)) ||
-      (err = matrix_map(&hd_map, hd, N, d_ff)) || (err = matrix_map(&w2_map, w2, d, d_ff)) ||
-      (err = matrix_map(&out_map, partial ? hd : out, N, d)))  // partial: a bf16 map never stored through
-    return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = (N + BM - 1) / BM;
-  ffn_dropout_kernel_gemm1<<<std::min(sms, mt * (d_ff / BN)), THREADS, Shape<true>::SMEM, st>>>(
-      x_map, w1_map, pre_map, hd_map, static_cast<const __nv_bfloat16*>(b1), N, d, d_ff, d_ff_total, col0, s_h0,
-      s_h1, thresh_h, inv_keep_h);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = std::min(sms, mt * (d / BN));
-  if (partial)
-    ffn_dropout_kernel_gemm2<true><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
-        hd_map, w2_map, out_map, nullptr, static_cast<float*>(out), N, d, d_ff, s_o0, s_o1, thresh_o, inv_keep_o);
-  else
-    ffn_dropout_kernel_gemm2<false><<<blocks, THREADS, Shape<false>::SMEM, st>>>(
-        hd_map, w2_map, out_map, static_cast<const __nv_bfloat16*>(b2), nullptr, N, d, d_ff, s_o0, s_o1, thresh_o,
-        inv_keep_o);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 1 ? launch<__nv_bfloat16>(x, w1, b1, w2, b2, out, pre, hd, N, d, d_ff, d_ff_total, col0, s_h0, s_h1,
+                                           s_o0, s_o1, thresh_h, thresh_o, inv_keep_h, inv_keep_o, st)
+                    : launch<__half>(x, w1, b1, w2, b2, out, pre, hd, N, d, d_ff, d_ff_total, col0, s_h0, s_h1, s_o0,
+                                     s_o1, thresh_h, thresh_o, inv_keep_h, inv_keep_o, st);
 }

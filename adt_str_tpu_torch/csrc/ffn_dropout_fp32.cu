@@ -169,7 +169,7 @@ extern "C" int launch_ffn_dropout_fp32(const void* x, const void* w1, const void
                                        int d_ff_total, int col0, unsigned int s_h0, unsigned int s_h1,
                                        unsigned int s_o0, unsigned int s_o1, unsigned int thresh_h,
                                        unsigned int thresh_o, float inv_keep_h, float inv_keep_o, void* stream) {
-  if (N < 1 || d % BN || d_ff % BN || col0 < 0 || col0 + d_ff > d_ff_total)
+  if (N < 1 || d % BN || d_ff % BN || col0 < 0 || col0 >= d_ff_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned mt = static_cast<unsigned>((N + BM - 1) / BM);

@@ -3,8 +3,9 @@
 // bulk-copy ring of place_notes.cu and the cp.async + mma.sync rings of
 // linear.cu and attention_rows.cu: mbarriers, TMA tile copies, 1-D bulk
 // copies, cp.async, wgmma shared-memory descriptors and products, ldmatrix,
-// mma.sync, setmaxnreg, and on the host the tensor-map encoder and each
-// kernel's shared-memory limit on every device. Raw PTX and
+// mma.sync, setmaxnreg, the 16-bit element types' conversions, and on the
+// host the tensor-map encoder and each kernel's shared-memory limit on every
+// device. Raw PTX and
 // the CUDA runtime only, no library: a kernel that includes it still builds
 // in seconds.
 //
@@ -18,16 +19,59 @@
 // stored at chunk c ^ (r % 8). TMA writes and reads that layout
 // (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads it through a descriptor of
 // layout type 1. Every tile starts on a 1,024-byte boundary.
+//
+// The 16-bit element type T of a tensor-core product is bf16
+// (__nv_bfloat16) or fp16 (__half): the products, ldmatrix and the tensor
+// maps take either (template parameter T, bf16 by default), with fp32
+// accumulation; a 128-byte row is 64 elements of either.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 namespace hopper {
+
+// ---- element types
+
+template <typename T>
+constexpr bool is_half = std::is_same<T, __half>::value;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+// Two floats rounded to T, packed in one register (lo in the low half), and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_half<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (is_half<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -220,8 +264,22 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // d (64 x 64 fp32, warpgroup fragment) += A (64 x 16, K-major, shared) B^T
 // (B 64 x 16, K-major, shared); scale_d = 0 overwrites d.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
@@ -235,8 +293,25 @@ __device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_
 }
 
 // d (64 x 128) += A (64 x 16, K-major, shared) B^T (B 128 x 16, K-major, shared).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x128_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+        HOPPER_ACC8(48), HOPPER_ACC8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -255,8 +330,25 @@ __device__ __forceinline__ void mma_64x128_ss(float (&d)[64], uint64_t a, uint64
 // d (64 x 128) += A (64 x 16 bf16 in registers: the accumulator-row layout,
 // two bf16 a register) B (16 x 128, MN-major in shared memory: the
 // transpose-B bit is set).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x128_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+        HOPPER_ACC8(48), HOPPER_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -274,8 +366,22 @@ __device__ __forceinline__ void mma_64x128_rs_tb(float (&d)[64], const uint32_t 
 
 // d (64 x 64) += A (64 x 16 bf16 in registers, as for mma_64x128_rs_tb)
 // B (16 x 64, MN-major in shared memory: the transpose-B bit).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x64_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -290,8 +396,22 @@ __device__ __forceinline__ void mma_64x64_rs_tb(float (&d)[32], const uint32_t (
 
 // d (64 x 64) += A (64 x 16, MN-major in shared memory: M contiguous, the
 // transpose-A bit) B (16 x 64, MN-major in shared memory: the transpose-B bit).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x64_ss_tt(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
@@ -345,13 +465,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 
 // ---- warp-level tensor-core product
 
-// c (16 x 8 fp32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, col-major):
+// c (16 x 8 fp32) += a (16 x 16 T, row-major) b (16 x 8 T, col-major):
 // lane l holds c at rows l / 4 (c[0], c[1]) and l / 4 + 8 (c[2], c[3]),
 // columns 2 (l % 4), +1; a as ldmatrix_x4 gives it, b as ldmatrix_x2 does.
 // Each element's 16 products are added the same way wherever the element
 // sits in the tile.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
+  if constexpr (is_half<T>)
+    asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
@@ -396,11 +524,11 @@ struct SmemLimit {
 
 // ---- host: tensor maps
 
-// A bf16 tensor map of `rank` dims (innermost first, sizes in elements,
+// A tensor map of 16-bit elements (bf16, or fp16 with `half`) of `rank` dims (innermost first, sizes in elements,
 // strides of dims 1.. in bytes) read or written in boxes of `box`, with the
 // 128-byte swizzle. Returns 0, or a cudaError_t.
 inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const cuuint64_t* dims,
-                             const cuuint64_t* strides, const cuuint32_t* box) {
+                             const cuuint64_t* strides, const cuuint32_t* box, bool half = false) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -418,7 +546,7 @@ inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, 
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+  const CUresult r = encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -51,12 +51,6 @@ using namespace hopper;
 constexpr int MAX_WARPS = 8;
 constexpr int MAXV = 32;  // values a lane: d <= 32 * 32
 
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ inline T from_f32(float x);
-template <> __device__ inline float from_f32<float>(float x) { return x; }
-template <> __device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
 __device__ inline float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -110,9 +104,9 @@ layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ res, const floa
   for (int j = 0; j < MAXV; ++j) {
     const int i = 32 * j + lane;
     if constexpr (kResidual)
-      v[j] = i < d ? to_f32(from_f32<T>(__fadd_rn(to_f32(xs[i]), to_f32(rs[i])))) : 0.f;
+      v[j] = i < d ? to_float(from_float<T>(__fadd_rn(to_float(xs[i]), to_float(rs[i])))) : 0.f;
     else
-      v[j] = i < d ? to_f32(xs[i]) : 0.f;
+      v[j] = i < d ? to_float(xs[i]) : 0.f;
     s = __fadd_rn(s, v[j]);
   }
   const float mean = __fdiv_rn(warp_sum(s), static_cast<float>(d));
@@ -131,7 +125,7 @@ layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ res, const floa
   for (int j = 0; j < MAXV; ++j) {
     const int i = 32 * j + lane;
     if (i < d) {
-      const T out = from_f32<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[j], rstd), ws[i]), bs[i]));
+      const T out = from_float<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[j], rstd), ws[i]), bs[i]));
       if (vec)
         xs[i] = out;  // each lane rewrites only the elements it read
       else
@@ -185,10 +179,10 @@ extern "C" int layer_norm_max_d() { return 32 * MAXV; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. `x`, `r` (nullptr:
 // layer_norm, else add_layer_norm) and `y` are contiguous (rows, d) of
-// `dtype` (0: fp32, 1: bf16), `w` and `b` fp32 (d,); 0 < d <= 1024.
+// `dtype` (0: fp32, 1: bf16, 2: fp16), `w` and `b` fp32 (d,); 0 < d <= 1024.
 extern "C" int launch_layer_norm(const void* x, const void* r, const void* w, const void* b, void* y, long long rows,
                                  int d, float eps, int dtype, void* stream) {
-  if (d <= 0 || d > 32 * MAXV || rows < 0 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || d > 32 * MAXV || rows < 0 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
@@ -196,6 +190,9 @@ extern "C" int launch_layer_norm(const void* x, const void* r, const void* w, co
   if (dtype == 0)
     return r == nullptr ? launch<float, false>(x, r, wf, bf, y, rows, d, eps, st)
                         : launch<float, true>(x, r, wf, bf, y, rows, d, eps, st);
-  return r == nullptr ? launch<__nv_bfloat16, false>(x, r, wf, bf, y, rows, d, eps, st)
-                      : launch<__nv_bfloat16, true>(x, r, wf, bf, y, rows, d, eps, st);
+  if (dtype == 1)
+    return r == nullptr ? launch<__nv_bfloat16, false>(x, r, wf, bf, y, rows, d, eps, st)
+                        : launch<__nv_bfloat16, true>(x, r, wf, bf, y, rows, d, eps, st);
+  return r == nullptr ? launch<__half, false>(x, r, wf, bf, y, rows, d, eps, st)
+                      : launch<__half, true>(x, r, wf, bf, y, rows, d, eps, st);
 }

@@ -7,8 +7,9 @@
 // product differed between 40 and 80 rows of the beam's decode step, so a
 // row's logits, and its tokens, moved with the rows decoded beside it. Here
 // every output element is summed over K in one order, whatever M is:
-//     bf16: acc = 0; for each k step of 16 in ascending order: acc = mma.m16n8k16(x[r, k:k+16], W[c, k:k+16], acc)
-//           y = bf16(bf16(acc) + b)        (the plain version's two roundings: the product, then the bias)
+//     T = bf16 or fp16: acc = 0; for each k step of 16 in ascending order:
+//           acc = mma.m16n8k16(x[r, k:k+16], W[c, k:k+16], acc)
+//           y = T(T(acc) + b)        (the plain version's two roundings: the product, then the bias)
 //     fp32: acc = 0; for k ascending: acc = fma(x[r, k], W[c, k], acc);  y = acc + b
 // with no split of K and no choice by M: an element's sum does not depend on
 // the tile it falls in or on the rows beside it (a tensor-core product adds
@@ -50,28 +51,27 @@ using hopper::mma_16816;
 
 constexpr int BK = 128, LDS = BK + 8;  // k depth of a stage; bf16 row stride of a staged tile (272 bytes)
 
-// x (M, K) bf16, w (N, K) bf16, bias (N) bf16 or null, y (M, N) bf16; K % 8 == 0, 16-byte aligned rows.
+// x (M, K), w (N, K), bias (N) or null, y (M, N), all of T (bf16 or fp16); K % 8 == 0, 16-byte aligned rows.
 // A block of WARPS warps: rows [m0, m0 + 16 MT), columns [n0, n0 + 8 NT WARPS); warp w owns columns
 // n0 + 8 NT w .. + 8 NT and every row of the block.
-template <int MT, int NT, int WARPS, int STAGES>
-__global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                                                 const __nv_bfloat16* __restrict__ w,
-                                                                 const __nv_bfloat16* __restrict__ bias,
-                                                                 __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+template <typename T, int MT, int NT, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                                                 const T* __restrict__ bias, T* __restrict__ y, int M,
+                                                                 int N, int K) {
   constexpr int THREADS = 32 * WARPS, BM = 16 * MT, BN = 8 * NT * WARPS;
   constexpr int ROWS = BM + BN;                      // staged rows a stage: x's, then W's
   constexpr int COPIES = ROWS * (BK / 8) / THREADS;  // 16-byte copies a thread a stage
   static_assert(ROWS * (BK / 8) % THREADS == 0, "every thread copies as many chunks");
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* stages = reinterpret_cast<T*>(smem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_tiles = (K + BK - 1) / BK;
 
   // A thread copies column `col` of the staged rows tid / 16 + i THREADS / 16: their sources are set
   // once, so a stage's copies cost an add each (one warp a block must also keep its product chain fed).
   const int col = (tid % (BK / 8)) * 8;
-  const __nv_bfloat16* src[COPIES];
+  const T* src[COPIES];
   bool row_ok[COPIES];
 #pragma unroll
   for (int i = 0; i < COPIES; ++i) {
@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bflo
     src[i] = (is_x ? x : w) + static_cast<size_t>(row_ok[i] ? r : 0) * K + col;
   }
   auto load = [&](int stage, int kt) {
-    __nv_bfloat16* dst = stages + (stage * ROWS + tid / (BK / 8)) * LDS + col;
+    T* dst = stages + (stage * ROWS + tid / (BK / 8)) * LDS + col;
     const int k0 = kt * BK;
     const bool k_ok = k0 + col < K;
 #pragma unroll
@@ -101,8 +101,8 @@ __global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bflo
     __syncthreads();              // and every warp is done with stage kt - 1, whose buffer is refilled next
     if (kt + STAGES - 1 < k_tiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* xs = stages + (kt % STAGES) * ROWS * LDS;
-    const __nv_bfloat16* ws = xs + (BM + warp * NT * 8) * LDS;
+    const T* xs = stages + (kt % STAGES) * ROWS * LDS;
+    const T* ws = xs + (BM + warp * NT * 8) * LDS;
     const int steps = min(BK, K - kt * BK + 15) / 16;  // k steps of 16 that reach K: no step of padding alone
 #pragma unroll 8
     for (int kk = 0; kk < steps; ++kk) {
@@ -114,7 +114,7 @@ __global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bflo
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < NT; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+        for (int ni = 0; ni < NT; ++ni) mma_16816<T>(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   }
   cp_async_wait<0>();
@@ -128,8 +128,8 @@ __global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const __nv_bflo
         const int r = m0 + mi * 16 + lane / 4 + 8 * (e / 2);
         const int c = n0 + (warp * NT + ni) * 8 + 2 * (lane % 4) + e % 2;
         if (r >= M || c >= N) continue;
-        __nv_bfloat16 v = __float2bfloat16_rn(acc[mi][ni][e]);
-        if (bias != nullptr) v = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v), __bfloat162float(bias[c])));
+        T v = hopper::from_float<T>(acc[mi][ni][e]);
+        if (bias != nullptr) v = hopper::from_float<T>(__fadd_rn(hopper::to_float(v), hopper::to_float(bias[c])));
         y[static_cast<size_t>(r) * N + c] = v;
       }
 }
@@ -173,28 +173,43 @@ __global__ void __launch_bounds__(256) linear_f32_kernel(const float* __restrict
 
 constexpr int SM_COUNT = 132;  // H100 SXM; sets only the tile choice, never the order of a sum
 
-template <int MT, int NT, int WARPS, int STAGES>
+template <typename T, int MT, int NT, int WARPS, int STAGES>
 int launch_bf16(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, cudaStream_t s) {
   constexpr int BM = 16 * MT, BN = 8 * NT * WARPS, BYTES = STAGES * (BM + BN) * LDS * 2;
   static hopper::SmemLimit limit;
-  if (const int e = limit.ensure(linear_bf16_kernel<MT, NT, WARPS, STAGES>, BYTES)) return e;
+  if (const int e = limit.ensure(linear_bf16_kernel<T, MT, NT, WARPS, STAGES>, BYTES)) return e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  linear_bf16_kernel<MT, NT, WARPS, STAGES><<<grid, 32 * WARPS, BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), M, N, K);
+  linear_bf16_kernel<T, MT, NT, WARPS, STAGES><<<grid, 32 * WARPS, BYTES, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias), static_cast<T*>(y), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_16(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, cudaStream_t st) {
+  if (M > 320) return launch_bf16<T, 4, 4, 4, 3>(x, w, bias, y, M, N, K, st);
+  // One row tile: blocks of 2 warps if that still fills a wave, else of 1. More rows: 4 warps, so that
+  // the x rows each block reads again stay within 2.5 times the W rows it reads once.
+  switch ((M + 15) / 16) {
+    case 1:
+      return (N + 15) / 16 >= SM_COUNT ? launch_bf16<T, 1, 1, 2, 8>(x, w, bias, y, M, N, K, st)
+                                       : launch_bf16<T, 1, 1, 1, 8>(x, w, bias, y, M, N, K, st);
+    case 2: return launch_bf16<T, 2, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    case 3: return launch_bf16<T, 3, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    case 4: return launch_bf16<T, 4, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+    default: return launch_bf16<T, 5, 1, 4, 4>(x, w, bias, y, M, N, K, st);
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns 0 or a cudaError_t. Contiguous x (M, K), w
-// (N, K), y (M, N) and bias (N) or null, all of `dtype` (0: fp32, 1: bf16);
-// bf16 needs K % 8 == 0 and 16-byte aligned x and w.
+// (N, K), y (M, N) and bias (N) or null, all of `dtype` (0: fp32, 1: bf16,
+// 2: fp16); bf16 and fp16 need K % 8 == 0 and 16-byte aligned x and w.
 extern "C" int launch_linear(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, int dtype,
                              void* stream) {
-  if (M < 0 || N <= 0 || K <= 0 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && (K % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
+  if (M < 0 || N <= 0 || K <= 0 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && (K % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -204,16 +219,5 @@ extern "C" int launch_linear(const void* x, const void* w, const void* bias, voi
                                             static_cast<const float*>(bias), static_cast<float*>(y), M, N, K);
     return static_cast<int>(cudaGetLastError());
   }
-  if (M > 320) return launch_bf16<4, 4, 4, 3>(x, w, bias, y, M, N, K, st);
-  // One row tile: blocks of 2 warps if that still fills a wave, else of 1. More rows: 4 warps, so that
-  // the x rows each block reads again stay within 2.5 times the W rows it reads once.
-  switch ((M + 15) / 16) {
-    case 1:
-      return (N + 15) / 16 >= SM_COUNT ? launch_bf16<1, 1, 2, 8>(x, w, bias, y, M, N, K, st)
-                                       : launch_bf16<1, 1, 1, 8>(x, w, bias, y, M, N, K, st);
-    case 2: return launch_bf16<2, 1, 4, 4>(x, w, bias, y, M, N, K, st);
-    case 3: return launch_bf16<3, 1, 4, 4>(x, w, bias, y, M, N, K, st);
-    case 4: return launch_bf16<4, 1, 4, 4>(x, w, bias, y, M, N, K, st);
-    default: return launch_bf16<5, 1, 4, 4>(x, w, bias, y, M, N, K, st);
-  }
+  return dtype == 1 ? launch_16<__nv_bfloat16>(x, w, bias, y, M, N, K, st) : launch_16<__half>(x, w, bias, y, M, N, K, st);
 }

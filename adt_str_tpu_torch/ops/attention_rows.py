@@ -19,9 +19,14 @@ underflows to 0 in fp32, and a product with 0 adds nothing).
 `attention` is the wrapper the model calls:
 - a CPU tensor runs `attention_plain`;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes bf16 (head dim % 8 == 0) or fp32 q, k,
-  v of one dtype with 1..4,096 keys and a head dim of 1..256, and raises
-  on anything else;
+  launches the kernel, which takes q, k, v of one dtype with 1..4,096 keys
+  and raises on anything else:
+
+      dtype        head dim                 design in csrc/attention_rows.cu
+      bf16, fp16   1..256, a multiple of 8  cp.async ring into mma.sync
+      bf16, fp16   257..1,024               CUDA cores, a block a query row
+      fp32         1..1,024                 CUDA cores, a block a query row
+
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `attention_plain` under autograd: the kernel has no backward.
 `attention.launches` counts kernel launches.
@@ -40,7 +45,8 @@ import torch
 from adt_str_tpu_torch.ops import _build
 from adt_str_tpu_torch.ops.cuda_attention import NEG_MASK
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MMA_MAX_HEAD_DIM = 256  # `MMA_MAX_HD` in csrc/attention_rows.cu: 16-bit head dims past it run on the CUDA cores
 
 
 def keys_mask(mask: Optional[torch.Tensor], valid_keys: Optional[int], tk: int,
@@ -87,14 +93,14 @@ def _limits() -> tuple[int, int]:
 
 
 def _kernel_layout(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
-    """`t` (or a copy) with a contiguous last dim and, in bf16, a 16-byte
+    """`t` (or a copy) with a contiguous last dim and, in bf16 or fp16, a 16-byte
     aligned start and row strides, and the strides of its first three dims
     (0 where a dim has one entry: never stepped)."""
     s0, s1, s2, s3 = t.stride()
     n0, n1, n2, _ = t.shape
     strides = (s0 if n0 > 1 else 0, s1 if n1 > 1 else 0, s2 if n2 > 1 else 0)
-    if s3 == 1 and (t.dtype != torch.bfloat16 or (t.data_ptr() % 16 == 0
-                                                   and (strides[0] | strides[1] | strides[2]) % 8 == 0)):
+    if s3 == 1 and (t.dtype == torch.float32 or (t.data_ptr() % 16 == 0
+                                                  and (strides[0] | strides[1] | strides[2]) % 8 == 0)):
         return t, strides
     t = t.clone(memory_format=torch.contiguous_format)
     s0, s1, s2, _ = t.stride()
@@ -127,9 +133,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
     dtype = q.dtype
     if (dtype not in _DTYPE_CODE or k.dtype != dtype or v.dtype != dtype or k.shape != (B, H, Tk, hd)
             or v.shape != k.shape or not 1 <= Tk <= max_keys or not 1 <= hd <= max_hd
-            or (dtype == torch.bfloat16 and hd % 8) or not 1 <= n_keys <= Tk
+            or (dtype != torch.float32 and hd <= MMA_MAX_HEAD_DIM and hd % 8) or not 1 <= n_keys <= Tk
             or (mask is not None and valid_keys is not None)):
-        raise ValueError(f"the attention_rows kernel takes bf16 (hd % 8 == 0) or fp32 q (B, H, Tq, hd), k and v "
+        raise ValueError(f"the attention_rows kernel takes bf16 or fp16 (hd % 8 == 0 up to {MMA_MAX_HEAD_DIM}) or "
+                         f"fp32 q (B, H, Tq, hd), k and v "
                          f"(B, H, Tk, hd) with 1 <= Tk <= {max_keys}, hd <= {max_hd} and a mask or "
                          f"1 <= valid_keys <= Tk; got q {dtype} {tuple(q.shape)}, k {k.dtype} {tuple(k.shape)}, "
                          f"v {v.dtype} {tuple(v.shape)}, valid_keys {valid_keys}, "

@@ -26,14 +26,22 @@ discarded by the caller and their dq term is multiplied by k = 0.
 
 `fused_attention` and `fused_attention_bwd` are the wrappers: the CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors, and nothing
-else. On the card they take what JAX's gate sends its kernel at the model's
-dtypes: any Tq, Tk >= 1 in bf16 or fp32 at head dim 128 or 256
-(`kernel_for`). bf16 at head dim 128 runs the tensor-core kernels
-(`attention.cu`, `attention_bwd.cu`); fp32, and bf16 at head dim 256, run
-the CUDA-core kernels (`attention_simt.cu`) through `fused_attention_simt`
-and `fused_attention_bwd_simt`. `FusedAttention` is the autograd Function
-around the two (the mask gets no gradient, as in JAX). Each wrapper's
-`launches` counts the launches of its own kernel.
+else. On the card they take what JAX's gate sends its kernel (head dim a
+multiple of 128, any compute dtype): any Tq, Tk >= 1 in bf16, fp16 or fp32
+at every head dim that is a multiple of 128 up to `MAX_HEAD_DIM` (768)
+(`kernel_for`):
+
+    dtype        head dim     kernels (wrappers)
+    bf16, fp16   128          attention.cu, attention_bwd.cu (fused_attention, fused_attention_bwd)
+    bf16, fp16   256          the same sources at D 256 (fused_attention_d256, fused_attention_bwd_d256)
+    fp32         128..768     attention_simt.cu (fused_attention_simt, fused_attention_bwd_simt)
+    bf16, fp16   384..768     attention_simt.cu (the same)
+
+Past 768 the CUDA-core backward's fp32 tiles outgrow one block's 232,448 B
+of shared memory, and `kernel_for` raises a ValueError naming that limit.
+`FusedAttention` is the autograd Function around the two (the mask gets no
+gradient, as in JAX). Each wrapper's `launches` counts the launches of its
+own kernel.
 """
 
 from __future__ import annotations
@@ -46,26 +54,34 @@ import torch
 
 from adt_str_tpu_torch.ops import _build
 
-HEAD_DIM = 128  # `D` in csrc/attention.cu and csrc/attention_bwd.cu
-BWD_KEY_TILE = 128  # `BK` in csrc/attention_bwd.cu: past one key tile dq is summed in an fp32 scratch
+HALF_TYPES = (torch.bfloat16, torch.float16)
+MAX_HEAD_DIM = 768  # the CUDA-core backward's six fp32 tiles fill one block's 232,448 B of shared memory there
+# (dtype, head dim) pairs of csrc/attention.cu and attention_bwd.cu (`attention_takes`)
+HOPPER_TAKES = frozenset((t, d) for t in HALF_TYPES for d in (128, 256))
 # (dtype, head dim) pairs of csrc/attention_simt.cu (`attention_simt_takes`)
-SIMT_TAKES = frozenset({(torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 256)})
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SIMT_TAKES = frozenset({(torch.float32, d) for d in range(128, MAX_HEAD_DIM + 1, 128)}
+                       | {(t, d) for t in HALF_TYPES for d in range(384, MAX_HEAD_DIM + 1, 128)})
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NEG_MASK = -1e4  # the score of a virtual (padded) key
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The K5 kernels that take q, k, v of `dtype` and `head_dim` on the
-    card, at any Tq, Tk >= 1: "hopper" (bf16 at head dim 128: TMA + wgmma)
-    or "simt" (fp32 at 128 or 256, bf16 at 256: CUDA cores). Raises a
-    ValueError on any other pair (fp16; head dims past 256)."""
-    if dtype == torch.bfloat16 and head_dim == HEAD_DIM:
-        return "hopper"
-    if (dtype, head_dim) in SIMT_TAKES:
-        return "simt"
-    raise ValueError(
-        f"the attention kernels take bf16 or fp32 q, k, v at head dim 128 or 256; got {dtype}, D={head_dim}"
-    )
+    card, at any Tq, Tk >= 1: "hopper" (bf16 or fp16 at head dim 128: TMA +
+    wgmma), "hopper256" (bf16 or fp16 at 256: the same design at D 256) or
+    "simt" (fp32 at 128..768, bf16 and fp16 at 384..768: CUDA cores). Raises
+    a ValueError on any other dtype, on a head dim that is not a multiple of
+    128 (JAX's gate sends none), and past `MAX_HEAD_DIM`."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the attention kernels take bf16, fp16 or fp32 q, k, v; got {dtype}")
+    if head_dim % 128 or head_dim < 128:
+        raise ValueError(f"the attention kernels take head dims that are multiples of 128; got D={head_dim}")
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims up to {MAX_HEAD_DIM}: past it the CUDA-core "
+                         f"backward's tiles outgrow one block's 232,448 B of shared memory; got D={head_dim}")
+    if (dtype, head_dim) in HOPPER_TAKES:
+        return "hopper" if head_dim == 128 else "hopper256"
+    return "simt"
 
 
 def virtual_keys(tq: int, tk: int) -> int:
@@ -113,15 +129,21 @@ def attention_bwd_plain(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _takes(lib_takes) -> set:
+    """The (dtype, head dim) pairs a library's `*_takes(code, D)` accepts."""
+    return {(t, d) for t, code in _DTYPE_CODE.items() for d in range(64, 1025, 64) if lib_takes(code, d)}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    lib.launch_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     lib.launch_attention_fwd.restype = ctypes.c_int
-    lib.attention_head_dim.restype = ctypes.c_int
-    if lib.attention_head_dim() != HEAD_DIM:
-        raise RuntimeError("csrc/attention.cu limits differ from cuda_attention's")
+    lib.attention_takes.argtypes = [i, i]
+    lib.attention_takes.restype = ctypes.c_int
+    if _takes(lib.attention_takes) != HOPPER_TAKES:
+        raise RuntimeError("csrc/attention.cu takes other dtypes or head dims than cuda_attention's")
     return lib
 
 
@@ -129,12 +151,21 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("attention_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.launch_attention_bwd.argtypes = [p] * 13 + [i] * 6 + [ctypes.c_float, p]
     lib.launch_attention_bwd.restype = ctypes.c_int
-    lib.attention_bwd_head_dim.restype = lib.attention_bwd_key_tile.restype = ctypes.c_int
-    if lib.attention_bwd_head_dim() != HEAD_DIM or lib.attention_bwd_key_tile() != BWD_KEY_TILE:
+    lib.attention_bwd_takes.argtypes = [i, i]
+    lib.attention_bwd_key_tile.argtypes = [i]
+    lib.attention_bwd_takes.restype = lib.attention_bwd_key_tile.restype = ctypes.c_int
+    if _takes(lib.attention_bwd_takes) != HOPPER_TAKES or any(
+            lib.attention_bwd_key_tile(d) != bwd_key_tile(d) for d in (128, 256)):
         raise RuntimeError("csrc/attention_bwd.cu limits differ from cuda_attention's")
     return lib
+
+
+def bwd_key_tile(head_dim: int) -> int:
+    """Keys of csrc/attention_bwd.cu's key tile (`Shape<D>::BK`): past one
+    tile dq is summed in an fp32 scratch."""
+    return 64 if head_dim == 256 else 128
 
 
 @functools.cache
@@ -147,9 +178,7 @@ def _simt_lib() -> ctypes.CDLL:
     lib.launch_attention_simt_bwd.restype = ctypes.c_int
     lib.attention_simt_takes.argtypes = [i, i]
     lib.attention_simt_takes.restype = ctypes.c_int
-    takes = {(t, d) for t, code in _DTYPE_CODE.items() for d in (64, 128, 256, 384)
-             if lib.attention_simt_takes(code, d)}
-    if takes != SIMT_TAKES:
+    if _takes(lib.attention_simt_takes) != SIMT_TAKES:
         raise RuntimeError("csrc/attention_simt.cu takes other dtypes or head dims than cuda_attention's")
     return lib
 
@@ -177,31 +206,58 @@ def _mask_arg(mask, device):
     return None if mask is None else mask.to(device=device, dtype=torch.float32).contiguous()
 
 
-def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, Tq, D) x (B, H, Tk, D) attention -> (out, lse) through K5f: the
-    CUDA kernel for CUDA tensors, `attention_plain` for CPU tensors."""
-    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask, n_virtual)
-    if kernel_for(q.dtype, D) == "simt":
-        return fused_attention_simt(q, k, v, mask, n_virtual)
-    lib = _lib()
+def _tensor_core_fwd(q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5f on the tensor cores (`csrc/attention.cu` at q's dtype and head dim)."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
     q, k, v = (t.contiguous() for t in (q, k, v))
     mask = _mask_arg(mask, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, 1, Tq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.launch_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, H, Tq, Tk, n_virtual, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream,
-        )
+    err = _build.launch(
+        q.device, _lib().launch_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H,
+        Tq, Tk, n_virtual, 1.0 / math.sqrt(D))
     _build.check(err, "attention_fwd")
+    return out, lse
+
+
+def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, Tq, D) x (B, H, Tk, D) attention -> (out, lse) through K5f: the
+    CUDA kernel that `kernel_for` names for CUDA tensors (this wrapper counts
+    the head-dim-128 tensor-core kernel's launches; the others count on
+    their own wrappers), `attention_plain` for CPU tensors."""
+    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask, n_virtual)
+    route = kernel_for(q.dtype, D)
+    if route == "simt":
+        return fused_attention_simt(q, k, v, mask, n_virtual)
+    if route == "hopper256":
+        return fused_attention_d256(q, k, v, mask, n_virtual)
+    out, lse = _tensor_core_fwd(q, k, v, mask, n_virtual)
     fused_attention.launches += 1
     return out, lse
 
 
 fused_attention.launches = 0
+
+
+def fused_attention_d256(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5f on the tensor cores at head dim 256 (`csrc/attention.cu` at D
+    256, bf16 or fp16; `fused_attention` sends those inputs here);
+    `attention_plain` for CPU tensors."""
+    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask, n_virtual)
+    if kernel_for(q.dtype, D) != "hopper256":
+        raise ValueError(f"the head-dim-256 attention kernels do not take {q.dtype} at D={D}")
+    out, lse = _tensor_core_fwd(q, k, v, mask, n_virtual)
+    fused_attention_d256.launches += 1
+    return out, lse
+
+
+fused_attention_d256.launches = 0
 
 
 def fused_attention_simt(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -229,41 +285,75 @@ def fused_attention_simt(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.
 fused_attention_simt.launches = 0
 
 
-def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5b: (dq, dk, dv) of `fused_attention` for the output cotangent `do`,
-    through the CUDA kernels for CUDA tensors and `attention_bwd_plain` for
-    CPU tensors. Deterministic: two calls on the same inputs give the same
-    bits (no atomics; dq's partial sums over key tiles meet in a fixed order
-    in an fp32 scratch)."""
+def _check_bwd(q, k, v, mask, out, lse, do) -> tuple[int, int, int, int, int]:
     B, H, Tq, Tk, D = _check(q, k, v, mask, 0)
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, 1, Tq):
         raise ValueError(f"out/do must be {tuple(q.shape)} and lse {(B, H, 1, Tq)}")
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, mask, out, lse, do)
-    if out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+    if q.device.type == "cuda" and (out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32):
         raise ValueError(f"the backward kernels take out and do in q's dtype and fp32 lse; got {q.dtype}, "
                          f"{out.dtype}, {do.dtype}, {lse.dtype}")
-    if kernel_for(q.dtype, D) == "simt":
-        return fused_attention_bwd_simt(q, k, v, mask, out, lse, do)
-    lib = _bwd_lib()
+    return B, H, Tq, Tk, D
+
+
+def _tensor_core_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b on the tensor cores (`csrc/attention_bwd.cu` at q's dtype and head dim)."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
     q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
     mask = _mask_arg(mask, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device) if Tk > BWD_KEY_TILE else None
-    with torch.cuda.device(q.device):
-        err = lib.launch_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Tq, Tk, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream,
-        )
+    dq_acc = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device) if Tk > bwd_key_tile(D) else None
+    # fp16: the largest do, out and v row norms of each (batch, head), which scale ds into fp16's range
+    bound = torch.zeros((B * H, 3), dtype=torch.float32, device=q.device) if q.dtype == torch.float16 else None
+    err = _build.launch(
+        q.device, _bwd_lib().launch_attention_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), None if bound is None else bound.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODE[q.dtype], D, B, H, Tq, Tk, 1.0 / math.sqrt(D))
     _build.check(err, "attention_bwd")
-    fused_attention_bwd.launches += 1
     return dq, dk, dv
 
 
+def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b: (dq, dk, dv) of `fused_attention` for the output cotangent `do`,
+    through the CUDA kernels that `kernel_for` names for CUDA tensors (this
+    wrapper counts the head-dim-128 tensor-core kernel's launches) and
+    `attention_bwd_plain` for CPU tensors. Deterministic: two calls on the
+    same inputs give the same bits (dq's partial sums over key tiles meet
+    in a fixed order in an fp32 scratch)."""
+    B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, mask, out, lse, do)
+    route = kernel_for(q.dtype, D)
+    if route == "simt":
+        return fused_attention_bwd_simt(q, k, v, mask, out, lse, do)
+    if route == "hopper256":
+        return fused_attention_bwd_d256(q, k, v, mask, out, lse, do)
+    grads = _tensor_core_bwd(q, k, v, mask, out, lse, do)
+    fused_attention_bwd.launches += 1
+    return grads
+
+
 fused_attention_bwd.launches = 0
+
+
+def fused_attention_bwd_d256(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b on the tensor cores at head dim 256 (`csrc/attention_bwd.cu` at
+    D 256: the two consumer warpgroups split the head dim);
+    `attention_bwd_plain` for CPU tensors."""
+    B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, mask, out, lse, do)
+    if kernel_for(q.dtype, D) != "hopper256":
+        raise ValueError(f"the head-dim-256 attention backward does not take {q.dtype} at D={D}")
+    grads = _tensor_core_bwd(q, k, v, mask, out, lse, do)
+    fused_attention_bwd_d256.launches += 1
+    return grads
+
+
+fused_attention_bwd_d256.launches = 0
 
 
 def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -271,14 +361,11 @@ def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor,
     dk/dv kernel over key tiles and a dq kernel over query tiles, no
     atomics) for the pairs of `SIMT_TAKES`; `attention_bwd_plain` for CPU
     tensors."""
-    B, H, Tq, Tk, D = _check(q, k, v, mask, 0)
-    if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, 1, Tq):
-        raise ValueError(f"out/do must be {tuple(q.shape)} and lse {(B, H, 1, Tq)}")
+    B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, mask, out, lse, do)
-    if kernel_for(q.dtype, D) != "simt" or out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError(f"the CUDA-core attention backward does not take q {q.dtype} at D={D}, out {out.dtype}, "
-                         f"do {do.dtype}, lse {lse.dtype}")
+    if kernel_for(q.dtype, D) != "simt":
+        raise ValueError(f"the CUDA-core attention backward does not take {q.dtype} at D={D}")
     q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
     mask = _mask_arg(mask, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

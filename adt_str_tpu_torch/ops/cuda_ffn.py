@@ -3,11 +3,21 @@
 
 Replaces `adt_str_tpu/ops/pallas_ffn.py:fused_ffn_dropout`, which runs in
 the compute dtype. `ffn_dropout` is the wrapper: the CUDA kernels for CUDA
-tensors (d and d_ff multiples of `TILE`, as the JAX kernel asks; bf16 on
-the tensor cores, fp32 on the CUDA cores through `ffn_dropout_fp32`:
-`kernel_for`), `ops/ffn.py:ffn_dropout_plain` for CPU tensors, and nothing
-else; each wrapper's `launches` counts its calls that launch its kernel
-(two GEMMs). `FusedFfnDropout` is the
+tensors, `ops/ffn.py:ffn_dropout_plain` for CPU tensors, and nothing else;
+each wrapper's `launches` counts its calls that launch its kernel (two
+GEMMs). On the card (`kernel_for`) d is a multiple of `TILE`, as JAX's gate
+asks, and d_ff is any width:
+
+    dtype        kernel (wrapper)
+    bf16, fp16   csrc/ffn_dropout.cu, TMA + wgmma (ffn_dropout)
+    fp32         csrc/ffn_dropout_fp32.cu, CUDA cores (ffn_dropout_fp32)
+
+Both walk d_ff in tiles of `TILE`: a d_ff that is not a multiple of it is
+padded here with zero rows of W1, zeros of b1 and zero columns of W2 up to
+the next multiple (the padded columns give pre = 0, gelu(0) = 0 and add
+nothing), and `pre` is cut back to d_ff. TMA needs 16-byte row strides,
+which the padded width always has. The hidden mask stays keyed on the real
+width: `col0` and `d_ff_total` go to the kernel unchanged. `FusedFfnDropout` is the
 autograd Function the model calls: it casts the fp32 parameters to the
 compute dtype per call (as JAX does), passes both weights in the modules'
 own layouts, saves the bf16 `pre`, and takes its backward from
@@ -31,27 +41,28 @@ from adt_str_tpu_torch.ops.dropout_hash import keep_threshold
 from adt_str_tpu_torch.ops.ffn import ffn_dropout_bwd_plain, ffn_dropout_plain
 
 TILE = 128  # `BN` in csrc/ffn_dropout.cu and csrc/ffn_dropout_fp32.cu: d and d_ff are walked in output tiles of it
+_DTYPE_CODE = {torch.bfloat16: 1, torch.float16: 2}  # csrc/ffn_dropout.cu's
 
 
 def kernel_for(dtype: torch.dtype, d: int, d_ff: int) -> str:
     """The K4 kernel that takes operands of `dtype` at widths d, d_ff on the
-    card: "hopper" (bf16: TMA + wgmma) or "fp32" (CUDA cores, no TF32).
-    Raises a ValueError on another dtype or widths that are not multiples
-    of `TILE` (JAX's gate sends d % 128 == 0 only)."""
-    if d % TILE or d_ff % TILE:
-        raise ValueError(f"the FFN kernels take d and d_ff multiples of {TILE}; got d={d}, d_ff={d_ff}")
-    if dtype == torch.bfloat16:
+    card: "hopper" (bf16 or fp16: TMA + wgmma) or "fp32" (CUDA cores, no
+    TF32). Raises a ValueError on another dtype, on a d that is not a
+    multiple of `TILE` (JAX's gate sends d % 128 == 0 only) or d_ff < 1."""
+    if d % TILE or d < TILE or d_ff < 1:
+        raise ValueError(f"the FFN kernels take d a multiple of {TILE} and d_ff >= 1; got d={d}, d_ff={d_ff}")
+    if dtype in _DTYPE_CODE:
         return "hopper"
     if dtype == torch.float32:
         return "fp32"
-    raise ValueError(f"the FFN kernels take bf16 or fp32 operands; got {dtype}")
+    raise ValueError(f"the FFN kernels take bf16, fp16 or fp32 operands; got {dtype}")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ffn_dropout")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.launch_ffn_dropout.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, u, u, u, u, f, f, p]
+    lib.launch_ffn_dropout.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, u, u, u, u, f, f, i, p]
     lib.launch_ffn_dropout.restype = ctypes.c_int
     lib.ffn_dropout_tile.restype = ctypes.c_int
     if lib.ffn_dropout_tile() != TILE:
@@ -94,21 +105,34 @@ def _check(x2, w1, b1, w2, b2, seeds, col0: int, d_ff_total) -> tuple[int, int, 
     return n, d, d_ff, total
 
 
-def _launch(fn, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total) -> tuple[torch.Tensor, torch.Tensor]:
-    """Both GEMMs of a K4 kernel's C entry `fn`: -> (out, pre)."""
+def padded_weights(w1, b1, w2) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W1 (d_ff, d), b1 and W2 (d, d_ff) with zeros on to the next multiple
+    of `TILE` columns of the hidden (the same tensors when d_ff is one)."""
+    pad = -w1.shape[0] % TILE
+    if pad == 0:
+        return w1, b1, w2
+    f = torch.nn.functional.pad
+    return f(w1, (0, 0, 0, pad)), f(b1, (0, pad)), f(w2, (0, pad))
+
+
+def _launch(fn, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total, *dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both GEMMs of a K4 kernel's C entry `fn` (`dtype`: its dtype code,
+    where it takes one): -> (out, pre)."""
     n, d = x2.shape
     d_ff = w1.shape[0]
+    w1, b1, w2 = padded_weights(w1, b1, w2)
     x2, w1, b1, w2 = (t.contiguous() for t in (x2, w1, b1, w2))
     b2 = None if b2 is None else b2.contiguous()
     out = torch.empty((n, d), dtype=torch.float32 if b2 is None else x2.dtype, device=x2.device)
-    pre = torch.empty((n, d_ff), dtype=x2.dtype, device=x2.device)
+    pre = torch.empty((n, w1.shape[0]), dtype=x2.dtype, device=x2.device)
     hd = torch.empty_like(pre)  # the dropped hidden, between the two GEMMs
     err = _build.launch(
         x2.device, fn, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        None if b2 is None else b2.data_ptr(), out.data_ptr(), pre.data_ptr(), hd.data_ptr(), n, d, d_ff, total,
-        col0, *(int(s) for s in seeds), keep_threshold(keep_h), keep_threshold(keep_o), 1.0 / keep_h, 1.0 / keep_o)
+        None if b2 is None else b2.data_ptr(), out.data_ptr(), pre.data_ptr(), hd.data_ptr(), n, d, w1.shape[0],
+        total, col0, *(int(s) for s in seeds), keep_threshold(keep_h), keep_threshold(keep_o), 1.0 / keep_h,
+        1.0 / keep_o, *dtype)
     _build.check(err, fn.__name__)
-    return out, pre
+    return out, pre if pre.shape[1] == d_ff else pre[:, :d_ff]
 
 
 def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
@@ -123,7 +147,8 @@ def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: i
         return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
     if kernel_for(x2.dtype, d, d_ff) == "fp32":
         return ffn_dropout_fp32(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
-    out, pre = _launch(_lib().launch_ffn_dropout, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total)
+    out, pre = _launch(_lib().launch_ffn_dropout, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total,
+                       _DTYPE_CODE[x2.dtype])
     ffn_dropout.launches += 1
     return out, pre
 

@@ -12,7 +12,7 @@ the sum rounded to `x`'s dtype first, as ATen's add rounds it, so the fused
 call is bit-equal to `layer_norm(x + r)`) are the wrappers the model calls:
 - a CPU tensor runs the plain version;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes fp32 or bf16 rows of at most 1,024 and
+  launches the kernel, which takes fp32, bf16 or fp16 rows of at most 1,024 and
   raises on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs the plain version under autograd: the kernel has no backward.
@@ -33,7 +33,7 @@ import torch
 
 from adt_str_tpu_torch.ops import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,7 +73,7 @@ def _launch(x: torch.Tensor, r: Optional[torch.Tensor], weight: torch.Tensor, bi
     max_d = lib.layer_norm_max_d()
     if (x.dtype not in _DTYPE_CODE or not 0 < d <= max_d or weight.shape != (d,) or bias.shape != (d,)
             or (r is not None and (r.shape != x.shape or r.dtype != x.dtype))):
-        raise ValueError(f"the layer_norm kernel takes fp32 or bf16 rows of 1..{max_d} (a residual of x's shape and "
+        raise ValueError(f"the layer_norm kernel takes fp32, bf16 or fp16 rows of 1..{max_d} (a residual of x's shape and "
                          f"dtype) with (d,) weight and bias; got {x.dtype} {tuple(x.shape)}, residual "
                          f"{None if r is None else (r.dtype, tuple(r.shape))}, weight {tuple(weight.shape)}")
     device = x.device

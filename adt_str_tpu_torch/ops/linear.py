@@ -14,8 +14,8 @@ run `linear_plain`, cuBLAS.
 `linear` is the wrapper the decode step calls:
 - a CPU tensor runs `linear_plain`;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes bf16 (K % 8 == 0) or fp32 and raises on
-  anything else;
+  launches the kernel, which takes bf16 or fp16 (K % 8 == 0) or fp32 and
+  raises on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `linear_plain` under autograd: the kernel has no backward.
 `linear.launches` counts kernel launches.
@@ -36,7 +36,7 @@ import torch
 
 from adt_str_tpu_torch.ops import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def linear_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -66,8 +66,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
         raise ValueError(f"linear runs on cpu or cuda tensors, not {x.device}")
     K, N = x.shape[-1], weight.shape[0]
     if (x.dtype not in _DTYPE_CODE or weight.dim() != 2 or weight.shape[1] != K
-            or (bias is not None and bias.shape != (N,)) or (x.dtype == torch.bfloat16 and K % 8)):
-        raise ValueError(f"the linear kernel takes bf16 (K % 8 == 0) or fp32 x (..., K) with an (N, K) weight and "
+            or (bias is not None and bias.shape != (N,)) or (x.dtype != torch.float32 and K % 8)):
+        raise ValueError(f"the linear kernel takes bf16 or fp16 (K % 8 == 0) or fp32 x (..., K) with an (N, K) weight and "
                          f"an (N,) bias; got {x.dtype} {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {None if bias is None else tuple(bias.shape)}")
     device = x.device

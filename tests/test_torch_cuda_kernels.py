@@ -292,18 +292,24 @@ def test_fused_attention_autograd_launches_both_kernels(cuda):
 
 
 def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
-    """600 keys and fp32 now have kernels (`test_attention_*_past_512_keys`,
-    `test_attention_simt_*`); fp16, head dims past 256, operands of two
-    dtypes and the bf16 kernels' entry at fp32 still raise."""
-    with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 128, dtype=torch.float16, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 384, device=cuda),) * 3)
+    """600 keys, fp32, fp16 and head dims up to 768 now have kernels
+    (`test_attention_*_past_512_keys`, `test_attention_simt_*`,
+    `test_attention_d256_*`, `test_attention_kernels_at_fp16`); head dims
+    past 768 (the named limit) or off 128, fp64, operands of two dtypes and
+    each variant's entry at another variant's inputs still raise."""
+    with pytest.raises(ValueError, match="up to 768"):
+        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 896, dtype=torch.float16, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 192, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 128, dtype=torch.float64, device=cuda),) * 3)
     q = torch.zeros(1, 1, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_attention.fused_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="CUDA-core"):
         cuda_attention.fused_attention_simt(*(q.bfloat16(),) * 3)
+    with pytest.raises(ValueError, match="head-dim-256"):
+        cuda_attention.fused_attention_d256(*(q.half(),) * 3)
 
 
 def _ffn_inputs(n, d, d_ff, cuda, seed=0):
@@ -375,15 +381,16 @@ def test_ffn_dropout_kernel_at_col0_zero_and_the_whole_width_is_bit_equal(cuda):
 
 
 def test_ffn_dropout_kernel_rejects_what_it_cannot_hold(cuda):
-    """fp32 operands now have a kernel (`test_ffn_dropout_fp32_*`); mixed
-    dtypes, fp16 and widths off 128 still raise."""
+    """fp32 and fp16 operands and any d_ff now have kernels
+    (`test_ffn_dropout_fp32_*`, `test_ffn_dropout_kernel_at_fp16_and_any_d_ff`);
+    mixed dtypes, fp64 and a d off 128 still raise."""
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 768, 512, cuda)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_ffn.ffn_dropout(x.float(), w1, b1, w2, b2, seeds, 0.9, 0.9)
-    with pytest.raises(ValueError, match="bf16 or fp32"):
-        cuda_ffn.ffn_dropout(*(t.half() for t in (x, w1, b1, w2, b2)), seeds, 0.9, 0.9)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        cuda_ffn.ffn_dropout(*(t.double() for t in (x, w1, b1, w2, b2)), seeds, 0.9, 0.9)
     (x, w1, b1, w2, b2), seeds = _ffn_inputs(8, 200, 512, cuda)
-    with pytest.raises(ValueError, match="multiples of 128"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         cuda_ffn.ffn_dropout(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
 
 
@@ -749,8 +756,8 @@ def test_layer_norm_keeps_autograd_in_training_and_rejects_on_the_card(cuda):
         with pytest.raises(ValueError, match="layer_norm kernel"):
             ln_ops.layer_norm(torch.zeros(2, 1025, device=cuda), torch.ones(1025, device=cuda),
                               torch.zeros(1025, device=cuda), 1e-5)
-        with pytest.raises(ValueError, match="layer_norm kernel"):
-            ln_ops.layer_norm(x.half(), w.detach(), b, 1e-5)
+        with pytest.raises(ValueError, match="layer_norm kernel"):  # fp16 has a kernel now; fp64 has none
+            ln_ops.layer_norm(x.double(), w.detach(), b, 1e-5)
 
 
 def _linear_inputs(m, n, k, dtype, device, seed=0):
@@ -1034,9 +1041,10 @@ def _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=0):
 
 
 # (B, H, Tq, Tk, head dim, dtype, mask): fp32 at the model's shapes and past
-# 512 keys (the 10.24 s encoder's 1,014), bf16 and fp32 at head dim 256 (3
-# heads of 256 at d 768), ragged and single-key edges of the 64- (32-) row
-# tiles, and a row whose real keys are all masked.
+# 512 keys (the 10.24 s encoder's 1,014), fp32 at head dim 256 (3 heads of
+# 256 at d 768), bf16, fp16 and fp32 at head dims 384..768 (2 heads and 1 at
+# d 768, and 512, 640), ragged and single-key edges of the 64- (32-, 16-)
+# row tiles, and a row whose real keys are all masked.
 SIMT_CASES = {
     "fp32-encoder": (2, 6, 246, 246, 128, torch.float32, None),
     "fp32-decoder-self": (2, 6, 511, 511, 128, torch.float32, "causal"),
@@ -1044,8 +1052,14 @@ SIMT_CASES = {
     "fp32-encoder-1014": (1, 2, 1014, 1014, 128, torch.float32, None),
     "fp32-decoder-self-1023": (1, 2, 1023, 1023, 128, torch.float32, "causal"),
     "fp32-d256": (2, 3, 511, 246, 256, torch.float32, None),
-    "bf16-d256": (2, 3, 511, 511, 256, torch.bfloat16, "causal"),
-    "bf16-d256-1014": (1, 3, 1014, 1014, 256, torch.bfloat16, None),
+    "bf16-d384": (2, 2, 511, 511, 384, torch.bfloat16, "causal"),
+    "fp16-d384-1014": (1, 2, 1014, 1014, 384, torch.float16, None),
+    "fp32-d384": (2, 2, 511, 246, 384, torch.float32, None),
+    "fp16-d512": (1, 2, 246, 246, 512, torch.float16, None),
+    "bf16-d640": (1, 1, 100, 70, 640, torch.bfloat16, "masked-row"),
+    "bf16-d768": (2, 1, 511, 511, 768, torch.bfloat16, "causal"),
+    "fp16-d768": (1, 1, 511, 246, 768, torch.float16, None),
+    "fp32-d768-ragged": (1, 1, 65, 33, 768, torch.float32, None),
     "fp32-one-key": (1, 1, 30, 1, 128, torch.float32, None),
     "fp32-ragged": (1, 2, 65, 33, 256, torch.float32, None),
     "fp32-masked-row": (1, 2, 30, 30, 128, torch.float32, "masked-row"),
@@ -1064,11 +1078,12 @@ def _simt_inputs(case, cuda):
 # outputs and lse within 1e-5, each gradient within 1e-5 of its largest
 # element (measured on the H100: 7e-7, 1e-6 and 1.5e-6), plus 2^-17 of the
 # magnitude its terms allow (`_gradient_magnitudes`) where ds = p (dp -
-# delta) cancels (one key: dq is rounding noise of 1e-7). bf16 at head dim
-# 256: p rounds to bf16 on both sides (1.6e-2, as the bf16 kernel); the
-# gradients keep p and ds in fp32 as the plain version does, and only the
-# outputs round to bf16 (2^-8 of the largest element, plus 2^-12 of the
-# magnitude as the bf16 kernel's tests allow).
+# delta) cancels (one key: dq is rounding noise of 1e-7). bf16 and fp16 at
+# head dims past 256: p rounds to T on both sides (1.6e-2, as the bf16
+# kernel); the gradients keep p and ds in fp32 as the plain version does,
+# and only the outputs round to T (2^-8 of the largest element, plus 2^-12
+# of the magnitude as the bf16 kernel's tests allow; fp16 is held to the
+# same, no looser).
 def _simt_tols(dtype):
     return (1e-5, 1e-5, 2**-17) if dtype == torch.float32 else (1.6e-2, 2**-8, 2**-12)
 
@@ -1098,7 +1113,7 @@ def test_attention_simt_kernels_match_plain(cuda, case):
         assert err <= grad_tol * r.float().abs().max().item() + size_tol * size, (name, err, size)
 
 
-@pytest.mark.parametrize("case", ["fp32-decoder-self", "bf16-d256"])
+@pytest.mark.parametrize("case", ["fp32-decoder-self", "bf16-d384"])
 def test_attention_simt_backward_is_deterministic(cuda, case):
     """No atomics: dk/dv and dq each come from one block."""
     q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
@@ -1223,3 +1238,234 @@ def test_log_mel_route_wrappers_refuse_another_route(cuda):
         cuda_mel.log_mel_any_hop(wave, SERVING_MEL)
     with pytest.raises(ValueError, match="ldmatrix"):
         cuda_mel.log_mel_long_hop(wave, SERVING_MEL)
+
+
+# fp16 wherever bf16 goes, K5 at head dim 256 on the tensor cores, K4 at any
+# d_ff. fp16 is held to the bf16 tolerances above (no looser): its rounding
+# points are bf16's, with 3 more bits of mantissa.
+
+
+def _assert_k5_matches_plain(q, k, v, mask, n_virtual, fwd, bwd):
+    """K5f and K5b through `fused_attention(_bwd)`, which must launch the
+    kernels of the wrappers `fwd` and `bwd` once each, against their plain
+    versions: out within 1.6e-2 and lse within 1e-4, each gradient within
+    2^-6 of its largest element plus 2^-12 of the magnitude its terms allow
+    (the bf16 tensor-core kernels' tolerances)."""
+    f0, b0 = fwd.launches, bwd.launches
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(q.device, q.dtype)
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
+    assert out.dtype == q.dtype and out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    sizes = _gradient_magnitudes(q, k, v, mask, out, lse, do)
+    for name, got, r, size in zip(("dq", "dk", "dv"), grads, refs, sizes):
+        assert got.dtype == q.dtype and got.shape == r.shape and torch.isfinite(got.float()).all(), name
+        err = (got.float() - r.float()).abs().max().item()
+        assert err <= 2**-6 * r.float().abs().max().item() + 2**-12 * size, (name, err, size)
+
+
+D256_LENGTHS = (1, 246, 511, 513, 1023)
+
+
+@pytest.mark.parametrize("tk", D256_LENGTHS)
+@pytest.mark.parametrize("tq", D256_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_attention_d256_kernels_match_plain(cuda, dtype, tq, tk):
+    """The head-dim-256 tensor-core kernels (3 heads at d 768) at one query
+    or key, the encoder's 246, the decoder's 511 and either side of 512 and
+    1024 (the backward's 64-key tiles, the forward's 128-row and 64-key
+    tiles); causal where Tq == Tk."""
+    q, k, v = _qkv_of(1, 3, tq, tk, 256, dtype, cuda, seed=tq * 3 + tk)
+    mask = _causal(1, tq, tk, cuda) if tq == tk else None
+    _assert_k5_matches_plain(q, k, v, mask, cuda_attention.virtual_keys(tq, tk),
+                             cuda_attention.fused_attention_d256, cuda_attention.fused_attention_bwd_d256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_attention_d256_row_whose_only_key_is_the_last_and_a_masked_row(cuda, dtype):
+    q, k, v = _qkv_of(2, 3, 30, 511, 256, dtype, cuda, seed=11)
+    mask = torch.zeros(2, 30, 511)
+    mask[:, 7, :510] = -1e4
+    mask[:, 3] = -1e4
+    _assert_k5_matches_plain(q, k, v, mask.to(cuda), cuda_attention.virtual_keys(30, 511),
+                             cuda_attention.fused_attention_d256, cuda_attention.fused_attention_bwd_d256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_attention_d256_backward_is_deterministic(cuda, dtype):
+    q, k, v = _qkv_of(2, 3, 511, 511, 256, dtype, cuda, seed=12)
+    mask = _causal(2, 511, 511, cuda)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, 1)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)).to(cuda, dtype)
+    first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    second = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernels_at_fp16(cuda, case):
+    """The head-dim-128 tensor-core kernels at fp16, at the bf16 cases."""
+    q, k, v, mask, n_virtual = _attention_inputs(case, cuda)
+    q, k, v = (t.half() for t in (q, k, v))
+    _assert_k5_matches_plain(q, k, v, mask, n_virtual, cuda_attention.fused_attention,
+                             cuda_attention.fused_attention_bwd)
+
+
+def test_fused_attention_autograd_at_head_dim_256_launches_the_d256_kernels(cuda):
+    q, k, v = (t.clone().requires_grad_() for t in _qkv_of(1, 3, 65, 65, 256, torch.bfloat16, cuda, seed=13))
+    f0, b0 = cuda_attention.fused_attention_d256.launches, cuda_attention.fused_attention_bwd_d256.launches
+    cuda_attention.FusedAttention.apply(q, k, v, _causal(1, 65, 65, cuda), 7).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_attention.fused_attention_d256.launches, cuda_attention.fused_attention_bwd_d256.launches) == (
+        f0 + 1, b0 + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+# K4 at fp16 and at widths of the hidden that are not multiples of 128 (the
+# wrapper pads W1, b1 and W2 with zeros): tolerances of the bf16 test above
+# for bf16 and fp16, of the fp32 test for fp32; the masks at the real width.
+@pytest.mark.parametrize(
+    "dtype, n, d, d_ff, keep",
+    [(torch.float16, 250, 768, 3072, 0.9), (torch.float16, 64 * 246 + 1, 768, 3072, 0.9),
+     (torch.bfloat16, 300, 768, 1000, 0.9), (torch.bfloat16, 300, 768, 1036, 0.8),
+     (torch.float16, 100, 768, 1036, 0.9), (torch.bfloat16, 37, 768, 100, 0.9),
+     (torch.bfloat16, 250, 768, 1001, 0.9), (torch.float32, 130, 768, 1000, 0.9), (torch.float32, 130, 768, 1001, 0.9)],
+    ids=["fp16", "fp16-encoder-rows-plus-1", "bf16-d_ff1000", "bf16-d_ff1036", "fp16-d_ff1036", "bf16-d_ff100",
+         "bf16-d_ff1001", "fp32-d_ff1000", "fp32-d_ff1001"],
+)
+def test_ffn_dropout_kernel_at_fp16_and_any_d_ff(cuda, dtype, n, d, d_ff, keep):
+    args, seeds = _ffn_inputs(n, d, d_ff, cuda)
+    args = tuple(t.to(dtype) for t in args)
+    counter = cuda_ffn.ffn_dropout_fp32 if dtype == torch.float32 else cuda_ffn.ffn_dropout
+    before = counter.launches
+    out, pre = cuda_ffn.ffn_dropout(*args, seeds, keep, keep)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref, ref_pre = ffn_dropout_plain(*args, seeds, keep, keep)
+    assert out.shape == ref.shape and pre.shape == ref_pre.shape and out.dtype == pre.dtype == dtype
+    # fp16 flushes a kept output below 2^-25 to 0: either side may read 0 where the other holds a value near
+    # 0, so there the zero patterns are compared away from outputs within 2^-12 of 0 (elsewhere: everywhere)
+    near0 = (out.float().abs() < 2**-12) & (ref.float().abs() < 2**-12) if dtype == torch.float16 else out != out
+    assert torch.equal((out == 0) & ~near0, (ref == 0) & ~near0)
+    if dtype == torch.float32:
+        assert (pre - ref_pre).abs().max().item() <= 1e-5 * ref_pre.abs().max().item()
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+        return
+    pre_err = (pre.float() - ref_pre.float()).abs()
+    assert (pre_err <= 2**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2**-7 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_ffn_dropout_kernel_column_shard_of_an_odd_width(cuda, dtype):
+    """A rank's 500 of 1000 hidden columns in the partial mode (fp32 out): the
+    mask keyed on the whole width, tolerances as in the bf16 partial test."""
+    (x, w1, b1, w2, _), seeds = _ffn_inputs(250, 768, 500, cuda, seed=5)
+    x, w1, b1, w2 = (t.to(dtype) for t in (x, w1, b1, w2))
+    for col0 in (0, 500):
+        out, pre = cuda_ffn.ffn_dropout(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 1000)
+        torch.cuda.synchronize()
+        ref, ref_pre = ffn_dropout_plain(x, w1, b1, w2, None, seeds, 0.9, 0.9, col0, 1000)
+        pre_err = (pre.float() - ref_pre.float()).abs()
+        assert (pre_err <= 2**-7 * ref_pre.float().abs() + 1e-4 * ref_pre.float().abs().max()).all()
+        assert (out - ref).abs().max().item() <= 2**-7 * ref.abs().max().item()
+
+
+def _ulp(t: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of `dtype` (bf16: 8 significant bits, fp16: 11) at |t|;
+    below 2^-6 that of 2^-6, as `_bf16_ulp`."""
+    bits = 7 if dtype == torch.bfloat16 else 10
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp(min=2.0**-6))) - bits)
+
+
+def test_batch_invariance_kernels_at_fp16(cuda):
+    """LayerNorm, the fused add, the decode product and attention_rows at
+    fp16: within an fp16 ulp of their plain versions (LayerNorm; the
+    product's two roundings), the attention rows within the bf16 test's
+    bound taken at fp16's spacing, and every row's bits the same at every
+    row count."""
+    x, w, b = _ln_inputs(64, 768, torch.float16, cuda, seed=8)
+    r = _residual(x)
+    l0, m0, a0 = ln_ops.layer_norm.launches, linear_ops.linear.launches, attention_rows.attention.launches
+    with torch.inference_mode():
+        ln = ln_ops.layer_norm(x, w, b, 1e-5)
+        add = ln_ops.add_layer_norm(x, r, w, b, 1e-5)
+        xl, wl, bl = _linear_inputs(16, 2304, 768, torch.float16, cuda, seed=9)
+        lin = linear_ops.linear(xl, wl, bl)
+        q, k, v, mask = _rows_inputs(16, 1, 512, 128, 255, torch.float16, cuda, seed=10)
+        att = attention_rows.attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert (ln_ops.layer_norm.launches, linear_ops.linear.launches, attention_rows.attention.launches) == (
+            l0 + 2, m0 + 1, a0 + 1)
+        ref = ln_ops.layer_norm_plain(x, w, b, 1e-5)
+        assert ln.dtype == torch.float16 and bool(((ln.float() - ref.float()).abs() <= _ulp(ref, torch.float16)).all())
+        assert torch.equal(add, ln_ops.layer_norm(x + r, w, b, 1e-5))
+        prod = (xl.float() @ wl.float().T).half()
+        lref = (prod + bl).float()
+        assert bool(((lin.float() - lref).abs() <= _ulp(prod, torch.float16) + _ulp(lref, torch.float16)).all())
+        aref = attention_rows.attention_plain(q, k, v, mask).float()
+        p_max = attention_rows.attention_probs(q, k, mask).float().amax(-1, keepdim=True)
+        spacing = lambda t: torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0**-126))) - 10)  # noqa: E731
+        bound = spacing(aref) + 2 * spacing(p_max) * v.float().abs().amax(2, keepdim=True)
+        assert ((att.float() - aref).abs() <= bound).all()
+        for rows in ROW_COUNTS:
+            assert torch.equal(ln_ops.layer_norm(x[:rows].clone(), w, b, 1e-5), ln[:rows]), rows
+            assert torch.equal(ln_ops.add_layer_norm(x[:rows].clone(), r[:rows].clone(), w, b, 1e-5), add[:rows])
+        xl64, _, _ = _linear_inputs(64, 2304, 768, torch.float16, cuda, seed=9)
+        full = linear_ops.linear(xl64, wl, bl)
+        q64, k64, v64, _ = _rows_inputs(64, 1, 512, 128, None, torch.float16, cuda, seed=11)
+        afull = attention_rows.attention(q64, k64, v64, valid_keys=256)
+        for rows in ROW_COUNTS:
+            assert torch.equal(linear_ops.linear(xl64[:rows].clone(), wl, bl), full[:rows]), rows
+            part = attention_rows.attention(q64[:rows].clone(), k64[:rows].clone(), v64[:rows].clone(), valid_keys=256)
+            assert torch.equal(part, afull[:rows]), rows
+
+
+# attention_rows past head dim 256 (2 heads and 1 at d 768): the CUDA-core
+# design, at bf16 and fp16, the bf16 test's bound at each type's spacing.
+@pytest.mark.parametrize("hd, dtype, step", [(384, torch.bfloat16, 255), (768, torch.float16, None),
+                                             (384, torch.float16, 40), (768, torch.bfloat16, None)],
+                         ids=["bf16-384-self", "fp16-768-cross", "fp16-384-self", "bf16-768-cross"])
+def test_attention_rows_kernel_past_head_dim_256(cuda, hd, dtype, step):
+    q, k, v, mask = _rows_inputs(16, 5 if step is None else 1, 512 if step else 246, hd, step, dtype, cuda, seed=hd)
+    before = attention_rows.attention.launches
+    with torch.inference_mode():
+        out = attention_rows.attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert attention_rows.attention.launches == before + 1
+        ref = attention_rows.attention_plain(q, k, v, mask).float()
+        p_max = attention_rows.attention_probs(q, k, mask).float().amax(-1, keepdim=True)
+        bits = 7 if dtype == torch.bfloat16 else 10
+        spacing = lambda t: torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0**-126))) - bits)  # noqa: E731
+        bound = spacing(ref) + 2 * spacing(p_max) * v.float().abs().amax(2, keepdim=True)
+        assert ((out.float() - ref).abs() <= bound).all()
+        for rows in (1, 3, 8):
+            part = attention_rows.attention(q[:rows].clone(), k[:rows].clone(), v[:rows].clone(), mask)
+            assert torch.equal(part, out[:rows]), rows
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_attention_bwd_at_fp16_keeps_gradients_of_a_training_steps_size(cuda, D):
+    """A training step's cotangent is small (the loss is a mean over tens of
+    thousands of tokens): at do ~ 2^-14, ds ~ 1e-7 would flush in fp16. The
+    kernels scale ds by a power of two into fp16's range before rounding it
+    and scale dq and dk back: each gradient within the bf16 tolerances above,
+    plus one fp16 subnormal step (2^-24) for the outputs' own rounding."""
+    q, k, v = _qkv_of(1, 3, 511, 511, D, torch.float16, cuda, seed=D)
+    mask = _causal(1, 511, 511, cuda)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, 1)
+    do = (torch.randn(q.shape, generator=torch.Generator().manual_seed(8)) * 2**-14).to(cuda, torch.float16)
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    sizes = _gradient_magnitudes(q, k, v, mask, out, lse, do)
+    for name, got, r, size in zip(("dq", "dk", "dv"), grads, refs, sizes):
+        assert torch.isfinite(got.float()).all() and r.float().abs().max() > 0, name
+        err = (got.float() - r.float()).abs().max().item()
+        assert err <= 2**-6 * r.float().abs().max().item() + 2**-12 * size + 2**-24, (name, err, size)

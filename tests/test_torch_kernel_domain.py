@@ -1,18 +1,20 @@
 """The inputs that JAX's gates send to its Pallas kernels, on the port's side,
-on the CPU: fp32 compute for K4 and K5, keys past 512 and head dim 256 for
-K5, any hop and n_fft for K1.
+on the CPU: fp32 and fp16 compute for K4 and K5, keys past 512 and head dims
+256..768 for K5, any d_ff for K4, any hop and n_fft for K1.
 
 - each kernel's plain version (which its wrapper runs for CPU tensors, and
   which the card holds each kernel variant to) against the JAX kernel in
   interpret mode, at those inputs;
 - a small model (2+2 layers, 2 heads of 128, fp32 compute, every kernel
   flag on, 5.28 s chunks: 518 encoder frames) whose `forward_loss`, gradients
-  and greedy tokens match the JAX package's;
-- a table of (dtype, head dim, keys, hop, n_fft) points that JAX's gates send
-  to a kernel, each of which the wrappers' published limit functions
-  (`cuda_attention.kernel_for`, `cuda_ffn.kernel_for`,
-  `cuda_mel.frames_route`) accept, so no ValueError is left on the card
-  that JAX's kernels do not have, at the model's dtypes and head dims.
+  and greedy tokens match the JAX package's, and the same model at d 384
+  with 1 head (head dim 384), whose greedy tokens match;
+- a table of (dtype, head dim, keys, d_ff, hop, n_fft) points that JAX's
+  gates send to a kernel, each of which the wrappers' published limit
+  functions (`cuda_attention.kernel_for`, `cuda_ffn.kernel_for`,
+  `cuda_mel.frames_route`) send to the kernel that the routing table
+  names, so no ValueError is left on the card that JAX's kernels do not
+  have, up to the one named limit: K5 past head dim 768.
 
 Inputs are made with numpy (or JAX's own init) from a seed and fed to both
 sides.
@@ -58,12 +60,15 @@ def _attention_inputs(Tq, Tk, D, seed):
 
 
 @pytest.mark.parametrize("Tq, Tk, D, causal", [(1014, 1014, 128, False), (1023, 1023, 128, True),
-                                               (60, 100, 256, False), (64, 64, 256, True)],
-                         ids=["encoder-1014", "decoder-self-1023", "d256-cross", "d256-causal"])
+                                               (60, 100, 256, False), (64, 64, 256, True), (60, 70, 384, False),
+                                               (33, 33, 384, True), (40, 57, 512, False), (30, 50, 768, False),
+                                               (24, 24, 768, True)],
+                         ids=["encoder-1014", "decoder-self-1023", "d256-cross", "d256-causal", "d384-cross",
+                              "d384-causal", "d512-cross", "d768-cross", "d768-causal"])
 def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal):
-    """fp32 q, k, v past 512 keys and at head dim 256, through both packages'
-    `_flash_attention` (JAX pads to a multiple of 8 and masks the padded
-    keys; the port counts them): outputs and the three gradients."""
+    """fp32 q, k, v past 512 keys and at head dims 256..768, through both
+    packages' `_flash_attention` (JAX pads to a multiple of 8 and masks the
+    padded keys; the port counts them): outputs and the three gradients."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _attention_inputs(Tq, Tk, D, seed=Tq + D)
     mask = np.triu(np.full((Tq, Tk), -1e4, np.float32), k=1)[None, None] if causal else None
     jmask = None if mask is None else jnp.asarray(mask)
@@ -221,30 +226,39 @@ def test_small_model_greedy_tokens_equal_jax():
     assert len(np.unique(ref[:, 1:])) > 1
 
 
-# The points of JAX's gates at the model's dtypes: every compute dtype a
-# config names in the repo (bfloat16, float32), the head dims of d 768 at 6
-# and 3 heads, key counts from one to `max_positions` (2048), and the
-# frontends of 16-48 kHz at time_res 0.005-0.02 and win_length 512-4096.
-DTYPES = (torch.bfloat16, torch.float32)
-HEAD_DIMS = (128, 256)
+# The points of JAX's gates: every compute dtype `compute_dtype` can name
+# (bfloat16, float32, float16), the head dims of d 768 at 6, 3, 2 and 1 heads
+# and 512, 640 (every multiple of 128 up to the limit, 768), key counts from
+# one to `max_positions` (2048), widths of the hidden off 128 and off 8, and
+# the frontends of 16-48 kHz at time_res 0.005-0.02 and win_length 512-4096.
+DTYPES = (torch.bfloat16, torch.float32, torch.float16)
+HEAD_DIMS = (128, 256, 384, 512, 640, 768)
 KEYS = (1, 246, 511, 512, 513, 1014, 1023, 2048)
 RATES = (16000, 22050, 24000, 32000, 44100, 48000)
 TIME_RES = (0.005, 0.01, 0.02)
 WIN_LENGTHS = (512, 1000, 1024, 2048, 4096)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+def attention_route(dtype, D) -> str:
+    """Part of the routing table (`cuda_attention`'s docstring): the K5
+    kernels that take (dtype, head dim) on the card."""
+    if dtype != torch.float32 and D in (128, 256):
+        return "hopper" if D == 128 else "hopper256"
+    return "simt"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32", "fp16"])
 def test_every_gated_attention_and_ffn_point_has_a_kernel(dtype):
     for D, tk in itertools.product(HEAD_DIMS, KEYS):
         q = torch.zeros(1, 1, 1, D, dtype=dtype)
         k = torch.zeros(1, 1, tk, D, dtype=dtype)
         assert JT._fused_attention_ok(jnp.zeros((1, 1, 1, D)), False, 0.0)  # JAX's gate sends it
         assert TT._fused_attention_ok(q, False, 0.0)
-        route = cuda_attention.kernel_for(dtype, D)
-        assert route == ("hopper" if (dtype, D) == (torch.bfloat16, 128) else "simt")
+        assert cuda_attention.kernel_for(dtype, D) == attention_route(dtype, D)
         cuda_attention._check(q, k, k, None, cuda_attention.virtual_keys(1, tk))
-    for d, d_ff in ((768, 3072), (256, 1024), (768, 1536)):
-        assert cuda_ffn.kernel_for(dtype, d, d_ff) == ("hopper" if dtype == torch.bfloat16 else "fp32")
+    for d, d_ff in ((768, 3072), (256, 1024), (768, 1536), (768, 1000), (768, 1036), (384, 1001), (128, 1)):
+        assert JT._fused_ffn_ok(jnp.zeros((1, d)), True, 0.1, jax.random.PRNGKey(0))  # JAX's gate: d alone
+        assert cuda_ffn.kernel_for(dtype, d, d_ff) == ("fp32" if dtype == torch.float32 else "hopper")
 
 
 def test_every_gated_frontend_has_a_kernel_route():
@@ -261,12 +275,137 @@ def test_every_gated_frontend_has_a_kernel_route():
     assert (48000, 960, 2048) in routes["long_hop"]
 
 
+
+
+# Each point this slice opened goes to the kernel the routing tables name
+# (`cuda_attention`, `cuda_ffn`, `attention_rows`, `layer_norm`, `linear`):
+# fp16 wherever bf16 goes, the head-dim-256 tensor-core kernels, the
+# CUDA-core K5 past 256, K4 at widths of the hidden off 128 and off 8.
+NEW_POINTS = {
+    "fp16-d128": ("attention", torch.float16, 128, "hopper"),
+    "bf16-d256": ("attention", torch.bfloat16, 256, "hopper256"),
+    "fp16-d256": ("attention", torch.float16, 256, "hopper256"),
+    "fp32-d384": ("attention", torch.float32, 384, "simt"),
+    "bf16-d384": ("attention", torch.bfloat16, 384, "simt"),
+    "fp16-d512": ("attention", torch.float16, 512, "simt"),
+    "bf16-d640": ("attention", torch.bfloat16, 640, "simt"),
+    "fp16-d768": ("attention", torch.float16, 768, "simt"),
+    "fp32-d768": ("attention", torch.float32, 768, "simt"),
+    "ffn-fp16": ("ffn", torch.float16, 3072, "hopper"),
+    "ffn-bf16-d_ff1000": ("ffn", torch.bfloat16, 1000, "hopper"),
+    "ffn-fp16-d_ff1036": ("ffn", torch.float16, 1036, "hopper"),
+    "ffn-fp32-d_ff1001": ("ffn", torch.float32, 1001, "fp32"),
+}
+
+
+@pytest.mark.parametrize("point", list(NEW_POINTS))
+def test_each_new_point_goes_to_the_kernel_its_table_names(point):
+    kind, dtype, width, route = NEW_POINTS[point]
+    if kind == "attention":
+        assert cuda_attention.kernel_for(dtype, width) == route
+        assert (dtype, width) in (cuda_attention.HOPPER_TAKES if route.startswith("hopper")
+                                  else cuda_attention.SIMT_TAKES)
+    else:
+        assert cuda_ffn.kernel_for(dtype, 768, width) == route
+        w1, b1, w2 = cuda_ffn.padded_weights(torch.ones(width, 768), torch.ones(width), torch.ones(768, width))
+        assert w1.shape[0] % cuda_ffn.TILE == 0 and w1.shape[0] - width < cuda_ffn.TILE
+        assert torch.equal(w1[:width], torch.ones(width, 768)) and not w1[width:].any() and not b1[width:].any()
+        assert w2.shape == (768, w1.shape[0]) and not w2[:, width:].any()
+
+
 def test_what_the_card_still_refuses():
-    """Outside the model's dtypes and head dims: fp16 and head dims past 256
-    (JAX's gate would send them; ROADMAP lists them as what still raises)."""
-    with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.kernel_for(torch.float32, 384)
-    with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.kernel_for(torch.float16, 128)
-    with pytest.raises(ValueError, match="bf16 or fp32"):
-        cuda_ffn.kernel_for(torch.float16, 768, 3072)
+    """The one limit left: K5 past head dim 768 (the CUDA-core backward's
+    tiles outgrow one block's shared memory), which the error names; and
+    what JAX's gates never send (a head dim off 128, a d off 128, fp64)."""
+    for D in (896, 1024):
+        for dtype in DTYPES:
+            with pytest.raises(ValueError, match="up to 768"):
+                cuda_attention.kernel_for(dtype, D)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cuda_attention.kernel_for(torch.bfloat16, 192)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        cuda_attention.kernel_for(torch.float64, 128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_ffn.kernel_for(torch.float16, 200, 800)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        cuda_ffn.kernel_for(torch.float64, 768, 3072)
+
+
+def test_k5_plain_fp16_matches_jax_vjp_of_the_interpret_kernel():
+    """fp16 q, k, v at head dim 128 (1 head, 70 x 90, a mask), through both
+    packages' `_flash_attention`. Both round p and the output to fp16 at the
+    same points, from fp32 sums in other orders: out within 2^-10 of its
+    largest element (one fp16 ulp of it), each gradient within 2^-9 of its
+    largest (JAX's backward rounds its fp32 results to fp16 once, the port's
+    plain version too)."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _attention_inputs(70, 90, 128, seed=16)
+    jq, jk, jv, jdo = (a.astype(jnp.float16) for a in (jq, jk, jv, jdo))
+    tq, tk, tv, tdo = (t.half() for t in (tq, tk, tv, tdo))
+    mask = np.where(np.random.default_rng(1).random((70, 90)) < 0.2, -1e4, 0.0).astype(np.float32)[None, None]
+    ref, vjp = jax.vjp(lambda q, k, v: JT._flash_attention(q, k, v, jnp.asarray(mask)), jq, jk, jv)
+    ref_grads = vjp(jdo)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    assert cuda_attention.kernel_for(tq.dtype, 128) == "hopper"
+    out = TT._flash_attention(tq, tk, tv, torch.from_numpy(mask))
+    out.backward(tdo)
+    ref = np.asarray(ref).astype(np.float32)
+    assert out.dtype == torch.float16
+    np.testing.assert_allclose(out.detach().float().numpy(), ref, atol=2**-10 * np.abs(ref).max(), rtol=0)
+    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads):
+        r = np.asarray(r).astype(np.float32)
+        assert t.grad.dtype == torch.float16, name
+        np.testing.assert_allclose(t.grad.float().numpy(), r, atol=2**-9 * np.abs(r).max(), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d_ff", [1000, 1036])
+def test_k4_plain_at_any_d_ff_matches_pallas_interpret(d_ff):
+    """K4's plain version (fp32, the model's dropout 0.1) against the JAX
+    kernel in interpret mode at widths of the hidden that are not multiples
+    of 128 (1000, 1036), through
+    `ffn_dropout_block` on both sides; tolerances as the fp32 test above."""
+    kp, kx, kh, ko = jax.random.split(jax.random.PRNGKey(d_ff), 4)
+    p = JT.ffn_init(kp, D_K4, d_ff)
+    x = jax.random.normal(kx, (2, 37, D_K4), jnp.float32)
+
+    def jloss(p, x):
+        return jnp.sum(jnp.sin(JT.ffn_dropout_block(p, x, RATE, kh, ko, interpret=True)))
+
+    ref = np.asarray(JT.ffn_dropout_block(p, x, RATE, kh, ko, interpret=True))
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(p, x)
+    layer = torch.nn.Module()
+    layer.linear1, layer.linear2 = torch.nn.Linear(D_K4, d_ff), torch.nn.Linear(d_ff, D_K4)
+    with torch.no_grad():
+        for name in ("linear1", "linear2"):
+            getattr(layer, name).weight.copy_(torch.from_numpy(np.asarray(p[name]["w"]).T.copy()))
+            getattr(layer, name).bias.copy_(torch.from_numpy(np.array(p[name]["b"])))
+    tx = torch.from_numpy(np.array(x)).requires_grad_()
+    words = [tuple(int(w) for w in np.asarray(jax.random.key_data(k)).reshape(-1)) for k in (kh, ko)]
+    assert cuda_ffn.kernel_for(tx.dtype, D_K4, d_ff) == "fp32"
+    out = TT.ffn_dropout_block(layer, tx, RATE, *words)
+    np.testing.assert_array_equal(out.detach().numpy() == 0.0, ref == 0.0)
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-5, atol=2e-5)
+    torch.sin(out).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-4)
+    for name in ("linear1", "linear2"):
+        mod = getattr(layer, name)
+        np.testing.assert_allclose(mod.weight.grad.numpy().T, np.asarray(gp[name]["w"]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(mod.bias.grad.numpy(), np.asarray(gp[name]["b"]), rtol=1e-4, atol=1e-4)
+
+
+def test_wide_head_model_greedy_tokens_equal_jax():
+    """The small model at d 384 with 1 head (head dim 384, which the card's
+    K5 and attention_rows now take): JAX decodes from the memory its Pallas
+    kernels (interpret mode) produce, the port runs its kernels' plain
+    versions; greedy tokens equal at fp32."""
+    kw = dict(SMALL, nhead=1, d_query=384)
+    params, jcfg, model, tcfg = _build(kw, seed=3)
+    assert tcfg.d_model // tcfg.nhead == 384 and cuda_attention.kernel_for(torch.float32, 384) == "simt"
+    params["decoder"]["generator"]["w"] = params["decoder"]["generator"]["w"] * 4.0
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)), strict=True)
+    rng = np.random.default_rng(4)
+    w = (rng.normal(size=(2, jcfg.chunk_samples)) * 0.3).astype(np.float32)
+    memory = jax_flags_on_memory(params, jcfg, w)
+    ref = np.asarray(jdecode.greedy_decode_from_memory(params, memory, jcfg, 12))
+    out = tdecode.greedy_decode(model, torch.from_numpy(w), max_length=12)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert len(np.unique(ref[:, 1:])) > 1
