@@ -43,7 +43,14 @@
 // at d 768: the mma design's ring and partials outgrow shared memory and its
 // registers there), take the simple CUDA-core kernel, a template on T: a
 // block a query row, a warp a key, a thread an output dim, t ascending, p
-// rounded to T before p . v as the plain version rounds it.
+// rounded to T before p . v as the plain version rounds it. Its query row
+// and scores sit in static shared arrays up to head dim 1,024 and 4,096
+// keys; past either, `attention_rows_f32_wide` runs the same body on dynamic
+// shared memory (the one-kernel form on dynamic memory ran the 2-head-of-384
+// decode row 31% slower on an H100, so the old shapes keep the static
+// arrays). It takes any head dim and key count whose sum fits one block's
+// 232,448 B (55,808 keys at head dim 2,048); the 16-bit mma design sends
+// the keys it cannot hold at one query row a block to it as well.
 
 #include "hopper.cuh"
 
@@ -59,9 +66,7 @@ using hopper::ldmatrix_x4;
 using hopper::ldmatrix_x4_trans;
 using hopper::mma_16816;
 
-constexpr int MAX_KEYS = 4096;
 constexpr int MMA_MAX_HD = 256;  // the mma design's head dims
-constexpr int MAX_HD = 1024;     // the CUDA-core kernel's
 constexpr int SMEM_MAX = 232448;
 
 constexpr int THREADS = 256, WARPS = THREADS / 32;
@@ -267,15 +272,15 @@ attention_rows_bf16(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // (t ascending); the scores in shared memory; p rounded to T (a no-op in
 // fp32), the output to T.
 constexpr int F32_THREADS = 128, F32_WARPS = F32_THREADS / 32;
+constexpr int F32_HD = 1024, F32_KEYS = 4096;  // the static arrays' sizes
+constexpr int F32_MAX_FLOATS = (SMEM_MAX - 1024) / 4;  // hd + keys in dynamic shared memory
 
+// the body of both: `qs` holds the query row (hd), `p` the scores (n_keys)
 template <typename T>
-__global__ void __launch_bounds__(F32_THREADS)
-attention_rows_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
-                   int hd, float scale) {
-  __shared__ float qs[MAX_HD];
-  __shared__ float p[MAX_KEYS];
-  __shared__ float red[F32_WARPS];
+__device__ __forceinline__ void rows_f32(float* qs, float* p, float* red, const T* __restrict__ q,
+                                         const T* __restrict__ k, const T* __restrict__ v,
+                                         const float* __restrict__ mask, T* __restrict__ out, Strides st,
+                                         int H, int Tq, int n_keys, int hd, float scale) {
   const int i = blockIdx.y, h = blockIdx.x % H, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long n = blockIdx.x / H;
   const T* qr = q + n * st.q[0] + h * st.q[1] + i * st.q[2];
@@ -327,6 +332,27 @@ attention_rows_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(F32_THREADS)
+attention_rows_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
+                   int hd, float scale) {
+  __shared__ float qs[F32_HD];
+  __shared__ float p[F32_KEYS];
+  __shared__ float red[F32_WARPS];
+  rows_f32<T>(qs, p, red, q, k, v, mask, out, st, H, Tq, n_keys, hd, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(F32_THREADS)
+attention_rows_f32_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
+                        int hd, float scale) {
+  extern __shared__ float dyn[];
+  __shared__ float red[F32_WARPS];
+  rows_f32<T>(dyn, dyn + hd, red, q, k, v, mask, out, st, H, Tq, n_keys, hd, scale);
+}
+
 template <typename T, int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
                 int H, int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
@@ -347,16 +373,28 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* m, voi
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
                 int H, int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
-  attention_rows_f32<T><<<dim3(N * H, Tq), F32_THREADS, 0, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                                static_cast<const T*>(v), m, static_cast<T*>(out), st,
-                                                                H, Tq, n_keys, hd, scale);
+  if (static_cast<long long>(hd) + n_keys > F32_MAX_FLOATS) return static_cast<int>(cudaErrorInvalidValue);
+  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k), *vp = static_cast<const T*>(v);
+  const dim3 grid(N * H, Tq);
+  if (hd <= F32_HD && n_keys <= F32_KEYS) {
+    attention_rows_f32<T><<<grid, F32_THREADS, 0, s>>>(qp, kp, vp, m, static_cast<T*>(out), st, H, Tq, n_keys, hd,
+                                                       scale);
+  } else {
+    static hopper::SmemLimit limit;
+    if (const int e = limit.ensure(attention_rows_f32_wide<T>, 4 * F32_MAX_FLOATS)) return e;
+    attention_rows_f32_wide<T><<<grid, F32_THREADS, 4 * (hd + n_keys), s>>>(qp, kp, vp, m, static_cast<T*>(out), st,
+                                                                            H, Tq, n_keys, hd, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_16(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N, int H,
               int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
-  if (hd > MMA_MAX_HD) return launch_simt<T>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  // head dims past the mma design's, and keys past what it holds at one query row a block
+  const int hdp = hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+  if (hd > MMA_MAX_HD || smem_bytes(hdp, 1, (n_keys + KT - 1) / KT) > SMEM_MAX)
+    return launch_simt<T>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
   const auto aligned = [](const void* p, long long stride) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 8 == 0;
   };
@@ -371,8 +409,9 @@ int launch_16(const void* q, const void* k, const void* v, const float* m, void*
 
 }  // namespace
 
-extern "C" int attention_rows_max_keys() { return MAX_KEYS; }
-extern "C" int attention_rows_max_head_dim() { return MAX_HD; }
+// The most of hd + keys the CUDA-core kernel holds in shared memory (the
+// mma design sends it the keys it cannot hold).
+extern "C" int attention_rows_max_floats() { return F32_MAX_FLOATS; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. q (N, H, Tq, hd), k and v
 // (N, H, Tk, hd) of `dtype` (0: fp32, 1: bf16, 2: fp16) with the strides
@@ -380,14 +419,15 @@ extern "C" int attention_rows_max_head_dim() { return MAX_HD; }
 // and a contiguous last dim; `mask` null or fp32 with the strides of its
 // (N, H, Tq, Tk) broadcast in `strides[9:13]`; `out` a contiguous
 // (N, H, Tq, hd) of `dtype`. Only keys 0..n_keys-1 are read
-// (1 <= n_keys <= Tk <= 4096). hd <= 1024; bf16 and fp16 at hd <= 256 (the
-// mma design): hd % 8 == 0 and 16-byte aligned pointers and row strides;
-// N * H < 2^31.
+// (1 <= n_keys <= Tk); hd + n_keys <= attention_rows_max_floats(); bf16 and
+// fp16 at hd <= 256 (the mma design): hd % 8 == 0 and 16-byte aligned
+// pointers and row strides; N * H < 2^31.
 extern "C" int launch_attention_rows(const void* q, const void* k, const void* v, const void* mask, void* out,
                                      const long long* strides, int N, int H, int Tq, int Tk, int n_keys, int hd,
                                      float scale, int dtype, void* stream) {
-  if (N < 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tk > MAX_KEYS || n_keys <= 0 || n_keys > Tk || hd <= 0 ||
-      hd > MAX_HD || static_cast<long long>(N) * H > 0x7fffffffLL || Tq > 65535 || dtype < 0 || dtype > 2)
+  if (N < 0 || H <= 0 || Tq <= 0 || Tk <= 0 || n_keys <= 0 || n_keys > Tk || hd <= 0 ||
+      static_cast<long long>(hd) + n_keys > F32_MAX_FLOATS || static_cast<long long>(N) * H > 0x7fffffffLL ||
+      Tq > 65535 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   Strides st;

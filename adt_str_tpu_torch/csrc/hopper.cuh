@@ -292,6 +292,36 @@ __device__ __forceinline__ void mma_64x64_ss(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 64) += A (64 x 16, K-major, shared) B (16 x 64, MN-major in
+// shared memory: the transpose-B bit).
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void mma_64x64_ss_tb(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (is_half<T>)
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 128) += A (64 x 16, K-major, shared) B^T (B 128 x 16, K-major, shared).
 template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_64x128_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {

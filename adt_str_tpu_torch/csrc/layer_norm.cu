@@ -30,6 +30,10 @@
 //     memory (bf16 and fp32 at stride 32 are free of bank conflicts), keeps
 //     them in registers (32 a lane, d <= 1024) between the passes, writes
 //     y's row back into its staging buffer and out with 16-byte stores;
+//   - past d 1,024 a row no longer fits a lane's registers:
+//     `layer_norm_wide_kernel` reads each lane's elements from device
+//     memory (L2 after the first pass) on each of the three passes instead,
+//     with the same sums in the same order (at any d: no shared memory);
 //   - rows a block (warps) by row count, which touches no sum: 8 while the
 //     grid keeps at least two blocks an SM (the encoder's 16 x 246 = 3,936
 //     rows: 492 blocks), else halved down to 1, so the decode's 16 rows run
@@ -140,6 +144,38 @@ layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ res, const floa
   }
 }
 
+// Past 32 * MAXV values a row: the same arithmetic in the same order, each
+// pass reading the lane's elements l, l + 32, ... from device memory.
+template <typename T, bool kResidual>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+layer_norm_wide_kernel(const T* __restrict__ x, const T* __restrict__ res, const float* __restrict__ w,
+                       const float* __restrict__ b, T* __restrict__ y, long long rows, int d, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (row >= rows) return;
+  const T* xr = x + row * d;
+  const T* rr = kResidual ? res + row * d : nullptr;
+  auto value = [&](int i) {
+    if constexpr (kResidual)
+      return to_float(from_float<T>(__fadd_rn(to_float(xr[i]), to_float(rr[i]))));
+    else
+      return to_float(xr[i]);
+  };
+  float s = 0.f;
+  for (int i = lane; i < d; i += 32) s = __fadd_rn(s, value(i));
+  const float mean = __fdiv_rn(warp_sum(s), static_cast<float>(d));
+  float q = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float v = __fsub_rn(value(i), mean);
+    q = __fadd_rn(q, __fmul_rn(v, v));
+  }
+  const float var = __fdiv_rn(warp_sum(q), static_cast<float>(d));
+  const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+  T* yr = y + row * d;
+  for (int i = lane; i < d; i += 32)
+    yr[i] = from_float<T>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(value(i), mean), rstd), w[i]), b[i]));
+}
+
 int smem_bytes(int d, int warps, int elem, bool residual) {
   const int dp = (d + 7) & ~7;
   return 2 * dp * 4 + warps * (residual ? 2 : 1) * dp * elem;
@@ -159,11 +195,17 @@ int launch(const void* x, const void* r, const float* w, const float* b, void* y
       return static_cast<int>(e);
     if (dev < 64) sms[dev] = n_sm;
   }
+  int warps = MAX_WARPS;
+  while (warps > 1 && (rows + warps - 1) / warps < 2LL * n_sm) warps /= 2;
+  if (d > 32 * MAXV) {
+    const unsigned blocks = static_cast<unsigned>((rows + warps - 1) / warps);
+    layer_norm_wide_kernel<T, kResidual><<<blocks, warps * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(r), w, b, static_cast<T*>(y), rows, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (int err = limit.ensure(layer_norm_kernel<T, kResidual>,
                              smem_bytes(32 * MAXV, MAX_WARPS, sizeof(T), kResidual)))
     return err;
-  int warps = MAX_WARPS;
-  while (warps > 1 && (rows + warps - 1) / warps < 2LL * n_sm) warps /= 2;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
   const bool vec = (d * static_cast<int>(sizeof(T))) % 16 == 0 && d % 4 == 0 && aligned(x) && aligned(y) &&
                    aligned(w) && aligned(b) && (!kResidual || aligned(r));
@@ -175,14 +217,15 @@ int launch(const void* x, const void* r, const float* w, const float* b, void* y
 
 }  // namespace
 
-extern "C" int layer_norm_max_d() { return 32 * MAXV; }
+// The widest row whose values a lane keeps in registers; wider rows take `layer_norm_wide_kernel`.
+extern "C" int layer_norm_register_d() { return 32 * MAXV; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. `x`, `r` (nullptr:
 // layer_norm, else add_layer_norm) and `y` are contiguous (rows, d) of
-// `dtype` (0: fp32, 1: bf16, 2: fp16), `w` and `b` fp32 (d,); 0 < d <= 1024.
+// `dtype` (0: fp32, 1: bf16, 2: fp16), `w` and `b` fp32 (d,); d > 0.
 extern "C" int launch_layer_norm(const void* x, const void* r, const void* w, const void* b, void* y, long long rows,
                                  int d, float eps, int dtype, void* stream) {
-  if (d <= 0 || d > 32 * MAXV || rows < 0 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || rows < 0 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);

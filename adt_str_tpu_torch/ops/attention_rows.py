@@ -19,13 +19,19 @@ underflows to 0 in fp32, and a product with 0 adds nothing).
 `attention` is the wrapper the model calls:
 - a CPU tensor runs `attention_plain`;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes q, k, v of one dtype with 1..4,096 keys
-  and raises on anything else:
+  launches the kernel, which takes q, k, v of one dtype at any head dim and
+  key count whose sum fits one block's shared memory (`max_floats`: 57,856,
+  so 55,808 keys at head dim 2,048), and raises on anything else:
 
       dtype        head dim                 design in csrc/attention_rows.cu
-      bf16, fp16   1..256, a multiple of 8  cp.async ring into mma.sync
-      bf16, fp16   257..1,024               CUDA cores, a block a query row
-      fp32         1..1,024                 CUDA cores, a block a query row
+      bf16, fp16   1..256, a multiple of 8  cp.async ring into mma.sync (past
+                                            ~21,000 keys: the CUDA-core kernel)
+      bf16, fp16   past 256                 CUDA cores, a block a query row
+      fp32         any                      CUDA cores, a block a query row
+
+  (the configs JAX runs send at most `max_positions` encoder frames, 2,048
+  by default, and a decode's `max_length` keys: JAX's position table does
+  not take more frames);
 
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `attention_plain` under autograd: the kernel has no backward.
@@ -82,14 +88,14 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_attention_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
     lib.launch_attention_rows.restype = ctypes.c_int
-    lib.attention_rows_max_keys.restype = lib.attention_rows_max_head_dim.restype = ctypes.c_int
+    lib.attention_rows_max_floats.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _limits() -> tuple[int, int]:
-    """(most keys, largest head dim) the kernel takes."""
-    return _lib().attention_rows_max_keys(), _lib().attention_rows_max_head_dim()
+def max_floats() -> int:
+    """The most of head dim + keys the kernel holds in shared memory."""
+    return _lib().attention_rows_max_floats()
 
 
 def _kernel_layout(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
@@ -126,18 +132,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
     if not q.is_cuda:
         raise ValueError(f"attention runs on cpu or cuda tensors, not {q.device}")
     lib = _lib()
-    max_keys, max_hd = _limits()
+    most = max_floats()
     B, H, Tq, hd = q.shape
     Tk = k.shape[2]
     n_keys = Tk if valid_keys is None else valid_keys
     dtype = q.dtype
     if (dtype not in _DTYPE_CODE or k.dtype != dtype or v.dtype != dtype or k.shape != (B, H, Tk, hd)
-            or v.shape != k.shape or not 1 <= Tk <= max_keys or not 1 <= hd <= max_hd
+            or v.shape != k.shape or Tk < 1 or hd < 1 or hd + n_keys > most
             or (dtype != torch.float32 and hd <= MMA_MAX_HEAD_DIM and hd % 8) or not 1 <= n_keys <= Tk
             or (mask is not None and valid_keys is not None)):
         raise ValueError(f"the attention_rows kernel takes bf16 or fp16 (hd % 8 == 0 up to {MMA_MAX_HEAD_DIM}) or "
                          f"fp32 q (B, H, Tq, hd), k and v "
-                         f"(B, H, Tk, hd) with 1 <= Tk <= {max_keys}, hd <= {max_hd} and a mask or "
+                         f"(B, H, Tk, hd) with hd + the keys read <= {most} and a mask or "
                          f"1 <= valid_keys <= Tk; got q {dtype} {tuple(q.shape)}, k {k.dtype} {tuple(k.shape)}, "
                          f"v {v.dtype} {tuple(v.shape)}, valid_keys {valid_keys}, "
                          f"mask {None if mask is None else tuple(mask.shape)}")

@@ -28,17 +28,15 @@ discarded by the caller and their dq term is multiplied by k = 0.
 kernels for CUDA tensors, the plain versions for CPU tensors, and nothing
 else. On the card they take what JAX's gate sends its kernel (head dim a
 multiple of 128, any compute dtype): any Tq, Tk >= 1 in bf16, fp16 or fp32
-at every head dim that is a multiple of 128 up to `MAX_HEAD_DIM` (768)
+at every head dim that is a multiple of 128, with no upper limit
 (`kernel_for`):
 
     dtype        head dim     kernels (wrappers)
     bf16, fp16   128          attention.cu, attention_bwd.cu (fused_attention, fused_attention_bwd)
     bf16, fp16   256          the same sources at D 256 (fused_attention_d256, fused_attention_bwd_d256)
-    fp32         128..768     attention_simt.cu (fused_attention_simt, fused_attention_bwd_simt)
-    bf16, fp16   384..768     attention_simt.cu (the same)
+    bf16, fp16   384, 512...  attention_wide.cu (fused_attention_wide, fused_attention_bwd_wide)
+    fp32         128, 256...  attention_simt.cu (fused_attention_simt, fused_attention_bwd_simt)
 
-Past 768 the CUDA-core backward's fp32 tiles outgrow one block's 232,448 B
-of shared memory, and `kernel_for` raises a ValueError naming that limit.
 `FusedAttention` is the autograd Function around the two (the mask gets no
 gradient, as in JAX). Each wrapper's `launches` counts the launches of its
 own kernel.
@@ -54,34 +52,34 @@ import torch
 
 from adt_str_tpu_torch.ops import _build
 
-HALF_TYPES = (torch.bfloat16, torch.float16)
-MAX_HEAD_DIM = 768  # the CUDA-core backward's six fp32 tiles fill one block's 232,448 B of shared memory there
-# (dtype, head dim) pairs of csrc/attention.cu and attention_bwd.cu (`attention_takes`)
-HOPPER_TAKES = frozenset((t, d) for t in HALF_TYPES for d in (128, 256))
-# (dtype, head dim) pairs of csrc/attention_simt.cu (`attention_simt_takes`)
-SIMT_TAKES = frozenset({(torch.float32, d) for d in range(128, MAX_HEAD_DIM + 1, 128)}
-                       | {(t, d) for t in HALF_TYPES for d in range(384, MAX_HEAD_DIM + 1, 128)})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NEG_MASK = -1e4  # the score of a virtual (padded) key
+CHECKED_HEAD_DIMS = range(64, 4097, 64)  # where a library's `*_takes` is held to `kernel_for` when it loads
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The K5 kernels that take q, k, v of `dtype` and `head_dim` on the
     card, at any Tq, Tk >= 1: "hopper" (bf16 or fp16 at head dim 128: TMA +
-    wgmma), "hopper256" (bf16 or fp16 at 256: the same design at D 256) or
-    "simt" (fp32 at 128..768, bf16 and fp16 at 384..768: CUDA cores). Raises
-    a ValueError on any other dtype, on a head dim that is not a multiple of
-    128 (JAX's gate sends none), and past `MAX_HEAD_DIM`."""
+    wgmma), "hopper256" (bf16 or fp16 at 256: the same design at D 256),
+    "wide" (bf16 or fp16 at 384 and past: TMA + wgmma, the head dim streamed)
+    or "simt" (fp32 at every head dim: CUDA cores). Raises a ValueError on
+    any other dtype and on a head dim that is not a multiple of 128 (JAX's
+    gate sends none)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the attention kernels take bf16, fp16 or fp32 q, k, v; got {dtype}")
     if head_dim % 128 or head_dim < 128:
         raise ValueError(f"the attention kernels take head dims that are multiples of 128; got D={head_dim}")
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernels take head dims up to {MAX_HEAD_DIM}: past it the CUDA-core "
-                         f"backward's tiles outgrow one block's 232,448 B of shared memory; got D={head_dim}")
-    if (dtype, head_dim) in HOPPER_TAKES:
-        return "hopper" if head_dim == 128 else "hopper256"
-    return "simt"
+    if dtype == torch.float32:
+        return "simt"
+    return {128: "hopper", 256: "hopper256"}.get(head_dim, "wide")
+
+
+def routed(route: str) -> frozenset:
+    """The (dtype, head dim) pairs of `CHECKED_HEAD_DIMS` that `kernel_for`
+    sends to `route` ("hopper" and "hopper256" together: one source)."""
+    names = ("hopper", "hopper256") if route.startswith("hopper") else (route,)
+    return frozenset((t, d) for t in _DTYPE_CODE for d in CHECKED_HEAD_DIMS if d % 128 == 0
+                     and kernel_for(t, d) in names)
 
 
 def virtual_keys(tq: int, tk: int) -> int:
@@ -129,9 +127,9 @@ def attention_bwd_plain(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _takes(lib_takes) -> set:
-    """The (dtype, head dim) pairs a library's `*_takes(code, D)` accepts."""
-    return {(t, d) for t, code in _DTYPE_CODE.items() for d in range(64, 1025, 64) if lib_takes(code, d)}
+def _takes(lib_takes) -> frozenset:
+    """The (dtype, head dim) pairs of `CHECKED_HEAD_DIMS` a library's `*_takes(code, D)` accepts."""
+    return frozenset((t, d) for t, code in _DTYPE_CODE.items() for d in CHECKED_HEAD_DIMS if lib_takes(code, d))
 
 
 @functools.cache
@@ -142,7 +140,7 @@ def _lib() -> ctypes.CDLL:
     lib.launch_attention_fwd.restype = ctypes.c_int
     lib.attention_takes.argtypes = [i, i]
     lib.attention_takes.restype = ctypes.c_int
-    if _takes(lib.attention_takes) != HOPPER_TAKES:
+    if _takes(lib.attention_takes) != routed("hopper"):
         raise RuntimeError("csrc/attention.cu takes other dtypes or head dims than cuda_attention's")
     return lib
 
@@ -156,15 +154,16 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.attention_bwd_takes.argtypes = [i, i]
     lib.attention_bwd_key_tile.argtypes = [i]
     lib.attention_bwd_takes.restype = lib.attention_bwd_key_tile.restype = ctypes.c_int
-    if _takes(lib.attention_bwd_takes) != HOPPER_TAKES or any(
+    if _takes(lib.attention_bwd_takes) != routed("hopper") or any(
             lib.attention_bwd_key_tile(d) != bwd_key_tile(d) for d in (128, 256)):
         raise RuntimeError("csrc/attention_bwd.cu limits differ from cuda_attention's")
     return lib
 
 
 def bwd_key_tile(head_dim: int) -> int:
-    """Keys of csrc/attention_bwd.cu's key tile (`Shape<D>::BK`): past one
-    tile dq is summed in an fp32 scratch."""
+    """Keys of the tensor-core backward's key tile (csrc/attention_bwd.cu's
+    `Shape<D>::BK`, csrc/attention_wide.cu's `BK`): past one tile dq is
+    summed in an fp32 scratch."""
     return 64 if head_dim == 256 else 128
 
 
@@ -178,8 +177,23 @@ def _simt_lib() -> ctypes.CDLL:
     lib.launch_attention_simt_bwd.restype = ctypes.c_int
     lib.attention_simt_takes.argtypes = [i, i]
     lib.attention_simt_takes.restype = ctypes.c_int
-    if _takes(lib.attention_simt_takes) != SIMT_TAKES:
+    if _takes(lib.attention_simt_takes) != routed("simt"):
         raise RuntimeError("csrc/attention_simt.cu takes other dtypes or head dims than cuda_attention's")
+    return lib
+
+
+@functools.cache
+def _wide_lib() -> ctypes.CDLL:
+    lib = _build.load("attention_wide")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.launch_attention_wide_fwd.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.launch_attention_wide_fwd.restype = ctypes.c_int
+    lib.launch_attention_wide_bwd.argtypes = [p] * 13 + [i] * 6 + [f, p]
+    lib.launch_attention_wide_bwd.restype = ctypes.c_int
+    lib.attention_wide_takes.argtypes = [i, i]
+    lib.attention_wide_takes.restype = lib.attention_wide_key_tile.restype = ctypes.c_int
+    if _takes(lib.attention_wide_takes) != routed("wide") or lib.attention_wide_key_tile() != bwd_key_tile(384):
+        raise RuntimeError("csrc/attention_wide.cu takes other dtypes, head dims or key tiles than cuda_attention's")
     return lib
 
 
@@ -206,8 +220,9 @@ def _mask_arg(mask, device):
     return None if mask is None else mask.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _tensor_core_fwd(q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5f on the tensor cores (`csrc/attention.cu` at q's dtype and head dim)."""
+def _launch_fwd(entry, what: str, q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A K5f entry point (`launch_attention*_fwd`: every source takes the
+    same arguments) at q's dtype and head dim -> (out, lse)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -215,10 +230,9 @@ def _tensor_core_fwd(q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch
     out = torch.empty_like(q)
     lse = torch.empty((B, H, 1, Tq), dtype=torch.float32, device=q.device)
     err = _build.launch(
-        q.device, _lib().launch_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H,
-        Tq, Tk, n_virtual, 1.0 / math.sqrt(D))
-    _build.check(err, "attention_fwd")
+        q.device, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H, Tq, Tk, n_virtual, 1.0 / math.sqrt(D))
+    _build.check(err, what)
     return out, lse
 
 
@@ -235,7 +249,9 @@ def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
         return fused_attention_simt(q, k, v, mask, n_virtual)
     if route == "hopper256":
         return fused_attention_d256(q, k, v, mask, n_virtual)
-    out, lse = _tensor_core_fwd(q, k, v, mask, n_virtual)
+    if route == "wide":
+        return fused_attention_wide(q, k, v, mask, n_virtual)
+    out, lse = _launch_fwd(_lib().launch_attention_fwd, "attention_fwd", q, k, v, mask, n_virtual)
     fused_attention.launches += 1
     return out, lse
 
@@ -252,7 +268,7 @@ def fused_attention_d256(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.
         return attention_plain(q, k, v, mask, n_virtual)
     if kernel_for(q.dtype, D) != "hopper256":
         raise ValueError(f"the head-dim-256 attention kernels do not take {q.dtype} at D={D}")
-    out, lse = _tensor_core_fwd(q, k, v, mask, n_virtual)
+    out, lse = _launch_fwd(_lib().launch_attention_fwd, "attention_fwd", q, k, v, mask, n_virtual)
     fused_attention_d256.launches += 1
     return out, lse
 
@@ -261,28 +277,38 @@ fused_attention_d256.launches = 0
 
 
 def fused_attention_simt(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5f on the CUDA cores (`csrc/attention_simt.cu`) for the pairs of
-    `SIMT_TAKES` (`fused_attention` sends them here); `attention_plain`
-    for CPU tensors."""
+    """K5f on the CUDA cores (`csrc/attention_simt.cu`: fp32 at every head
+    dim; `fused_attention` sends those inputs here); `attention_plain` for
+    CPU tensors."""
     B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
     if kernel_for(q.dtype, D) != "simt":
         raise ValueError(f"the CUDA-core attention kernels do not take {q.dtype} at D={D}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    mask = _mask_arg(mask, q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, 1, Tq), dtype=torch.float32, device=q.device)
-    err = _build.launch(
-        q.device, _simt_lib().launch_attention_simt_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H,
-        Tq, Tk, n_virtual, 1.0 / math.sqrt(D))
-    _build.check(err, "attention_simt_fwd")
+    out, lse = _launch_fwd(_simt_lib().launch_attention_simt_fwd, "attention_simt_fwd", q, k, v, mask, n_virtual)
     fused_attention_simt.launches += 1
     return out, lse
 
 
 fused_attention_simt.launches = 0
+
+
+def fused_attention_wide(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5f on the tensor cores past head dim 256 (`csrc/attention_wide.cu`:
+    bf16 or fp16, the head dim streamed 64 columns a stage, out formed 128
+    columns at a time; `fused_attention` sends those inputs here);
+    `attention_plain` for CPU tensors."""
+    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask, n_virtual)
+    if kernel_for(q.dtype, D) != "wide":
+        raise ValueError(f"the wide-head attention kernels do not take {q.dtype} at D={D}")
+    out, lse = _launch_fwd(_wide_lib().launch_attention_wide_fwd, "attention_wide_fwd", q, k, v, mask, n_virtual)
+    fused_attention_wide.launches += 1
+    return out, lse
+
+
+fused_attention_wide.launches = 0
 
 
 def _check_bwd(q, k, v, mask, out, lse, do) -> tuple[int, int, int, int, int]:
@@ -295,8 +321,10 @@ def _check_bwd(q, k, v, mask, out, lse, do) -> tuple[int, int, int, int, int]:
     return B, H, Tq, Tk, D
 
 
-def _tensor_core_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5b on the tensor cores (`csrc/attention_bwd.cu` at q's dtype and head dim)."""
+def _tensor_core_bwd(entry, what: str, q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A tensor-core K5b entry point (`launch_attention_bwd`,
+    `launch_attention_wide_bwd`: the same arguments) at q's dtype and head
+    dim, with its delta, dq and fp16 bound scratch."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
@@ -307,12 +335,11 @@ def _tensor_core_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.T
     # fp16: the largest do, out and v row norms of each (batch, head), which scale ds into fp16's range
     bound = torch.zeros((B * H, 3), dtype=torch.float32, device=q.device) if q.dtype == torch.float16 else None
     err = _build.launch(
-        q.device, _bwd_lib().launch_attention_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(), None if bound is None else bound.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
+        q.device, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+        None if bound is None else bound.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODE[q.dtype], D, B, H, Tq, Tk, 1.0 / math.sqrt(D))
-    _build.check(err, "attention_bwd")
+    _build.check(err, what)
     return dq, dk, dv
 
 
@@ -331,7 +358,9 @@ def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
         return fused_attention_bwd_simt(q, k, v, mask, out, lse, do)
     if route == "hopper256":
         return fused_attention_bwd_d256(q, k, v, mask, out, lse, do)
-    grads = _tensor_core_bwd(q, k, v, mask, out, lse, do)
+    if route == "wide":
+        return fused_attention_bwd_wide(q, k, v, mask, out, lse, do)
+    grads = _tensor_core_bwd(_bwd_lib().launch_attention_bwd, "attention_bwd", q, k, v, mask, out, lse, do)
     fused_attention_bwd.launches += 1
     return grads
 
@@ -348,7 +377,7 @@ def fused_attention_bwd_d256(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor,
         return attention_bwd_plain(q, k, v, mask, out, lse, do)
     if kernel_for(q.dtype, D) != "hopper256":
         raise ValueError(f"the head-dim-256 attention backward does not take {q.dtype} at D={D}")
-    grads = _tensor_core_bwd(q, k, v, mask, out, lse, do)
+    grads = _tensor_core_bwd(_bwd_lib().launch_attention_bwd, "attention_bwd", q, k, v, mask, out, lse, do)
     fused_attention_bwd_d256.launches += 1
     return grads
 
@@ -359,7 +388,7 @@ fused_attention_bwd_d256.launches = 0
 def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5b on the CUDA cores (`csrc/attention_simt.cu`: the delta pass, a
     dk/dv kernel over key tiles and a dq kernel over query tiles, no
-    atomics) for the pairs of `SIMT_TAKES`; `attention_bwd_plain` for CPU
+    atomics) for fp32 at every head dim; `attention_bwd_plain` for CPU
     tensors."""
     B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
     if q.device.type == "cpu":
@@ -380,6 +409,25 @@ def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor,
 
 
 fused_attention_bwd_simt.launches = 0
+
+
+def fused_attention_bwd_wide(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b on the tensor cores past head dim 256 (`csrc/attention_wide.cu`:
+    the delta pass, then a block a (batch, head, 128-column chunk) that walks
+    the key and query tiles; dq's partial sums over key tiles meet in a fixed
+    order in an fp32 scratch, so two calls give the same bits);
+    `attention_bwd_plain` for CPU tensors."""
+    B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, mask, out, lse, do)
+    if kernel_for(q.dtype, D) != "wide":
+        raise ValueError(f"the wide-head attention backward does not take {q.dtype} at D={D}")
+    grads = _tensor_core_bwd(_wide_lib().launch_attention_wide_bwd, "attention_wide_bwd", q, k, v, mask, out, lse, do)
+    fused_attention_bwd_wide.launches += 1
+    return grads
+
+
+fused_attention_bwd_wide.launches = 0
 
 
 class FusedAttention(torch.autograd.Function):

@@ -12,8 +12,10 @@ the sum rounded to `x`'s dtype first, as ATen's add rounds it, so the fused
 call is bit-equal to `layer_norm(x + r)`) are the wrappers the model calls:
 - a CPU tensor runs the plain version;
 - a CUDA tensor on the inference path (no autograd graph being recorded)
-  launches the kernel, which takes fp32, bf16 or fp16 rows of at most 1,024 and
-  raises on anything else;
+  launches the kernel, which takes fp32, bf16 or fp16 rows of any width
+  (a lane keeps its values in registers up to d 1,024; wider rows are read
+  again from device memory on each pass, with the same sums in the same
+  order) and raises on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs the plain version under autograd: the kernel has no backward.
 `layer_norm.launches` counts the kernel's launches from both wrappers.
@@ -59,7 +61,6 @@ def _lib() -> ctypes.CDLL:
     lib.launch_layer_norm.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                       p]
     lib.launch_layer_norm.restype = ctypes.c_int
-    lib.layer_norm_max_d.restype = ctypes.c_int
     return lib
 
 
@@ -69,11 +70,9 @@ def _launch(x: torch.Tensor, r: Optional[torch.Tensor], weight: torch.Tensor, bi
     if not x.is_cuda:
         raise ValueError(f"layer_norm runs on cpu or cuda tensors, not {x.device}")
     d = x.shape[-1]
-    lib = _lib()
-    max_d = lib.layer_norm_max_d()
-    if (x.dtype not in _DTYPE_CODE or not 0 < d <= max_d or weight.shape != (d,) or bias.shape != (d,)
+    if (x.dtype not in _DTYPE_CODE or d < 1 or weight.shape != (d,) or bias.shape != (d,)
             or (r is not None and (r.shape != x.shape or r.dtype != x.dtype))):
-        raise ValueError(f"the layer_norm kernel takes fp32, bf16 or fp16 rows of 1..{max_d} (a residual of x's shape and "
+        raise ValueError(f"the layer_norm kernel takes fp32, bf16 or fp16 rows of d >= 1 (a residual of x's shape and "
                          f"dtype) with (d,) weight and bias; got {x.dtype} {tuple(x.shape)}, residual "
                          f"{None if r is None else (r.dtype, tuple(r.shape))}, weight {tuple(weight.shape)}")
     device = x.device

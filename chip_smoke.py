@@ -978,6 +978,8 @@ def attention_wrappers(dtype, head_dim: int) -> tuple:
     route = cuda_attention.kernel_for(dtype, head_dim)
     if route == "simt":
         return cuda_attention.fused_attention_simt, cuda_attention.fused_attention_bwd_simt
+    if route == "wide":
+        return cuda_attention.fused_attention_wide, cuda_attention.fused_attention_bwd_wide
     if route == "hopper256":
         return cuda_attention.fused_attention_d256, cuda_attention.fused_attention_bwd_d256
     return cuda_attention.fused_attention, cuda_attention.fused_attention_bwd
@@ -988,13 +990,13 @@ def attention_tols(dtype, head_dim: int) -> tuple[float, float]:
     largest element). bf16 on the tensor cores: p rounds to bf16 on both
     sides and a rare ulp flip moves out by ~1 bf16 ulp (1.6e-2); the
     backward's bf16 p and ds (2^-9) and bf16 outputs (2^-8): 2^-6. The
-    CUDA-core kernels: fp32, other summation orders, 1e-5 and 1e-5; bf16 and
-    fp16 past head dim 256: out as above, gradients from fp32 p and ds
-    rounded once (2^-8). fp16 is held to bf16's tolerances (no looser); the head-dim-256
-    tensor-core kernels to the head-dim-128 ones'."""
+    CUDA-core kernels (fp32 only): other summation orders, 1e-5 and 1e-5.
+    fp16 is held to bf16's tolerances (no looser); the head-dim-256 and
+    wide tensor-core kernels, which keep the same rounding points, to the
+    head-dim-128 ones'."""
     if cuda_attention.kernel_for(dtype, head_dim) != "simt":
         return 1.6e-2, 2.0**-6
-    return (1e-5, 1e-5) if dtype == torch.float32 else (1.6e-2, 2.0**-8)
+    return 1e-5, 1e-5
 
 
 def _sdpa(q, k, v, mask, n_virtual):
@@ -1047,7 +1049,9 @@ def _sdpa_grads(out, q, k, v, do):
 
 def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: str, heads: int = 6,
                         head_dim: int = 128, dtype=torch.bfloat16) -> dict:
-    """K5b at one shape and dtype, on the forward kernel's out and lse."""
+    """K5b at one shape and dtype, on the forward kernel's out and lse: held
+    to its plain version, and bit-equal across two calls (every backward
+    kernel is deterministic)."""
     n_virtual = cuda_attention.virtual_keys(tq, tk)
     inputs = []
     for _ in range(REPS):
@@ -1059,10 +1063,14 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
     wrapper = attention_wrappers(dtype, head_dim)[1]
     before = wrapper.launches
     got = cuda_attention.fused_attention_bwd(*inputs[0])
+    again = cuda_attention.fused_attention_bwd(*inputs[0])
     refs = cuda_attention.attention_bwd_plain(*inputs[0])
     torch.cuda.synchronize()
-    if wrapper.launches != before + 1:
+    if wrapper.launches != before + 2:
         raise RuntimeError(f"{wrapper.__name__} did not launch its kernels")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{wrapper.__name__} gave other bits on a second call at {shape}")
+    del again
     tol_rel = attention_tols(dtype, head_dim)[1]
     errs = {n: (g.float() - r.float()).abs() for n, g, r in zip(("dq", "dk", "dv"), got, refs)}
     scale = {n: r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), refs)}
@@ -1509,15 +1517,17 @@ def before_repair():
 
 def kernel_counters() -> dict:
     """The TPU kernels' wrappers, one a kernel variant: K1 by its route, K5 on
-    the tensor cores at head dim 128 or 256 or on the CUDA cores, K4 in
-    16-bit (bf16, fp16) or fp32."""
+    the tensor cores at head dim 128, 256 or past 256 (wide) or on the CUDA
+    cores (fp32), K4 in 16-bit (bf16, fp16) or fp32."""
     return {"log_mel": cuda_mel.log_mel, "log_mel_any_hop": cuda_mel.log_mel_any_hop,
             "log_mel_long_hop": cuda_mel.log_mel_long_hop, "fused_attention": cuda_attention.fused_attention,
             "fused_attention_bwd": cuda_attention.fused_attention_bwd,
             "fused_attention_d256": cuda_attention.fused_attention_d256,
             "fused_attention_bwd_d256": cuda_attention.fused_attention_bwd_d256,
             "fused_attention_simt": cuda_attention.fused_attention_simt,
-            "fused_attention_bwd_simt": cuda_attention.fused_attention_bwd_simt, "ffn_dropout": cuda_ffn.ffn_dropout,
+            "fused_attention_bwd_simt": cuda_attention.fused_attention_bwd_simt,
+            "fused_attention_wide": cuda_attention.fused_attention_wide,
+            "fused_attention_bwd_wide": cuda_attention.fused_attention_bwd_wide, "ffn_dropout": cuda_ffn.ffn_dropout,
             "ffn_dropout_fp32": cuda_ffn.ffn_dropout_fp32,
             "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
 
@@ -1567,7 +1577,10 @@ def _group(name: str) -> str:
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
                        ("attention_fwd_simt", "K5f attention fwd"), ("attention_dkdv_simt", "K5b attention bwd"),
-                       ("attention_dq_simt", "K5b attention bwd"), ("ffn_gemm_fp32", "K4 fused FFN"),
+                       ("attention_dq_simt", "K5b attention bwd"), ("attention_fwd_chunked", "K5f attention fwd"),
+                       ("attention_dkdv_chunked", "K5b attention bwd"), ("attention_dq_chunked", "K5b attention bwd"),
+                       ("wide_fwd_kernel", "K5f attention fwd"), ("wide_bwd_kernel", "K5b attention bwd"),
+                       ("wide_delta_kernel", "K5b attention bwd"), ("ffn_gemm_fp32", "K4 fused FFN"),
                        ("log_mel_", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
                        ("place_notes_kernel", "K3 note placement")):
         if key in name:
@@ -1596,7 +1609,8 @@ KERNEL_GROUPS = {"log_mel": "K1 log-mel", "log_mel_any_hop": "K1 log-mel", "log_
                  "ffn_dropout": "K4 fused FFN", "ffn_dropout_fp32": "K4 fused FFN",
                  "fused_attention": "K5f attention fwd", "fused_attention_simt": "K5f attention fwd",
                  "fused_attention_bwd": "K5b attention bwd", "fused_attention_bwd_simt": "K5b attention bwd",
-                 "fused_attention_d256": "K5f attention fwd", "fused_attention_bwd_d256": "K5b attention bwd"}
+                 "fused_attention_d256": "K5f attention fwd", "fused_attention_bwd_d256": "K5b attention bwd",
+                 "fused_attention_wide": "K5f attention fwd", "fused_attention_bwd_wide": "K5b attention bwd"}
 
 
 def device_time_by_group(events: list, launched: dict) -> dict:
@@ -3736,6 +3750,7 @@ LONG_REQUEST_SEC = 30.0
 LONG = {"shared": {"input_sec": LONG_SEC}}
 SR_44K1 = 44_100  # hop int(0.01 * 44100) = 441: K1's any_hop route
 LONG_HOP = {"sample_rate": 48_000, "time_res": 0.02}  # hop 960: a window past shared memory, K1's long_hop route
+PAST_OLD_LIMIT = (896, 1024, 2048)  # K5 head dims past the card's old limit of 768
 # the tensor-core kernels past 512 keys (the fp32 rows take `TRAIN_ATTENTION`'s shapes)
 LONG_ATTENTION = {"encoder-1014": (1014, 1014, False), "decoder-self-1023": (1023, 1023, True),
                   "cross-1023x1014": (1023, 1014, False)}
@@ -3842,21 +3857,32 @@ def phase_domain_kernels(gen) -> dict:
         key = f"{str(dtype)[6:]}-d256-decoder-self"
         att[key] = {"fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, key, 3, 256, dtype),
                     "bwd": phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, key, 3, 256, dtype)}
-    # fp16 at head dim 128 (the tensor-core kernels), and past 256 on the CUDA cores: 2 heads of 384 (the
-    # 2-head training and serving shapes) and 1 of 768 (the encoder at a serving bucket)
+    # fp16 at head dim 128 (the tensor-core kernels)
     for s, (tq, tk, causal) in TRAIN_ATTENTION.items():
         att[f"float16-{s}"] = {"fwd": phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"fp16 {s}",
                                                       dtype=torch.float16),
                                "bwd": phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"fp16 {s}",
                                                           dtype=torch.float16)}
-    att["bfloat16-d384-decoder-self"] = {
-        "fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, "bf16 d384 decoder self", 2, 384, torch.bfloat16),
-        "bwd": phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, "bf16 d384 decoder self", 2, 384,
-                                   torch.bfloat16)}
+    # past head dim 256 on the wide tensor-core kernels: 2 heads of 384 (the 2-head training shape) in bf16
+    # and fp16, the serving encoder at 2 heads of 384 and 1 of 768, 512 and 640, and past the old limit of
+    # 768 (896, 1,024, 2,048; fp32 there on the CUDA cores' chunked kernels) at a small batch
+    for dtype in (torch.bfloat16, torch.float16):
+        key = f"{str(dtype)[6:]}-d384-decoder-self"
+        att[key] = {"fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, key, 2, 384, dtype),
+                    "bwd": phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, key, 2, 384, dtype)}
     att["bfloat16-d384-encoder-serving"] = {
         "fwd": phase_attention(16, 246, 246, False, gen, "bf16 d384 encoder, B 16", 2, 384, torch.bfloat16)}
     att["float16-d768-encoder-serving"] = {
         "fwd": phase_attention(16, 246, 246, False, gen, "fp16 d768 encoder, B 16", 1, 768, torch.float16)}
+    for D in (512, 640):
+        key = f"bfloat16-d{D}-decoder-self-b16"
+        att[key] = {"fwd": phase_attention(16, 511, 511, True, gen, key, 2, D, torch.bfloat16),
+                    "bwd": phase_attention_bwd(16, 511, 511, True, gen, key, 2, D, torch.bfloat16)}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for D in PAST_OLD_LIMIT:
+            key = f"{str(dtype)[6:]}-d{D}-b2"
+            att[key] = {"fwd": phase_attention(2, 256, 256, True, gen, key, 1, D, dtype),
+                        "bwd": phase_attention_bwd(2, 256, 256, True, gen, key, 1, D, dtype)}
     for s, (tq, tk, causal) in LONG_ATTENTION.items():
         att[f"bf16-{s}"] = {"fwd": phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"bf16 {s}"),
                             "bwd": phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"bf16 {s}")}
@@ -3894,7 +3920,9 @@ def phase_repairs_fp16(gen, cfg: FrameworkConfig) -> dict:
 
 FP16 = {"compute_dtype": "float16"}
 THREE_HEADS = {"nhead": 3, "d_query": 256}  # d 768 at head dim 256: the head-dim-256 tensor-core K5
-TWO_HEADS = {"nhead": 2, "d_query": 384}  # d 768 at head dim 384: the CUDA-core K5 and attention_rows
+TWO_HEADS = {"nhead": 2, "d_query": 384}  # d 768 at head dim 384: the wide tensor-core K5 and attention_rows
+WIDE_D = 2048  # d 2,048 at 1 head: K5 past head dim 768, LayerNorm and attention_rows past 1,024
+ONE_WIDE_HEAD = {"nhead": 1, "d_query": WIDE_D}
 VARIANT_STEPS = 3
 
 
@@ -3932,20 +3960,22 @@ def greedy_alone_vs_batch(cfg: FrameworkConfig, batch: int = 16) -> dict:
 
 
 def phase_fp16_and_wide_heads(gen) -> dict:
-    """The paths that run this slice's variants at full width: 3 TMIDT-flash
-    steps at 3 heads of 256 (bf16: the head-dim-256 tensor-core K5f and
-    K5b); 3 steps each of TMIDT-flash and TMIDT-fused-ffn at fp16 (K5 and
-    K4 at fp16; every step held as `run_training` holds fp16 in lockstep);
-    the serving config at fp16 and at 2 heads of 384 (3 x 10 s requests
-    each, tokens held to the plain path's), and at each 8 chunks decoded
-    alone and in a batch of 16, bit-equal."""
+    """The paths that run the fp16 and wide-head variants at full width: 3
+    TMIDT-flash steps at 3 heads of 256 (bf16: the head-dim-256
+    tensor-core K5f and K5b) and at 2 heads of 384 (the wide tensor-core
+    K5f and K5b); 3 steps each of TMIDT-flash and TMIDT-fused-ffn at fp16
+    (K5 and K4 at fp16; every step held as `run_training` holds fp16 in
+    lockstep); the serving config at fp16 and at 2 heads of 384 (3 x 10 s
+    requests each, tokens held to the plain path's), and at each 8 chunks
+    decoded alone and in a batch of 16, bit-equal."""
     t0 = time.monotonic()
     training = {"flash-3heads": phase_training_variant("flash", "training-3heads-flash", THREE_HEADS),
+                "flash-2heads": phase_training_variant("flash", "training-2heads-flash", TWO_HEADS),
                 **{f"{c}-fp16": phase_training_variant(c, f"training-fp16-{c}", FP16) for c in TRAIN_YAMLS}}
     fp16_cfg = load_config(SERVING_YAML, model=FP16)
     two_cfg = load_config(SERVING_YAML, model=TWO_HEADS)
     serving = {"fp16": phase_serving_variant("serving-fp16", fp16_cfg, ("log_mel", "fused_attention")),
-               "2heads": phase_serving_variant("serving-2heads", two_cfg, ("log_mel", "fused_attention_simt"))}
+               "2heads": phase_serving_variant("serving-2heads", two_cfg, ("log_mel", "fused_attention_wide"))}
     invariance = {"fp16": greedy_alone_vs_batch(fp16_cfg), "2heads": greedy_alone_vs_batch(two_cfg)}
     kept = ("losses", "grad_norms", "vs_plain_each_step", "launches", "median_step_ms")
     res = {"phase": "fp16_and_wide_heads", "training": {k: {f: v[f] for f in kept} for k, v in training.items()},
@@ -3955,10 +3985,54 @@ def phase_fp16_and_wide_heads(gen) -> dict:
         **{f"{k}: 8 chunks alone = in a batch of 16": v["equal"] for k, v in invariance.items()},
         "fp16: K1, K5f and the repair kernels launched": all(
             invariance["fp16"]["launches"][k] for k in ("log_mel", "fused_attention", *REPAIR_WRAPPERS)),
-        "2 heads: K1, the CUDA-core K5f and the repair kernels launched": all(
-            invariance["2heads"]["launches"][k] for k in ("log_mel", "fused_attention_simt", *REPAIR_WRAPPERS)),
+        "2 heads: K1, the wide tensor-core K5f and the repair kernels launched": all(
+            invariance["2heads"]["launches"][k] for k in ("log_mel", "fused_attention_wide", *REPAIR_WRAPPERS)),
+        "2 heads: the CUDA-core K5 not launched": not (invariance["2heads"]["launches"]["fused_attention_simt"]
+                                                       or training["flash-2heads"]["launches"]["fused_attention_simt"]),
+        "2-head training: the wide K5f and K5b launched 36 times each": all(
+            training["flash-2heads"]["launches"][k] == 36 for k in ("fused_attention_wide",
+                                                                     "fused_attention_bwd_wide")),
     })
     return {"training": training, "serving": serving, "invariance": invariance}
+
+
+def phase_wide_widths(gen, cfg: FrameworkConfig) -> dict:
+    """The widths past the card's old limits, end to end: LayerNorm, the
+    fused add and attention_rows at d / head dim 2,048 against their plain
+    versions (rows bit-equal at 1-64) and timed at the serving bucket's
+    decode step; then the serving config at d_model 2,048 with 1 head of
+    2,048 (4 + 4 layers, seeded weights): 3 x 10 s requests through the
+    HTTP server (K1 and the wide K5f launched; encoder memory and greedy
+    tokens held to the plain path's, ties aside), and 8 chunks decoded
+    alone and in a batch of 16, bit-equal, with K5f wide, LayerNorm (past
+    1,024) and attention_rows (past 1,024) launched."""
+    t0 = time.monotonic()
+    bucket, L, S = main_path_bucket(cfg), cfg.inference.max_length, 246
+    kernels = {
+        "layer_norm": phase_layer_norm(gen, bucket, f"decode step at d {WIDE_D}, bucket {bucket}", d=WIDE_D),
+        "add_layer_norm": phase_add_layer_norm(gen, bucket, f"decode step at d {WIDE_D}, bucket {bucket}",
+                                               d=WIDE_D),
+        "attention_rows_self": phase_attention_rows(gen, bucket, 1, L, L // 2,
+                                                    f"bf16 decode self, 1 head of {WIDE_D}, bucket {bucket}",
+                                                    heads=1, hd=WIDE_D),
+        "attention_rows_cross_fp16": phase_attention_rows(gen, bucket, 1, S, None,
+                                                          f"fp16 decode cross, 1 head of {WIDE_D}, bucket {bucket}",
+                                                          dtype=torch.float16, heads=1, hd=WIDE_D),
+    }
+    wide_cfg = load_config(SERVING_YAML, model=ONE_WIDE_HEAD)
+    serving = phase_serving_variant("serving-d2048", wide_cfg, ("log_mel", "fused_attention_wide"))
+    invariance = greedy_alone_vs_batch(wide_cfg)
+    res = {"phase": "wide_widths", "d_model": wide_cfg.model.d_model, "nhead": wide_cfg.model.nhead,
+           "invariance": invariance, "serving_launches": serving["launches"], "wall_s": time.monotonic() - t0}
+    emit(res)
+    fail_unless("wide_widths", {
+        "d 2048: 8 chunks alone = in a batch of 16": invariance["equal"],
+        "d 2048: K1, the wide K5f, LayerNorm and attention_rows launched": all(
+            invariance["launches"][k] for k in ("log_mel", "fused_attention_wide", "layer_norm", "attention_rows")),
+        "d 2048: the CUDA-core K5 not launched": not (invariance["launches"]["fused_attention_simt"]
+                                                      or serving["launches"]["fused_attention_simt"]),
+    })
+    return {"kernels": kernels, "serving": serving, "invariance": invariance}
 
 
 def fail_unless(phase: str, checks: dict, detail="") -> None:
@@ -5001,6 +5075,8 @@ def main() -> int:
                                         ("log_mel_long_hop", "fused_attention"))
     # fp16, 3 heads of 256, 2 heads of 384
     variants = phase_fp16_and_wide_heads(gen)
+    # d and head dim 2,048: past the old limits of K5, LayerNorm and attention_rows
+    wide = phase_wide_widths(gen, cfg)
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
@@ -5037,7 +5113,12 @@ def main() -> int:
                "serving-48k-hop960": serving_48k["launches"],
                **{f"training-{k}": r["launches"] for k, r in variants["training"].items()},
                **{f"serving-{k}": r["launches"] for k, r in variants["serving"].items()},
-               **{f"invariance-{k}": r["launches"] for k, r in variants["invariance"].items()}}
+               **{f"invariance-{k}": r["launches"] for k, r in variants["invariance"].items()},
+               "serving-d2048": wide["serving"]["launches"], "invariance-d2048": wide["invariance"]["launches"]}
+    # the CUDA-core K5 takes fp32 alone: no bf16 or fp16 path launches it
+    simt_paths = {p: (n["fused_attention_simt"], n["fused_attention_bwd_simt"]) for p, n in by_path.items()
+                  if "fp32" not in p and (n["fused_attention_simt"] or n["fused_attention_bwd_simt"])}
+    fail_unless("routes", {"no bf16 or fp16 path launches the CUDA-core K5": not simt_paths}, simt_paths)
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5103,6 +5184,19 @@ def main() -> int:
          "other_shapes": {k: at_shape(v["bwd"]) for k, v in domain["attention"].items()
                           if "bwd" in v and v["bwd"]["kernel"] == "fused_attention_bwd_simt"
                           and k != "fp32-decoder-self"}},
+        {**entry("fused_attention_wide", "adt_str_tpu_torch/csrc/attention_wide.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
+                 f"bf16, B={TRAIN_BATCH}, 2 heads of 384, decoder self 511 x 511, causal + padding mask",
+                 domain["attention"]["bfloat16-d384-decoder-self"]["fwd"]),
+         "other_shapes": {k: at_shape(v["fwd"]) for k, v in domain["attention"].items()
+                          if v["fwd"]["kernel"] == "fused_attention_wide" and k != "bfloat16-d384-decoder-self"}},
+        {**entry("fused_attention_bwd_wide", "adt_str_tpu_torch/csrc/attention_wide.cu",
+                 "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
+                 f"bf16, B={TRAIN_BATCH}, 2 heads of 384, decoder self 511 x 511, causal + padding mask",
+                 domain["attention"]["bfloat16-d384-decoder-self"]["bwd"]),
+         "other_shapes": {k: at_shape(v["bwd"]) for k, v in domain["attention"].items()
+                          if "bwd" in v and v["bwd"]["kernel"] == "fused_attention_bwd_wide"
+                          and k != "bfloat16-d384-decoder-self"}},
         {**entry("ffn_dropout_fp32", "adt_str_tpu_torch/csrc/ffn_dropout_fp32.cu",
                  "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
                  f"fp32, N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072",
@@ -5128,7 +5222,9 @@ def main() -> int:
          "encoder_fused": {k: repairs["add_layer_norm"]["encoder"][k] for k in ("max_abs_err", "ms", "device_ms",
                                                                                 "plain_ms", "bound_ms", "library_ms",
                                                                                 "unfused_ms", "unfused_device_ms")},
-         "fp16": at_shape(repairs_fp16["add_layer_norm"]), "fp16_one_input": at_shape(repairs_fp16["layer_norm"])},
+         "fp16": at_shape(repairs_fp16["add_layer_norm"]), "fp16_one_input": at_shape(repairs_fp16["layer_norm"]),
+         "d2048": at_shape(wide["kernels"]["add_layer_norm"]),
+         "d2048_one_input": at_shape(wide["kernels"]["layer_norm"])},
         {**entry("linear", "adt_str_tpu_torch/csrc/linear.cu",
                  "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:105 linear",
                  f"decode FFN linear1, bucket {bucket}: ({bucket}, 768) x (3072, 768)^T bf16",
@@ -5142,7 +5238,8 @@ def main() -> int:
                  f"(valid_keys, bit-equal to the masked read of all 512), bf16",
                  {**repairs["attention_rows"]["decode_self"], **repairs["attention_rows"]["decode_self"]["valid_keys"]}),
          **{k: {"shape": k, **at_shape(repairs_fp16[k])} for k in ("attention_rows", "attention_rows_d384",
-                                                                "attention_rows_d384_cross_fp16")}},
+                                                                "attention_rows_d384_cross_fp16")},
+         **{f"{k}_d2048": at_shape(wide["kernels"][k]) for k in ("attention_rows_self", "attention_rows_cross_fp16")}},
     ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
         "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)

@@ -292,13 +292,12 @@ def test_fused_attention_autograd_launches_both_kernels(cuda):
 
 
 def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
-    """600 keys, fp32, fp16 and head dims up to 768 now have kernels
-    (`test_attention_*_past_512_keys`, `test_attention_simt_*`,
-    `test_attention_d256_*`, `test_attention_kernels_at_fp16`); head dims
-    past 768 (the named limit) or off 128, fp64, operands of two dtypes and
-    each variant's entry at another variant's inputs still raise."""
-    with pytest.raises(ValueError, match="up to 768"):
-        cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 896, dtype=torch.float16, device=cuda),) * 3)
+    """600 keys, fp32, fp16 and every head dim that is a multiple of 128 now
+    have kernels (`test_attention_*_past_512_keys`, `test_attention_simt_*`,
+    `test_attention_d256_*`, `test_attention_wide_*`,
+    `test_attention_kernels_at_fp16`); head dims off 128, fp64, operands of
+    two dtypes and each variant's entry at another variant's inputs still
+    raise."""
     with pytest.raises(ValueError, match="multiples of 128"):
         cuda_attention.fused_attention(*(torch.zeros(1, 1, 8, 192, device=cuda),) * 3)
     with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
@@ -310,6 +309,13 @@ def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
         cuda_attention.fused_attention_simt(*(q.bfloat16(),) * 3)
     with pytest.raises(ValueError, match="head-dim-256"):
         cuda_attention.fused_attention_d256(*(q.half(),) * 3)
+    wide = torch.zeros(1, 1, 8, 384, device=cuda)
+    with pytest.raises(ValueError, match="wide-head"):
+        cuda_attention.fused_attention_wide(*(wide,) * 3)  # fp32: the CUDA cores
+    with pytest.raises(ValueError, match="wide-head"):
+        cuda_attention.fused_attention_wide(*(q.bfloat16(),) * 3)  # head dim 128
+    with pytest.raises(ValueError, match="CUDA-core"):
+        cuda_attention.fused_attention_simt(*(wide.half(),) * 3)
 
 
 def _ffn_inputs(n, d, d_ff, cuda, seed=0):
@@ -666,7 +672,7 @@ def _ln_inputs(rows, d, dtype, device, seed=0):
 # y = p + b cancels and the two sides' fp32 statistics, summed in other
 # orders, leave p's last fp32 bits apart); fp32: 1e-5
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("d", [48, 768, 1000, 1024])
+@pytest.mark.parametrize("d", [48, 768, 1000, 1024, 1025, 2048])
 def test_layer_norm_kernel_matches_plain(cuda, d, dtype):
     x, w, b = _ln_inputs(37, d, dtype, cuda)
     before = ln_ops.layer_norm.launches
@@ -682,8 +688,9 @@ def test_layer_norm_kernel_matches_plain(cuda, d, dtype):
         assert err.max().item() <= 1e-5
 
 
-def test_layer_norm_kernel_rows_bit_equal_at_every_row_count(cuda):
-    x, w, b = _ln_inputs(64, 768, torch.bfloat16, cuda, seed=1)
+@pytest.mark.parametrize("d", [768, 2048])
+def test_layer_norm_kernel_rows_bit_equal_at_every_row_count(cuda, d):
+    x, w, b = _ln_inputs(64, d, torch.bfloat16, cuda, seed=1)
     with torch.inference_mode():
         full = ln_ops.layer_norm(x[:, None], w, b, 1e-5)
         for r in ROW_COUNTS:
@@ -698,7 +705,8 @@ def _residual(x, seed=7):
 # The fused add_layer_norm: the plain version's tolerance above, and bit-equal
 # to the kernel's one-input entry on x + r (the sum rounded as ATen rounds it).
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("rows, d", [(16, 768), (3936, 768), (37, 48), (37, 100), (37, 1000), (37, 1024)])
+@pytest.mark.parametrize("rows, d", [(16, 768), (3936, 768), (37, 48), (37, 100), (37, 1000), (37, 1024), (16, 2048),
+                                     (37, 1152)])
 def test_add_layer_norm_kernel_matches_plain_and_the_unfused_form(cuda, rows, d, dtype):
     x, w, b = _ln_inputs(rows, d, dtype, cuda)
     r = _residual(x)
@@ -746,7 +754,8 @@ def test_layer_norm_kernel_on_rows_off_16_byte_boundaries(cuda):
 def test_layer_norm_keeps_autograd_in_training_and_rejects_on_the_card(cuda):
     """Training (grad enabled, an operand that requires it) runs the plain
     version under autograd and launches nothing; on the inference path an
-    unsupported width or dtype raises."""
+    unsupported dtype, or a weight of another width, raises (every width
+    has a kernel: rows past 1,024 are read again on each pass)."""
     x, w, b = _ln_inputs(4, 768, torch.bfloat16, cuda)
     w.requires_grad_(True)
     before = ln_ops.layer_norm.launches
@@ -754,8 +763,8 @@ def test_layer_norm_keeps_autograd_in_training_and_rejects_on_the_card(cuda):
     assert ln_ops.layer_norm.launches == before and w.grad is not None
     with torch.inference_mode():
         with pytest.raises(ValueError, match="layer_norm kernel"):
-            ln_ops.layer_norm(torch.zeros(2, 1025, device=cuda), torch.ones(1025, device=cuda),
-                              torch.zeros(1025, device=cuda), 1e-5)
+            ln_ops.layer_norm(torch.zeros(2, 1025, device=cuda), torch.ones(1024, device=cuda),
+                              torch.zeros(1024, device=cuda), 1e-5)
         with pytest.raises(ValueError, match="layer_norm kernel"):  # fp16 has a kernel now; fp64 has none
             ln_ops.layer_norm(x.double(), w.detach(), b, 1e-5)
 
@@ -839,6 +848,9 @@ ATTENTION_ROWS_CASES = {  # (B, Tq, Tk, head dim, the decode step's position or 
     "head-dim-256": (2, 5, 300, 256, None, torch.bfloat16),
     "head-dim-8": (2, 2, 40, 8, 7, torch.bfloat16),
     "fp32-4096-keys": (1, 1, 4096, 128, 3000, torch.float32),
+    "fp32-head-dim-2048": (2, 1, 512, 2048, 255, torch.float32),
+    "fp32-6000-keys": (1, 1, 6000, 128, 5000, torch.float32),
+    "bf16-30000-keys": (1, 2, 30000, 128, None, torch.bfloat16),  # past the mma design's shared memory
 }
 
 
@@ -918,8 +930,8 @@ def test_attention_rows_kernel_rejects_what_it_cannot_hold(cuda):
     with torch.inference_mode():
         with pytest.raises(ValueError, match="attention_rows kernel"):
             attention_rows.attention(q, k.float(), v, None)
-        big = torch.zeros(1, 6, 5000, 128, device=cuda, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="attention_rows kernel"):
+        big = torch.zeros(1, 6, attention_rows.max_floats(), 128, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="attention_rows kernel"):  # head dim + keys past shared memory
             attention_rows.attention(q, big, big, None)
         for valid in (0, 9):
             with pytest.raises(ValueError, match="attention_rows kernel"):
@@ -1042,9 +1054,9 @@ def _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=0):
 
 # (B, H, Tq, Tk, head dim, dtype, mask): fp32 at the model's shapes and past
 # 512 keys (the 10.24 s encoder's 1,014), fp32 at head dim 256 (3 heads of
-# 256 at d 768), bf16, fp16 and fp32 at head dims 384..768 (2 heads and 1 at
-# d 768, and 512, 640), ragged and single-key edges of the 64- (32-, 16-)
-# row tiles, and a row whose real keys are all masked.
+# 256 at d 768), at 384..768 (2 heads and 1 at d 768) and past 768 (the
+# chunked kernels: 896, 1,024, 2,048), ragged and single-key edges of the
+# 64- (32-, 16-) row tiles, and a row whose real keys are all masked.
 SIMT_CASES = {
     "fp32-encoder": (2, 6, 246, 246, 128, torch.float32, None),
     "fp32-decoder-self": (2, 6, 511, 511, 128, torch.float32, "causal"),
@@ -1052,22 +1064,19 @@ SIMT_CASES = {
     "fp32-encoder-1014": (1, 2, 1014, 1014, 128, torch.float32, None),
     "fp32-decoder-self-1023": (1, 2, 1023, 1023, 128, torch.float32, "causal"),
     "fp32-d256": (2, 3, 511, 246, 256, torch.float32, None),
-    "bf16-d384": (2, 2, 511, 511, 384, torch.bfloat16, "causal"),
-    "fp16-d384-1014": (1, 2, 1014, 1014, 384, torch.float16, None),
     "fp32-d384": (2, 2, 511, 246, 384, torch.float32, None),
-    "fp16-d512": (1, 2, 246, 246, 512, torch.float16, None),
-    "bf16-d640": (1, 1, 100, 70, 640, torch.bfloat16, "masked-row"),
-    "bf16-d768": (2, 1, 511, 511, 768, torch.bfloat16, "causal"),
-    "fp16-d768": (1, 1, 511, 246, 768, torch.float16, None),
     "fp32-d768-ragged": (1, 1, 65, 33, 768, torch.float32, None),
+    "fp32-d896-causal": (2, 1, 100, 100, 896, torch.float32, "causal"),
+    "fp32-d1024-ragged": (1, 1, 33, 17, 1024, torch.float32, None),
+    "fp32-d2048-masked-row": (1, 1, 40, 40, 2048, torch.float32, "masked-row"),
     "fp32-one-key": (1, 1, 30, 1, 128, torch.float32, None),
     "fp32-ragged": (1, 2, 65, 33, 256, torch.float32, None),
     "fp32-masked-row": (1, 2, 30, 30, 128, torch.float32, "masked-row"),
 }
 
 
-def _simt_inputs(case, cuda):
-    B, H, Tq, Tk, D, dtype, kind = SIMT_CASES[case]
+def _simt_inputs(case, cuda, cases=None):
+    B, H, Tq, Tk, D, dtype, kind = (cases or SIMT_CASES)[case]
     q, k, v = _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=Tq + Tk + D)
     mask = None if kind is None else _causal(B, Tq, Tk, cuda, 3 if kind == "masked-row" else None)
     return q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk)
@@ -1078,20 +1087,11 @@ def _simt_inputs(case, cuda):
 # outputs and lse within 1e-5, each gradient within 1e-5 of its largest
 # element (measured on the H100: 7e-7, 1e-6 and 1.5e-6), plus 2^-17 of the
 # magnitude its terms allow (`_gradient_magnitudes`) where ds = p (dp -
-# delta) cancels (one key: dq is rounding noise of 1e-7). bf16 and fp16 at
-# head dims past 256: p rounds to T on both sides (1.6e-2, as the bf16
-# kernel); the gradients keep p and ds in fp32 as the plain version does,
-# and only the outputs round to T (2^-8 of the largest element, plus 2^-12
-# of the magnitude as the bf16 kernel's tests allow; fp16 is held to the
-# same, no looser).
-def _simt_tols(dtype):
-    return (1e-5, 1e-5, 2**-17) if dtype == torch.float32 else (1.6e-2, 2**-8, 2**-12)
-
-
+# delta) cancels (one key: dq is rounding noise of 1e-7).
 @pytest.mark.parametrize("case", list(SIMT_CASES))
 def test_attention_simt_kernels_match_plain(cuda, case):
     q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
-    out_tol, grad_tol, size_tol = _simt_tols(q.dtype)
+    out_tol, grad_tol, size_tol = 1e-5, 1e-5, 2**-17
     f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
     hopper = (cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches)
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
@@ -1113,7 +1113,7 @@ def test_attention_simt_kernels_match_plain(cuda, case):
         assert err <= grad_tol * r.float().abs().max().item() + size_tol * size, (name, err, size)
 
 
-@pytest.mark.parametrize("case", ["fp32-decoder-self", "bf16-d384"])
+@pytest.mark.parametrize("case", ["fp32-decoder-self", "fp32-d2048-masked-row"])
 def test_attention_simt_backward_is_deterministic(cuda, case):
     """No atomics: dk/dv and dq each come from one block."""
     q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
@@ -1134,6 +1134,83 @@ def test_fused_attention_autograd_at_fp32_launches_the_simt_kernels(cuda):
     assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == (
         f0 + 1, b0 + 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# bf16 and fp16 past head dim 256 (`csrc/attention_wide.cu`): the 2-head
+# training shape (2 heads of 384, 511 x 511 causal), 1 head of 768 at the
+# serving encoder, 512 and 640, past the old limit of 768 (896, 1,024,
+# 2,048), past 512 keys (p formed again for each chunk), and the edges of
+# its 64-row, 128-key tiles and of one key.
+WIDE_CASES = {
+    "bf16-d384": (2, 2, 511, 511, 384, torch.bfloat16, "causal"),
+    "fp16-d384": (2, 2, 511, 511, 384, torch.float16, "causal"),
+    "fp16-d384-1014": (1, 2, 1014, 1014, 384, torch.float16, None),
+    "bf16-d384-1023-causal": (1, 1, 1023, 1023, 384, torch.bfloat16, "causal"),
+    "fp16-d512": (1, 2, 246, 246, 512, torch.float16, None),
+    "bf16-d640-masked-row": (1, 1, 100, 70, 640, torch.bfloat16, "masked-row"),
+    "bf16-d768": (2, 1, 511, 511, 768, torch.bfloat16, "causal"),
+    "fp16-d768-cross": (1, 1, 511, 246, 768, torch.float16, None),
+    "bf16-d896": (2, 1, 256, 256, 896, torch.bfloat16, "causal"),
+    "fp16-d1024": (2, 1, 256, 256, 1024, torch.float16, "causal"),
+    "bf16-d2048": (2, 1, 256, 256, 2048, torch.bfloat16, "causal"),
+    "fp16-d2048-ragged": (1, 1, 65, 129, 2048, torch.float16, None),
+    "bf16-one-key": (1, 2, 30, 1, 384, torch.bfloat16, None),
+    "bf16-one-query": (1, 2, 1, 200, 384, torch.bfloat16, None),
+    "fp16-ragged": (1, 1, 65, 63, 512, torch.float16, None),
+}
+
+
+# Tolerances of the tensor-core kernels (the head-dim-128 tests above): the
+# wide kernels keep their rounding points (p and ds rounded to q's type
+# before their products, the outputs to q's type), so out within 1.6e-2 and
+# each gradient within 2^-6 of its largest element, plus 2^-12 of the
+# magnitude its terms allow; fp16 is held to the same, no looser.
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_attention_wide_kernels_match_plain(cuda, case):
+    q, k, v, mask, n_virtual = _simt_inputs(case, cuda, WIDE_CASES)
+    f0, b0 = cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches
+    simt = (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, q.dtype)
+    grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert (cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches) == (
+        f0 + 1, b0 + 1)
+    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == simt
+    ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
+    assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+    sizes = _gradient_magnitudes(q, k, v, mask, out, lse, do)
+    for name, got, r, size in zip(("dq", "dk", "dv"), grads, refs, sizes):
+        assert got.dtype == q.dtype and torch.isfinite(got.float()).all(), name
+        err = (got.float() - r.float()).abs().max().item()
+        assert err <= 2**-6 * r.float().abs().max().item() + 2**-12 * size, (name, err, size)
+
+
+@pytest.mark.parametrize("case", ["bf16-d384", "fp16-d384-1014", "bf16-d2048"])
+def test_attention_wide_backward_is_deterministic(cuda, case):
+    """dq's partial sums over key tiles meet in key-tile order in the fp32
+    scratch (one thread an element); dk and dv come from one block."""
+    q, k, v, mask, n_virtual = _simt_inputs(case, cuda, WIDE_CASES)
+    out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
+    first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    second = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_attention_autograd_past_head_dim_256_launches_the_wide_kernels(cuda):
+    q, k, v, mask, n_virtual = _simt_inputs("bf16-d640-masked-row", cuda, WIDE_CASES)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    f0, b0 = cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches
+    cuda_attention.FusedAttention.apply(q, k, v, mask, n_virtual).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches) == (
+        f0 + 1, b0 + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
 # The tensor-core kernels past 512 keys (their old cap): the 10.24 s
@@ -1430,8 +1507,11 @@ def test_batch_invariance_kernels_at_fp16(cuda):
 # attention_rows past head dim 256 (2 heads and 1 at d 768): the CUDA-core
 # design, at bf16 and fp16, the bf16 test's bound at each type's spacing.
 @pytest.mark.parametrize("hd, dtype, step", [(384, torch.bfloat16, 255), (768, torch.float16, None),
-                                             (384, torch.float16, 40), (768, torch.bfloat16, None)],
-                         ids=["bf16-384-self", "fp16-768-cross", "fp16-384-self", "bf16-768-cross"])
+                                             (384, torch.float16, 40), (768, torch.bfloat16, None),
+                                             (2048, torch.bfloat16, 255), (2048, torch.float16, None),
+                                             (1152, torch.bfloat16, None)],
+                         ids=["bf16-384-self", "fp16-768-cross", "fp16-384-self", "bf16-768-cross", "bf16-2048-self",
+                              "fp16-2048-cross", "bf16-1152-cross"])
 def test_attention_rows_kernel_past_head_dim_256(cuda, hd, dtype, step):
     q, k, v, mask = _rows_inputs(16, 5 if step is None else 1, 512 if step else 246, hd, step, dtype, cuda, seed=hd)
     before = attention_rows.attention.launches
@@ -1450,7 +1530,7 @@ def test_attention_rows_kernel_past_head_dim_256(cuda, hd, dtype, step):
             assert torch.equal(part, out[:rows]), rows
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 2048])
 def test_attention_bwd_at_fp16_keeps_gradients_of_a_training_steps_size(cuda, D):
     """A training step's cotangent is small (the loss is a mean over tens of
     thousands of tokens): at do ~ 2^-14, ds ~ 1e-7 would flush in fp16. The

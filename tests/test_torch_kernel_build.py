@@ -55,8 +55,9 @@ def test_library_path_is_stable(csrc):
 
 
 def test_repo_kernels_share_the_hopper_header():
-    """The seven redesigned kernels include the one header the digest covers."""
-    for name in ("ffn_dropout", "attention", "attention_bwd", "log_mel", "place_notes", "linear", "attention_rows"):
+    """The redesigned kernels include the one header the digest covers."""
+    for name in ("ffn_dropout", "attention", "attention_bwd", "log_mel", "place_notes", "linear", "attention_rows",
+                 "attention_wide"):
         assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
     assert (_build.CSRC / "hopper.cuh").exists()
 
@@ -96,9 +97,18 @@ def _chip_smoke():
         ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1_execute_kernel",
          "GEMM (cuBLAS)"),
         ("nvjet_hsh_128x256_64x4_1x2_h_bz_coopA_NTN", "GEMM (cuBLAS)"),
+        ("void (anonymous namespace)::wide_fwd_kernel<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+         "float const*, __nv_bfloat16*, float*, int, int, int, int, int, float)", "K5f attention fwd"),
+        ("void (anonymous namespace)::wide_bwd_kernel<__half>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, float const*, float const*, float const*, float*, float const*, __half*, __half*, __half*, "
+         "int, int, int, int, float)", "K5b attention bwd"),
+        ("void (anonymous namespace)::wide_delta_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, float*, float*, int, int, int)", "K5b attention bwd"),
+        ("(anonymous namespace)::attention_dkdv_chunked(float const*, float const*, float const*, float const*, "
+         "float const*, float const*, float const*, float*, float*, int, int, int, int, float)", "K5b attention bwd"),
     ],
     ids=["k4-gemm1", "k4-gemm2", "k5f", "k5b", "k5b-delta", "k1", "k1-reduce", "k3", "k2", "cublas-sm90",
-         "cublas-nvjet"],
+         "cublas-nvjet", "k5f-wide", "k5b-wide", "k5b-wide-delta", "k5b-fp32-chunked"],
 )
 def test_chip_smoke_files_kernels_under_their_group(kernel, group):
     assert _chip_smoke()._group(kernel) == group

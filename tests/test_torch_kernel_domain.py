@@ -1,6 +1,7 @@
 """The inputs that JAX's gates send to its Pallas kernels, on the port's side,
-on the CPU: fp32 and fp16 compute for K4 and K5, keys past 512 and head dims
-256..768 for K5, any d_ff for K4, any hop and n_fft for K1.
+on the CPU: fp32 and fp16 compute for K4 and K5, keys past 512 and every
+head dim that is a multiple of 128 for K5, any d_ff for K4, any hop and
+n_fft for K1; and LayerNorm and the decode attention at widths past 1,024.
 
 - each kernel's plain version (which its wrapper runs for CPU tensors, and
   which the card holds each kernel variant to) against the JAX kernel in
@@ -14,7 +15,7 @@ on the CPU: fp32 and fp16 compute for K4 and K5, keys past 512 and head dims
   functions (`cuda_attention.kernel_for`, `cuda_ffn.kernel_for`,
   `cuda_mel.frames_route`) send to the kernel that the routing table
   names, so no ValueError is left on the card that JAX's kernels do not
-  have, up to the one named limit: K5 past head dim 768.
+  have.
 
 Inputs are made with numpy (or JAX's own init) from a seed and fed to both
 sides.
@@ -62,11 +63,13 @@ def _attention_inputs(Tq, Tk, D, seed):
 @pytest.mark.parametrize("Tq, Tk, D, causal", [(1014, 1014, 128, False), (1023, 1023, 128, True),
                                                (60, 100, 256, False), (64, 64, 256, True), (60, 70, 384, False),
                                                (33, 33, 384, True), (40, 57, 512, False), (30, 50, 768, False),
-                                               (24, 24, 768, True)],
+                                               (24, 24, 768, True), (20, 30, 896, False), (17, 17, 1024, True),
+                                               (12, 20, 2048, False)],
                          ids=["encoder-1014", "decoder-self-1023", "d256-cross", "d256-causal", "d384-cross",
-                              "d384-causal", "d512-cross", "d768-cross", "d768-causal"])
+                              "d384-causal", "d512-cross", "d768-cross", "d768-causal", "d896-cross",
+                              "d1024-causal", "d2048-cross"])
 def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal):
-    """fp32 q, k, v past 512 keys and at head dims 256..768, through both
+    """fp32 q, k, v past 512 keys and at head dims 256..2,048, through both
     packages' `_flash_attention` (JAX pads to a multiple of 8 and masks the
     padded keys; the port counts them): outputs and the three gradients."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _attention_inputs(Tq, Tk, D, seed=Tq + D)
@@ -227,12 +230,12 @@ def test_small_model_greedy_tokens_equal_jax():
 
 
 # The points of JAX's gates: every compute dtype `compute_dtype` can name
-# (bfloat16, float32, float16), the head dims of d 768 at 6, 3, 2 and 1 heads
-# and 512, 640 (every multiple of 128 up to the limit, 768), key counts from
+# (bfloat16, float32, float16), the head dims of d 768 at 6, 3, 2 and 1 heads,
+# 512, 640, and 896, 1,024, 2,048 (d 2,048 at 1 head), key counts from
 # one to `max_positions` (2048), widths of the hidden off 128 and off 8, and
 # the frontends of 16-48 kHz at time_res 0.005-0.02 and win_length 512-4096.
 DTYPES = (torch.bfloat16, torch.float32, torch.float16)
-HEAD_DIMS = (128, 256, 384, 512, 640, 768)
+HEAD_DIMS = (128, 256, 384, 512, 640, 768, 896, 1024, 2048)
 KEYS = (1, 246, 511, 512, 513, 1014, 1023, 2048)
 RATES = (16000, 22050, 24000, 32000, 44100, 48000)
 TIME_RES = (0.005, 0.01, 0.02)
@@ -242,9 +245,9 @@ WIN_LENGTHS = (512, 1000, 1024, 2048, 4096)
 def attention_route(dtype, D) -> str:
     """Part of the routing table (`cuda_attention`'s docstring): the K5
     kernels that take (dtype, head dim) on the card."""
-    if dtype != torch.float32 and D in (128, 256):
-        return "hopper" if D == 128 else "hopper256"
-    return "simt"
+    if dtype == torch.float32:
+        return "simt"
+    return {128: "hopper", 256: "hopper256"}.get(D, "wide")
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32", "fp16"])
@@ -280,16 +283,17 @@ def test_every_gated_frontend_has_a_kernel_route():
 # Each point this slice opened goes to the kernel the routing tables name
 # (`cuda_attention`, `cuda_ffn`, `attention_rows`, `layer_norm`, `linear`):
 # fp16 wherever bf16 goes, the head-dim-256 tensor-core kernels, the
-# CUDA-core K5 past 256, K4 at widths of the hidden off 128 and off 8.
+# tensor-core K5 past 256 (bf16, fp16) and the CUDA-core one (fp32), K4 at
+# widths of the hidden off 128 and off 8.
 NEW_POINTS = {
     "fp16-d128": ("attention", torch.float16, 128, "hopper"),
     "bf16-d256": ("attention", torch.bfloat16, 256, "hopper256"),
     "fp16-d256": ("attention", torch.float16, 256, "hopper256"),
     "fp32-d384": ("attention", torch.float32, 384, "simt"),
-    "bf16-d384": ("attention", torch.bfloat16, 384, "simt"),
-    "fp16-d512": ("attention", torch.float16, 512, "simt"),
-    "bf16-d640": ("attention", torch.bfloat16, 640, "simt"),
-    "fp16-d768": ("attention", torch.float16, 768, "simt"),
+    "bf16-d384": ("attention", torch.bfloat16, 384, "wide"),
+    "fp16-d512": ("attention", torch.float16, 512, "wide"),
+    "bf16-d640": ("attention", torch.bfloat16, 640, "wide"),
+    "fp16-d768": ("attention", torch.float16, 768, "wide"),
     "fp32-d768": ("attention", torch.float32, 768, "simt"),
     "ffn-fp16": ("ffn", torch.float16, 3072, "hopper"),
     "ffn-bf16-d_ff1000": ("ffn", torch.bfloat16, 1000, "hopper"),
@@ -303,8 +307,7 @@ def test_each_new_point_goes_to_the_kernel_its_table_names(point):
     kind, dtype, width, route = NEW_POINTS[point]
     if kind == "attention":
         assert cuda_attention.kernel_for(dtype, width) == route
-        assert (dtype, width) in (cuda_attention.HOPPER_TAKES if route.startswith("hopper")
-                                  else cuda_attention.SIMT_TAKES)
+        assert (dtype, width) in cuda_attention.routed(route)
     else:
         assert cuda_ffn.kernel_for(dtype, 768, width) == route
         w1, b1, w2 = cuda_ffn.padded_weights(torch.ones(width, 768), torch.ones(width), torch.ones(768, width))
@@ -314,13 +317,18 @@ def test_each_new_point_goes_to_the_kernel_its_table_names(point):
 
 
 def test_what_the_card_still_refuses():
-    """The one limit left: K5 past head dim 768 (the CUDA-core backward's
-    tiles outgrow one block's shared memory), which the error names; and
-    what JAX's gates never send (a head dim off 128, a d off 128, fp64)."""
-    for D in (896, 1024):
-        for dtype in DTYPES:
-            with pytest.raises(ValueError, match="up to 768"):
-                cuda_attention.kernel_for(dtype, D)
+    """No head-dim limit is left on K5: every multiple of 128 up to 4,096
+    goes to a kernel in each dtype (bf16 and fp16 past 256 to the wide
+    tensor-core kernels, fp32 to the CUDA cores). The card refuses only what
+    JAX's gates never send: a head dim off 128, a d off 128, fp64."""
+    for dtype in DTYPES:
+        routes = {D: cuda_attention.kernel_for(dtype, D) for D in range(128, 4097, 128)}
+        assert routes == {D: attention_route(dtype, D) for D in routes}
+    assert cuda_attention.routed("wide") == {(t, D) for t in (torch.bfloat16, torch.float16) for D in range(384, 4097, 128)}
+    assert cuda_attention.routed("simt") == {(torch.float32, D) for D in range(128, 4097, 128)}
+    for D in (64, 192, 200, 1000):
+        with pytest.raises(ValueError, match="multiples of 128"):
+            cuda_attention.kernel_for(torch.float16, D)
     with pytest.raises(ValueError, match="multiples of 128"):
         cuda_attention.kernel_for(torch.bfloat16, 192)
     with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
@@ -392,20 +400,114 @@ def test_k4_plain_at_any_d_ff_matches_pallas_interpret(d_ff):
         np.testing.assert_allclose(mod.bias.grad.numpy(), np.asarray(gp[name]["b"]), rtol=1e-4, atol=1e-4)
 
 
-def test_wide_head_model_greedy_tokens_equal_jax():
-    """The small model at d 384 with 1 head (head dim 384, which the card's
-    K5 and attention_rows now take): JAX decodes from the memory its Pallas
-    kernels (interpret mode) produce, the port runs its kernels' plain
-    versions; greedy tokens equal at fp32."""
-    kw = dict(SMALL, nhead=1, d_query=384)
-    params, jcfg, model, tcfg = _build(kw, seed=3)
-    assert tcfg.d_model // tcfg.nhead == 384 and cuda_attention.kernel_for(torch.float32, 384) == "simt"
+def _wide_head_greedy_tokens_equal_jax(head_dim: int, seed: int) -> None:
+    """The small model at 1 head of `head_dim` (d = head_dim): JAX decodes
+    from the memory its Pallas kernels (interpret mode) produce, the port
+    runs its kernels' plain versions; greedy tokens equal at fp32."""
+    kw = dict(SMALL, nhead=1, d_query=head_dim)
+    params, jcfg, model, tcfg = _build(kw, seed=seed)
+    assert tcfg.d_model // tcfg.nhead == head_dim and cuda_attention.kernel_for(torch.float32, head_dim) == "simt"
     params["decoder"]["generator"]["w"] = params["decoder"]["generator"]["w"] * 4.0
     model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)), strict=True)
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed + 1)
     w = (rng.normal(size=(2, jcfg.chunk_samples)) * 0.3).astype(np.float32)
     memory = jax_flags_on_memory(params, jcfg, w)
     ref = np.asarray(jdecode.greedy_decode_from_memory(params, memory, jcfg, 12))
     out = tdecode.greedy_decode(model, torch.from_numpy(w), max_length=12)
     np.testing.assert_array_equal(out.numpy(), ref)
     assert len(np.unique(ref[:, 1:])) > 1
+
+
+def test_wide_head_model_greedy_tokens_equal_jax():
+    """Head dim 384 (d 384, 1 head), which the card's K5 and attention_rows take."""
+    _wide_head_greedy_tokens_equal_jax(384, seed=3)
+
+
+def test_wide_head_model_past_every_old_limit_greedy_tokens_equal_jax():
+    """Head dim 1,152 (d 1,152, 1 head): past each limit the card had before
+    (K5 at head dim 768, LayerNorm at d 1,024, attention_rows at 1,024)."""
+    _wide_head_greedy_tokens_equal_jax(1152, seed=5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k5_plain_half_at_d1024_matches_jax_vjp_of_the_interpret_kernel(dtype):
+    """bf16 and fp16 q, k, v at head dim 1,024 (1 head, 24 x 40, a mask;
+    the card's wide tensor-core kernels take them), through both packages'
+    `_flash_attention`. Both round p and the output to q's dtype at the same
+    points, from fp32 sums in other orders, and the backward's fp32 results
+    once: fp16 as the head-dim-128 test above (out 2^-10, gradients 2^-9 of
+    the largest element); bf16 within 2^-6 of the largest element (two bf16
+    ulps of it: one from p's rounding, one from the output's)."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _attention_inputs(24, 40, 1024, seed=24)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv, jdo = (a.astype(jdt) for a in (jq, jk, jv, jdo))
+    tq, tk, tv, tdo = (t.to(tdt) for t in (tq, tk, tv, tdo))
+    mask = np.where(np.random.default_rng(2).random((24, 40)) < 0.2, -1e4, 0.0).astype(np.float32)[None, None]
+    ref, vjp = jax.vjp(lambda q, k, v: JT._flash_attention(q, k, v, jnp.asarray(mask)), jq, jk, jv)
+    ref_grads = vjp(jdo)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    assert cuda_attention.kernel_for(tdt, 1024) == "wide"
+    out = TT._flash_attention(tq, tk, tv, torch.from_numpy(mask))
+    out.backward(tdo)
+    out_tol, grad_tol = (2.0**-10, 2.0**-9) if dtype == "float16" else (2.0**-6, 2.0**-6)
+    ref = np.asarray(ref).astype(np.float32)
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.detach().float().numpy(), ref, atol=out_tol * np.abs(ref).max(), rtol=0)
+    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads):
+        r = np.asarray(r).astype(np.float32)
+        assert t.grad.dtype == tdt, name
+        np.testing.assert_allclose(t.grad.float().numpy(), r, atol=grad_tol * np.abs(r).max(), rtol=0, err_msg=name)
+
+
+WIDE_D = 2048  # d 2,048 at 1 head: LayerNorm rows and the decode attention's head dim past 1,024
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_plain_at_d2048_matches_jax(dtype):
+    """The plain LayerNorm and LayerNorm(x + r) (which the card's kernel
+    computes at any d, rows past 1,024 read again on each pass) against the
+    JAX package's `layer_norm` at d 2,048: fp32 within 1e-5 (sums in other
+    orders); bf16 within one bf16 ulp of each output (2^-7 of its magnitude
+    and 2^-7 absolute below 1)."""
+    from adt_str_tpu_torch.ops import layer_norm as tln
+    rng = np.random.default_rng(7)
+    x, r = (rng.normal(size=(3, 5, WIDE_D)).astype(np.float32) for _ in range(2))
+    w, b = rng.normal(size=WIDE_D).astype(np.float32), rng.normal(size=WIDE_D).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    p = {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}
+    jx, jr = jnp.asarray(x).astype(jdt), jnp.asarray(r).astype(jdt)
+    tx, tr = torch.from_numpy(x).to(tdt), torch.from_numpy(r).to(tdt)
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    for got, ref in ((tln.layer_norm(tx, tw, tb, 1e-5), JT.layer_norm(p, jx)),
+                     (tln.add_layer_norm(tx, tr, tw, tb, 1e-5), JT.layer_norm(p, jx + jr))):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert got.dtype == tdt
+        tol = 1e-5 if dtype == "float32" else 2.0**-7 * np.maximum(np.abs(ref), 1.0)
+        np.testing.assert_array_less(np.abs(got.float().numpy() - ref), tol + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_rows_plain_at_hd2048_matches_jax(dtype):
+    """The decode attention's plain version (which the card's kernel holds
+    to at any head dim) against the JAX package's `attention_core` at head
+    dim 2,048: one query row over 37 cached keys of which 30 are valid (the
+    decode step's `valid_keys`, JAX's mask past the step), and 3 rows over
+    20 keys with an additive mask. fp32 within 1e-5; bf16 within 2^-6 of
+    the largest output (both round p to bf16, then the output)."""
+    from adt_str_tpu_torch.ops import attention_rows as tar
+    rng = np.random.default_rng(8)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    for tq, tk, valid in ((1, 37, 30), (3, 20, None)):
+        q, k, v = (rng.normal(size=(2, 1, t, WIDE_D)).astype(np.float32) for t in (tq, tk, tk))
+        if valid is None:
+            mask = np.where(rng.random((2, 1, tq, tk)) < 0.3, -1e4, 0.0).astype(np.float32)
+        else:
+            mask = np.where(np.arange(tk) >= valid, -1e4, 0.0).astype(np.float32)[None, None, None]
+        ref = JT.attention_core(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)), jnp.asarray(mask))
+        ref = np.asarray(ref.astype(jnp.float32))
+        tq_, tk_, tv_ = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+        got = (tar.attention_plain(tq_, tk_, tv_, None, valid_keys=valid) if valid is not None
+               else tar.attention_plain(tq_, tk_, tv_, torch.from_numpy(mask)))
+        assert got.dtype == tdt
+        tol = 1e-5 if dtype == "float32" else 2.0**-6 * np.abs(ref).max()
+        np.testing.assert_allclose(got.float().numpy(), ref, atol=tol, rtol=0)
