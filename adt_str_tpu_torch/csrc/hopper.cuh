@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu), the
 // bulk-copy ring of place_notes.cu and the cp.async + mma.sync rings of
-// linear.cu and attention_rows.cu: mbarriers, TMA tile copies, 1-D bulk
-// copies, cp.async, wgmma shared-memory descriptors and products, ldmatrix,
-// mma.sync, setmaxnreg, the 16-bit element types' conversions, and on the
+// linear.cu, attention_rows.cu and attention_tf32.cu: mbarriers, TMA tile
+// copies, 1-D bulk copies, cp.async, wgmma shared-memory descriptors and
+// products, ldmatrix, mma.sync (16-bit, and TF32 with the 3xTF32 split),
+// setmaxnreg, the 16-bit element types' conversions, and on the
 // host the tensor-map encoder and each kernel's shared-memory limit on every
 // device. Raw PTX and
 // the CUDA runtime only, no library: a kernel that includes it still builds
@@ -208,6 +209,13 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // the thread's groups are still in flight (a barrier then publishes them).
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, or a zero (no read of `src`) when !valid; in the
+// thread's cp.async groups like cp_async_16 (for rows whose stride is not a
+// multiple of 16 bytes).
+__device__ __forceinline__ void cp_async_4z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
@@ -514,6 +522,59 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- fp32 products on the tensor cores in 3xTF32
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; bit for bit for finite x), on the integer pipes: add half of the
+// 13 dropped bits' range to the magnitude, then clear them. cvt runs on the
+// conversion unit, a quarter of the integer pipes' rate, and the 3xTF32
+// split converts two values an operand element.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x -> big + small, two TF32 values (fp32 bit patterns whose low 13 mantissa
+// bits are 0): big = tf32_rna(x), small = tf32_rna(x - big). x - big is
+// exact, so big + small is x to within 2^-24 |x|.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c (16 x 8 fp32) += a (16 x 8 TF32, row-major) b (8 x 8 TF32, col-major):
+// lane l holds a[0] at row l / 4, column l % 4, a[1] at row l / 4 + 8, the
+// same column, and a[2], a[3] the same rows at column l % 4 + 4; b0 at k
+// l % 4, b1 at k l % 4 + 4, both at n l / 4; c as mma_16816 holds it.
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+    "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+    "{%0, %1, %2, %3};"
+    : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A B operand's two values of a lane (b0, b1 of mma_1688_tf32), split as
+// one float4: {big x0, big x1, small x0, small x1}.
+__device__ __forceinline__ float4 tf32_split2(float x0, float x1) {
+  uint32_t b0, s0, b1, s1;
+  tf32_split(x0, b0, s0);
+  tf32_split(x1, b1, s1);
+  return make_float4(__uint_as_float(b0), __uint_as_float(b1), __uint_as_float(s0), __uint_as_float(s1));
+}
+
+// c[n] += a b[n] to about fp32's accuracy (3xTF32), for N n-tiles: a = ab +
+// as as tf32_split gives them, b[n] as tf32_split2 does; the as bb pass over
+// every n-tile, then ab bs, then ab bb (the two small terms first; as bs,
+// below 2^-22 of the product, is dropped).
+template <int N>
+__device__ __forceinline__ void mma_1688_3xtf32(float (&c)[N][4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                                const float4 (&b)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], as, __float_as_uint(b[n].x), __float_as_uint(b[n].y));
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], ab, __float_as_uint(b[n].z), __float_as_uint(b[n].w));
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], ab, __float_as_uint(b[n].x), __float_as_uint(b[n].y));
 }
 
 // ---- register rebalancing between the producer and consumer warpgroups

@@ -1,5 +1,5 @@
 """K5: fused attention kernels (`csrc/attention.cu`, `csrc/attention_bwd.cu`,
-`csrc/attention_simt.cu`) and their plain versions.
+`csrc/attention_wide.cu`, `csrc/attention_tf32.cu`) and their plain versions.
 
 Replaces `adt_str_tpu/ops/pallas_attention.py:fused_attention`: the forward
 `_fwd` (K5f) and the backward `_vjp_bwd` (K5b). For (B, H, T, D) q, k, v and
@@ -35,7 +35,7 @@ at every head dim that is a multiple of 128, with no upper limit
     bf16, fp16   128          attention.cu, attention_bwd.cu (fused_attention, fused_attention_bwd)
     bf16, fp16   256          the same sources at D 256 (fused_attention_d256, fused_attention_bwd_d256)
     bf16, fp16   384, 512...  attention_wide.cu (fused_attention_wide, fused_attention_bwd_wide)
-    fp32         128, 256...  attention_simt.cu (fused_attention_simt, fused_attention_bwd_simt)
+    fp32         128, 256...  attention_tf32.cu (fused_attention_tf32, fused_attention_bwd_tf32)
 
 `FusedAttention` is the autograd Function around the two (the mask gets no
 gradient, as in JAX). Each wrapper's `launches` counts the launches of its
@@ -62,7 +62,7 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     card, at any Tq, Tk >= 1: "hopper" (bf16 or fp16 at head dim 128: TMA +
     wgmma), "hopper256" (bf16 or fp16 at 256: the same design at D 256),
     "wide" (bf16 or fp16 at 384 and past: TMA + wgmma, the head dim streamed)
-    or "simt" (fp32 at every head dim: CUDA cores). Raises a ValueError on
+    or "tf32x3" (fp32 at every head dim: mma.sync in 3xTF32). Raises a ValueError on
     any other dtype and on a head dim that is not a multiple of 128 (JAX's
     gate sends none)."""
     if dtype not in _DTYPE_CODE:
@@ -70,7 +70,7 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if head_dim % 128 or head_dim < 128:
         raise ValueError(f"the attention kernels take head dims that are multiples of 128; got D={head_dim}")
     if dtype == torch.float32:
-        return "simt"
+        return "tf32x3"
     return {128: "hopper", 256: "hopper256"}.get(head_dim, "wide")
 
 
@@ -168,17 +168,17 @@ def bwd_key_tile(head_dim: int) -> int:
 
 
 @functools.cache
-def _simt_lib() -> ctypes.CDLL:
-    lib = _build.load("attention_simt")
+def _tf32_lib() -> ctypes.CDLL:
+    lib = _build.load("attention_tf32")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.launch_attention_simt_fwd.argtypes = [p] * 6 + [i] * 7 + [f, p]
-    lib.launch_attention_simt_fwd.restype = ctypes.c_int
-    lib.launch_attention_simt_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
-    lib.launch_attention_simt_bwd.restype = ctypes.c_int
-    lib.attention_simt_takes.argtypes = [i, i]
-    lib.attention_simt_takes.restype = ctypes.c_int
-    if _takes(lib.attention_simt_takes) != routed("simt"):
-        raise RuntimeError("csrc/attention_simt.cu takes other dtypes or head dims than cuda_attention's")
+    lib.launch_attention_tf32_fwd.argtypes = [p] * 6 + [i] * 7 + [f, p]
+    lib.launch_attention_tf32_fwd.restype = ctypes.c_int
+    lib.launch_attention_tf32_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
+    lib.launch_attention_tf32_bwd.restype = ctypes.c_int
+    lib.attention_tf32_takes.argtypes = [i, i]
+    lib.attention_tf32_takes.restype = ctypes.c_int
+    if _takes(lib.attention_tf32_takes) != routed("tf32x3"):
+        raise RuntimeError("csrc/attention_tf32.cu takes other dtypes or head dims than cuda_attention's")
     return lib
 
 
@@ -245,8 +245,8 @@ def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
     route = kernel_for(q.dtype, D)
-    if route == "simt":
-        return fused_attention_simt(q, k, v, mask, n_virtual)
+    if route == "tf32x3":
+        return fused_attention_tf32(q, k, v, mask, n_virtual)
     if route == "hopper256":
         return fused_attention_d256(q, k, v, mask, n_virtual)
     if route == "wide":
@@ -276,21 +276,21 @@ def fused_attention_d256(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.
 fused_attention_d256.launches = 0
 
 
-def fused_attention_simt(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5f on the CUDA cores (`csrc/attention_simt.cu`: fp32 at every head
-    dim; `fused_attention` sends those inputs here); `attention_plain` for
-    CPU tensors."""
+def fused_attention_tf32(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5f in fp32 on the tensor cores (`csrc/attention_tf32.cu`: every
+    product in 3xTF32 on mma.sync, fp32 at every head dim; `fused_attention`
+    sends those inputs here); `attention_plain` for CPU tensors."""
     B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
-    if kernel_for(q.dtype, D) != "simt":
-        raise ValueError(f"the CUDA-core attention kernels do not take {q.dtype} at D={D}")
-    out, lse = _launch_fwd(_simt_lib().launch_attention_simt_fwd, "attention_simt_fwd", q, k, v, mask, n_virtual)
-    fused_attention_simt.launches += 1
+    if kernel_for(q.dtype, D) != "tf32x3":
+        raise ValueError(f"the 3xTF32 attention kernels do not take {q.dtype} at D={D}")
+    out, lse = _launch_fwd(_tf32_lib().launch_attention_tf32_fwd, "attention_tf32_fwd", q, k, v, mask, n_virtual)
+    fused_attention_tf32.launches += 1
     return out, lse
 
 
-fused_attention_simt.launches = 0
+fused_attention_tf32.launches = 0
 
 
 def fused_attention_wide(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -354,8 +354,8 @@ def fused_attention_bwd(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torc
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, mask, out, lse, do)
     route = kernel_for(q.dtype, D)
-    if route == "simt":
-        return fused_attention_bwd_simt(q, k, v, mask, out, lse, do)
+    if route == "tf32x3":
+        return fused_attention_bwd_tf32(q, k, v, mask, out, lse, do)
     if route == "hopper256":
         return fused_attention_bwd_d256(q, k, v, mask, out, lse, do)
     if route == "wide":
@@ -385,30 +385,30 @@ def fused_attention_bwd_d256(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor,
 fused_attention_bwd_d256.launches = 0
 
 
-def fused_attention_bwd_simt(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5b on the CUDA cores (`csrc/attention_simt.cu`: the delta pass, a
-    dk/dv kernel over key tiles and a dq kernel over query tiles, no
-    atomics) for fp32 at every head dim; `attention_bwd_plain` for CPU
-    tensors."""
+def fused_attention_bwd_tf32(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5b in fp32 on the tensor cores (`csrc/attention_tf32.cu`: the delta
+    pass, a dk/dv kernel over key tiles and a dq kernel over query tiles, no
+    atomics, every product in 3xTF32) for fp32 at every head dim;
+    `attention_bwd_plain` for CPU tensors."""
     B, H, Tq, Tk, D = _check_bwd(q, k, v, mask, out, lse, do)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, mask, out, lse, do)
-    if kernel_for(q.dtype, D) != "simt":
-        raise ValueError(f"the CUDA-core attention backward does not take {q.dtype} at D={D}")
+    if kernel_for(q.dtype, D) != "tf32x3":
+        raise ValueError(f"the 3xTF32 attention backward does not take {q.dtype} at D={D}")
     q, k, v, out, do, lse = (t.contiguous() for t in (q, k, v, out, do, lse))
     mask = _mask_arg(mask, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     err = _build.launch(
-        q.device, _simt_lib().launch_attention_simt_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.device, _tf32_lib().launch_attention_tf32_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], D, B, H, Tq, Tk, 1.0 / math.sqrt(D))
-    _build.check(err, "attention_simt_bwd")
-    fused_attention_bwd_simt.launches += 1
+    _build.check(err, "attention_tf32_bwd")
+    fused_attention_bwd_tf32.launches += 1
     return dq, dk, dv
 
 
-fused_attention_bwd_simt.launches = 0
+fused_attention_bwd_tf32.launches = 0
 
 
 def fused_attention_bwd_wide(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

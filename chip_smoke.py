@@ -47,8 +47,9 @@ line:
    and (`phase_domain_kernels`) the variants that take what the shipped
    configs do not send: K1's any_hop route (44.1 kHz hop 441, 22.05 kHz
    hop 220) and long_hop route (48 kHz hop 960) at B = 16, each bit-equal
-   at every split; K5f and K5b on the CUDA cores in fp32 at the training
-   shapes and at 3 heads of 256 (bf16 and fp32); the tensor-core K5f and
+   at every split; K5f and K5b in fp32 (3xTF32 on the tensor cores) at the
+   training shapes and at 3 heads of 256 (bf16 and fp32), each fp32 row
+   with the device time of SDPA's own fp32 kernels by name; the tensor-core K5f and
    K5b past 512 keys (1,014 and 1,023, B = 64; K5f at the long serving
    batch of 4); K4 in fp32 at N = 64 * 246 and 64 * 511;
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
@@ -213,7 +214,7 @@ line:
    one-hot multi-hot `decode_logits` on the card equal to the id path's;
 12. the configs JAX's gates send to its kernels beyond the shipped
    ones: 3 steps of TMIDT-flash and TMIDT-fused-ffn at `compute_dtype:
-   float32` (64 x 512; the CUDA-core K5f and K5b, or fp32 K4), each step
+   float32` (64 x 512; the 3xTF32 K5f and K5b, or fp32 K4), each step
    within 1e-5 (loss) and 1e-4 (grad norm) of the plain fp32 path;
    TMIDT-flash at `input_sec: 10.24` and 1,024 tokens for 3 steps at batch
    64 (K5 past 512 keys), held as the bf16 training phases are; the
@@ -235,7 +236,7 @@ line:
    weights (at fp16 the grad norm within 2e-3 plus a tenth of the plain
    fp16 step's own distance from the fp32 step's: fp16 without loss
    scaling underflows; `run_training`); the serving config at
-   fp16 and at 2 heads of 384 (the CUDA-core K5f and attention_rows), 3 x
+   fp16 and at 2 heads of 384 (the wide K5f and attention_rows), 3 x
    10 s each, tokens held as at 44.1 kHz; at each, 8 chunks decoded alone
    and spread in a batch of 16, bit-equal. The kernel phases before it
    also hold and time K5 at fp16 (head dim 128), at head dim 256 (bf16,
@@ -259,7 +260,7 @@ line:
    (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`) and past
    512 keys (`past_512_keys`), K4's in its partial mode
    (`partial_d_ff_1536`) and at fp16 and odd d_ff, K5's at fp16, the
-   head-dim-256 K5's at fp16, the CUDA-core K5's other shapes
+   head-dim-256 K5's at fp16, the 3xTF32 K5's other shapes
    (`other_shapes`: fp32, and bf16 and fp16 past head dim 256), the
    batch-invariance kernels' at fp16 (and attention_rows' at 2 heads of
    384), and `layer_norm`'s entry is the
@@ -277,6 +278,13 @@ its own `build/kernels/`) and their decode loops, one process a run in the
 given order, and groups the runs by bit-equal outputs on seeded inputs
 (LayerNorms, products, attentions, greedy and beam tokens;
 `compare_trees`).
+
+`python3 chip_smoke.py --fp32-drift` runs none of it either: the 3xTF32
+K5's fp32 rows, an fp64 witness for a fully masked row, and TMIDT-flash at
+fp32 on separate 3-step trajectories from the same weights (the kernel
+path; the plain path with its products in emulated 3xTF32, in another fp32
+order, or through fp32 SDPA), each held to the plain path's, with Adam's
+first-step sign flips per leaf (`fp32_drift`).
 """
 
 from __future__ import annotations
@@ -383,9 +391,13 @@ TMIDT_STEPS = 6
 TMIDT_PROFILED = 2  # the step index `logging.profile_steps` traces (the 3rd step)
 BEAM_SIZE = 5
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
+# H100 SXM data-sheet peaks (dense): bf16 and TF32 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
+# an fp32-accurate product on the card: three TF32 products (3xTF32) on the tensor cores, faster than one
+# fp32 FMA on the CUDA cores (3 / 495e12 < 1 / 67e12), so fp32 products are priced at the TF32 rate
+TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 REPS = 12
 SEED = 0
@@ -397,7 +409,13 @@ N_REQUESTS = 3
 REQUEST_SEC = 10.0
 
 
+T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gives the seconds since the smoke began (`t_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.monotonic() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -445,6 +463,15 @@ def bound(flops_by_peak: list[tuple[float, float]], n_bytes: float) -> tuple[flo
     ops_s = max(f / peak for f, peak in flops_by_peak)
     bytes_s = n_bytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def product_cost(flops: float, dtype) -> tuple[float, float]:
+    """(operations, peak) of matrix products of `flops` whose operands are
+    `dtype`: bf16 and fp16 on the tensor cores at bf16's rate; fp32 as
+    TF32_PRODUCTS TF32 products, the least an fp32-accurate product takes."""
+    if dtype == torch.float32:
+        return TF32_PRODUCTS * flops, PEAK_TF32
+    return flops, PEAK_BF16
 
 
 def load_config(path: str, train: bool = False, show: bool = True, **sections: dict) -> FrameworkConfig:
@@ -976,8 +1003,8 @@ def _qkv(batch: int, tq: int, tk: int, gen, heads: int = 6, head_dim: int = 128,
 def attention_wrappers(dtype, head_dim: int) -> tuple:
     """The forward and backward wrappers whose kernels take (dtype, head dim)."""
     route = cuda_attention.kernel_for(dtype, head_dim)
-    if route == "simt":
-        return cuda_attention.fused_attention_simt, cuda_attention.fused_attention_bwd_simt
+    if route == "tf32x3":
+        return cuda_attention.fused_attention_tf32, cuda_attention.fused_attention_bwd_tf32
     if route == "wide":
         return cuda_attention.fused_attention_wide, cuda_attention.fused_attention_bwd_wide
     if route == "hopper256":
@@ -990,11 +1017,12 @@ def attention_tols(dtype, head_dim: int) -> tuple[float, float]:
     largest element). bf16 on the tensor cores: p rounds to bf16 on both
     sides and a rare ulp flip moves out by ~1 bf16 ulp (1.6e-2); the
     backward's bf16 p and ds (2^-9) and bf16 outputs (2^-8): 2^-6. The
-    CUDA-core kernels (fp32 only): other summation orders, 1e-5 and 1e-5.
+    3xTF32 kernels (fp32 only): products to about 2^-21 and other summation
+    orders, 1e-5 and 1e-5.
     fp16 is held to bf16's tolerances (no looser); the head-dim-256 and
     wide tensor-core kernels, which keep the same rounding points, to the
     head-dim-128 ones'."""
-    if cuda_attention.kernel_for(dtype, head_dim) != "simt":
+    if cuda_attention.kernel_for(dtype, head_dim) != "tf32x3":
         return 1.6e-2, 2.0**-6
     return 1e-5, 1e-5
 
@@ -1030,11 +1058,13 @@ def phase_attention(batch: int, tq: int, tk: int, causal: bool, gen, shape: str,
     res["device_ms"] = device_ms(cuda_attention.fused_attention, inputs)
     res["plain_ms"] = median_ms(cuda_attention.attention_plain, inputs)
     res["library_ms"] = median_ms(_sdpa, inputs)
+    if dtype == torch.float32:  # which kernel SDPA takes for fp32, by name
+        res["library_device_ms"] = device_ms(_sdpa, inputs)
     bh, esize = batch * heads, out.element_size()
-    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16  # the card's peak for the operands' type (fp16: bf16's)
+    products = product_cost(4.0 * bh * tq * tk * head_dim, dtype)
     res["bound_ms"], res["bound_by"] = bound(
         # products; scale, mask, max, exp, sum
-        [(4.0 * bh * tq * tk * head_dim, peak), (5.0 * bh * tq * tk, PEAK_FP32)],
+        [products, (5.0 * bh * tq * tk, PEAK_FP32)],
         2 * bh * (tq + tk) * head_dim * esize + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
     res.update(kernel=wrapper.__name__, shape=shape, batch=batch, heads=heads, head_dim=head_dim, dtype=str(dtype),
@@ -1088,11 +1118,12 @@ def phase_attention_bwd(batch: int, tq: int, tk: int, causal: bool, gen, shape: 
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         lib_inputs.append((_sdpa(q, k, v, mask, n_virtual), q, k, v, do))
     res["library_ms"] = median_ms(_sdpa_grads, lib_inputs)  # autograd through SDPA, same mask
+    if dtype == torch.float32:
+        res["library_device_ms"] = device_ms(_sdpa_grads, lib_inputs)
     del lib_inputs
     bh, esize = batch * heads, got[0].element_size()
-    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16  # the card's peak for the operands' type (fp16: bf16's)
     res["bound_ms"], res["bound_by"] = bound(
-        [(10.0 * bh * tq * tk * head_dim, peak), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
+        [product_cost(10.0 * bh * tq * tk * head_dim, dtype), (8.0 * bh * tq * tk, PEAK_FP32)],  # 5 products; p and ds
         4 * bh * (tq + tk) * head_dim * esize + (0 if not causal else batch * tq * tk * 4) + bh * tq * 4,
     )
     res.update(kernel=wrapper.__name__, shape=shape, batch=batch, heads=heads, head_dim=head_dim, dtype=str(dtype),
@@ -1171,7 +1202,8 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     res["bound_ms"], res["bound_by"] = bound(
         # the two products; ~30 fp32-rate operations per hidden element (A-S
         # gelu, the hash, scaling) and ~12 per output element
-        [(4.0 * rows * d * d_ff, PEAK_FP32 if fp32 else PEAK_BF16), (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
+        [product_cost(4.0 * rows * d * d_ff, torch.float32 if fp32 else torch.bfloat16),
+         (30.0 * rows * d_ff + 12.0 * rows * d, PEAK_FP32)],
         # x in, out (fp32 in the partial mode), both weights, the biases, pre out
         rows * d * es + rows * d * (4 if partial else es) + 2 * d * d_ff * es + es * (d_ff + (0 if partial else d))
         + rows * d_ff * es,
@@ -1518,18 +1550,23 @@ def before_repair():
 def kernel_counters() -> dict:
     """The TPU kernels' wrappers, one a kernel variant: K1 by its route, K5 on
     the tensor cores at head dim 128, 256 or past 256 (wide) or on the CUDA
-    cores (fp32), K4 in 16-bit (bf16, fp16) or fp32."""
+    cores in 3xTF32 (fp32), K4 in 16-bit (bf16, fp16) or fp32."""
     return {"log_mel": cuda_mel.log_mel, "log_mel_any_hop": cuda_mel.log_mel_any_hop,
             "log_mel_long_hop": cuda_mel.log_mel_long_hop, "fused_attention": cuda_attention.fused_attention,
             "fused_attention_bwd": cuda_attention.fused_attention_bwd,
             "fused_attention_d256": cuda_attention.fused_attention_d256,
             "fused_attention_bwd_d256": cuda_attention.fused_attention_bwd_d256,
-            "fused_attention_simt": cuda_attention.fused_attention_simt,
-            "fused_attention_bwd_simt": cuda_attention.fused_attention_bwd_simt,
+            "fused_attention_tf32": cuda_attention.fused_attention_tf32,
+            "fused_attention_bwd_tf32": cuda_attention.fused_attention_bwd_tf32,
             "fused_attention_wide": cuda_attention.fused_attention_wide,
             "fused_attention_bwd_wide": cuda_attention.fused_attention_bwd_wide, "ffn_dropout": cuda_ffn.ffn_dropout,
             "ffn_dropout_fp32": cuda_ffn.ffn_dropout_fp32,
             "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
+
+
+# The device kernels of the CUDA-core fp32 K5 that the 3xTF32 kernels (csrc/attention_tf32.cu) replaced
+RETIRED_K5 = ("attention_fwd_simt", "attention_delta_simt", "attention_dkdv_simt", "attention_dq_simt",
+              "attention_fwd_chunked", "attention_delta_chunked", "attention_dkdv_chunked", "attention_dq_chunked")
 
 
 # The batch-invariance kernels' wrappers (`REPAIRS`, as imported), counted apart from the TPU kernels:
@@ -1576,9 +1613,8 @@ def _group(name: str) -> str:
     that the library rule below would file under cuBLAS."""
     for key, group in (("attention_fwd_kernel", "K5f attention fwd"), ("attention_bwd", "K5b attention bwd"),
                        ("attention_delta", "K5b attention bwd"), ("ffn_dropout_kernel", "K4 fused FFN"),
-                       ("attention_fwd_simt", "K5f attention fwd"), ("attention_dkdv_simt", "K5b attention bwd"),
-                       ("attention_dq_simt", "K5b attention bwd"), ("attention_fwd_chunked", "K5f attention fwd"),
-                       ("attention_dkdv_chunked", "K5b attention bwd"), ("attention_dq_chunked", "K5b attention bwd"),
+                       ("attention_tf32_fwd", "K5f attention fwd"), ("attention_tf32_delta", "K5b attention bwd"),
+                       ("attention_tf32_dkdv", "K5b attention bwd"), ("attention_tf32_dq", "K5b attention bwd"),
                        ("wide_fwd_kernel", "K5f attention fwd"), ("wide_bwd_kernel", "K5b attention bwd"),
                        ("wide_delta_kernel", "K5b attention bwd"), ("ffn_gemm_fp32", "K4 fused FFN"),
                        ("log_mel_", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
@@ -1607,8 +1643,8 @@ def _group(name: str) -> str:
 KERNEL_GROUPS = {"log_mel": "K1 log-mel", "log_mel_any_hop": "K1 log-mel", "log_mel_long_hop": "K1 log-mel",
                  "gather_blend": "K2 gather + blend", "place_notes": "K3 note placement",
                  "ffn_dropout": "K4 fused FFN", "ffn_dropout_fp32": "K4 fused FFN",
-                 "fused_attention": "K5f attention fwd", "fused_attention_simt": "K5f attention fwd",
-                 "fused_attention_bwd": "K5b attention bwd", "fused_attention_bwd_simt": "K5b attention bwd",
+                 "fused_attention": "K5f attention fwd", "fused_attention_tf32": "K5f attention fwd",
+                 "fused_attention_bwd": "K5b attention bwd", "fused_attention_bwd_tf32": "K5b attention bwd",
                  "fused_attention_d256": "K5f attention fwd", "fused_attention_bwd_d256": "K5b attention bwd",
                  "fused_attention_wide": "K5f attention fwd", "fused_attention_bwd_wide": "K5b attention bwd"}
 
@@ -1679,7 +1715,7 @@ def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
 
 def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps: int = TRAIN_STEPS,
                  tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True, lockstep: bool = False,
-                 ref32=None) -> dict:
+                 ref32=None, trajectory: bool = False) -> dict:
     """`steps` steps of `call(step, state, i) -> (state, metrics)` from
     `fresh() -> (step, state)`, each of the first `plain_steps` checked
     against the same step through the plain versions (from the same weights
@@ -1690,6 +1726,12 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
     or fp16 the two trajectories part after the first update (Adam's
     normalised step moves the weights of near-zero gradients by ±lr on
     rounding differences), so only lockstep compares each step itself.
+    With `trajectory` (and lockstep), the plain path also runs its own
+    trajectory from the same initial weights, and each step's distance
+    from it is reported, not held: at fp32 the plain path with its
+    products summed in another fp32 order, and fp32 SDPA, part from that
+    trajectory past FP32_TOL by step 2-3 as well (`python3 chip_smoke.py
+    --fp32-drift`).
     `ref32(state, i) -> metrics` (fp16, with lockstep): the same step in
     fp32 through the plain versions from a copy of the state. fp16 without
     loss scaling flushes most of a step's gradient elements (the loss's mean
@@ -1699,15 +1741,16 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
     part by ~1%: the kernel path's fp16 grad norm is then held to the plain
     fp16 step's within the bf16 rule plus a tenth of the plain fp16 step's
     own distance from the fp32 step's (its loss to the bf16 rule)."""
-    plain = []
-    if not lockstep:
+    own = []
+    if not lockstep or trajectory:
         step, state = fresh()
         with plain_kernels():
             for i in range(plain_steps):
                 state, m = call(step, state, i)
-                plain.append({k: float(v) for k, v in m.items()})
+                own.append({k: float(v) for k, v in m.items()})
         del step, state, m
         torch.cuda.empty_cache()
+    plain = [] if lockstep else own
 
     step, state = fresh()
     torch.cuda.synchronize()
@@ -1734,8 +1777,12 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
     plain0 = plain[0]
     vs_plain = {"loss": losses[0], "plain_loss": plain0["loss"], "grad_norm": norms[0],
                 "plain_grad_norm": plain0["grad_norm"], **tol, "lockstep": lockstep}
-    each = [{"loss_rel": abs(losses[i] - r["loss"]) / abs(r["loss"]),
-             "grad_norm_rel": abs(norms[i] - r["grad_norm"]) / r["grad_norm"]} for i, r in enumerate(plain)]
+
+    def gaps(refs: list) -> list:
+        return [{"loss_rel": abs(losses[i] - r["loss"]) / abs(r["loss"]),
+                 "grad_norm_rel": abs(norms[i] - r["grad_norm"]) / r["grad_norm"]} for i, r in enumerate(refs)]
+
+    each = gaps(plain)
     if ref32 is not None:
         for i, (e, r) in enumerate(zip(each, plain)):
             g32 = r["fp32"]["grad_norm"]
@@ -1753,6 +1800,8 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
            "model_params": sum(p.numel() for p in state.model.parameters())}
     if plain_steps > 1:
         res["vs_plain_each_step"] = each
+    if trajectory:
+        res["vs_plain_own_trajectory"] = gaps(own)
     if profile:
         res["profile_one_step"] = step_profile(lambda: call(step, state, steps), name)
     emit(res)
@@ -1770,19 +1819,26 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
     return res
 
 
+def training_inputs(name: str, steps: int, tokens: int = TRAIN_TOKENS, **sections) -> tuple:
+    """One real-audio training configuration (`sections`: the config's
+    overrides, as `load_config` takes them) -> (its config, a constant-lr
+    TrainingConfig, a seeded batch of `tokens` tokens, seeded site keys for
+    `steps` + 1 steps)."""
+    cfg = load_config(TRAIN_YAMLS[name], train=True, **sections)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    return (cfg, _constant_lr(cfg), train_batch(cfg, SEED + 10, tokens),
+            [draw_site_keys(cfg.model, gen) for _ in range(steps + 1)])
+
+
 def phase_training(name: str, label: str | None = None, steps: int = TRAIN_STEPS, tokens: int = TRAIN_TOKENS,
                    tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True, lockstep: bool = False,
-                   **sections) -> dict:
+                   trajectory: bool = False, **sections) -> dict:
     """`steps` steps of one real-audio training configuration through its
-    kernels (`sections`: the config's overrides, as `load_config` takes
-    them; `label` names the run), held as `run_training` holds them; at
-    fp16 with `lockstep`, beside the same step in fp32 (`ref32`)."""
-    cfg = load_config(TRAIN_YAMLS[name], train=True, **sections)
+    kernels (`training_inputs`; `label` names the run), held as
+    `run_training` holds them; at fp16 with `lockstep`, beside the same
+    step in fp32 (`ref32`)."""
+    cfg, tcfg, batch, keys = training_inputs(name, steps, tokens, **sections)
     mc = cfg.model
-    tcfg = _constant_lr(cfg)
-    batch = train_batch(cfg, SEED + 10, tokens)
-    gen = torch.Generator().manual_seed(SEED + 11)
-    keys = [draw_site_keys(mc, gen) for _ in range(steps + 1)]
 
     def fresh():
         model = ADTModel(mc, seed=SEED, device="cuda")
@@ -1798,7 +1854,7 @@ def phase_training(name: str, label: str | None = None, steps: int = TRAIN_STEPS
     return run_training(label or name, mc, per_step(mc, synth=False), fresh,
                         lambda step, state, i: step(state, batch, keys[i]),
                         {"tokens": tokens, "chunk_samples": cfg.shared.chunk_samples}, steps, tol, plain_steps, profile,
-                        lockstep, ref32 if lockstep and mc.compute_dtype == "float16" else None)
+                        lockstep, ref32 if lockstep and mc.compute_dtype == "float16" else None, trajectory)
 
 
 def phase_synth_training(cfg: FrameworkConfig, statics: render.SynthStatics) -> dict:
@@ -3758,10 +3814,18 @@ LONG_ATTENTION = {"encoder-1014": (1014, 1014, False), "decoder-self-1023": (102
 
 def phase_training_fp32(name: str) -> dict:
     """FP32_STEPS steps of a TMIDT config at `compute_dtype: float32` (64 x
-    512 tokens): K5f and K5b on the CUDA cores (flash) or K4 in fp32
-    (fused-ffn), every step against the plain fp32 path (TF32 off)."""
+    512 tokens): K5f and K5b in 3xTF32 (flash) or K4 in fp32 (fused-ffn),
+    every step against the plain fp32 path (TF32 off). fused-ffn's plain
+    path runs its own trajectory from the same weights. flash's plain steps
+    run in lockstep, each from a copy of the kernel path's weights, and its
+    own trajectory is reported beside them (`run_training`): fp32 SDPA
+    and the plain path with its products summed in another fp32 order part
+    from it past FP32_TOL by step 2-3 too (`--fp32-drift`; H100 80GB HBM3,
+    700 W), so holding those steps would hold the products to cuBLAS's
+    rounding, not to fp32's accuracy."""
+    flash = name == "flash"
     return phase_training(name, f"training-fp32-{name}", FP32_STEPS, tol=FP32_TOL, plain_steps=FP32_STEPS,
-                          profile=False, model=FP32)
+                          profile=False, lockstep=flash, trajectory=flash, model=FP32)
 
 
 def phase_training_long() -> dict:
@@ -3852,7 +3916,7 @@ def phase_domain_kernels(gen) -> dict:
         att[f"fp32-{s}"] = {"fwd": phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32),
                             "bwd": phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}",
                                                        dtype=torch.float32)}
-    # head dim 256 (3 heads at d 768): bf16 and fp16 on the tensor cores, fp32 on the CUDA cores
+    # head dim 256 (3 heads at d 768): bf16 and fp16 on the tensor cores, fp32 in 3xTF32
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         key = f"{str(dtype)[6:]}-d256-decoder-self"
         att[key] = {"fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, key, 3, 256, dtype),
@@ -3865,7 +3929,7 @@ def phase_domain_kernels(gen) -> dict:
                                                           dtype=torch.float16)}
     # past head dim 256 on the wide tensor-core kernels: 2 heads of 384 (the 2-head training shape) in bf16
     # and fp16, the serving encoder at 2 heads of 384 and 1 of 768, 512 and 640, and past the old limit of
-    # 768 (896, 1,024, 2,048; fp32 there on the CUDA cores' chunked kernels) at a small batch
+    # 768 (896, 1,024, 2,048; fp32 there in 3xTF32, 7-16 column chunks) at a small batch
     for dtype in (torch.bfloat16, torch.float16):
         key = f"{str(dtype)[6:]}-d384-decoder-self"
         att[key] = {"fwd": phase_attention(TRAIN_BATCH, 511, 511, True, gen, key, 2, 384, dtype),
@@ -3935,27 +3999,21 @@ def phase_training_variant(name: str, label: str, model: dict) -> dict:
                           model=model)
 
 
-def greedy_alone_vs_batch(cfg: FrameworkConfig, batch: int = 16) -> dict:
-    """INVARIANCE_CHUNKS chunks decoded alone (bucket 1) and spread in a
-    batch of `batch` at `cfg` (seeded weights and chunks): the tokens must
-    be bit-equal."""
+def greedy_alone_vs_batch(cfg: FrameworkConfig, batches: tuple = (16,), seed: int = SEED + 81) -> dict:
+    """INVARIANCE_CHUNKS chunks decoded alone (bucket 1) and in batches of
+    each of `batches` (`greedy_batches`) at `cfg` (seeded weights and
+    chunks): the tokens must be bit-equal."""
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
     n, L = INVARIANCE_CHUNKS, cfg.inference.max_length
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
-    pool = torch.randn(n + batch, cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
-    chunks, others = pool[:n], pool[n:]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.randn(n + max(batches), cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
     counters = reset_counters()
     with torch.inference_mode():
-        alone = torch.cat([greedy_decode(model, chunks[i : i + 1], L) for i in range(n)])
-        pos = spread(n, batch)
-        full = others[:batch].clone()
-        full[pos] = chunks
-        got = greedy_decode(model, full, L)[pos]
+        alone, greedy = greedy_batches(model, pool[:n], pool[n:], L, batches)
     launches = {k: c.launches for k, c in counters.items()}
     del model
     torch.cuda.empty_cache()
-    return {"chunks": n, "batch": batch, "equal": bool(torch.equal(got, alone)),
-            "rows_differing": int((got != alone).any(dim=1).sum().item()),
+    return {"chunks": n, "batches": greedy, "equal": all(g["equal"] for g in greedy.values()),
             "tokens_before_eos": int((alone != cfg.tokenizer.EOS_token).sum().item()), "launches": launches}
 
 
@@ -3987,8 +4045,8 @@ def phase_fp16_and_wide_heads(gen) -> dict:
             invariance["fp16"]["launches"][k] for k in ("log_mel", "fused_attention", *REPAIR_WRAPPERS)),
         "2 heads: K1, the wide tensor-core K5f and the repair kernels launched": all(
             invariance["2heads"]["launches"][k] for k in ("log_mel", "fused_attention_wide", *REPAIR_WRAPPERS)),
-        "2 heads: the CUDA-core K5 not launched": not (invariance["2heads"]["launches"]["fused_attention_simt"]
-                                                       or training["flash-2heads"]["launches"]["fused_attention_simt"]),
+        "2 heads: the fp32 K5 not launched": not (invariance["2heads"]["launches"]["fused_attention_tf32"]
+                                                   or training["flash-2heads"]["launches"]["fused_attention_tf32"]),
         "2-head training: the wide K5f and K5b launched 36 times each": all(
             training["flash-2heads"]["launches"][k] == 36 for k in ("fused_attention_wide",
                                                                      "fused_attention_bwd_wide")),
@@ -4029,8 +4087,8 @@ def phase_wide_widths(gen, cfg: FrameworkConfig) -> dict:
         "d 2048: 8 chunks alone = in a batch of 16": invariance["equal"],
         "d 2048: K1, the wide K5f, LayerNorm and attention_rows launched": all(
             invariance["launches"][k] for k in ("log_mel", "fused_attention_wide", "layer_norm", "attention_rows")),
-        "d 2048: the CUDA-core K5 not launched": not (invariance["launches"]["fused_attention_simt"]
-                                                      or serving["launches"]["fused_attention_simt"]),
+        "d 2048: the fp32 K5 not launched": not (invariance["launches"]["fused_attention_tf32"]
+                                                  or serving["launches"]["fused_attention_tf32"]),
     })
     return {"kernels": kernels, "serving": serving, "invariance": invariance}
 
@@ -4341,6 +4399,45 @@ def spread(n: int, b: int) -> list[int]:
     return [(i * b) // n + b // n - 1 for i in range(n)]
 
 
+def greedy_batches(model: ADTModel, chunks: torch.Tensor, others: torch.Tensor, L: int,
+                   batches: tuple = INVARIANCE_BATCHES) -> tuple:
+    """`chunks` decoded greedily each alone (bucket 1), then in batches of
+    each of `batches` (below len(chunks): the chunks side by side; from it:
+    spread among `others`) -> (the lone tokens, {batch: equal to them, rows
+    differing})."""
+    n = chunks.shape[0]
+    alone = torch.cat([greedy_decode(model, chunks[i : i + 1], L) for i in range(n)])
+    greedy = {}
+    for b in batches:
+        if b < n:
+            got = torch.cat([greedy_decode(model, chunks[j : j + b], L) for j in range(0, n, b)])
+        else:
+            pos = spread(n, b)
+            batch = others[:b].clone()
+            batch[pos] = chunks
+            got = greedy_decode(model, batch, L)[pos]
+        greedy[b] = {"equal": bool(torch.equal(got, alone)),
+                     "rows_differing": int((got != alone).any(dim=1).sum().item())}
+    return alone, greedy
+
+
+def phase_fp32_invariance(cfg: FrameworkConfig) -> dict:
+    """The serving config at `compute_dtype: float32` (K1, the 3xTF32 K5f
+    and the batch-invariance kernels at fp32): `greedy_alone_vs_batch` at
+    each of INVARIANCE_BATCHES, the tokens bit-equal."""
+    t0 = time.monotonic()
+    res = {"phase": "fp32_invariance", "compute_dtype": cfg.model.compute_dtype,
+           "max_length": cfg.inference.max_length, **greedy_alone_vs_batch(cfg, INVARIANCE_BATCHES, SEED + 82),
+           "wall_s": time.monotonic() - t0}
+    emit(res)
+    fail_unless("fp32_invariance", {
+        **{f"fp32 greedy tokens alone = in batches of {b}": g["equal"] for b, g in res["batches"].items()},
+        "K1, the 3xTF32 K5f and the repair kernels launched": all(
+            res["launches"][k] for k in ("log_mel", "fused_attention_tf32", *REPAIR_WRAPPERS)),
+    })
+    return res
+
+
 def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
     """A chunk's tokens on the card do not depend on the rows decoded beside
     it (the serving config at full width, K1, K5f and the batch-invariance
@@ -4362,18 +4459,7 @@ def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
     pool = torch.randn(n + max(INVARIANCE_BATCHES), cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
     chunks, others = pool[:n], pool[n:]
     reset_counters()
-    alone = torch.cat([greedy_decode(model, chunks[i : i + 1], L) for i in range(n)])
-    greedy = {}
-    for b in INVARIANCE_BATCHES:
-        if b < n:
-            got = torch.cat([greedy_decode(model, chunks[j : j + b], L) for j in range(0, n, b)])
-        else:
-            pos = spread(n, b)
-            batch = others[:b].clone()
-            batch[pos] = chunks
-            got = greedy_decode(model, batch, L)[pos]
-        greedy[b] = {"equal": bool(torch.equal(got, alone)),
-                     "rows_differing": int((got != alone).any(dim=1).sum().item())}
+    alone, greedy = greedy_batches(model, chunks, others, L)
     greedy_launches = {k: c.launches for k, c in all_counters().items()}
     nb, bb = INVARIANCE_BEAM_CHUNKS, INVARIANCE_BEAM_BATCH
     beam_alone = torch.cat([beam_search_decode(model, chunks[i : i + 1], L, BEAM_SIZE) for i in range(nb)])
@@ -5013,7 +5099,7 @@ def compare_trees(argv: list[str]) -> int:
 def at_shape(res: dict) -> dict:
     """A kernel phase's numbers for a `kernels` entry beside its main shape."""
     keys = ("shape", "batch", "rows", "d_ff", "tq", "tk", "heads", "head_dim", "dtype", "route", "max_abs_err", "tol", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     return {k: res[k] for k in keys if k in res}
 
 
@@ -5024,6 +5110,195 @@ def tp_entry(tp: dict, kernel: str, col0: int | None = None) -> dict:
     keys = ("max_abs_err", "tol", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"shape": f"tp phase, {'col0 ' + str(col0) if col0 is not None else '3 heads'}",
             **{k: res[k] for k in keys if k in res}}
+
+
+# ------------------------------------------- fp32 trajectories (python3 chip_smoke.py --fp32-drift)
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 as cvt.rna.tf32.f32 (and hopper.cuh's tf32_rna) round it."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from three TF32 products of operands split as the 3xTF32
+    kernels split them (the two small terms first), each product and the
+    sums in fp32 rounded to nearest (cuBLAS, TF32 off)."""
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    return torch.matmul(tf32_rna(a - ab), bb) + torch.matmul(ab, tf32_rna(b - bb)) + torch.matmul(ab, bb)
+
+
+def mm_halves(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in another fp32 order: each half of the shared dimension, then their sum."""
+    h = a.shape[-1] // 2
+    return torch.matmul(a[..., h:], b[..., h:, :]) + torch.matmul(a[..., :h], b[..., :h, :])
+
+
+def attention_with(mm) -> list:
+    """Swaps that route K5f and K5b to `attention_plain` and
+    `attention_bwd_plain` (fp32) with every product through `mm`."""
+    def scores(q, k, mask):
+        s = mm(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+        return s if mask is None else s + mask[:, None]
+
+    def fwd(q, k, v, mask=None, n_virtual=0):
+        s = scores(q, k, mask)
+        m = s.amax(dim=-1, keepdim=True)
+        if n_virtual:
+            m = torch.clamp(m, min=cuda_attention.NEG_MASK)
+        e = torch.exp(s - m)
+        denom = e.sum(dim=-1, keepdim=True)
+        if n_virtual:
+            denom = denom + n_virtual * torch.exp(cuda_attention.NEG_MASK - m)
+        return mm(e / denom, v), (m + torch.log(denom)).transpose(-1, -2)
+
+    def bwd(q, k, v, mask, out, lse, do):
+        p = torch.exp(scores(q, k, mask) - lse.transpose(-1, -2))
+        dv = mm(p.transpose(-1, -2), do)
+        ds = p * (mm(do, v.transpose(-1, -2)) - (do * out).sum(dim=-1, keepdim=True)) * (1.0 / math.sqrt(q.shape[-1]))
+        return mm(ds, k), mm(ds.transpose(-1, -2), q), dv
+
+    return [(cuda_attention, "fused_attention", fwd), (cuda_attention, "fused_attention_bwd", bwd)]
+
+
+def _sdpa_fwd(q, k, v, mask=None, n_virtual=0):
+    """out from fp32 SDPA (`_sdpa`); lse from the plain version."""
+    return _sdpa(q, k, v, mask, n_virtual), cuda_attention.attention_plain(q, k, v, mask, n_virtual)[1]
+
+
+def _sdpa_bwd(q, k, v, mask, out, lse, do):
+    """dq, dk, dv from autograd through fp32 SDPA."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        return _sdpa_grads(_sdpa(*leaves, mask, 0), *leaves, do)
+
+
+def drift_trajectory(inputs: tuple, swaps: list | None) -> dict:
+    """FP32_STEPS steps of `inputs` (`training_inputs`) from the seeded
+    weights: through the kernels (`swaps` None), or through the plain
+    versions with `swaps` on top -> each step's metrics and step 1's clipped
+    gradient (mu / (1 - b1)) and weights."""
+    cfg, tcfg, batch, keys = inputs
+    model = ADTModel(cfg.model, seed=SEED, device="cuda")
+    opt, _ = make_optimizer(tcfg, FP32_STEPS, model)
+    step, state = make_train_step(cfg.model, opt, device="cuda"), init_train_state(model, opt)
+    metrics, first = [], None
+    with plain_kernels() if swaps is not None else contextlib.nullcontext(), swapped(swaps or []):
+        for i in range(FP32_STEPS):
+            state, m = step(state, batch, keys[i])
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                first = {"g": {n: mu / (1 - opt.b1) for n, mu in state.opt_state.mu.items()},
+                         "w": {n: p.detach().clone() for n, p in state.model.named_parameters()}}
+    return {"metrics": metrics, "first": first}
+
+
+def drift_against(run: dict, plain: dict, lr: float) -> dict:
+    """How `run` parts from `plain`: each step's loss and grad norm, and
+    after step 1, per leaf, the gradient elements of opposite sign (Adam's
+    first update moves an element by lr times its gradient's sign), the
+    weights more than lr apart, the leaf's largest gradient, their largest
+    difference, and the largest gradient among the flipped elements."""
+    steps = [{"loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+              "grad_norm_rel": abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]}
+             for a, b in zip(run["metrics"], plain["metrics"])]
+    leaves = []
+    for n, gp in plain["first"]["g"].items():
+        go = run["first"]["g"][n]
+        flip = torch.sign(go) != torch.sign(gp)
+        leaves.append({"leaf": n, "elements": gp.numel(), "sign_flips": int(flip.sum()),
+                       "weights_over_lr_apart": int(((run["first"]["w"][n] - plain["first"]["w"][n]).abs() > lr).sum()),
+                       "largest_grad": gp.abs().max().item(), "largest_grad_gap": (go - gp).abs().max().item(),
+                       "largest_flipped_grad": gp.abs()[flip].max().item() if flip.any() else 0.0})
+    flipped = [lf for lf in leaves if lf["sign_flips"]]
+    return {"each_step": steps, "sign_flips": sum(lf["sign_flips"] for lf in leaves),
+            "weights_over_lr_apart": sum(lf["weights_over_lr_apart"] for lf in leaves),
+            "leaves_flipped": len(flipped), "of_leaves": len(leaves),
+            "flipped_within_the_gap": sum(lf["largest_flipped_grad"] <= lf["largest_grad_gap"] for lf in flipped),
+            "most_flipped": sorted(flipped, key=lambda lf: -lf["sign_flips"])[:8]}
+
+
+def masked_row_witness() -> dict:
+    """The card test `fp32-masked-row` (B 1, 2 heads of 128, 30 x 30,
+    causal, row 3's keys all at -1e4; inputs as the test seeds them) in
+    fp64: the fp32 score s = q.k / sqrt(128) - 1e4 lies on a 2^-10 grid
+    there; the exact score nearest a rounding boundary, and the kernel's
+    and the plain version's out on row 3 against out in fp64 from the exact
+    scores and from the exact scores rounded once to fp32."""
+    B, H, T, D, row = 1, 2, 30, 128, 3
+    g = torch.Generator(device="cpu").manual_seed(T + T + D)
+    q, k, v = (torch.randn(B, H, T, D, generator=g).cuda() for _ in range(3))
+    mask = torch.triu(torch.full((T, T), -1e4), diagonal=1).expand(B, T, T).clone()
+    mask[:, row] = -1e4
+    mask, n_virtual = mask.cuda(), cuda_attention.virtual_keys(T, T)
+    out, _ = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
+    ref, _ = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
+    s64 = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(D) + mask.double()[:, None]
+    s32 = s64.float()
+    toward = torch.nextafter(s32, torch.where(s64 > s32.double(), torch.inf, -torch.inf).float())
+    boundary = (s32.double() + toward.double()) / 2
+    dist = (s64 - boundary).abs()[:, :, row]
+
+    def out64(s):
+        m = s.amax(-1, keepdim=True).clamp(min=cuda_attention.NEG_MASK)
+        e = torch.exp(s - m)
+        return (e / (e.sum(-1, keepdim=True) + n_virtual * torch.exp(cuda_attention.NEG_MASK - m))) @ v.double()
+
+    exact, rounded = out64(s64)[:, :, row], out64(s32.double())[:, :, row]
+    h, key = divmod(int(dist.argmin()), T)
+
+    def gap(a, b):
+        return (a.double() - b).abs().max().item()
+
+    return {"row": row, "nearest_boundary": {"head": h, "key": key, "score_fp64": s64[0, h, row, key].item(),
+                                             "distance": dist.min().item(), "grid": 2.0**-10},
+            "kernel_vs_fp64": gap(out[:, :, row], exact), "plain_vs_fp64": gap(ref[:, :, row], exact),
+            "kernel_vs_fp64_rounded_scores": gap(out[:, :, row], rounded),
+            "plain_vs_fp64_rounded_scores": gap(ref[:, :, row], rounded),
+            "kernel_vs_plain": gap(out[:, :, row], ref[:, :, row].double()), "test_tol": 1e-5}
+
+
+def fp32_drift() -> int:
+    """`--fp32-drift`: the 3xTF32 K5 at its fp32 rows (held and timed as
+    the smoke holds them), the `fp32-masked-row` witness, then
+    TMIDT-flash at fp32 (64 x 512 tokens, FP32_STEPS steps, seeded) on
+    separate trajectories from the same weights, each held to the plain
+    fp32 path: the kernel path, the plain path again through
+    `attention_with(torch.matmul)` (must equal it), the plain path with
+    its products in emulated 3xTF32 or in another fp32 order, and with
+    attention through fp32 SDPA (its memory-efficient kernel, which forms
+    fp32 products as three TF32 products); one JSON line each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_card()
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for s, (tq, tk, causal) in TRAIN_ATTENTION.items():
+        phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32)
+        phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32)
+    phase_attention(TRAIN_BATCH, 511, 511, True, gen, "fp32-d256-decoder-self", 3, 256, torch.float32)
+    phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, "fp32-d256-decoder-self", 3, 256, torch.float32)
+    for D in PAST_OLD_LIMIT:
+        phase_attention(2, 256, 256, True, gen, f"float32-d{D}-b2", 1, D, torch.float32)
+        phase_attention_bwd(2, 256, 256, True, gen, f"float32-d{D}-b2", 1, D, torch.float32)
+    emit({"phase": "masked_row_witness", **masked_row_witness()})
+    inputs = training_inputs("flash", FP32_STEPS, model=FP32)
+    variants = {"kernel path": None, "plain again": attention_with(torch.matmul),
+                "3xTF32 products, fp32 sums": attention_with(mm_3xtf32),
+                "fp32 products in halves": attention_with(mm_halves),
+                "SDPA": [(cuda_attention, "fused_attention", _sdpa_fwd),
+                         (cuda_attention, "fused_attention_bwd", _sdpa_bwd)]}
+    plain = drift_trajectory(inputs, [])
+    emit({"phase": "fp32_drift", "run": "plain", **{k: [m[k] for m in plain["metrics"]] for k in ("loss", "grad_norm")}})
+    for name, swaps in variants.items():
+        run = drift_trajectory(inputs, swaps)
+        emit({"phase": "fp32_drift", "run": name, **{k: [m[k] for m in run["metrics"]] for k in ("loss", "grad_norm")},
+              "lr": TRAIN_LR, **FP32_TOL, **drift_against(run, plain, TRAIN_LR)})
+        del run
+        torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -5064,7 +5339,8 @@ def main() -> int:
     fp32_training = {c: phase_training_fp32(c) for c in TRAIN_YAMLS}
     long_training = phase_training_long()
     fp32_serving = phase_serving_variant("serving-fp32", load_config(SERVING_YAML, model=FP32),
-                                         ("log_mel", "fused_attention_simt"))
+                                         ("log_mel", "fused_attention_tf32"))
+    fp32_invariance = phase_fp32_invariance(load_config(SERVING_YAML, model=FP32))
     long_serving = phase_serving_variant(
         "serving-long", load_config(SERVING_YAML, shared={"input_sec": LONG_SEC},
                                     inference={"max_length": LONG_TOKENS}),
@@ -5109,23 +5385,31 @@ def main() -> int:
                **{f"youtube-{k}": v["launches"] for k, v in youtube["in_process"].items()},
                **{f"training-fp32-{c}": r["launches"] for c, r in fp32_training.items()},
                "training-long-flash": long_training["launches"], "serving-fp32": fp32_serving["launches"],
+               "invariance-fp32": fp32_invariance["launches"],
                "serving-long": long_serving["launches"], "serving-44k1": serving_44k1["launches"],
                "serving-48k-hop960": serving_48k["launches"],
                **{f"training-{k}": r["launches"] for k, r in variants["training"].items()},
                **{f"serving-{k}": r["launches"] for k, r in variants["serving"].items()},
                **{f"invariance-{k}": r["launches"] for k, r in variants["invariance"].items()},
                "serving-d2048": wide["serving"]["launches"], "invariance-d2048": wide["invariance"]["launches"]}
-    # the CUDA-core K5 takes fp32 alone: no bf16 or fp16 path launches it
-    simt_paths = {p: (n["fused_attention_simt"], n["fused_attention_bwd_simt"]) for p, n in by_path.items()
-                  if "fp32" not in p and (n["fused_attention_simt"] or n["fused_attention_bwd_simt"])}
-    fail_unless("routes", {"no bf16 or fp16 path launches the CUDA-core K5": not simt_paths}, simt_paths)
+    # the 3xTF32 K5 takes fp32 alone: no bf16 or fp16 path launches it, and every fp32 path does
+    tf32_paths = {p: (n["fused_attention_tf32"], n["fused_attention_bwd_tf32"]) for p, n in by_path.items()
+                  if "fp32" not in p and (n["fused_attention_tf32"] or n["fused_attention_bwd_tf32"])}
+    fp32_rows = [r for v in domain["attention"].values() for r in v.values() if r["dtype"] == str(torch.float32)]
+    retired = [n for r in fp32_rows for n in r.get("device_ms", {}) if any(k in n for k in RETIRED_K5)]
+    fail_unless("routes", {
+        "no bf16 or fp16 path launches the 3xTF32 K5": not tf32_paths,
+        "the fp32 paths launch the 3xTF32 K5f": all(by_path[p]["fused_attention_tf32"] for p in (
+            "training-fp32-flash", "serving-fp32", "invariance-fp32")),
+        "fp32 flash training launches the 3xTF32 K5b": by_path["training-fp32-flash"]["fused_attention_bwd_tf32"] > 0,
+        "no path launches a retired CUDA-core K5": not retired}, {"tf32_paths": tf32_paths, "retired": retired})
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         per_path = {p: n[kname] for p, n in by_path.items()}  # every run counts every kernel
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path, "shape": shape,
-                **{k: res[k] for k in keys}, **{k: res[k] for k in ("device_ms",) if k in res}}
+                **{k: res[k] for k in keys}, **{k: res[k] for k in ("device_ms", "library_device_ms") if k in res}}
 
     emit({"kernels": [
         {**entry("log_mel", "adt_str_tpu_torch/csrc/log_mel.cu", "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
@@ -5171,18 +5455,18 @@ def main() -> int:
         entry("log_mel_long_hop", "adt_str_tpu_torch/csrc/log_mel.cu (route long_hop)",
               "adt_str_tpu/ops/pallas_mel.py:112 pallas_log_mel",
               "B=16 chunks of 2.56 s at 48 kHz, hop 960, n_fft 2048", domain["mel"]["48000-hop960"]),
-        {**entry("fused_attention_simt", "adt_str_tpu_torch/csrc/attention_simt.cu",
+        {**entry("fused_attention_tf32", "adt_str_tpu_torch/csrc/attention_tf32.cu",
                  "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
                  f"fp32, B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask",
                  domain["attention"]["fp32-decoder-self"]["fwd"]),
          "other_shapes": {k: at_shape(v["fwd"]) for k, v in domain["attention"].items()
-                          if v["fwd"]["kernel"] == "fused_attention_simt" and k != "fp32-decoder-self"}},
-        {**entry("fused_attention_bwd_simt", "adt_str_tpu_torch/csrc/attention_simt.cu",
+                          if v["fwd"]["kernel"] == "fused_attention_tf32" and k != "fp32-decoder-self"}},
+        {**entry("fused_attention_bwd_tf32", "adt_str_tpu_torch/csrc/attention_tf32.cu",
                  "adt_str_tpu/ops/pallas_attention.py:156 _vjp_bwd",
                  f"fp32, B={TRAIN_BATCH}, 6 heads, decoder self 511 x 511, causal + padding mask",
                  domain["attention"]["fp32-decoder-self"]["bwd"]),
          "other_shapes": {k: at_shape(v["bwd"]) for k, v in domain["attention"].items()
-                          if "bwd" in v and v["bwd"]["kernel"] == "fused_attention_bwd_simt"
+                          if "bwd" in v and v["bwd"]["kernel"] == "fused_attention_bwd_tf32"
                           and k != "fp32-decoder-self"}},
         {**entry("fused_attention_wide", "adt_str_tpu_torch/csrc/attention_wide.cu",
                  "adt_str_tpu/ops/pallas_attention.py:99 _fwd",
@@ -5248,4 +5532,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--fp32-drift"]:
+        sys.exit(fp32_drift())
     sys.exit(compare_trees(sys.argv[1:]) if len(sys.argv) > 1 else main())

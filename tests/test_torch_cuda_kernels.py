@@ -293,7 +293,7 @@ def test_fused_attention_autograd_launches_both_kernels(cuda):
 
 def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
     """600 keys, fp32, fp16 and every head dim that is a multiple of 128 now
-    have kernels (`test_attention_*_past_512_keys`, `test_attention_simt_*`,
+    have kernels (`test_attention_*_past_512_keys`, `test_attention_tf32_*`,
     `test_attention_d256_*`, `test_attention_wide_*`,
     `test_attention_kernels_at_fp16`); head dims off 128, fp64, operands of
     two dtypes and each variant's entry at another variant's inputs still
@@ -305,17 +305,17 @@ def test_attention_kernel_rejects_what_it_cannot_hold(cuda):
     q = torch.zeros(1, 1, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_attention.fused_attention(q, q.bfloat16(), q.bfloat16())
-    with pytest.raises(ValueError, match="CUDA-core"):
-        cuda_attention.fused_attention_simt(*(q.bfloat16(),) * 3)
+    with pytest.raises(ValueError, match="3xTF32"):
+        cuda_attention.fused_attention_tf32(*(q.bfloat16(),) * 3)
     with pytest.raises(ValueError, match="head-dim-256"):
         cuda_attention.fused_attention_d256(*(q.half(),) * 3)
     wide = torch.zeros(1, 1, 8, 384, device=cuda)
     with pytest.raises(ValueError, match="wide-head"):
-        cuda_attention.fused_attention_wide(*(wide,) * 3)  # fp32: the CUDA cores
+        cuda_attention.fused_attention_wide(*(wide,) * 3)  # fp32: the 3xTF32 kernels
     with pytest.raises(ValueError, match="wide-head"):
         cuda_attention.fused_attention_wide(*(q.bfloat16(),) * 3)  # head dim 128
-    with pytest.raises(ValueError, match="CUDA-core"):
-        cuda_attention.fused_attention_simt(*(wide.half(),) * 3)
+    with pytest.raises(ValueError, match="3xTF32"):
+        cuda_attention.fused_attention_tf32(*(wide.half(),) * 3)
 
 
 def _ffn_inputs(n, d, d_ff, cuda, seed=0):
@@ -1044,7 +1044,7 @@ def test_data_parallel_decode_over_two_cards_equals_one_card(cuda):
 
 
 # ---- the kernels' domain widened to every input JAX's gates send them:
-# fp32 (CUDA-core K5 and K4), head dim 256, keys past 512, any hop and n_fft.
+# fp32 (3xTF32 K5, CUDA-core K4), head dim 256, keys past 512, any hop and n_fft.
 
 
 def _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=0):
@@ -1054,10 +1054,11 @@ def _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=0):
 
 # (B, H, Tq, Tk, head dim, dtype, mask): fp32 at the model's shapes and past
 # 512 keys (the 10.24 s encoder's 1,014), fp32 at head dim 256 (3 heads of
-# 256 at d 768), at 384..768 (2 heads and 1 at d 768) and past 768 (the
-# chunked kernels: 896, 1,024, 2,048), ragged and single-key edges of the
-# 64- (32-, 16-) row tiles, and a row whose real keys are all masked.
-SIMT_CASES = {
+# 256 at d 768), at 384..768 (2 heads and 1 at d 768) and past 768 (896,
+# 1,024, 2,048, 4,096: 7-32 column chunks), ragged, single-key and
+# single-query edges of the 64-row tiles, and a row whose real keys are all
+# masked.
+TF32_CASES = {
     "fp32-encoder": (2, 6, 246, 246, 128, torch.float32, None),
     "fp32-decoder-self": (2, 6, 511, 511, 128, torch.float32, "causal"),
     "fp32-cross": (2, 6, 511, 246, 128, torch.float32, None),
@@ -1072,34 +1073,37 @@ SIMT_CASES = {
     "fp32-one-key": (1, 1, 30, 1, 128, torch.float32, None),
     "fp32-ragged": (1, 2, 65, 33, 256, torch.float32, None),
     "fp32-masked-row": (1, 2, 30, 30, 128, torch.float32, "masked-row"),
+    "fp32-one-query": (1, 2, 1, 200, 384, torch.float32, None),
+    "fp32-d4096-ragged": (1, 1, 20, 70, 4096, torch.float32, "causal"),
 }
 
 
-def _simt_inputs(case, cuda, cases=None):
-    B, H, Tq, Tk, D, dtype, kind = (cases or SIMT_CASES)[case]
+def _case_inputs(case, cuda, cases=None):
+    B, H, Tq, Tk, D, dtype, kind = (cases or TF32_CASES)[case]
     q, k, v = _qkv_of(B, H, Tq, Tk, D, dtype, cuda, seed=Tq + Tk + D)
     mask = None if kind is None else _causal(B, Tq, Tk, cuda, 3 if kind == "masked-row" else None)
     return q, k, v, mask, cuda_attention.virtual_keys(Tq, Tk)
 
 
-# Tolerances of the CUDA-core kernels: fp32 FMA products and the accurate exp
-# against the plain version's fp32 products, in another summation order:
-# outputs and lse within 1e-5, each gradient within 1e-5 of its largest
-# element (measured on the H100: 7e-7, 1e-6 and 1.5e-6), plus 2^-17 of the
-# magnitude its terms allow (`_gradient_magnitudes`) where ds = p (dp -
-# delta) cancels (one key: dq is rounding noise of 1e-7).
-@pytest.mark.parametrize("case", list(SIMT_CASES))
-def test_attention_simt_kernels_match_plain(cuda, case):
-    q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
+# Tolerances of the 3xTF32 kernels: products to about 2^-21 (3xTF32) and the
+# accurate exp against the plain version's fp32 products, in another
+# summation order: outputs and lse within 1e-5, each gradient within 1e-5 of
+# its largest element (the CPU emulation in test_torch_kernel_domain.py:
+# 1.3e-6, 1e-6 and 1.7e-6), plus 2^-17 of the magnitude its terms allow
+# (`_gradient_magnitudes`) where ds = p (dp - delta) cancels (one key: dq is
+# rounding noise of 1e-7).
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_attention_tf32_kernels_match_plain(cuda, case):
+    q, k, v, mask, n_virtual = _case_inputs(case, cuda)
     out_tol, grad_tol, size_tol = 1e-5, 1e-5, 2**-17
-    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
+    f0, b0 = cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches
     hopper = (cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches)
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, q.dtype)
     grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
     torch.cuda.synchronize()
-    assert cuda_attention.fused_attention_simt.launches == f0 + 1
-    assert cuda_attention.fused_attention_bwd_simt.launches == b0 + 1
+    assert cuda_attention.fused_attention_tf32.launches == f0 + 1
+    assert cuda_attention.fused_attention_bwd_tf32.launches == b0 + 1
     assert (cuda_attention.fused_attention.launches, cuda_attention.fused_attention_bwd.launches) == hopper
     ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
     assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
@@ -1114,9 +1118,9 @@ def test_attention_simt_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.parametrize("case", ["fp32-decoder-self", "fp32-d2048-masked-row"])
-def test_attention_simt_backward_is_deterministic(cuda, case):
+def test_attention_tf32_backward_is_deterministic(cuda, case):
     """No atomics: dk/dv and dq each come from one block."""
-    q, k, v, mask, n_virtual = _simt_inputs(case, cuda)
+    q, k, v, mask, n_virtual = _case_inputs(case, cuda)
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
     first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
@@ -1125,13 +1129,13 @@ def test_attention_simt_backward_is_deterministic(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_fused_attention_autograd_at_fp32_launches_the_simt_kernels(cuda):
-    q, k, v, mask, n_virtual = _simt_inputs("fp32-ragged", cuda)
+def test_fused_attention_autograd_at_fp32_launches_the_tf32_kernels(cuda):
+    q, k, v, mask, n_virtual = _case_inputs("fp32-ragged", cuda)
     q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
-    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
+    f0, b0 = cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches
     cuda_attention.FusedAttention.apply(q, k, v, mask, n_virtual).sum().backward()
     torch.cuda.synchronize()
-    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == (
+    assert (cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches) == (
         f0 + 1, b0 + 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
 
@@ -1167,16 +1171,16 @@ WIDE_CASES = {
 # magnitude its terms allow; fp16 is held to the same, no looser.
 @pytest.mark.parametrize("case", list(WIDE_CASES))
 def test_attention_wide_kernels_match_plain(cuda, case):
-    q, k, v, mask, n_virtual = _simt_inputs(case, cuda, WIDE_CASES)
+    q, k, v, mask, n_virtual = _case_inputs(case, cuda, WIDE_CASES)
     f0, b0 = cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches
-    simt = (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches)
+    tf32 = (cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches)
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, q.dtype)
     grads = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
     torch.cuda.synchronize()
     assert (cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches) == (
         f0 + 1, b0 + 1)
-    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == simt
+    assert (cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches) == tf32
     ref, ref_lse = cuda_attention.attention_plain(q, k, v, mask, n_virtual)
     assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
@@ -1193,7 +1197,7 @@ def test_attention_wide_kernels_match_plain(cuda, case):
 def test_attention_wide_backward_is_deterministic(cuda, case):
     """dq's partial sums over key tiles meet in key-tile order in the fp32
     scratch (one thread an element); dk and dv come from one block."""
-    q, k, v, mask, n_virtual = _simt_inputs(case, cuda, WIDE_CASES)
+    q, k, v, mask, n_virtual = _case_inputs(case, cuda, WIDE_CASES)
     out, lse = cuda_attention.fused_attention(q, k, v, mask, n_virtual)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
     first = cuda_attention.fused_attention_bwd(q, k, v, mask, out, lse, do)
@@ -1203,7 +1207,7 @@ def test_attention_wide_backward_is_deterministic(cuda, case):
 
 
 def test_fused_attention_autograd_past_head_dim_256_launches_the_wide_kernels(cuda):
-    q, k, v, mask, n_virtual = _simt_inputs("bf16-d640-masked-row", cuda, WIDE_CASES)
+    q, k, v, mask, n_virtual = _case_inputs("bf16-d640-masked-row", cuda, WIDE_CASES)
     q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
     f0, b0 = cuda_attention.fused_attention_wide.launches, cuda_attention.fused_attention_bwd_wide.launches
     cuda_attention.FusedAttention.apply(q, k, v, mask, n_virtual).float().sum().backward()

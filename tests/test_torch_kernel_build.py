@@ -104,11 +104,18 @@ def _chip_smoke():
          "int, int, int, int, float)", "K5b attention bwd"),
         ("void (anonymous namespace)::wide_delta_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
          "__nv_bfloat16 const*, float*, float*, int, int, int)", "K5b attention bwd"),
-        ("(anonymous namespace)::attention_dkdv_chunked(float const*, float const*, float const*, float const*, "
+        ("(anonymous namespace)::attention_tf32_dkdv(float const*, float const*, float const*, float const*, "
          "float const*, float const*, float const*, float*, float*, int, int, int, int, float)", "K5b attention bwd"),
+        ("void (anonymous namespace)::attention_tf32_fwd<128, true>(float const*, float const*, float const*, "
+         "float const*, float*, float*, int, int, int, int, int, float)", "K5f attention fwd"),
+        ("(anonymous namespace)::attention_tf32_dq(float const*, float const*, float const*, float const*, "
+         "float const*, float const*, float const*, float*, int, int, int, int, float)", "K5b attention bwd"),
+        ("(anonymous namespace)::attention_tf32_delta(float const*, float const*, float*, int, int)",
+         "K5b attention bwd"),
     ],
     ids=["k4-gemm1", "k4-gemm2", "k5f", "k5b", "k5b-delta", "k1", "k1-reduce", "k3", "k2", "cublas-sm90",
-         "cublas-nvjet", "k5f-wide", "k5b-wide", "k5b-wide-delta", "k5b-fp32-chunked"],
+         "cublas-nvjet", "k5f-wide", "k5b-wide", "k5b-wide-delta", "k5b-fp32", "k5f-fp32", "k5b-fp32-dq",
+         "k5b-fp32-delta"],
 )
 def test_chip_smoke_files_kernels_under_their_group(kernel, group):
     assert _chip_smoke()._group(kernel) == group

@@ -78,7 +78,7 @@ def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal
     ref, vjp = jax.vjp(lambda q, k, v: JT._flash_attention(q, k, v, jmask), jq, jk, jv)
     ref_grads = vjp(jdo)
     tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
-    assert cuda_attention.kernel_for(tq.dtype, D) == "simt"
+    assert cuda_attention.kernel_for(tq.dtype, D) == "tf32x3"
     out = TT._flash_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
     out.backward(tdo)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=OUT_TOL, rtol=0)
@@ -87,16 +87,76 @@ def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal
         np.testing.assert_allclose(t.grad.numpy(), r, atol=GRAD_TOL * np.abs(r).max(), rtol=0, err_msg=name)
 
 
-def test_k5_simt_wrappers_run_plain_for_cpu_tensors():
+def test_k5_tf32_wrappers_run_plain_for_cpu_tensors():
     _, (q, k, v, do) = _attention_inputs(40, 70, 256, seed=5)
-    f0, b0 = cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches
-    out, lse = cuda_attention.fused_attention_simt(q, k, v, None, 2)
+    f0, b0 = cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches
+    out, lse = cuda_attention.fused_attention_tf32(q, k, v, None, 2)
     ref, ref_lse = cuda_attention.attention_plain(q, k, v, None, 2)
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
-    grads = cuda_attention.fused_attention_bwd_simt(q, k, v, None, out, lse, do)
+    grads = cuda_attention.fused_attention_bwd_tf32(q, k, v, None, out, lse, do)
     refs = cuda_attention.attention_bwd_plain(q, k, v, None, out, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(grads, refs))
-    assert (cuda_attention.fused_attention_simt.launches, cuda_attention.fused_attention_bwd_simt.launches) == (f0, b0)
+    assert (cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches) == (f0, b0)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32` on fp32 bits: round to 10 mantissa bits, to
+    nearest with ties away from zero (add half of the dropped range, then
+    clear the low 13 bits)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as `csrc/attention_tf32.cu` forms it: each operand split into a
+    TF32 big part and a TF32 small part, the small terms first, small x
+    small dropped (each TF32 x TF32 product is exact in fp32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    return (torch.matmul(_tf32(a - ab), bb) + torch.matmul(ab, _tf32(b - bb))) + torch.matmul(ab, bb)
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _attention_via(mm, q, k, v, mask, out, lse, do):
+    """`attention_plain` and `attention_bwd_plain` (fp32, no virtual keys)
+    with every product through `mm`, p and ds included; out and lse of the
+    backward are the plain forward's, as the card's backward takes them."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = mm(q, k.transpose(-1, -2)) * scale + mask
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    got_out, got_lse = mm(e / denom, v), (m + torch.log(denom)).transpose(-1, -2)
+    p = torch.exp(s - lse.transpose(-1, -2))
+    dp = mm(do, v.transpose(-1, -2))
+    ds = p * (dp - (do * out).sum(dim=-1, keepdim=True)) * scale
+    grads = (mm(ds, k), mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), do))
+    return got_out, got_lse, grads
+
+
+@pytest.mark.parametrize("Tq, Tk, D", [(1023, 1023, 128), (64, 64, 256), (17, 17, 1024)],
+                         ids=["d128-1023", "d256-64", "d1024-17"])
+def test_3xtf32_products_keep_the_fp32_tolerances_and_1xtf32_does_not(Tq, Tk, D):
+    """The 3xTF32 kernels' arithmetic, emulated on the CPU: every product of
+    the plain forward and backward formed in 3xTF32 stays within the card's
+    fp32 tolerances of the fp32 plain version (out 1e-5, lse 1e-4, each
+    gradient 1e-5 of its largest element, as chip_smoke's `attention_tols`),
+    and in plain TF32 (one product, operands rounded) it does not."""
+    _, (q, k, v, do) = _attention_inputs(Tq, Tk, D, seed=Tq + D + 1)
+    mask = torch.from_numpy(np.triu(np.full((Tq, Tk), -1e4, np.float32), k=1))[None]
+    out, lse = cuda_attention.attention_plain(q, k, v, mask)
+    refs = cuda_attention.attention_bwd_plain(q, k, v, mask, out, lse, do)
+
+    def errors(mm):
+        got_out, got_lse, grads = _attention_via(mm, q, k, v, mask[:, None], out, lse, do)
+        return ((got_out - out).abs().max().item(), (got_lse - lse).abs().max().item(),
+                max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(grads, refs)))
+
+    limits = (1e-5, 1e-4, 1e-5)
+    three, one = errors(_mm_3xtf32), errors(_mm_1xtf32)
+    assert all(e <= lim for e, lim in zip(three, limits)), three
+    assert not all(e <= lim for e, lim in zip(one, limits)), one
 
 
 D_K4, RATE = 256, 0.1
@@ -179,7 +239,7 @@ def test_small_model_has_518_frames_and_takes_every_kernel():
     cfg = ModelConfig(**SMALL)
     params = tmel.MelFrontendParams(sample_rate=4000, win_length=320, hop_length=40, n_mels=16)
     assert params.out_frames(cfg.chunk_samples) == 518
-    assert cuda_attention.kernel_for(torch.float32, cfg.d_model // cfg.nhead) == "simt"
+    assert cuda_attention.kernel_for(torch.float32, cfg.d_model // cfg.nhead) == "tf32x3"
     assert cuda_ffn.kernel_for(torch.float32, cfg.d_model, cfg.ffn_dim) == "fp32"
     assert cuda_mel.frames_route(params) == "ldmatrix"
 
@@ -246,7 +306,7 @@ def attention_route(dtype, D) -> str:
     """Part of the routing table (`cuda_attention`'s docstring): the K5
     kernels that take (dtype, head dim) on the card."""
     if dtype == torch.float32:
-        return "simt"
+        return "tf32x3"
     return {128: "hopper", 256: "hopper256"}.get(D, "wide")
 
 
@@ -283,18 +343,18 @@ def test_every_gated_frontend_has_a_kernel_route():
 # Each point this slice opened goes to the kernel the routing tables name
 # (`cuda_attention`, `cuda_ffn`, `attention_rows`, `layer_norm`, `linear`):
 # fp16 wherever bf16 goes, the head-dim-256 tensor-core kernels, the
-# tensor-core K5 past 256 (bf16, fp16) and the CUDA-core one (fp32), K4 at
+# tensor-core K5 past 256 (bf16, fp16) and the 3xTF32 one (fp32), K4 at
 # widths of the hidden off 128 and off 8.
 NEW_POINTS = {
     "fp16-d128": ("attention", torch.float16, 128, "hopper"),
     "bf16-d256": ("attention", torch.bfloat16, 256, "hopper256"),
     "fp16-d256": ("attention", torch.float16, 256, "hopper256"),
-    "fp32-d384": ("attention", torch.float32, 384, "simt"),
+    "fp32-d384": ("attention", torch.float32, 384, "tf32x3"),
     "bf16-d384": ("attention", torch.bfloat16, 384, "wide"),
     "fp16-d512": ("attention", torch.float16, 512, "wide"),
     "bf16-d640": ("attention", torch.bfloat16, 640, "wide"),
     "fp16-d768": ("attention", torch.float16, 768, "wide"),
-    "fp32-d768": ("attention", torch.float32, 768, "simt"),
+    "fp32-d768": ("attention", torch.float32, 768, "tf32x3"),
     "ffn-fp16": ("ffn", torch.float16, 3072, "hopper"),
     "ffn-bf16-d_ff1000": ("ffn", torch.bfloat16, 1000, "hopper"),
     "ffn-fp16-d_ff1036": ("ffn", torch.float16, 1036, "hopper"),
@@ -319,13 +379,13 @@ def test_each_new_point_goes_to_the_kernel_its_table_names(point):
 def test_what_the_card_still_refuses():
     """No head-dim limit is left on K5: every multiple of 128 up to 4,096
     goes to a kernel in each dtype (bf16 and fp16 past 256 to the wide
-    tensor-core kernels, fp32 to the CUDA cores). The card refuses only what
+    tensor-core kernels, fp32 to the 3xTF32 ones). The card refuses only what
     JAX's gates never send: a head dim off 128, a d off 128, fp64."""
     for dtype in DTYPES:
         routes = {D: cuda_attention.kernel_for(dtype, D) for D in range(128, 4097, 128)}
         assert routes == {D: attention_route(dtype, D) for D in routes}
     assert cuda_attention.routed("wide") == {(t, D) for t in (torch.bfloat16, torch.float16) for D in range(384, 4097, 128)}
-    assert cuda_attention.routed("simt") == {(torch.float32, D) for D in range(128, 4097, 128)}
+    assert cuda_attention.routed("tf32x3") == {(torch.float32, D) for D in range(128, 4097, 128)}
     for D in (64, 192, 200, 1000):
         with pytest.raises(ValueError, match="multiples of 128"):
             cuda_attention.kernel_for(torch.float16, D)
@@ -406,7 +466,7 @@ def _wide_head_greedy_tokens_equal_jax(head_dim: int, seed: int) -> None:
     runs its kernels' plain versions; greedy tokens equal at fp32."""
     kw = dict(SMALL, nhead=1, d_query=head_dim)
     params, jcfg, model, tcfg = _build(kw, seed=seed)
-    assert tcfg.d_model // tcfg.nhead == head_dim and cuda_attention.kernel_for(torch.float32, head_dim) == "simt"
+    assert tcfg.d_model // tcfg.nhead == head_dim and cuda_attention.kernel_for(torch.float32, head_dim) == "tf32x3"
     params["decoder"]["generator"]["w"] = params["decoder"]["generator"]["w"] * 4.0
     model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)), strict=True)
     rng = np.random.default_rng(seed + 1)
