@@ -39,18 +39,18 @@
 // bytes, and at 16 x 6 blocks a bucket of 16 fills 96 of the 132 SMs.
 // The 16-bit design is a template on T (bf16 or fp16: mma.sync's .bf16 or
 // .f16 form, the same rounding points) at head dims up to 256. fp32 q, k, v
-// (no shipped config), and bf16 or fp16 at head dims past 256 (2 heads or 1
-// at d 768: the mma design's ring and partials outgrow shared memory and its
-// registers there), take the simple CUDA-core kernel, a template on T: a
-// block a query row, a warp a key, a thread an output dim, t ascending, p
-// rounded to T before p . v as the plain version rounds it. Its query row
-// and scores sit in static shared arrays up to head dim 1,024 and 4,096
-// keys; past either, `attention_rows_f32_wide` runs the same body on dynamic
-// shared memory (the one-kernel form on dynamic memory ran the 2-head-of-384
-// decode row 31% slower on an H100, so the old shapes keep the static
-// arrays). It takes any head dim and key count whose sum fits one block's
-// 232,448 B (55,808 keys at head dim 2,048); the 16-bit mma design sends
-// the keys it cannot hold at one query row a block to it as well.
+// at every head dim, bf16 and fp16 past head dim 256 (2 heads or 1 at d
+// 768, 1 at d 2,048: the mma design's ring and partials outgrow shared
+// memory and its registers there), and the keys the mma design cannot hold
+// at one query row a block (past ~21,000 at head dim 256) take the
+// split-key design below (`attention_rows_scores`, `_pv`, `_sum`): the keys
+// of a row cut into splits of a size set by the head dim, so a decode
+// bucket's few rows still fill the card, every k and v row read once with
+// 16-byte loads by a block that holds all the query rows of its item (the
+// beam's 5 queries read their item's cross rows once), the probabilities
+// rounded after the row's global max and sum as before. It takes any head
+// dim and key count with hd + keys <= 57,856 (one query row and a split's
+// scores in a block's shared memory).
 
 #include "hopper.cuh"
 
@@ -267,90 +267,302 @@ attention_rows_bf16(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// The CUDA-core kernel (fp32; bf16 and fp16 past head dim 256): a block a
-// query row, a warp a key for the scores, a thread an output dim for p . v
-// (t ascending); the scores in shared memory; p rounded to T (a no-op in
-// fp32), the output to T.
-constexpr int F32_THREADS = 128, F32_WARPS = F32_THREADS / 32;
-constexpr int F32_HD = 1024, F32_KEYS = 4096;  // the static arrays' sizes
-constexpr int F32_MAX_FLOATS = (SMEM_MAX - 1024) / 4;  // hd + keys in dynamic shared memory
+// The split-key design (fp32 at every head dim; bf16 and fp16 past head
+// dim 256, and at the keys the mma design cannot hold). A row's keys are cut
+// into splits of `ks` keys, ks a function of the head dim alone
+// (ops/attention_rows.py:keys_per_split), and three launches follow the
+// plain version's rounding points:
+//   1. scores: a block an (item, head), a group of its query rows and a
+//      split; the query rows in fp32 shared memory, a warp a key (lanes
+//      over the head dim in 16-byte loads, each lane's products in dim
+//      order, a xor butterfly), s = (q . k) / sqrt(hd) + mask in fp32; s
+//      and the split's max m_i to a workspace;
+//   2. p . v: the row's max M = max_i m_i and sum L = sum_t exp(s_t - M)
+//      over all its keys (a warp a row, lane t % 32's keys in order, a
+//      butterfly: every block of the row forms the same L, the plain
+//      version's sum in another order, not a rescaled sum of split sums);
+//      p = T(exp(s - M) / L), the probabilities
+//      rounded as the plain version rounds them, after the global max and
+//      sum; then the split's sum p v (groups of threads over keys g, g + G,
+//      ..., a thread a 16-byte strip of the head dim, the groups' partials
+//      added in group order) into a partial, or into out when one split
+//      covers the row;
+//   3. out = T(the partials added in split order).
+// Every order depends on the head dim and the split alone, never on the
+// rows beside a row, so a row keeps its bits alone or in a batch. A key past
+// n_keys (the decode step's valid keys) is read by no pass: in the masked
+// read of all keys it adds exp(s - 1e4 - m) = 0 to every sum, a product
+// with a zero probability, and whole splits of such keys add +0 to the
+// partials, so the two reads are bit-equal.
+constexpr int SPLIT_THREADS = 256, SPLIT_WARPS = SPLIT_THREADS / 32;
+constexpr int SPLIT_MAX_KEYS = 256;  // keys a split at most (ks <= 256)
+constexpr int MAX_FLOATS = (SMEM_MAX - 1024) / 4;  // hd + keys: the published domain
 
-// the body of both: `qs` holds the query row (hd), `p` the scores (n_keys)
-template <typename T>
-__device__ __forceinline__ void rows_f32(float* qs, float* p, float* red, const T* __restrict__ q,
-                                         const T* __restrict__ k, const T* __restrict__ v,
-                                         const float* __restrict__ mask, T* __restrict__ out, Strides st,
-                                         int H, int Tq, int n_keys, int hd, float scale) {
-  const int i = blockIdx.y, h = blockIdx.x % H, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long n = blockIdx.x / H;
-  const T* qr = q + n * st.q[0] + h * st.q[1] + i * st.q[2];
-  for (int j = tid; j < hd; j += F32_THREADS) qs[j] = hopper::to_float(qr[j]);
+struct SplitArgs {
+  int H, Tq, n_keys, hd, qb, ks, splits;
+  float scale;
+};
+
+// Query rows a block: up to `most` (the accumulators a thread keeps in pass
+// 2), as many as pass 1's fp32 query rows and scores and pass 2's
+// probabilities and group partials leave room for.
+__host__ __device__ constexpr int split_groups(int nvec) { return nvec >= SPLIT_THREADS ? 1 : SPLIT_THREADS / nvec; }
+inline int scores_smem(int qb, int hd, int ks) { return 4 * qb * (hd + ks); }
+inline int pv_smem(int qb, int hd, int ks, int nvec) {
+  const int g = split_groups(nvec);
+  return 4 * (qb * ks + 2 * qb + (g > 1 ? g * qb * hd : 0));
+}
+
+// VEC elements of T at p (16-byte aligned when VEC > 1) as floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&x)[VEC]) {
+  if constexpr (VEC == 1) {
+    x[0] = hopper::to_float(p[0]);
+  } else if constexpr (VEC == 4) {
+    static_assert(sizeof(T) == 4, "4 floats a 16-byte load");
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  } else {
+    static_assert(VEC == 8 && sizeof(T) == 2, "8 16-bit values a 16-byte load");
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = hopper::unpack2<T>(w[e]);
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  }
+}
+
+// Pass 1. Block (item, head, row group) x split; workspace: sc [rows][splits][ks] (a row's keys in order),
+// mx [rows][splits].
+template <typename T, int VEC, int MAXR>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+attention_rows_scores(const T* __restrict__ q, const T* __restrict__ k, const float* __restrict__ mask,
+                      float* __restrict__ sc_out, float* __restrict__ mx_out, Strides st, SplitArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                  // [qb][hd]
+  float* sc = qs + a.qb * a.hd;    // [qb][ks]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int groups = (a.Tq + a.qb - 1) / a.qb;
+  const long long nh = blockIdx.x / groups;
+  const long long n = nh / a.H;
+  const int h = static_cast<int>(nh % a.H), q0 = static_cast<int>(blockIdx.x % groups) * a.qb;
+  const int rows = min(a.qb, a.Tq - q0), split = blockIdx.y, t0 = split * a.ks, keys = min(a.ks, a.n_keys - t0);
+  const int nvec = a.hd / VEC;
+
+  for (int i = tid; i < rows * a.hd; i += SPLIT_THREADS) {
+    const int r = i / a.hd, j = i % a.hd;
+    qs[i] = hopper::to_float(q[n * st.q[0] + h * st.q[1] + (q0 + r) * st.q[2] + j]);
+  }
   __syncthreads();
 
   const T* kb = k + n * st.k[0] + h * st.k[1];
-  const float* mr = mask == nullptr ? nullptr : mask + n * st.m[0] + h * st.m[1] + i * st.m[2];
-  for (int t = warp; t < n_keys; t += F32_WARPS) {
-    const T* kr = kb + t * st.k[2];
-    float s = 0.f;
-    for (int j = lane; j < hd; j += 32) s = __fmaf_rn(qs[j], hopper::to_float(kr[j]), s);
-    s = __fdiv_rn(warp_sum(s), scale);
-    if (lane == 0) p[t] = mr == nullptr ? s : __fadd_rn(s, mr[t * st.m[3]]);
+  const float* mb = mask == nullptr ? nullptr : mask + n * st.m[0] + h * st.m[1] + q0 * st.m[2];
+  for (int t = warp; t < keys; t += SPLIT_WARPS) {
+    const T* kr = kb + (t0 + t) * st.k[2];
+    float s[MAXR];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) s[r] = 0.f;
+#pragma unroll 2
+    for (int c = lane; c < nvec; c += 32) {
+      float kv[VEC];
+      load_vec<T, VEC>(kr + c * VEC, kv);
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r < rows) {
+          const float* qr = qs + r * a.hd + c * VEC;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) s[r] = __fmaf_rn(qr[e], kv[e], s[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < rows) {
+        float v = __fdiv_rn(warp_sum(s[r]), a.scale);
+        if (mb != nullptr) v = __fadd_rn(v, mb[r * st.m[2] + (t0 + t) * st.m[3]]);
+        if (lane == 0) sc[r * a.ks + t] = v;
+      }
+    }
   }
   __syncthreads();
 
-  float m = -INFINITY;
-  for (int t = tid; t < n_keys; t += F32_THREADS) m = fmaxf(m, p[t]);
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int w = 1; w < F32_WARPS; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();  // red is reused below
-
-  float sum = 0.f;
-  for (int t = tid; t < n_keys; t += F32_THREADS) {
-    const float e = expf(__fsub_rn(p[t], m));
-    p[t] = e;
-    sum = __fadd_rn(sum, e);
+  for (int r = warp; r < rows; r += SPLIT_WARPS) {
+    const float* sr = sc + r * a.ks;
+    float m = -INFINITY;
+    for (int t = lane; t < keys; t += 32) m = fmaxf(m, sr[t]);
+    m = warp_max(m);
+    const long long row = (nh * a.Tq + q0 + r) * a.splits + split;
+    float* so = sc_out + row * a.ks;
+    for (int t = lane; t < keys; t += 32) so[t] = sr[t];
+    if (lane == 0) mx_out[row] = m;
   }
-  sum = warp_sum(sum);
-  if (lane == 0) red[warp] = sum;
+}
+
+// Pass 2: the split's p . v into part [rows][splits][hd], or into out when splits == 1.
+template <typename T, int VEC, int MAXR>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+attention_rows_pv(const T* __restrict__ v, const float* __restrict__ sc_in, const float* __restrict__ mx_in,
+                  float* __restrict__ part, T* __restrict__ out, Strides st, SplitArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  float* p = sm;                    // [qb][ks]
+  float* row_max = p + a.qb * a.ks;
+  float* row_sum = row_max + a.qb;
+  float* gpart = row_sum + a.qb;    // [G][qb][hd] when G > 1
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int groups = (a.Tq + a.qb - 1) / a.qb;
+  const long long nh = blockIdx.x / groups;
+  const long long n = nh / a.H;
+  const int h = static_cast<int>(nh % a.H), q0 = static_cast<int>(blockIdx.x % groups) * a.qb;
+  const int rows = min(a.qb, a.Tq - q0), split = blockIdx.y, t0 = split * a.ks, keys = min(a.ks, a.n_keys - t0);
+  const int nvec = a.hd / VEC, G = split_groups(nvec), W = G == 1 ? SPLIT_THREADS : nvec;
+
+  for (int r = warp; r < rows; r += SPLIT_WARPS) {  // the row's max and sum over all its keys
+    const long long row = nh * a.Tq + q0 + r;
+    const float* mx = mx_in + row * a.splits;
+    float m = -INFINITY;
+    for (int i = lane; i < a.splits; i += 32) m = fmaxf(m, mx[i]);
+    m = warp_max(m);
+    const float* sr = sc_in + row * a.splits * a.ks;  // key t at t: splits hold ks keys each
+    float l = 0.f;
+    for (int t = lane; t < a.n_keys; t += 32) l = __fadd_rn(l, expf(__fsub_rn(sr[t], m)));
+    l = warp_sum(l);
+    if (lane == 0) {
+      row_max[r] = m;
+      row_sum[r] = l;
+    }
+  }
   __syncthreads();
-  sum = red[0];
-#pragma unroll
-  for (int w = 1; w < F32_WARPS; ++w) sum = __fadd_rn(sum, red[w]);
-  for (int t = tid; t < n_keys; t += F32_THREADS) p[t] = hopper::to_float(hopper::from_float<T>(__fdiv_rn(p[t], sum)));
+  for (int i = tid; i < rows * a.ks; i += SPLIT_THREADS) {
+    const int r = i / a.ks, t = i % a.ks;
+    const float s = t < keys ? sc_in[((nh * a.Tq + q0 + r) * a.splits + split) * a.ks + t] : 0.f;
+    p[i] = t < keys ? hopper::to_float(hopper::from_float<T>(__fdiv_rn(expf(__fsub_rn(s, row_max[r])), row_sum[r])))
+                    : 0.f;
+  }
   __syncthreads();
 
   const T* vb = v + n * st.v[0] + h * st.v[1];
-  T* o = out + ((n * H + h) * Tq + i) * static_cast<long long>(hd);
-  for (int j = tid; j < hd; j += F32_THREADS) {
-    float a = 0.f;
-    for (int t = 0; t < n_keys; ++t) a = __fmaf_rn(p[t], hopper::to_float(vb[t * st.v[2] + j]), a);
-    o[j] = hopper::from_float<T>(a);
+  const int g = tid / W;
+  if (g < G) {
+    for (int c = tid % W; c < nvec; c += W) {
+      float acc[MAXR][VEC];
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+#pragma unroll 4
+      for (int t = g; t < keys; t += G) {
+        float vv[VEC];
+        load_vec<T, VEC>(vb + (t0 + t) * st.v[2] + c * VEC, vv);
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) {
+          if (r < rows) {
+            const float pr = p[r * a.ks + t];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[r][e] = __fmaf_rn(pr, vv[e], acc[r][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r < rows) {
+          const long long row = nh * a.Tq + q0 + r;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int j = c * VEC + e;
+            if (G > 1)
+              gpart[(g * a.qb + r) * a.hd + j] = acc[r][e];
+            else if (a.splits == 1)
+              out[row * a.hd + j] = hopper::from_float<T>(acc[r][e]);
+            else
+              part[(row * a.splits + split) * a.hd + j] = acc[r][e];
+          }
+        }
+      }
+    }
+  }
+  if (G > 1) {  // the groups' partials, in group order
+    __syncthreads();
+    for (int i = tid; i < rows * a.hd; i += SPLIT_THREADS) {
+      const int r = i / a.hd, j = i % a.hd;
+      float s = gpart[r * a.hd + j];
+      for (int gg = 1; gg < G; ++gg) s = __fadd_rn(s, gpart[(gg * a.qb + r) * a.hd + j]);
+      const long long row = nh * a.Tq + q0 + r;
+      if (a.splits == 1)
+        out[row * a.hd + j] = hopper::from_float<T>(s);
+      else
+        part[(row * a.splits + split) * a.hd + j] = s;
+    }
   }
 }
 
+// Pass 3: out = T(the partials in split order), a thread an output.
 template <typename T>
-__global__ void __launch_bounds__(F32_THREADS)
-attention_rows_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
-                   int hd, float scale) {
-  __shared__ float qs[F32_HD];
-  __shared__ float p[F32_KEYS];
-  __shared__ float red[F32_WARPS];
-  rows_f32<T>(qs, p, red, q, k, v, mask, out, st, H, Tq, n_keys, hd, scale);
+__global__ void __launch_bounds__(SPLIT_THREADS)
+attention_rows_sum(const float* __restrict__ part, T* __restrict__ out, long long outputs, int hd, int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * SPLIT_THREADS + threadIdx.x;
+  if (i >= outputs) return;
+  const long long row = i / hd;
+  const int j = static_cast<int>(i % hd);
+  const float* pp = part + row * splits * hd + j;
+  float s = pp[0];
+  for (int x = 1; x < splits; ++x) s = __fadd_rn(s, pp[static_cast<long long>(x) * hd]);
+  out[i] = hopper::from_float<T>(s);
 }
 
+template <typename T, int VEC>
+int launch_split_vec(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st,
+                     int N, int H, int Tq, int n_keys, int hd, int ks, float scale, float* work, cudaStream_t s) {
+  constexpr int MAXR = VEC == 8 ? 8 : 16;  // pass 2's accumulators: MAXR x VEC a thread
+  static hopper::SmemLimit limit1, limit2;
+  if (const int e = limit1.ensure(attention_rows_scores<T, VEC, MAXR>, SMEM_MAX)) return e;
+  if (const int e = limit2.ensure(attention_rows_pv<T, VEC, MAXR>, SMEM_MAX)) return e;
+  const int nvec = hd / VEC, splits = (n_keys + ks - 1) / ks;
+  int qb = Tq < MAXR ? Tq : MAXR;  // a row's sums do not depend on the rows beside it in the block
+  while (qb > 1 && (scores_smem(qb, hd, ks) > SMEM_MAX || pv_smem(qb, hd, ks, nvec) > SMEM_MAX)) --qb;
+  if (scores_smem(qb, hd, ks) > SMEM_MAX || pv_smem(qb, hd, ks, nvec) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(N) * H * Tq;
+  if (static_cast<long long>(N) * H * ((Tq + qb - 1) / qb) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  float* sc = work;
+  float* mx = sc + rows * splits * ks;
+  float* part = mx + rows * splits;
+  const SplitArgs a{H, Tq, n_keys, hd, qb, ks, splits, scale};
+  const dim3 grid(static_cast<unsigned>(static_cast<long long>(N) * H * ((Tq + qb - 1) / qb)), splits);
+  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k), *vp = static_cast<const T*>(v);
+  T* o = static_cast<T*>(out);
+  attention_rows_scores<T, VEC, MAXR><<<grid, SPLIT_THREADS, scores_smem(qb, hd, ks), s>>>(qp, kp, m, sc, mx, st, a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_rows_pv<T, VEC, MAXR><<<grid, SPLIT_THREADS, pv_smem(qb, hd, ks, nvec), s>>>(vp, sc, mx, part, o, st, a);
+  if (splits > 1 && (e = cudaGetLastError()) == cudaSuccess) {
+    const long long outputs = rows * hd;
+    attention_rows_sum<T><<<static_cast<unsigned>((outputs + SPLIT_THREADS - 1) / SPLIT_THREADS), SPLIT_THREADS, 0,
+                            s>>>(part, o, outputs, hd, splits);
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The split-key design: 16-byte loads where the head dim is a multiple of
+// their elements (the wrapper then hands 16-byte aligned rows), else one
+// element a load; the load width, like ks, follows the head dim alone.
 template <typename T>
-__global__ void __launch_bounds__(F32_THREADS)
-attention_rows_f32_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const float* __restrict__ mask, T* __restrict__ out, Strides st, int H, int Tq, int n_keys,
-                        int hd, float scale) {
-  extern __shared__ float dyn[];
-  __shared__ float red[F32_WARPS];
-  rows_f32<T>(dyn, dyn + hd, red, q, k, v, mask, out, st, H, Tq, n_keys, hd, scale);
+int launch_split(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
+                 int H, int Tq, int n_keys, int hd, int ks, float scale, float* work, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (ks < 1 || ks > SPLIT_MAX_KEYS || static_cast<long long>(hd) + ks > MAX_FLOATS || work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd % VEC) return launch_split_vec<T, 1>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, ks, scale, work, s);
+  const auto aligned = [](const void* p, const long long* stride) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride[0] | stride[1] | stride[2]) % VEC == 0;
+  };
+  if (!aligned(q, st.q) || !aligned(k, st.k) || !aligned(v, st.v)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split_vec<T, VEC>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, ks, scale, work, s);
 }
 
 template <typename T, int HDP>
@@ -370,31 +582,15 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* m, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N,
-                int H, int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
-  if (static_cast<long long>(hd) + n_keys > F32_MAX_FLOATS) return static_cast<int>(cudaErrorInvalidValue);
-  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k), *vp = static_cast<const T*>(v);
-  const dim3 grid(N * H, Tq);
-  if (hd <= F32_HD && n_keys <= F32_KEYS) {
-    attention_rows_f32<T><<<grid, F32_THREADS, 0, s>>>(qp, kp, vp, m, static_cast<T*>(out), st, H, Tq, n_keys, hd,
-                                                       scale);
-  } else {
-    static hopper::SmemLimit limit;
-    if (const int e = limit.ensure(attention_rows_f32_wide<T>, 4 * F32_MAX_FLOATS)) return e;
-    attention_rows_f32_wide<T><<<grid, F32_THREADS, 4 * (hd + n_keys), s>>>(qp, kp, vp, m, static_cast<T*>(out), st,
-                                                                            H, Tq, n_keys, hd, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The mma design at 16-bit head dims up to 256 where one query row's scores
+// fit a block (ks == 0: the wrapper's route); else the split-key design.
 template <typename T>
 int launch_16(const void* q, const void* k, const void* v, const float* m, void* out, const Strides& st, int N, int H,
-              int Tq, int n_keys, int hd, float scale, cudaStream_t s) {
-  // head dims past the mma design's, and keys past what it holds at one query row a block
+              int Tq, int n_keys, int hd, float scale, int ks, float* work, cudaStream_t s) {
+  if (ks > 0) return launch_split<T>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, ks, scale, work, s);
   const int hdp = hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
   if (hd > MMA_MAX_HD || smem_bytes(hdp, 1, (n_keys + KT - 1) / KT) > SMEM_MAX)
-    return launch_simt<T>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p, long long stride) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 8 == 0;
   };
@@ -409,9 +605,9 @@ int launch_16(const void* q, const void* k, const void* v, const float* m, void*
 
 }  // namespace
 
-// The most of hd + keys the CUDA-core kernel holds in shared memory (the
-// mma design sends it the keys it cannot hold).
-extern "C" int attention_rows_max_floats() { return F32_MAX_FLOATS; }
+// The most of hd + keys the kernel takes (the split-key design's pass 1
+// holds a query row and a split's scores in shared memory).
+extern "C" int attention_rows_max_floats() { return MAX_FLOATS; }
 
 // Launch on `stream`; returns 0 or a cudaError_t. q (N, H, Tq, hd), k and v
 // (N, H, Tk, hd) of `dtype` (0: fp32, 1: bf16, 2: fp16) with the strides
@@ -419,15 +615,19 @@ extern "C" int attention_rows_max_floats() { return F32_MAX_FLOATS; }
 // and a contiguous last dim; `mask` null or fp32 with the strides of its
 // (N, H, Tq, Tk) broadcast in `strides[9:13]`; `out` a contiguous
 // (N, H, Tq, hd) of `dtype`. Only keys 0..n_keys-1 are read
-// (1 <= n_keys <= Tk); hd + n_keys <= attention_rows_max_floats(); bf16 and
-// fp16 at hd <= 256 (the mma design): hd % 8 == 0 and 16-byte aligned
-// pointers and row strides; N * H < 2^31.
+// (1 <= n_keys <= Tk); hd + n_keys <= attention_rows_max_floats(); N * H <
+// 2^31. `keys_per_split` 0 asks for the mma design (bf16 and fp16 at hd <=
+// 256, hd % 8 == 0, 16-byte aligned pointers and row strides); ks > 0 for
+// the split-key design with splits of ks keys, `work` then holds
+// N H Tq splits (ks + 1 + (splits > 1 ? hd : 0)) floats, and where hd is a
+// multiple of 16 bytes' elements the pointers and row strides are 16-byte
+// aligned.
 extern "C" int launch_attention_rows(const void* q, const void* k, const void* v, const void* mask, void* out,
                                      const long long* strides, int N, int H, int Tq, int Tk, int n_keys, int hd,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, int dtype, int keys_per_split, void* work, void* stream) {
   if (N < 0 || H <= 0 || Tq <= 0 || Tk <= 0 || n_keys <= 0 || n_keys > Tk || hd <= 0 ||
-      static_cast<long long>(hd) + n_keys > F32_MAX_FLOATS || static_cast<long long>(N) * H > 0x7fffffffLL ||
-      Tq > 65535 || dtype < 0 || dtype > 2)
+      static_cast<long long>(hd) + n_keys > MAX_FLOATS || static_cast<long long>(N) * H > 0x7fffffffLL ||
+      Tq > 65535 || dtype < 0 || dtype > 2 || keys_per_split < 0 || (dtype == 0 && keys_per_split == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   Strides st;
@@ -439,7 +639,9 @@ extern "C" int launch_attention_rows(const void* q, const void* k, const void* v
   for (int d = 0; d < 4; ++d) st.m[d] = strides[9 + d];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
-  if (dtype == 0) return launch_simt<float>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
-  if (dtype == 1) return launch_16<__nv_bfloat16>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
-  return launch_16<__half>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, s);
+  float* w = static_cast<float*>(work);
+  const int ks = keys_per_split;
+  if (dtype == 0) return launch_split<float>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, ks, scale, w, s);
+  if (dtype == 1) return launch_16<__nv_bfloat16>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, ks, w, s);
+  return launch_16<__half>(q, k, v, m, out, st, N, H, Tq, n_keys, hd, scale, ks, w, s);
 }

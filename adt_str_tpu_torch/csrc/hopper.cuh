@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (ffn_dropout.cu, attention.cu, attention_bwd.cu, log_mel.cu), the
+// (ffn_dropout.cu, ffn_dropout_tf32.cu, attention.cu, attention_bwd.cu,
+// log_mel.cu), the
 // bulk-copy ring of place_notes.cu and the cp.async + mma.sync rings of
 // linear.cu, attention_rows.cu and attention_tf32.cu: mbarriers, TMA tile
 // copies, 1-D bulk copies, cp.async, wgmma shared-memory descriptors and
 // products, ldmatrix, mma.sync (16-bit, and TF32 with the 3xTF32 split),
-// setmaxnreg, the 16-bit element types' conversions, and on the
+// wgmma in TF32, setmaxnreg, the 16-bit element types' conversions, and on the
 // host the tensor-map encoder and each kernel's shared-memory limit on every
 // device. Raw PTX and
 // the CUDA runtime only, no library: a kernel that includes it still builds
@@ -462,6 +463,27 @@ __device__ __forceinline__ void mma_64x64_ss_tt(float (&d)[32], uint64_t a, uint
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 128 fp32) += A (64 x 8 TF32, K-major, shared) B^T (B 128 x 8 TF32,
+// K-major, shared): fp32 bit patterns whose low 13 mantissa bits the tensor
+// cores drop (a K step of 8 is 32 bytes of a 128-byte swizzled row, as a
+// 16-bit K step of 16); scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_64x128_tf32(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+    "{\n"
+    ".reg .pred p;\n"
+    "setp.ne.b32 p, %66, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+    "%64, %65, p, 1, 1;\n"
+    "}\n"
+    : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+      HOPPER_ACC8(48), HOPPER_ACC8(56)
+    : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef HOPPER_ACC8
 
 // ---- ldmatrix
@@ -615,11 +637,11 @@ struct SmemLimit {
 
 // ---- host: tensor maps
 
-// A tensor map of 16-bit elements (bf16, or fp16 with `half`) of `rank` dims (innermost first, sizes in elements,
-// strides of dims 1.. in bytes) read or written in boxes of `box`, with the
-// 128-byte swizzle. Returns 0, or a cudaError_t.
+// A tensor map of elements of `type` of `rank` dims (innermost first, sizes
+// in elements, strides of dims 1.. in bytes) read or written in boxes of
+// `box`, with the 128-byte swizzle. Returns 0, or a cudaError_t.
 inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const cuuint64_t* dims,
-                             const cuuint64_t* strides, const cuuint32_t* box, bool half = false) {
+                             const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapDataType type) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -637,10 +659,17 @@ inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, 
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same for 16-bit elements: bf16, or fp16 with `half`.
+inline int encode_tensor_map(CUtensorMap* map, const void* base, uint32_t rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box, bool half = false) {
+  return encode_tensor_map(map, base, rank, dims, strides, box,
+                           half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 }  // namespace hopper

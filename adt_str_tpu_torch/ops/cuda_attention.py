@@ -112,6 +112,21 @@ def attention_plain(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
     return out, lse
 
 
+def attention_fp64_rounded_scores(q, k, v, mask=None, n_virtual: int = 0) -> torch.Tensor:
+    """K5's out in fp64 from the exact scores, each rounded once to fp32:
+    q k^T / sqrt(D) + mask formed in fp64, rounded to fp32 (what an fp32
+    product at fp32's accuracy gives), then the softmax with the virtual
+    keys and the product with v in fp64. Where a row's real keys are all
+    masked, its scores lie on fp32's 2^-10 grid near -1e4, and an fp32
+    product that puts one across a rounding boundary moves out by ~2e-5: there
+    this, not `attention_plain`, is the reference an fp32 kernel is held to."""
+    s = ((q.double() @ k.double().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+         + (0.0 if mask is None else mask.double()[:, None])).float().double()
+    m = s.amax(-1, keepdim=True).clamp(min=NEG_MASK)
+    e = torch.exp(s - m)
+    return (e / (e.sum(-1, keepdim=True) + n_virtual * torch.exp(NEG_MASK - m))) @ v.double()
+
+
 def attention_bwd_plain(q, k, v, mask, out, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K5 backward -> (dq, dk, dv) in q's dtype, every product
     in fp32 as in the JAX `_bwd_kernel`; `lse` already counts the virtual keys."""

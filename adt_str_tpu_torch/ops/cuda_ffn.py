@@ -1,5 +1,5 @@
 """K4: fused FFN + dropout forward kernels (`csrc/ffn_dropout.cu`,
-`csrc/ffn_dropout_fp32.cu`).
+`csrc/ffn_dropout_tf32.cu`).
 
 Replaces `adt_str_tpu/ops/pallas_ffn.py:fused_ffn_dropout`, which runs in
 the compute dtype. `ffn_dropout` is the wrapper: the CUDA kernels for CUDA
@@ -8,9 +8,10 @@ each wrapper's `launches` counts its calls that launch its kernel (two
 GEMMs). On the card (`kernel_for`) d is a multiple of `TILE`, as JAX's gate
 asks, and d_ff is any width:
 
-    dtype        kernel (wrapper)
-    bf16, fp16   csrc/ffn_dropout.cu, TMA + wgmma (ffn_dropout)
-    fp32         csrc/ffn_dropout_fp32.cu, CUDA cores (ffn_dropout_fp32)
+    dtype        route: kernel (wrapper)
+    bf16, fp16   "hopper": csrc/ffn_dropout.cu, TMA + wgmma (ffn_dropout)
+    fp32         "tf32x3": csrc/ffn_dropout_tf32.cu, TMA + wgmma in 3xTF32
+                 (ffn_dropout_tf32)
 
 Both walk d_ff in tiles of `TILE`: a d_ff that is not a multiple of it is
 padded here with zero rows of W1, zeros of b1 and zero columns of W2 up to
@@ -40,21 +41,22 @@ from adt_str_tpu_torch.ops import _build
 from adt_str_tpu_torch.ops.dropout_hash import keep_threshold
 from adt_str_tpu_torch.ops.ffn import ffn_dropout_bwd_plain, ffn_dropout_plain
 
-TILE = 128  # `BN` in csrc/ffn_dropout.cu and csrc/ffn_dropout_fp32.cu: d and d_ff are walked in output tiles of it
+TILE = 128  # `BN` in csrc/ffn_dropout.cu and csrc/ffn_dropout_tf32.cu: d and d_ff are walked in output tiles of it
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float16: 2}  # csrc/ffn_dropout.cu's
 
 
 def kernel_for(dtype: torch.dtype, d: int, d_ff: int) -> str:
     """The K4 kernel that takes operands of `dtype` at widths d, d_ff on the
-    card: "hopper" (bf16 or fp16: TMA + wgmma) or "fp32" (CUDA cores, no
-    TF32). Raises a ValueError on another dtype, on a d that is not a
-    multiple of `TILE` (JAX's gate sends d % 128 == 0 only) or d_ff < 1."""
+    card: "hopper" (bf16 or fp16: TMA + wgmma) or "tf32x3" (fp32: TMA +
+    wgmma, each product as three TF32 products). Raises a ValueError on
+    another dtype, on a d that is not a multiple of `TILE` (JAX's gate sends
+    d % 128 == 0 only) or d_ff < 1."""
     if d % TILE or d < TILE or d_ff < 1:
         raise ValueError(f"the FFN kernels take d a multiple of {TILE} and d_ff >= 1; got d={d}, d_ff={d_ff}")
     if dtype in _DTYPE_CODE:
         return "hopper"
     if dtype == torch.float32:
-        return "fp32"
+        return "tf32x3"
     raise ValueError(f"the FFN kernels take bf16, fp16 or fp32 operands; got {dtype}")
 
 
@@ -71,14 +73,14 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _fp32_lib() -> ctypes.CDLL:
-    lib = _build.load("ffn_dropout_fp32")
+def _tf32_lib() -> ctypes.CDLL:
+    lib = _build.load("ffn_dropout_tf32")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.launch_ffn_dropout_fp32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, u, u, u, u, f, f, p]
-    lib.launch_ffn_dropout_fp32.restype = ctypes.c_int
-    lib.ffn_dropout_fp32_tile.restype = ctypes.c_int
-    if lib.ffn_dropout_fp32_tile() != TILE:
-        raise RuntimeError("csrc/ffn_dropout_fp32.cu tile differs from cuda_ffn's")
+    lib.launch_ffn_dropout_tf32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, u, u, u, u, f, f, p]
+    lib.launch_ffn_dropout_tf32.restype = ctypes.c_int
+    lib.ffn_dropout_tf32_tile.restype = ctypes.c_int
+    if lib.ffn_dropout_tf32_tile() != TILE:
+        raise RuntimeError("csrc/ffn_dropout_tf32.cu tile differs from cuda_ffn's")
     return lib
 
 
@@ -145,8 +147,8 @@ def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: i
     n, d, d_ff, total = _check(x2, w1, b1, w2, b2, seeds, col0, d_ff_total)
     if x2.is_cpu:
         return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
-    if kernel_for(x2.dtype, d, d_ff) == "fp32":
-        return ffn_dropout_fp32(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
+    if kernel_for(x2.dtype, d, d_ff) == "tf32x3":
+        return ffn_dropout_tf32(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
     out, pre = _launch(_lib().launch_ffn_dropout, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total,
                        _DTYPE_CODE[x2.dtype])
     ffn_dropout.launches += 1
@@ -156,22 +158,22 @@ def ffn_dropout(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: i
 ffn_dropout.launches = 0
 
 
-def ffn_dropout_fp32(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
+def ffn_dropout_tf32(x2, w1, b1, w2, b2, seeds, keep_h: float, keep_o: float, col0: int = 0,
                      d_ff_total=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4 in fp32 on the CUDA cores (`csrc/ffn_dropout_fp32.cu`), as
-    `ffn_dropout` for fp32 operands (`ffn_dropout` sends them here);
+    """K4 in fp32 on the tensor cores in 3xTF32 (`csrc/ffn_dropout_tf32.cu`),
+    as `ffn_dropout` for fp32 operands (`ffn_dropout` sends them here);
     `ffn_dropout_plain` for CPU tensors."""
     n, d, d_ff, total = _check(x2, w1, b1, w2, b2, seeds, col0, d_ff_total)
     if x2.is_cpu:
         return ffn_dropout_plain(x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, d_ff_total)
     if x2.dtype != torch.float32:
         raise ValueError(f"the fp32 FFN kernel takes fp32 operands; got {x2.dtype}")
-    out, pre = _launch(_fp32_lib().launch_ffn_dropout_fp32, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total)
-    ffn_dropout_fp32.launches += 1
+    out, pre = _launch(_tf32_lib().launch_ffn_dropout_tf32, x2, w1, b1, w2, b2, seeds, keep_h, keep_o, col0, total)
+    ffn_dropout_tf32.launches += 1
     return out, pre
 
 
-ffn_dropout_fp32.launches = 0
+ffn_dropout_tf32.launches = 0
 
 
 class FusedFfnDropout(torch.autograd.Function):

@@ -43,7 +43,9 @@ line:
    rows), each row bit-equal at every row count of 1-64, timed as above;
    the self-attention also as the decode step reads it (`valid_keys`, the
    valid cache rows only), bit-equal to the masked read of the whole cache
-   at decode steps 0-511;
+   at decode steps 0-511; the same kernels at fp32 at the fp32 serving
+   config's decode step (`phase_repairs_fp32`: the fused LayerNorm, FFN 1's
+   product, attention_rows' split-key design self, cross and beam cross);
    and (`phase_domain_kernels`) the variants that take what the shipped
    configs do not send: K1's any_hop route (44.1 kHz hop 441, 22.05 kHz
    hop 220) and long_hop route (48 kHz hop 960) at B = 16, each bit-equal
@@ -51,7 +53,8 @@ line:
    training shapes and at 3 heads of 256 (bf16 and fp32), each fp32 row
    with the device time of SDPA's own fp32 kernels by name; the tensor-core K5f and
    K5b past 512 keys (1,014 and 1,023, B = 64; K5f at the long serving
-   batch of 4); K4 in fp32 at N = 64 * 246 and 64 * 511;
+   batch of 4); K4 in fp32 (3xTF32 on the tensor cores) at N = 64 * 246 and
+   64 * 511;
 4. synthesis (setting-1, `configs/train/setting-1.yaml`): a production-size
    one-shot bank built on the card from a seed (27 pitches x the 3 bins the
    similarity threshold 0.8 allows x 1,235 rows = 100,035 rows of 1.28 s at
@@ -143,8 +146,8 @@ line:
    then decode_dp's serving part: a `ServingEngine` over the two-entry mesh
    (its even buckets; a bucket of 1 must raise) answers the same requests
    with the one-device engine's notes;
-   then batch_invariance: 8 chunks decoded alone and in batches of 2, 4,
-   8, 16 and 64 (greedy), 4 alone and in a batch of 16 (beam 5), the
+   then batch_invariance: 4 chunks decoded alone and in batches of 2, 4,
+   8, 16 and 64 (greedy), 2 alone and in a batch of 16 (beam 5), the
    requests one at a time and concurrently through `ServingEngine`: equal
    tokens and notes; and the op probe (`batch_probe`: every op of the
    encoder, the greedy and the beam decode steps at 1-64 rows against the
@@ -183,7 +186,7 @@ line:
    at a rank's shapes against their plain versions (K1 at the TP batch of
    8; K5f and K5b at 3 heads of 128; K4 at d_ff 1536 from col0 0 and 1536
    of 3072 in its partial mode); two rank processes on cuda:0 over gloo (a
-   1 x 2 mesh) train TMIDT-flash and TMIDT-fused-ffn for 3 steps from the
+   1 x 2 mesh) train TMIDT-flash and TMIDT-fused-ffn for 2 steps from the
    same seeded weights, the first step within 1e-3 (loss) and 1e-2 (grad
    norm) of the one-process step on the same weights, batch and keys, the
    ranks' numbers and replicated weights bit-equal, the kernels launched
@@ -194,7 +197,7 @@ line:
    line that says it was not run;
 10. fsdp (`phase_fsdp`): FSDP at full width (`mesh.fsdp: true`). Two
    rank processes on cuda:0 over gloo (a 2 x 1 mesh, 4 of the 8 rows
-   each) train TMIDT-flash and TMIDT-fused-ffn for 3 steps from the same
+   each) train TMIDT-flash and TMIDT-fused-ffn for 2 steps from the same
    seeded weights: the first step within 1e-3 (loss) and 1e-2 (grad norm)
    of the one-process step on the same weights, rows and keys, and
    against the DDP step on the same ranks the loss bit-equal and the grad
@@ -237,7 +240,7 @@ line:
    fp16 step's own distance from the fp32 step's: fp16 without loss
    scaling underflows; `run_training`); the serving config at
    fp16 and at 2 heads of 384 (the wide K5f and attention_rows), 3 x
-   10 s each, tokens held as at 44.1 kHz; at each, 8 chunks decoded alone
+   10 s each, tokens held as at 44.1 kHz; at each, 4 chunks decoded alone
    and spread in a batch of 16, bit-equal. The kernel phases before it
    also hold and time K5 at fp16 (head dim 128), at head dim 256 (bf16,
    fp16: the tensor cores; fp32) and past it (2 heads of 384, 1 of 768),
@@ -263,7 +266,9 @@ line:
    head-dim-256 K5's at fp16, the 3xTF32 K5's other shapes
    (`other_shapes`: fp32, and bf16 and fp16 past head dim 256), the
    batch-invariance kernels' at fp16 (and attention_rows' at 2 heads of
-   384), and `layer_norm`'s entry is the
+   384, and at fp32), `attention_rows_split`'s entry is the decode
+   self-attention at d 2,048 with its 2-head, d-2,048 cross and fp32 rows
+   beside it, and `layer_norm`'s entry is the
    fused call the decode step makes (LayerNorm(x + r)), its one-input
    entry and the encoder's fused call beside it.
 
@@ -274,17 +279,20 @@ Any failed phase raises: no `ok` line and a nonzero exit.
 LABEL,LABEL,...` runs none of that: it measures the decode step's
 LayerNorm (and the fused add, where a tree has it), product and attention
 kernels of several trees (the roots of `git archive`s, each building into
-its own `build/kernels/`) and their decode loops, one process a run in the
+its own `build/kernels/`) and their decode loops (the serving config's,
+and the d-2,048, 2-head and fp32 configs' device ms a step, and the fp32
+TMIDT-fused-ffn step, where the tree has them), one process a run in the
 given order, and groups the runs by bit-equal outputs on seeded inputs
 (LayerNorms, products, attentions, greedy and beam tokens;
 `compare_trees`).
 
 `python3 chip_smoke.py --fp32-drift` runs none of it either: the 3xTF32
-K5's fp32 rows, an fp64 witness for a fully masked row, and TMIDT-flash at
-fp32 on separate 3-step trajectories from the same weights (the kernel
-path; the plain path with its products in emulated 3xTF32, in another fp32
-order, or through fp32 SDPA), each held to the plain path's, with Adam's
-first-step sign flips per leaf (`fp32_drift`).
+K5's and K4's fp32 rows, an fp64 witness for a fully masked row, and
+TMIDT-flash and TMIDT-fused-ffn at fp32 on separate 3-step trajectories
+from the same weights (the kernel path; the plain path with its products in
+emulated 3xTF32, in another fp32 order, or, flash, through fp32 SDPA), each
+held to the plain path's, with Adam's first-step sign flips per leaf
+(`fp32_drift`).
 """
 
 from __future__ import annotations
@@ -438,8 +446,9 @@ def device_ms(fn, inputs) -> dict:
     """Device time of each kernel `fn` launches, per call, over the staged
     inputs under torch.profiler: the kernel alone, without the host's launch
     cost that `median_ms` includes when one call cannot fill the card. A
-    profiler session now and then records no device event at all; such a
-    session is taken again, up to 3 times."""
+    profiler session now and then records no device event at all, or only
+    some of the calls' kernels (a kernel seen fewer times than there are
+    calls); such a session is taken again, up to 3 times."""
     fn(*inputs[0])
     torch.cuda.synchronize()
     out: dict = {}
@@ -448,11 +457,13 @@ def device_ms(fn, inputs) -> dict:
             for args in inputs:
                 fn(*args)
             torch.cuda.synchronize()
+        out, seen = {}, {}
         for e in prof.key_averages():
             if e.device_time_total > 0:
                 name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
                 out[name] = out.get(name, 0.0) + e.device_time_total / len(inputs) / 1e3
-        if out:
+                seen[name] = seen.get(name, 0) + e.count
+        if out and min(seen.values()) >= len(inputs):
             break
     return out
 
@@ -730,7 +741,7 @@ def phase_layer_norm(gen, rows: int, shape: str, counts=(1, 2, 4, 8, 16, 32, 64)
         raise RuntimeError(f"layer_norm kernel at {shape}: {res}")
     res.update(time_repair(ln_ops.layer_norm, ln_ops.layer_norm_plain,
                            lambda x, w, b, eps: torch.nn.functional.layer_norm(x.float(), (d,), w, b, eps), inputs,
-                           [(8.0 * rows * d, PEAK_FP32)], rows * d * 2 * 2 + 2 * d * 4))
+                           [(8.0 * rows * d, PEAK_FP32)], rows * d * out.element_size() * 2 + 2 * d * 4))
     emit({"phase": "kernel", "name": "layer_norm", "shape": shape, "rows": rows, "d": d, **res})
     return res
 
@@ -786,7 +797,7 @@ def phase_add_layer_norm(gen, rows: int, shape: str, counts=(1, 2, 4, 8, 16, 32,
             and res["fp32_bit_equal_to_unfused"] and all(inv.values())):
         raise RuntimeError(f"add_layer_norm kernel at {shape}: {res}")
     res.update(time_repair(ln_ops.add_layer_norm, ln_ops.add_layer_norm_plain, _add_ln_library, inputs,
-                           [(9.0 * rows * d, PEAK_FP32)], rows * d * 2 * 3 + 2 * d * 4))
+                           [(9.0 * rows * d, PEAK_FP32)], rows * d * out.element_size() * 3 + 2 * d * 4))
     res["unfused_ms"] = median_ms(_add_then_layer_norm, inputs)
     res["unfused_device_ms"] = device_ms(_add_then_layer_norm, inputs)
     emit({"phase": "kernel", "name": "add_layer_norm", "shape": shape, "rows": rows, "d": d, **res})
@@ -828,7 +839,7 @@ def phase_linear(gen, m: int, n: int, k: int, shape: str, counts=(1, 2, 4, 8, 16
     if not (bool(ok.all()) and err32 <= 1e-5 and all(inv.values())):
         raise RuntimeError(f"linear kernel at {shape}: {res}")
     res.update(time_repair(linear_ops.linear, linear_ops.linear_plain, torch.nn.functional.linear, inputs,
-                           [(2.0 * m * n * k, PEAK_BF16)], (m * k + n * k + n + m * n) * 2))
+                           [product_cost(2.0 * m * n * k, dtype)], (m * k + n * k + n + m * n) * out.element_size()))
     emit({"phase": "kernel", "name": "linear", "shape": shape, "m": m, "n": n, "k": k, **res})
     return res
 
@@ -878,7 +889,8 @@ VALID_KEYS_STEPS = (0, 1, 62, 63, 64, 127, 128, 245, 256, 447, 510, 511)  # deco
 def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, shape: str,
                          counts=(1, 2, 4, 8, 16, 32, 64), dtype=torch.bfloat16, heads: int = 6,
                          hd: int = 128) -> dict:
-    """The attention-rows kernel at (batch, 6, tq, 128) queries over tk keys
+    """The attention-rows kernel (its mma or split-key design, by
+    `attention_rows.kernel_for`) at (batch, 6, tq, 128) queries over tk keys
     (`step`: the decode step's mask, -1e4 past it; None: no mask), bf16,
     against its plain version (`attention_rows_error`), its rows bit-equal
     at each of `counts` leading rows of the largest, and timed against SDPA.
@@ -886,8 +898,8 @@ def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, sh
     1, no mask): bit-equal to the masked read of all keys at each of
     VALID_KEYS_STEPS below tk, its rows bit-equal as above, and timed
     against SDPA over the valid keys (`valid_keys` in the result). `dtype`,
-    `heads` and `hd`: fp16, and the 2 heads of 384 at d 768 (the CUDA-core
-    design past head dim 256)."""
+    `heads` and `hd`: fp16, and the 2 heads of 384 at d 768 (the split-key
+    design past head dim 256, as fp32 at every head dim)."""
     def make(b):
         q = torch.randn(b, heads, tq, hd, generator=gen, device="cuda").to(dtype)
         kk = torch.randn(b, heads, tk, hd, generator=gen, device="cuda").to(dtype)
@@ -895,7 +907,8 @@ def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, sh
         return q, kk, v, None if step is None else step_mask(tk, step)
 
     inputs = [make(batch) for _ in range(REPS)]
-    out = launched_once(attention_rows.attention, *inputs[0])
+    route = attention_rows.kernel_for(dtype, hd, tk)
+    out = launched_once(attention_rows.attention if route == "mma" else attention_rows.attention_split, *inputs[0])
     check = attention_rows_error(out, *inputs[0])
     big = make(max(counts))
     inv = rows_invariant(attention_rows.attention, big, counts, (0, 0, 0, None))
@@ -907,13 +920,14 @@ def phase_attention_rows(gen, batch: int, tq: int, tk: int, step: int | None, sh
         return torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=None if mask is None
                                                                 else mask.to(q.dtype))
 
-    bh = batch * heads
+    bh, es = batch * heads, out.element_size()
     res.update(time_repair(attention_rows.attention, attention_rows.attention_plain, sdpa, inputs,
-                           [(4.0 * bh * tq * tk * hd, PEAK_FP32)], 2 * bh * (2 * tq + 2 * tk) * hd + tk * 4))
+                           [(4.0 * bh * tq * tk * hd, PEAK_FP32)], es * bh * (2 * tq + 2 * tk) * hd + tk * 4))
+    res["route"] = route
     if step is not None:
         res["valid_keys"] = attention_rows_valid_keys(inputs, big, counts, step, shape)
-    emit({"phase": "kernel", "name": "attention_rows", "shape": shape, "batch": batch, "tq": tq, "tk": tk,
-          "heads": heads, "head_dim": hd, "dtype": str(dtype), **res})
+    emit({"phase": "kernel", "name": "attention_rows" if route == "mma" else "attention_rows_split", "shape": shape,
+          "batch": batch, "tq": tq, "tk": tk, "heads": heads, "head_dim": hd, "dtype": str(dtype), **res})
     return res
 
 
@@ -943,7 +957,8 @@ def attention_rows_valid_keys(inputs: list, big: tuple, counts, step: int, shape
         raise RuntimeError(f"attention_rows kernel with valid_keys at {shape}: {res}")
     bh, tq, hd = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
     res.update(time_repair(valid, plain, sdpa, inputs, [(4.0 * bh * tq * n * hd, PEAK_FP32)],
-                           2 * bh * (2 * tq + 2 * n) * hd))
+                           q.element_size() * bh * (2 * tq + 2 * n) * hd))
+    res["route"] = attention_rows.kernel_for(q.dtype, hd, n)
     return res
 
 
@@ -1146,8 +1161,8 @@ def phase_ffn(rows: int, gen, shape: str, d: int = 768, d_ff: int = 3072, keep: 
     without b2 and the output dropout)."""
     partial = col0 is not None
     cpu = torch.Generator().manual_seed(SEED + rows + (0 if col0 is None else col0 + 1))
-    fp32 = cuda_ffn.kernel_for(dtype, d, d_ff) == "fp32"
-    wrapper = cuda_ffn.ffn_dropout_fp32 if fp32 else cuda_ffn.ffn_dropout
+    fp32 = cuda_ffn.kernel_for(dtype, d, d_ff) == "tf32x3"
+    wrapper = cuda_ffn.ffn_dropout_tf32 if fp32 else cuda_ffn.ffn_dropout
 
     def args():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
@@ -1560,13 +1575,16 @@ def kernel_counters() -> dict:
             "fused_attention_bwd_tf32": cuda_attention.fused_attention_bwd_tf32,
             "fused_attention_wide": cuda_attention.fused_attention_wide,
             "fused_attention_bwd_wide": cuda_attention.fused_attention_bwd_wide, "ffn_dropout": cuda_ffn.ffn_dropout,
-            "ffn_dropout_fp32": cuda_ffn.ffn_dropout_fp32,
+            "ffn_dropout_tf32": cuda_ffn.ffn_dropout_tf32,
             "gather_blend": cuda_place.gather_blend, "place_notes": cuda_place.place_notes}
 
 
-# The device kernels of the CUDA-core fp32 K5 that the 3xTF32 kernels (csrc/attention_tf32.cu) replaced
-RETIRED_K5 = ("attention_fwd_simt", "attention_delta_simt", "attention_dkdv_simt", "attention_dq_simt",
-              "attention_fwd_chunked", "attention_delta_chunked", "attention_dkdv_chunked", "attention_dq_chunked")
+# The device kernels of retired designs: the CUDA-core fp32 K5 (csrc/attention_simt.cu, replaced by
+# csrc/attention_tf32.cu), the fp32 FMA K4 (csrc/ffn_dropout_fp32.cu, replaced by csrc/ffn_dropout_tf32.cu) and
+# attention_rows' CUDA-core kernels (a block a query row, replaced by its split-key design)
+RETIRED = ("attention_fwd_simt", "attention_delta_simt", "attention_dkdv_simt", "attention_dq_simt",
+           "attention_fwd_chunked", "attention_delta_chunked", "attention_dkdv_chunked", "attention_dq_chunked",
+           "ffn_gemm_fp32", "attention_rows_f32")
 
 
 # The batch-invariance kernels' wrappers (`REPAIRS`, as imported), counted apart from the TPU kernels:
@@ -1576,8 +1594,22 @@ REPAIR_WRAPPERS = {"layer_norm": ln_ops.layer_norm, "linear": linear_ops.linear,
 
 
 def all_counters() -> dict:
-    """Every kernel wrapper, by kernel: the TPU kernels' and the batch-invariance kernels'."""
-    return {**kernel_counters(), **REPAIR_WRAPPERS}
+    """Every kernel wrapper, by kernel: the TPU kernels' and the
+    batch-invariance kernels' (attention_rows by its design: the mma ring,
+    `attention_rows`, or the split-key kernels, `attention_rows_split`)."""
+    return {**kernel_counters(), **REPAIR_WRAPPERS, "attention_rows_split": attention_rows.attention_split}
+
+
+def repair_kernels(cfg: FrameworkConfig | None = None) -> tuple:
+    """The batch-invariance kernels a decode path at `cfg` (None: the
+    shipped bf16 widths) launches: LayerNorm, the product, and attention_rows
+    by the design its dtype and head dim take."""
+    rows = "attention_rows"
+    if cfg is not None and attention_rows.kernel_for(torch_dtype(cfg.model.compute_dtype),
+                                                     cfg.model.d_model // cfg.model.nhead,
+                                                     cfg.inference.max_length) == "split":
+        rows = "attention_rows_split"
+    return ("layer_norm", "linear", rows)
 
 
 def tpu_launches(launches: dict) -> dict:
@@ -1616,7 +1648,7 @@ def _group(name: str) -> str:
                        ("attention_tf32_fwd", "K5f attention fwd"), ("attention_tf32_delta", "K5b attention bwd"),
                        ("attention_tf32_dkdv", "K5b attention bwd"), ("attention_tf32_dq", "K5b attention bwd"),
                        ("wide_fwd_kernel", "K5f attention fwd"), ("wide_bwd_kernel", "K5b attention bwd"),
-                       ("wide_delta_kernel", "K5b attention bwd"), ("ffn_gemm_fp32", "K4 fused FFN"),
+                       ("wide_delta_kernel", "K5b attention bwd"), ("ffn_tf32_gemm", "K4 fused FFN"),
                        ("log_mel_", "K1 log-mel"), ("gather_blend_kernel", "K2 gather + blend"),
                        ("place_notes_kernel", "K3 note placement")):
         if key in name:
@@ -1642,7 +1674,7 @@ def _group(name: str) -> str:
 # the device-time group (`_group`) of each kernel wrapper's kernels
 KERNEL_GROUPS = {"log_mel": "K1 log-mel", "log_mel_any_hop": "K1 log-mel", "log_mel_long_hop": "K1 log-mel",
                  "gather_blend": "K2 gather + blend", "place_notes": "K3 note placement",
-                 "ffn_dropout": "K4 fused FFN", "ffn_dropout_fp32": "K4 fused FFN",
+                 "ffn_dropout": "K4 fused FFN", "ffn_dropout_tf32": "K4 fused FFN",
                  "fused_attention": "K5f attention fwd", "fused_attention_tf32": "K5f attention fwd",
                  "fused_attention_bwd": "K5b attention bwd", "fused_attention_bwd_tf32": "K5b attention bwd",
                  "fused_attention_d256": "K5f attention fwd", "fused_attention_bwd_d256": "K5b attention bwd",
@@ -1955,7 +1987,7 @@ def serve_requests(engine, cfg: FrameworkConfig, sequential: bool = False, secon
         if r is None or r[0] != 200:
             raise RuntimeError(f"request {i} failed: {r}")
         check_notes(json.loads(r[1]), seconds, cfg.model.tgt_vocab_size)
-    if not all(launches[k] for k in (*required, *REPAIR_WRAPPERS)):
+    if not all(launches[k] for k in (*required, *repair_kernels(cfg))):
         raise RuntimeError(f"a kernel of the path was not launched while serving: {launches}")
     return results, wall, launches, stats
 
@@ -2113,7 +2145,7 @@ def phase_eval(statics: render.SynthStatics, sc) -> dict:
                                            and all(len(r) == len(header) for r in rows),
         "confusion CSV counts each note once": (csv_ref, csv_pred) == (n_ref, n_pred),
         "K1 and K5f launched as the batches need": tpu_launches(launches) == expected,
-        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
+        "the batch-invariance kernels launched": all(launches[k] for k in repair_kernels()),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2218,7 +2250,7 @@ def phase_inference(statics: render.SynthStatics, sc) -> dict:
     checks = {
         "resynthesis shape and values": resynth.shape == (n_chunks * sc.chunk_samples,) and np.isfinite(resynth).all(),
         "K1, K5f, K2 and K3 launched as the path needs": tpu_launches(launches) == expected,
-        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
+        "the batch-invariance kernels launched": all(launches[k] for k in repair_kernels()),
         "the CLI wrote MIDI notes": all(c["midi_bytes"] > 22 for c in cli.values()),
         "the CLI's MIDI = the in-process kernel path's": all(same_midi.values()),
         "the encoder's kernels agree with their plain versions": vs_plain["encoder_plain"]["ok"]
@@ -2599,7 +2631,7 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
         "every item decoded once": len(tokenizer.rows) == len(ds),
         "every row well formed": all(well_formed(np.asarray(r)) for r in tokenizer.rows),
         "K1 and K5f launched as the batches need": tpu_launches(launches) == expected,
-        "the batch-invariance kernels launched": all(launches[k] for k in REPAIR_WRAPPERS),
+        "the batch-invariance kernels launched": all(launches[k] for k in repair_kernels()),
         "metrics finite": all(math.isfinite(v) for m in metrics.values() for v in m.values()),
         "beam 1 = greedy": res["beam1_equals_greedy"],
         "the served engine decodes with beam search": engine_beam == (True, BEAM_SIZE, 1.0),
@@ -2618,7 +2650,7 @@ def phase_beam(statics: render.SynthStatics, sc) -> dict:
 DDP_WORLD = 2  # rank processes, both on cuda:0 over gloo (NCCL cannot hold two ranks on one card)
 DDP_ROWS = TRAIN_BATCH // DDP_WORLD  # 32 rows a rank: the global batch is TRAIN_BATCH
 DDP_SHIPPED_STEPS = 3
-DDP_TRAINER_STEPS = 6  # saved and evaluated after 3 and 6; the resumed run takes 4-6
+DDP_TRAINER_STEPS = 4  # saved and evaluated after 2 and 4; the resumed run takes 3-4
 DDP_TIMEOUT = 360  # seconds the rank processes may take, all their phases together
 ALLREDUCE_REPS = 5
 
@@ -2652,14 +2684,14 @@ def close_to(got: dict, ref: dict) -> bool:
 
 def per_step(mc, synth: bool) -> dict:
     """The kernel launches of one training step of `mc`, by the variant its
-    frontend and compute dtype take (K1's route; K4 in bf16 or fp32; K5 on
-    the tensor cores or the CUDA cores)."""
+    frontend and compute dtype take (K1's route; K4 in 16-bit or 3xTF32; K5
+    by its route)."""
     n = {cuda_mel.ROUTE_WRAPPERS[cuda_mel.frames_route(mel_params(mc))].__name__: 1}
     if synth:
         n.update(gather_blend=1, place_notes=1)
     dtype = torch_dtype(mc.compute_dtype)
     if mc.use_pallas_ffn and mc.dropout > 0:
-        n["ffn_dropout_fp32" if dtype == torch.float32 else "ffn_dropout"] = mc.enc_layers + mc.dec_layers
+        n["ffn_dropout_tf32" if dtype == torch.float32 else "ffn_dropout"] = mc.enc_layers + mc.dec_layers
     if mc.use_flash_attention and mc.dropout == 0:
         fwd, bwd = attention_wrappers(dtype, mc.d_model // mc.nhead)
         n[fwd.__name__] = n[bwd.__name__] = mc.enc_layers + 2 * mc.dec_layers
@@ -3055,7 +3087,7 @@ def phase_ddp(statics: render.SynthStatics, sc, eval_ref: dict, entry_ref: dict)
 
 TP_WORLD = 2  # one model group of 2 ranks (a 1 x 2 mesh)
 TP_BATCH = 8  # rows a step: gloo stages every activation all-reduce through host memory
-TP_STEPS = 3
+TP_STEPS = 2
 TP_TRAINER_STEPS = 2  # saved after 1 and 2; the resumed run takes step 2
 TP_TIMEOUT = 420
 TP_CONFIGS = ("flash", "fused-ffn")
@@ -3328,9 +3360,9 @@ def phase_tp(params, gen) -> dict:
 
 FSDP_WORLD = 2  # a 2 x 1 mesh: two data ranks, both on cuda:0 over gloo
 FSDP_BATCH = TP_BATCH  # global rows a step (4 a data rank): gloo stages every collective through host memory
-FSDP_STEPS = 3
+FSDP_STEPS = 2
 FSDP_GRID = (2, 2)  # four ranks: 2 data x 2 model
-FSDP_GRID_STEPS = 2
+FSDP_GRID_STEPS = 1
 FSDP_TRAINER_STEPS = 2  # saved after 1 and 2; the resumed run takes step 2
 FSDP_TIMEOUT = 480
 FSDP_CONFIGS = TP_CONFIGS
@@ -3675,6 +3707,7 @@ def phase_fsdp() -> dict:
 
 YOUTUBE_SEC = 30.0
 YOUTUBE_HOP_SEC = 1.28
+YOUTUBE_ALONE = 4  # chunks decoded alone against their batch rows (a depth cut for the smoke's time)
 YOUTUBE_SR = 44_100  # the WAV's own rate: the demo resamples it to the config's
 
 
@@ -3701,7 +3734,7 @@ def phase_youtube() -> dict:
     written by the port's safetensors writer; once plain and once with a
     1.28 s hop: wall s, chunks, notes, files written. In this process the
     same chunks in one batch (K1, K5f launched once, at the encoder's
-    layers) against each chunk decoded alone by `greedy_decode`: equal
+    layers) against its first YOUTUBE_ALONE chunks decoded alone by `greedy_decode`: equal
     tokens; the CLI's note count against this process's; `--url` without
     yt-dlp must fail naming it; a one-hot multi-hot `decode_logits` on the
     card against the id path (bf16: the one-hot product selects one
@@ -3750,10 +3783,11 @@ def phase_youtube() -> dict:
     kw = dict(max_length=int(cfg.inference.max_length), start_token=tokenizer.BOS_token,
               end_token=tokenizer.EOS_token)
     _, chunks = youtube_demo.chunk_batch(cfg, wav, None)
-    alone = np.stack([greedy_decode(model, torch.from_numpy(c[None]).cuda(), **kw).cpu().numpy()[0] for c in chunks])
+    alone = np.stack([greedy_decode(model, torch.from_numpy(c[None]).cuda(), **kw).cpu().numpy()[0]
+                      for c in chunks[:YOUTUBE_ALONE]])
     batch_tokens = in_process["plain"].pop("tokens")
     in_process["hop"].pop("tokens")
-    differing = [i for i in range(len(chunks)) if not np.array_equal(alone[i], batch_tokens[i])]
+    differing = [i for i in range(len(alone)) if not np.array_equal(alone[i], batch_tokens[i])]
     # multi-hot rows on the card: one-hot rows of the id path's tokens
     ids = torch.from_numpy(batch_tokens[:4, :64].astype(np.int64)).cuda()
     with torch.no_grad():
@@ -3765,7 +3799,7 @@ def phase_youtube() -> dict:
     multi_tol = 1e-2 * float(by_ids.abs().max())
     res = {"phase": "youtube", "config": SERVING_YAML, "audio_s": YOUTUBE_SEC, "wav_sr": YOUTUBE_SR,
            "hop_sec": YOUTUBE_HOP_SEC, "cli": cli, "in_process": in_process,
-           "chunks_alone_equal_the_batch": {"chunks": len(chunks), "differing_rows": differing},
+           "chunks_alone_equal_the_batch": {"chunks": len(alone), "of": len(chunks), "differing_rows": differing},
            "url_without_yt_dlp": {"exit": url.returncode, "said": (url.stderr.strip().splitlines() or [""])[-1]},
            "multi_hot": {"rows": list(hot.shape), "dtype": str(model.compute_dtype), "max_abs_err": multi_err,
                          "tol": multi_tol, "bit_equal": bool(torch.equal(by_rows, by_ids))}}
@@ -3776,7 +3810,7 @@ def phase_youtube() -> dict:
             c["files"].get("predicted_drums.mid", 0) > 22 and c["files"].get("synthesized_drums.wav", 0) > 44
             for c in cli.values()),
         "the CLI's notes = this process's": all(cli[n]["notes"] == in_process[n]["notes"] for n in cli),
-        "every chunk decoded alone = its row of the batch": not differing,
+        f"the first {YOUTUBE_ALONE} chunks decoded alone = their rows of the batch": not differing,
         "K1 once and K5f once an encoder layer, per batch": all(
             p["launches"]["log_mel"] == 1 and p["launches"]["fused_attention"] == n_layers
             for p in in_process.values()),
@@ -3814,15 +3848,20 @@ LONG_ATTENTION = {"encoder-1014": (1014, 1014, False), "decoder-self-1023": (102
 
 def phase_training_fp32(name: str) -> dict:
     """FP32_STEPS steps of a TMIDT config at `compute_dtype: float32` (64 x
-    512 tokens): K5f and K5b in 3xTF32 (flash) or K4 in fp32 (fused-ffn),
-    every step against the plain fp32 path (TF32 off). fused-ffn's plain
-    path runs its own trajectory from the same weights. flash's plain steps
-    run in lockstep, each from a copy of the kernel path's weights, and its
-    own trajectory is reported beside them (`run_training`): fp32 SDPA
-    and the plain path with its products summed in another fp32 order part
-    from it past FP32_TOL by step 2-3 too (`--fp32-drift`; H100 80GB HBM3,
-    700 W), so holding those steps would hold the products to cuBLAS's
-    rounding, not to fp32's accuracy."""
+    512 tokens): K5f and K5b in 3xTF32 (flash) or K4 in 3xTF32 (fused-ffn),
+    every step against the plain fp32 path (TF32 off).
+
+    The ruling on fp32 kernel paths: the held check is the lockstep step at
+    FP32_TOL, each plain step from a copy of the kernel path's weights
+    before its step. Step 1 of the kernel path's own trajectory is that
+    lockstep step (the same weights), so it is held too; steps 2 and later
+    of the own trajectory are printed beside them, not held: fp32 SDPA, the
+    plain path with its products summed in two fp32 halves and the plain
+    path with emulated 3xTF32 products all part from the plain trajectory
+    past FP32_TOL by step 2-3 (`--fp32-drift`; H100 80GB HBM3, 700 W), so
+    holding those steps holds the products to cuBLAS's rounding, not to
+    fp32's accuracy. flash runs in that form. fused-ffn keeps its separate
+    trajectories, every step held, while they pass."""
     flash = name == "flash"
     return phase_training(name, f"training-fp32-{name}", FP32_STEPS, tol=FP32_TOL, plain_steps=FP32_STEPS,
                           profile=False, lockstep=flash, trajectory=flash, model=FP32)
@@ -3964,7 +4003,7 @@ def phase_domain_kernels(gen) -> dict:
 def phase_repairs_fp16(gen, cfg: FrameworkConfig) -> dict:
     """The batch-invariance kernels at fp16 at the serving bucket's decode
     step (as `phase_repairs` at bf16), and attention_rows past head dim 256
-    (2 heads of 384: the CUDA-core design) at bf16 and fp16."""
+    (2 heads of 384: the split-key design) at bf16 and fp16."""
     bucket, L, S = main_path_bucket(cfg), cfg.inference.max_length, 246
     f16 = torch.float16
     return {
@@ -3979,6 +4018,26 @@ def phase_repairs_fp16(gen, cfg: FrameworkConfig) -> dict:
         "attention_rows_d384_cross_fp16": phase_attention_rows(gen, bucket, 1, S, None,
                                                                f"fp16 decode cross, 2 heads of 384, bucket {bucket}",
                                                                dtype=f16, heads=2, hd=384),
+    }
+
+
+def phase_repairs_fp32(gen, cfg: FrameworkConfig) -> dict:
+    """The batch-invariance kernels at fp32 at the serving bucket's decode
+    step (the fp32 serving config's widths: d 768, 6 heads of 128): the
+    fused LayerNorm, the FFN 1 product, and attention_rows' split-key design
+    over the self cache (masked, and the valid keys alone) and the cross
+    rows, greedy and beam's 5 rows an item."""
+    bucket, L, S, f32 = main_path_bucket(cfg), cfg.inference.max_length, 246, torch.float32
+    return {
+        "add_layer_norm": phase_add_layer_norm(gen, bucket, f"fp32 decode step, bucket {bucket}", dtype=f32),
+        "linear": phase_linear(gen, bucket, 3072, 768, f"fp32 decode FFN linear1, bucket {bucket}", dtype=f32),
+        "attention_rows_self": phase_attention_rows(gen, bucket, 1, L, L // 2, f"fp32 decode self, bucket {bucket}",
+                                                    dtype=f32),
+        "attention_rows_cross": phase_attention_rows(gen, bucket, 1, S, None, f"fp32 decode cross, bucket {bucket}",
+                                                     dtype=f32),
+        "attention_rows_beam_cross": phase_attention_rows(gen, bucket, BEAM_SIZE, S, None,
+                                                          f"fp32 beam cross, {bucket} items x {BEAM_SIZE}", dtype=f32,
+                                                          counts=(1, 2, 8, 16)),
     }
 
 
@@ -4024,7 +4083,7 @@ def phase_fp16_and_wide_heads(gen) -> dict:
     K5f and K5b); 3 steps each of TMIDT-flash and TMIDT-fused-ffn at fp16
     (K5 and K4 at fp16; every step held as `run_training` holds fp16 in
     lockstep); the serving config at fp16 and at 2 heads of 384 (3 x 10 s
-    requests each, tokens held to the plain path's), and at each 8 chunks
+    requests each, tokens held to the plain path's), and at each 4 chunks
     decoded alone and in a batch of 16, bit-equal."""
     t0 = time.monotonic()
     training = {"flash-3heads": phase_training_variant("flash", "training-3heads-flash", THREE_HEADS),
@@ -4040,11 +4099,12 @@ def phase_fp16_and_wide_heads(gen) -> dict:
            "invariance": invariance, "wall_s": time.monotonic() - t0}
     emit(res)
     fail_unless("fp16_and_wide_heads", {
-        **{f"{k}: 8 chunks alone = in a batch of 16": v["equal"] for k, v in invariance.items()},
+        **{f"{k}: {INVARIANCE_CHUNKS} chunks alone = in a batch of 16": v["equal"] for k, v in invariance.items()},
         "fp16: K1, K5f and the repair kernels launched": all(
-            invariance["fp16"]["launches"][k] for k in ("log_mel", "fused_attention", *REPAIR_WRAPPERS)),
+            invariance["fp16"]["launches"][k] for k in ("log_mel", "fused_attention", *repair_kernels())),
         "2 heads: K1, the wide tensor-core K5f and the repair kernels launched": all(
-            invariance["2heads"]["launches"][k] for k in ("log_mel", "fused_attention_wide", *REPAIR_WRAPPERS)),
+            invariance["2heads"]["launches"][k] for k in ("log_mel", "fused_attention_wide",
+                                                           *repair_kernels(two_cfg))),
         "2 heads: the fp32 K5 not launched": not (invariance["2heads"]["launches"]["fused_attention_tf32"]
                                                    or training["flash-2heads"]["launches"]["fused_attention_tf32"]),
         "2-head training: the wide K5f and K5b launched 36 times each": all(
@@ -4061,7 +4121,7 @@ def phase_wide_widths(gen, cfg: FrameworkConfig) -> dict:
     decode step; then the serving config at d_model 2,048 with 1 head of
     2,048 (4 + 4 layers, seeded weights): 3 x 10 s requests through the
     HTTP server (K1 and the wide K5f launched; encoder memory and greedy
-    tokens held to the plain path's, ties aside), and 8 chunks decoded
+    tokens held to the plain path's, ties aside), and 4 chunks decoded
     alone and in a batch of 16, bit-equal, with K5f wide, LayerNorm (past
     1,024) and attention_rows (past 1,024) launched."""
     t0 = time.monotonic()
@@ -4084,9 +4144,9 @@ def phase_wide_widths(gen, cfg: FrameworkConfig) -> dict:
            "invariance": invariance, "serving_launches": serving["launches"], "wall_s": time.monotonic() - t0}
     emit(res)
     fail_unless("wide_widths", {
-        "d 2048: 8 chunks alone = in a batch of 16": invariance["equal"],
+        f"d 2048: {INVARIANCE_CHUNKS} chunks alone = in a batch of 16": invariance["equal"],
         "d 2048: K1, the wide K5f, LayerNorm and attention_rows launched": all(
-            invariance["launches"][k] for k in ("log_mel", "fused_attention_wide", "layer_norm", "attention_rows")),
+            invariance["launches"][k] for k in ("log_mel", "fused_attention_wide", *repair_kernels(wide_cfg))),
         "d 2048: the fp32 K5 not launched": not (invariance["launches"]["fused_attention_tf32"]
                                                   or serving["launches"]["fused_attention_tf32"]),
     })
@@ -4388,9 +4448,9 @@ def batch_probe(cfg: FrameworkConfig) -> dict:
             "ops_compared": compared, "differing_ops": [{"op": k, **v} for k, v in found.items()]}
 
 
-INVARIANCE_CHUNKS = 8
+INVARIANCE_CHUNKS = 4  # chunks decoded alone and in batches (a depth cut for the smoke's time)
 INVARIANCE_BATCHES = (2, 4, 8, 16, 64)
-INVARIANCE_BEAM_CHUNKS = 4
+INVARIANCE_BEAM_CHUNKS = 2
 INVARIANCE_BEAM_BATCH = 16
 
 
@@ -4433,7 +4493,7 @@ def phase_fp32_invariance(cfg: FrameworkConfig) -> dict:
     fail_unless("fp32_invariance", {
         **{f"fp32 greedy tokens alone = in batches of {b}": g["equal"] for b, g in res["batches"].items()},
         "K1, the 3xTF32 K5f and the repair kernels launched": all(
-            res["launches"][k] for k in ("log_mel", "fused_attention_tf32", *REPAIR_WRAPPERS)),
+            res["launches"][k] for k in ("log_mel", "fused_attention_tf32", *repair_kernels(cfg))),
     })
     return res
 
@@ -4494,7 +4554,7 @@ def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
         "the probe lists no op": not probe_after["differing_ops"],
         "the probe before the repair lists ops": bool(probe_before["differing_ops"]),
         "K1, K5f and the repair kernels launched": all(greedy_launches[k] for k in
-                                                       ("log_mel", "fused_attention", *REPAIR_WRAPPERS)),
+                                                       ("log_mel", "fused_attention", *repair_kernels())),
     })
     return res
 
@@ -4507,14 +4567,19 @@ def encode_ms(model: ADTModel, cfg: FrameworkConfig, batch: int) -> float:
         return median_ms(model.encode, [(wave,)] * REPS)
 
 
+REPAIR_COST_STEPS = 128
+
+
 def phase_repair_cost(statics: render.SynthStatics, sc) -> dict:
     """What the batch-invariance repair costs, before (`before_repair`) and
     after in this call, at full width with the eval config (K1, K5f on):
     greedy decode ms a step and device ops a step at buckets 1 and 16, beam
     BEAM_SIZE ms a step at 16, the encode ms at 16 (`decode_breakdown`) and
     the median encode ms at buckets 16 and 64 (`encode_ms`), and the eval
-    phase's wall s (`eval_run`: 34 items at batch 16)."""
-    cfg = load_config(EVAL_YAML, show=False, model=KERNELS_ON)
+    phase's wall s (`eval_run`: 34 items at batch 16). The decodes run
+    REPAIR_COST_STEPS steps (a depth cut for the smoke's time: the config
+    takes 511, and a step reads a shorter cache here)."""
+    cfg = load_config(EVAL_YAML, show=False, model=KERNELS_ON, inference={"max_length": REPAIR_COST_STEPS + 1})
     out: dict = {}
     for label in ("after", "before"):
         with before_repair() if label == "before" else contextlib.nullcontext():
@@ -5016,6 +5081,41 @@ with torch.inference_mode():
     kept["beam tokens"] = cs.beam_decode(1.0, cs.BEAM_SIZE)(model, memory, cfg.inference.max_length,
                                                             cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token).cpu()
 torch.save(kept, sys.argv[2])
+
+
+def decode_device(cfg, steps=64):
+    # wall and device ms a step of a `steps`-step greedy decode at bucket 16 (torch.profiler), and the
+    # attention_rows kernels' device ms a step by name
+    m = ADTModel(cfg.model, seed=cs.SEED, device="cuda")
+    wave = torch.randn(16, cfg.shared.chunk_samples, generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 2),
+                       device="cuda") * 0.3
+    bos, eos = cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token
+    with torch.inference_mode():
+        memory = m.encode(wave)
+        greedy_decode_from_memory(m, memory, steps + 1, bos, eos)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        greedy_decode_from_memory(m, memory, steps + 1, bos, eos)
+        end.record()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            greedy_decode_from_memory(m, memory, steps + 1, bos, eos)
+            torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return {"wall_ms_per_step": start.elapsed_time(end) / steps,
+            "device_ms_per_step": sum(e.device_time_total for e in ev) / 1e3 / steps,
+            "attention_rows_ms_per_step": {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+                                           e.device_time_total / 1e3 / steps for e in ev if "attention_rows" in e.key}}
+
+
+# the widths and the fp32 config past the bf16 serving config, where the tree has them
+for name in ("ONE_WIDE_HEAD", "TWO_HEADS", "FP32"):
+    if hasattr(cs, name):
+        out["decode"]["greedy_bucket_16_" + name.lower()] = decode_device(
+            cs.load_config(cs.SERVING_YAML, show=False, model=getattr(cs, name)))
+if hasattr(cs, "phase_training_fp32"):
+    r = cs.phase_training_fp32("fused-ffn")
+    out["training_fp32_fused_ffn"] = {"step_ms": r["step_ms"], "median_step_ms": r["median_step_ms"]}
 print("COMPARE " + json.dumps(out), flush=True)
 """
 
@@ -5223,7 +5323,9 @@ def masked_row_witness() -> dict:
     fp64: the fp32 score s = q.k / sqrt(128) - 1e4 lies on a 2^-10 grid
     there; the exact score nearest a rounding boundary, and the kernel's
     and the plain version's out on row 3 against out in fp64 from the exact
-    scores and from the exact scores rounded once to fp32."""
+    scores and from the exact scores rounded once to fp32
+    (`cuda_attention.attention_fp64_rounded_scores`, the test's reference
+    on that row)."""
     B, H, T, D, row = 1, 2, 30, 128, 3
     g = torch.Generator(device="cpu").manual_seed(T + T + D)
     q, k, v = (torch.randn(B, H, T, D, generator=g).cuda() for _ in range(3))
@@ -5237,13 +5339,11 @@ def masked_row_witness() -> dict:
     toward = torch.nextafter(s32, torch.where(s64 > s32.double(), torch.inf, -torch.inf).float())
     boundary = (s32.double() + toward.double()) / 2
     dist = (s64 - boundary).abs()[:, :, row]
-
-    def out64(s):
-        m = s.amax(-1, keepdim=True).clamp(min=cuda_attention.NEG_MASK)
-        e = torch.exp(s - m)
-        return (e / (e.sum(-1, keepdim=True) + n_virtual * torch.exp(cuda_attention.NEG_MASK - m))) @ v.double()
-
-    exact, rounded = out64(s64)[:, :, row], out64(s32.double())[:, :, row]
+    m = s64.amax(-1, keepdim=True).clamp(min=cuda_attention.NEG_MASK)
+    e = torch.exp(s64 - m)
+    exact = ((e / (e.sum(-1, keepdim=True) + n_virtual * torch.exp(cuda_attention.NEG_MASK - m))) @ v.double())
+    exact = exact[:, :, row]
+    rounded = cuda_attention.attention_fp64_rounded_scores(q, k, v, mask, n_virtual)[:, :, row]
     h, key = divmod(int(dist.argmin()), T)
 
     def gap(a, b):
@@ -5257,16 +5357,27 @@ def masked_row_witness() -> dict:
             "kernel_vs_plain": gap(out[:, :, row], ref[:, :, row].double()), "test_tol": 1e-5}
 
 
+def ffn_with(mm) -> list:
+    """A swap that routes K4 to `ffn_dropout_plain` (fp32) with both of its
+    products through `mm`."""
+    def fwd(*args):
+        with swapped([(ffn, "_dot32", lambda a, b: mm(a.float(), b.float()))]):
+            return ffn.ffn_dropout_plain(*args)
+
+    return [(cuda_ffn, "ffn_dropout", fwd)]
+
+
 def fp32_drift() -> int:
-    """`--fp32-drift`: the 3xTF32 K5 at its fp32 rows (held and timed as
-    the smoke holds them), the `fp32-masked-row` witness, then
-    TMIDT-flash at fp32 (64 x 512 tokens, FP32_STEPS steps, seeded) on
-    separate trajectories from the same weights, each held to the plain
-    fp32 path: the kernel path, the plain path again through
-    `attention_with(torch.matmul)` (must equal it), the plain path with
-    its products in emulated 3xTF32 or in another fp32 order, and with
-    attention through fp32 SDPA (its memory-efficient kernel, which forms
-    fp32 products as three TF32 products); one JSON line each."""
+    """`--fp32-drift`: the 3xTF32 K5 at its fp32 rows and the 3xTF32 K4 at
+    its (held and timed as the smoke holds them), the `fp32-masked-row`
+    witness, then TMIDT-flash and TMIDT-fused-ffn at fp32 (64 x 512 tokens,
+    FP32_STEPS steps, seeded) on separate trajectories from the same
+    weights, each held to the plain fp32 path: the kernel path, the plain
+    path again (through `attention_with(torch.matmul)` or `ffn_with`: must
+    equal it), the plain path with its products in emulated 3xTF32 or
+    summed in two fp32 halves, and (flash) with attention through fp32 SDPA
+    (its memory-efficient kernel, which forms fp32 products as three TF32
+    products); one JSON line each."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5278,26 +5389,30 @@ def fp32_drift() -> int:
     for s, (tq, tk, causal) in TRAIN_ATTENTION.items():
         phase_attention(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32)
         phase_attention_bwd(TRAIN_BATCH, tq, tk, causal, gen, f"fp32 {s}", dtype=torch.float32)
-    phase_attention(TRAIN_BATCH, 511, 511, True, gen, "fp32-d256-decoder-self", 3, 256, torch.float32)
-    phase_attention_bwd(TRAIN_BATCH, 511, 511, True, gen, "fp32-d256-decoder-self", 3, 256, torch.float32)
-    for D in PAST_OLD_LIMIT:
-        phase_attention(2, 256, 256, True, gen, f"float32-d{D}-b2", 1, D, torch.float32)
-        phase_attention_bwd(2, 256, 256, True, gen, f"float32-d{D}-b2", 1, D, torch.float32)
+    for s, rows in TRAIN_FFN_ROWS.items():
+        phase_ffn(rows, gen, f"fp32 {s}", dtype=torch.float32)
     emit({"phase": "masked_row_witness", **masked_row_witness()})
-    inputs = training_inputs("flash", FP32_STEPS, model=FP32)
-    variants = {"kernel path": None, "plain again": attention_with(torch.matmul),
-                "3xTF32 products, fp32 sums": attention_with(mm_3xtf32),
-                "fp32 products in halves": attention_with(mm_halves),
-                "SDPA": [(cuda_attention, "fused_attention", _sdpa_fwd),
-                         (cuda_attention, "fused_attention_bwd", _sdpa_bwd)]}
-    plain = drift_trajectory(inputs, [])
-    emit({"phase": "fp32_drift", "run": "plain", **{k: [m[k] for m in plain["metrics"]] for k in ("loss", "grad_norm")}})
-    for name, swaps in variants.items():
-        run = drift_trajectory(inputs, swaps)
-        emit({"phase": "fp32_drift", "run": name, **{k: [m[k] for m in run["metrics"]] for k in ("loss", "grad_norm")},
-              "lr": TRAIN_LR, **FP32_TOL, **drift_against(run, plain, TRAIN_LR)})
-        del run
-        torch.cuda.empty_cache()
+    variants = {"flash": {"kernel path": None, "plain again": attention_with(torch.matmul),
+                          "3xTF32 products, fp32 sums": attention_with(mm_3xtf32),
+                          "fp32 products in halves": attention_with(mm_halves),
+                          "SDPA": [(cuda_attention, "fused_attention", _sdpa_fwd),
+                                   (cuda_attention, "fused_attention_bwd", _sdpa_bwd)]},
+                "fused-ffn": {"kernel path": None, "plain again": ffn_with(torch.matmul),
+                              "3xTF32 products, fp32 sums": ffn_with(mm_3xtf32),
+                              "fp32 products in halves": ffn_with(mm_halves)}}
+    for config, runs in variants.items():
+        inputs = training_inputs(config, FP32_STEPS, model=FP32)
+        plain = drift_trajectory(inputs, [])
+        emit({"phase": "fp32_drift", "config": config, "run": "plain",
+              **{k: [m[k] for m in plain["metrics"]] for k in ("loss", "grad_norm")}})
+        for name, swaps in runs.items():
+            run = drift_trajectory(inputs, swaps)
+            emit({"phase": "fp32_drift", "config": config, "run": name,
+                  **{k: [m[k] for m in run["metrics"]] for k in ("loss", "grad_norm")},
+                  "lr": TRAIN_LR, **FP32_TOL, **drift_against(run, plain, TRAIN_LR)})
+            del run
+            torch.cuda.empty_cache()
+        del plain
     return 0
 
 
@@ -5324,6 +5439,7 @@ def main() -> int:
     domain = phase_domain_kernels(gen)
     repairs = phase_repairs(gen, cfg)
     repairs_fp16 = phase_repairs_fp16(gen, cfg)
+    repairs_fp32 = phase_repairs_fp32(gen, cfg)
     synth = phase_synthesis(ptxas)
     training = {c: phase_training(c) for c in TRAIN_YAMLS}
     training[SYNTH_NAME] = synth["training"]
@@ -5395,14 +5511,29 @@ def main() -> int:
     # the 3xTF32 K5 takes fp32 alone: no bf16 or fp16 path launches it, and every fp32 path does
     tf32_paths = {p: (n["fused_attention_tf32"], n["fused_attention_bwd_tf32"]) for p, n in by_path.items()
                   if "fp32" not in p and (n["fused_attention_tf32"] or n["fused_attention_bwd_tf32"])}
-    fp32_rows = [r for v in domain["attention"].values() for r in v.values() if r["dtype"] == str(torch.float32)]
-    retired = [n for r in fp32_rows for n in r.get("device_ms", {}) if any(k in n for k in RETIRED_K5)]
+    # every kernel row this run timed by device kernel: none may be a retired design's kernel
+    rows = [*(r for v in domain["attention"].values() for r in v.values()), *domain["ffn"].values(),
+            *domain["ffn_more"].values(), *ffn_train.values(), *repairs["attention_rows"].values(),
+            *(v for k, v in repairs_fp16.items() if k.startswith("attention_rows")),
+            *(v for k, v in repairs_fp32.items() if k.startswith("attention_rows")),
+            *(v for k, v in wide["kernels"].items() if k.startswith("attention_rows"))]
+    device = {n for r in rows for part in (r, r.get("valid_keys", {})) for n in part.get("device_ms", {})}
+    retired = sorted(n for n in device if any(k in n for k in RETIRED))
+    split_paths = ("serving-2heads", "invariance-2heads", "serving-d2048", "invariance-d2048", "serving-fp32",
+                   "invariance-fp32")
     fail_unless("routes", {
         "no bf16 or fp16 path launches the 3xTF32 K5": not tf32_paths,
         "the fp32 paths launch the 3xTF32 K5f": all(by_path[p]["fused_attention_tf32"] for p in (
             "training-fp32-flash", "serving-fp32", "invariance-fp32")),
         "fp32 flash training launches the 3xTF32 K5b": by_path["training-fp32-flash"]["fused_attention_bwd_tf32"] > 0,
-        "no path launches a retired CUDA-core K5": not retired}, {"tf32_paths": tf32_paths, "retired": retired})
+        "fp32 fused-ffn training launches the 3xTF32 K4 8 times a step":
+            by_path["training-fp32-fused-ffn"]["ffn_dropout_tf32"] == 8 * FP32_STEPS,
+        "no other path launches the 3xTF32 K4": not [p for p, n in by_path.items() if n["ffn_dropout_tf32"]
+                                                     and p != "training-fp32-fused-ffn"],
+        "the fp32, 2-head and d-2,048 decode paths launch attention_rows' split-key design":
+            all(by_path[p]["attention_rows_split"] for p in split_paths),
+        "no path launches a retired kernel (CUDA-core K5, FMA K4, CUDA-core attention_rows)": not retired},
+        {"tf32_paths": tf32_paths, "retired": retired})
 
     def entry(kname, source, replaces, shape, res):
         keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5481,7 +5612,7 @@ def main() -> int:
          "other_shapes": {k: at_shape(v["bwd"]) for k, v in domain["attention"].items()
                           if "bwd" in v and v["bwd"]["kernel"] == "fused_attention_bwd_wide"
                           and k != "bfloat16-d384-decoder-self"}},
-        {**entry("ffn_dropout_fp32", "adt_str_tpu_torch/csrc/ffn_dropout_fp32.cu",
+        {**entry("ffn_dropout_tf32", "adt_str_tpu_torch/csrc/ffn_dropout_tf32.cu",
                  "adt_str_tpu/ops/pallas_ffn.py:132 _fwd_call",
                  f"fp32, N={TRAIN_FFN_ROWS['decoder']} rows (B={TRAIN_BATCH} x 511), d 768, d_ff 3072",
                  domain["ffn"]["decoder"]),
@@ -5507,13 +5638,14 @@ def main() -> int:
                                                                                 "plain_ms", "bound_ms", "library_ms",
                                                                                 "unfused_ms", "unfused_device_ms")},
          "fp16": at_shape(repairs_fp16["add_layer_norm"]), "fp16_one_input": at_shape(repairs_fp16["layer_norm"]),
+         "fp32": at_shape(repairs_fp32["add_layer_norm"]),
          "d2048": at_shape(wide["kernels"]["add_layer_norm"]),
          "d2048_one_input": at_shape(wide["kernels"]["layer_norm"])},
         {**entry("linear", "adt_str_tpu_torch/csrc/linear.cu",
                  "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:105 linear",
                  f"decode FFN linear1, bucket {bucket}: ({bucket}, 768) x (3072, 768)^T bf16",
                  repairs["linear"]["decode"]),
-         "fp16": at_shape(repairs_fp16["linear"])},
+         "fp16": at_shape(repairs_fp16["linear"]), "fp32": at_shape(repairs_fp32["linear"])},
         {**entry("attention_rows", "adt_str_tpu_torch/csrc/attention_rows.cu",
                  "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:223 "
                  "attention_core",
@@ -5521,9 +5653,18 @@ def main() -> int:
                  f"{repairs['attention_rows']['decode_self']['valid_keys']['keys']} valid of 512 cached keys "
                  f"(valid_keys, bit-equal to the masked read of all 512), bf16",
                  {**repairs["attention_rows"]["decode_self"], **repairs["attention_rows"]["decode_self"]["valid_keys"]}),
-         **{k: {"shape": k, **at_shape(repairs_fp16[k])} for k in ("attention_rows", "attention_rows_d384",
-                                                                "attention_rows_d384_cross_fp16")},
-         **{f"{k}_d2048": at_shape(wide["kernels"][k]) for k in ("attention_rows_self", "attention_rows_cross_fp16")}},
+         "fp16": at_shape(repairs_fp16["attention_rows"])},
+        {**entry("attention_rows_split", "adt_str_tpu_torch/csrc/attention_rows.cu (split-key design)",
+                 "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:223 "
+                 "attention_core",
+                 f"decode self-attention at d_model 2,048, bucket {bucket}: 1 head of 2,048, 1 query over the "
+                 f"{wide['kernels']['attention_rows_self']['valid_keys']['keys']} valid of 512 cached keys "
+                 f"(valid_keys), bf16",
+                 {**wide["kernels"]["attention_rows_self"], **wide["kernels"]["attention_rows_self"]["valid_keys"]}),
+         "masked_read_d2048": at_shape(wide["kernels"]["attention_rows_self"]),
+         "cross_fp16_d2048": at_shape(wide["kernels"]["attention_rows_cross_fp16"]),
+         **{k: at_shape(repairs_fp16[k]) for k in ("attention_rows_d384", "attention_rows_d384_cross_fp16")},
+         **{f"fp32_{k}": at_shape(v) for k, v in repairs_fp32.items() if k.startswith("attention_rows")}},
     ], "serving_bucket": bucket, "serving_at_bucket": {"log_mel": mel[bucket]["ms"], "fused_attention": att[bucket]["ms"]},
         "total_s": round(time.monotonic() - t_start, 3)})
     print(smi, flush=True)

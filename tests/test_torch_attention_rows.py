@@ -91,7 +91,8 @@ def test_decode_step_reads_the_valid_keys_of_its_cache(mode, monkeypatch):
 def test_kernel_layout_strides_and_alignment():
     """The strides handed to the kernel are 0 on one-entry dims; a bf16
     operand whose start or row stride is not 16-byte aligned, or whose last
-    dim is strided, is copied; an fp32 one only for a strided last dim."""
+    dim is strided, is copied; an fp32 one too where its head dim is a
+    multiple of 4, else only for a strided last dim."""
     base = torch.zeros(2, 3, 40, 16, dtype=torch.bfloat16)
     t, s = attention_rows._kernel_layout(base)
     assert t is base and s == (3 * 40 * 16, 40 * 16, 16)
@@ -108,6 +109,13 @@ def test_kernel_layout_strides_and_alignment():
     assert t is not narrow and torch.equal(t, narrow) and s == (3 * 40 * 12, 40 * 12, 12)
     f32 = torch.zeros(2, 3, 40, 20)[..., :12]
     assert attention_rows._kernel_layout(f32)[0] is f32
+    # fp32 at a head dim of whole 16-byte vectors takes 16-byte loads: a start 4 bytes in is copied; at a
+    # head dim off them (one element a load) it is not
+    off = torch.zeros(2 * 3 * 40 * 12 + 1)[1:].view(2, 3, 40, 12)
+    t, _ = attention_rows._kernel_layout(off)
+    assert t is not off and t.data_ptr() % 16 == 0 and torch.equal(t, off)
+    off13 = torch.zeros(2 * 3 * 40 * 13 + 1)[1:].view(2, 3, 40, 13)
+    assert attention_rows._kernel_layout(off13)[0] is off13
     strided = torch.zeros(2, 3, 16, 40).transpose(-1, -2)
     t, _ = attention_rows._kernel_layout(strided)
     assert t.stride(-1) == 1 and torch.equal(t, strided)

@@ -41,7 +41,8 @@ from adt_str_tpu_torch.models import decode as tdecode
 from adt_str_tpu_torch.models import transformer as TT
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
-from adt_str_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_mel
+from adt_str_tpu_torch.ops import attention_rows, cuda_attention, cuda_ffn, cuda_mel
+from adt_str_tpu_torch.ops import ffn as tffn
 from adt_str_tpu_torch.ops import mel as tmel
 from test_torch_model import jax_flags_on_memory
 from test_torch_train_step import assert_grads_close, jax_site_keys, jbatch, make_batch, tbatch
@@ -99,6 +100,45 @@ def test_k5_tf32_wrappers_run_plain_for_cpu_tensors():
     assert (cuda_attention.fused_attention_tf32.launches, cuda_attention.fused_attention_bwd_tf32.launches) == (f0, b0)
 
 
+def test_new_kernel_wrappers_run_plain_for_cpu_tensors():
+    """The split-key decode attention and the 3xTF32 K4 take CPU tensors to
+    their plain versions, bit for bit, and leave their counts unmoved."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 1, t, 384)).astype(np.float32)) for t in (1, 40, 40))
+    a0, f0 = attention_rows.attention_split.launches, cuda_ffn.ffn_dropout_tf32.launches
+    assert torch.equal(attention_rows.attention_split(q, k, v, valid_keys=30),
+                       attention_rows.attention_plain(q, k, v, None, 30))
+    x, w1, w2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((37, 128), (256, 128), (128, 256)))
+    b1, b2 = torch.zeros(256), torch.zeros(128)
+    got = cuda_ffn.ffn_dropout_tf32(x, w1, b1, w2, b2, (1, 2, 3, 4), 0.9, 0.9)
+    ref = tffn.ffn_dropout_plain(x, w1, b1, w2, b2, (1, 2, 3, 4), 0.9, 0.9)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert (attention_rows.attention_split.launches, cuda_ffn.ffn_dropout_tf32.launches) == (a0, f0)
+
+
+@pytest.mark.parametrize("hd", [8, 64, 128, 256, 384, 768, 1024, 2048, 4096, 57_000, attention_rows.MAX_FLOATS - 1])
+def test_attention_rows_splits_follow_the_head_dim_and_the_keys_alone(hd):
+    """The split-key design cuts a row's keys into splits of
+    `keys_per_split(hd)`: a function of the head dim alone (so the number of
+    splits, ceil(keys / ks), follows the keys read and the head dim, never
+    the batch or the rows, and a row keeps its bits in any batch), a power
+    of two up to 256 that fits a block's shared memory beside a query row.
+    The mma design keeps the 16-bit head dims up to 256 up to the keys its
+    block holds (~21,000 at 256); past them the split-key design takes over."""
+    ks = attention_rows.keys_per_split(hd)
+    assert ks & (ks - 1) == 0 and 1 <= ks <= attention_rows.SPLIT_MAX_KEYS
+    assert hd + ks <= attention_rows.MAX_FLOATS
+    assert ks == {128: 128, 384: 32, 2048: 32}.get(hd, ks)  # the fp32, 2-head and d-2,048 decode widths
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for keys in (1, 257, 512, 5990, attention_rows.MAX_FLOATS - hd):
+            route = attention_rows.kernel_for(dtype, hd, keys)
+            mma = dtype != torch.float32 and hd <= 256 and keys <= attention_rows.mma_max_keys(hd)
+            assert route == ("mma" if mma else "split"), (dtype, keys)
+    if hd == 256:
+        assert attention_rows.mma_max_keys(hd) == 21_120
+        assert attention_rows.kernel_for(torch.bfloat16, hd, 21_121) == "split"
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """`cvt.rna.tf32.f32` on fp32 bits: round to 10 mantissa bits, to
     nearest with ties away from zero (add half of the dropped range, then
@@ -135,14 +175,44 @@ def _attention_via(mm, q, k, v, mask, out, lse, do):
     return got_out, got_lse, grads
 
 
-@pytest.mark.parametrize("Tq, Tk, D", [(1023, 1023, 128), (64, 64, 256), (17, 17, 1024)],
-                         ids=["d128-1023", "d256-64", "d1024-17"])
+def _ffn_errors(mm, n: int, product: str) -> float:
+    """K4's plain fp32 forward (the model's dropout 0.1) with both products
+    through `mm`, against the fp32 plain version: GEMM 1's output `pre`
+    (K = d = 768) or GEMM 2's `out` (K = d_ff = 3,072), each over its
+    largest element."""
+    rng = np.random.default_rng(n)
+    d, d_ff = 768, 3072
+    x, w1, w2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((n, d), (d_ff, d), (d, d_ff)))
+    w1, w2 = w1 / np.sqrt(d), w2 / np.sqrt(d_ff)
+    b1, b2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) * 0.1 for s in (d_ff, d))
+    seeds = (11, 12, 13, 14)
+    ref_out, ref_pre = tffn.ffn_dropout_plain(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
+    plain_dot = tffn._dot32
+    tffn._dot32 = lambda a, b: mm(a.float(), b.float())
+    try:
+        out, pre = tffn.ffn_dropout_plain(x, w1, b1, w2, b2, seeds, 0.9, 0.9)
+    finally:
+        tffn._dot32 = plain_dot
+    got, ref = (pre, ref_pre) if product == "gemm1" else (out, ref_out)
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("Tq, Tk, D", [(1023, 1023, 128), (64, 64, 256), (17, 17, 1024), (512, 768, "gemm1"),
+                                       (512, 3072, "gemm2")],
+                         ids=["d128-1023", "d256-64", "d1024-17", "k4-gemm1-k768", "k4-gemm2-k3072"])
 def test_3xtf32_products_keep_the_fp32_tolerances_and_1xtf32_does_not(Tq, Tk, D):
     """The 3xTF32 kernels' arithmetic, emulated on the CPU: every product of
     the plain forward and backward formed in 3xTF32 stays within the card's
     fp32 tolerances of the fp32 plain version (out 1e-5, lse 1e-4, each
     gradient 1e-5 of its largest element, as chip_smoke's `attention_tols`),
-    and in plain TF32 (one product, operands rounded) it does not."""
+    and in plain TF32 (one product, operands rounded) it does not. K4's two
+    products (`csrc/ffn_dropout_tf32.cu`, N 512 rows: GEMM 1 at K 768, GEMM
+    2 at K 3,072): pre and out within 1e-5 of their largest element in
+    3xTF32, not in TF32."""
+    if isinstance(D, str):
+        three, one = _ffn_errors(_mm_3xtf32, Tq, D), _ffn_errors(_mm_1xtf32, Tq, D)
+        assert three <= 1e-5 < one, (three, one)
+        return
     _, (q, k, v, do) = _attention_inputs(Tq, Tk, D, seed=Tq + D + 1)
     mask = torch.from_numpy(np.triu(np.full((Tq, Tk), -1e4, np.float32), k=1))[None]
     out, lse = cuda_attention.attention_plain(q, k, v, mask)
@@ -183,7 +253,7 @@ def test_k4_fp32_plain_matches_pallas_interpret():
             getattr(layer, name).bias.copy_(torch.from_numpy(np.array(p[name]["b"])))
     tx = torch.from_numpy(np.array(x)).requires_grad_()
     words = [tuple(int(w) for w in np.asarray(jax.random.key_data(k)).reshape(-1)) for k in (kh, ko)]
-    assert cuda_ffn.kernel_for(tx.dtype, D_K4, 4 * D_K4) == "fp32"
+    assert cuda_ffn.kernel_for(tx.dtype, D_K4, 4 * D_K4) == "tf32x3"
     out = TT.ffn_dropout_block(layer, tx, RATE, *words)
     np.testing.assert_array_equal(out.detach().numpy() == 0.0, ref == 0.0)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-5, atol=2e-5)
@@ -240,7 +310,7 @@ def test_small_model_has_518_frames_and_takes_every_kernel():
     params = tmel.MelFrontendParams(sample_rate=4000, win_length=320, hop_length=40, n_mels=16)
     assert params.out_frames(cfg.chunk_samples) == 518
     assert cuda_attention.kernel_for(torch.float32, cfg.d_model // cfg.nhead) == "tf32x3"
-    assert cuda_ffn.kernel_for(torch.float32, cfg.d_model, cfg.ffn_dim) == "fp32"
+    assert cuda_ffn.kernel_for(torch.float32, cfg.d_model, cfg.ffn_dim) == "tf32x3"
     assert cuda_mel.frames_route(params) == "ldmatrix"
 
 
@@ -321,7 +391,7 @@ def test_every_gated_attention_and_ffn_point_has_a_kernel(dtype):
         cuda_attention._check(q, k, k, None, cuda_attention.virtual_keys(1, tk))
     for d, d_ff in ((768, 3072), (256, 1024), (768, 1536), (768, 1000), (768, 1036), (384, 1001), (128, 1)):
         assert JT._fused_ffn_ok(jnp.zeros((1, d)), True, 0.1, jax.random.PRNGKey(0))  # JAX's gate: d alone
-        assert cuda_ffn.kernel_for(dtype, d, d_ff) == ("fp32" if dtype == torch.float32 else "hopper")
+        assert cuda_ffn.kernel_for(dtype, d, d_ff) == ("tf32x3" if dtype == torch.float32 else "hopper")
 
 
 def test_every_gated_frontend_has_a_kernel_route():
@@ -358,7 +428,16 @@ NEW_POINTS = {
     "ffn-fp16": ("ffn", torch.float16, 3072, "hopper"),
     "ffn-bf16-d_ff1000": ("ffn", torch.bfloat16, 1000, "hopper"),
     "ffn-fp16-d_ff1036": ("ffn", torch.float16, 1036, "hopper"),
-    "ffn-fp32-d_ff1001": ("ffn", torch.float32, 1001, "fp32"),
+    "ffn-fp32-d_ff1001": ("ffn", torch.float32, 1001, "tf32x3"),
+    "ffn-fp32": ("ffn", torch.float32, 3072, "tf32x3"),
+    # the decode attention (`attention_rows.kernel_for`) over 512 keys: the mma design at 16-bit head dims up
+    # to 256, the split-key design past 256 and at fp32
+    "rows-bf16-d128": ("rows", torch.bfloat16, 128, "mma"),
+    "rows-fp16-d256": ("rows", torch.float16, 256, "mma"),
+    "rows-bf16-d384": ("rows", torch.bfloat16, 384, "split"),
+    "rows-fp16-d2048": ("rows", torch.float16, 2048, "split"),
+    "rows-fp32-d128": ("rows", torch.float32, 128, "split"),
+    "rows-fp32-d2048": ("rows", torch.float32, 2048, "split"),
 }
 
 
@@ -368,6 +447,8 @@ def test_each_new_point_goes_to_the_kernel_its_table_names(point):
     if kind == "attention":
         assert cuda_attention.kernel_for(dtype, width) == route
         assert (dtype, width) in cuda_attention.routed(route)
+    elif kind == "rows":
+        assert attention_rows.kernel_for(dtype, width, 512) == route
     else:
         assert cuda_ffn.kernel_for(dtype, 768, width) == route
         w1, b1, w2 = cuda_ffn.padded_weights(torch.ones(width, 768), torch.ones(width), torch.ones(768, width))
@@ -448,7 +529,7 @@ def test_k4_plain_at_any_d_ff_matches_pallas_interpret(d_ff):
             getattr(layer, name).bias.copy_(torch.from_numpy(np.array(p[name]["b"])))
     tx = torch.from_numpy(np.array(x)).requires_grad_()
     words = [tuple(int(w) for w in np.asarray(jax.random.key_data(k)).reshape(-1)) for k in (kh, ko)]
-    assert cuda_ffn.kernel_for(tx.dtype, D_K4, d_ff) == "fp32"
+    assert cuda_ffn.kernel_for(tx.dtype, D_K4, d_ff) == "tf32x3"
     out = TT.ffn_dropout_block(layer, tx, RATE, *words)
     np.testing.assert_array_equal(out.detach().numpy() == 0.0, ref == 0.0)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-5, atol=2e-5)
