@@ -34,15 +34,42 @@
 // to 136 elements: conflict-free ldmatrix), 8 stages at one row tile (K =
 // 768 is then in flight at once), 4 at 2-5, 3 for the large tiles; mma.sync
 // m16n8k16 (no wgmma: at 16 rows its 64-row tiles would multiply padding,
-// and W's bytes bound the step). fp32 runs on the CUDA cores, 4 x 4 outputs
-// a thread (no shipped config computes in fp32; it is kept exact rather
-// than fast).
+// and W's bytes bound the step).
+//
+// fp32 (the `compute_dtype: float32` configs' decode) keeps its order above:
+// one chain of K dependent FMAs an output, so an output takes at least K FMA
+// latencies (measured on the H100, 4.5 cycles at 1.98 GHz: 2.6 us a launch
+// at K = 768, 7.9 at 3,072, the launch included), whatever the tile. The
+// design puts every chain of the call on the card at once and feeds them:
+//   - a block owns a strip of columns and every row of its row tile (all the
+//     rows up to 80: the beam's 80 rows in one tile, W read once; tiles of
+//     80 past that); a thread owns RT rows x CT columns, RT CT chains side by
+//     side, and reads 4 k of each a step (16-byte shared-memory loads of rows
+//     padded by 4 floats, conflict-free);
+//   - the strips follow the columns an SM would get (N / 132): 8 columns a
+//     block and one chain a thread up to 8 an SM (16 x 768 -> 768: 96 blocks
+//     of 128 threads), 16 columns and 2 chains up to 16 (the generator), and
+//     past that 132 strips split as evenly as N falls (widths differ by one),
+//     2 x 2 chains a thread (FFN 1, the in-projection) or, at 80 rows, 5 x 3;
+//   - x's and W's rows stream through a cp.async ring of 8 stages of 64 k (6
+//     of 32 at 80 rows): 7 of K = 768's 12 stages are in flight at the start;
+//     16-byte copies where K % 4 == 0 and x and w are 16-byte aligned, else
+//     4-byte copies (any K, any alignment), the k past K zero-filled: fma(0,
+//     0, acc) is acc, so padding leaves the bits alone, and the outputs are
+//     the first design's bit for bit at every M.
+// What holds it (PERF.md): every block stages all of x, so x crosses from L2
+// once a strip (as many bytes as W at 16 rows, 5 times W at 80), and the
+// shared-memory reads of the operands; the TMA (1-D bulk or 2-D tile, with
+// or without cluster multicast of x) fed these chains more slowly.
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
 namespace {
 
 using hopper::cp_async_16;
+using hopper::cp_async_4z;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::ldmatrix_x2;
@@ -134,40 +161,104 @@ __global__ void __launch_bounds__(32 * WARPS) linear_bf16_kernel(const T* __rest
       }
 }
 
-constexpr int FBM = 64, FBN = 64, FT = 16;  // fp32: output tile, k depth of a shared tile
+// fp32: x (M, K), w (N, K), bias (N) or null, y (M, N). The grid's blocks split the N columns as evenly
+// as they fall (widths differ by one at most, none above TC CT); a block of TR x TC threads owns rows
+// [m0, m0 + TR RT) and its strip [n0, n_end); thread (tr, tc) owns rows m0 + tr + i TR (i < RT) and
+// columns n0 + tc + j TC (j < CT): RT CT sums, each its own chain of FMAs over k ascending, so the chains
+// of a thread run side by side. x's and W's k stages stream through a ring of STAGES stages of BK k; a
+// thread reads 4 k of each of its rows and columns a step (16-byte shared-memory loads, rows padded by 4
+// floats: the lanes' rows fall in distinct banks). VEC: 16-byte copies (K % 4 == 0 and 16-byte aligned x
+// and w), else 4-byte copies; the k past K is zero-filled, and fma(0, 0, acc) is acc (a sum that starts
+// at +0 is never -0), so the padding leaves every bit as it is.
+template <int TR, int RT, int TC, int CT, int BK, int STAGES, bool VEC>
+__global__ void __launch_bounds__(TR * TC) linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                                             const float* __restrict__ bias, float* __restrict__ y,
+                                                             int M, int N, int K) {
+  constexpr int THREADS = TR * TC, BM = TR * RT, BN = TC * CT, LD = BK + 4, ROWS = BM + BN;
+  constexpr int CHUNKS = BK / 4;              // 16-byte chunks a staged row
+  constexpr int ROW_STEP = THREADS / CHUNKS;  // a thread copies one chunk column of every ROW_STEP-th row
+  constexpr int COPIES = (ROWS + ROW_STEP - 1) / ROW_STEP;
+  static_assert(THREADS % CHUNKS == 0, "a thread's copies share one chunk column");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, tr = tid / TC, tc = tid % TC;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = static_cast<int>(static_cast<long long>(blockIdx.x) * N / gridDim.x);
+  const int n_end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * N / gridDim.x);
+  const int k_tiles = (K + BK - 1) / BK;
 
-// x (M, K) fp32, w (N, K) fp32, bias (N) fp32 or null, y (M, N) fp32; 256 threads, 4 x 4 outputs each
-__global__ void __launch_bounds__(256) linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                                         const float* __restrict__ bias, float* __restrict__ y, int M,
-                                                         int N, int K) {
-  __shared__ float As[FT][FBM + 4];
-  __shared__ float Bs[FT][FBN + 4];
-  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += FT) {
+  // staged rows: x's BM, then W's BN; a thread's sources are set once
+  const int col = (tid % CHUNKS) * 4, row0 = tid / CHUNKS;
+  const float* src[COPIES];
+  bool row_ok[COPIES];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {  // 64 rows x 16 k of x and of W, transposed into shared memory
-      const int e = tid + i * 256, row = e / FT, kk = e % FT;
-      const bool kin = k0 + kk < K;
-      As[kk][row] = kin && m0 + row < M ? x[static_cast<size_t>(m0 + row) * K + k0 + kk] : 0.f;
-      Bs[kk][row] = kin && n0 + row < N ? w[static_cast<size_t>(n0 + row) * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(FT, K - k0);
-    for (int kk = 0; kk < kn; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(As[kk][tm * 4 + i], Bs[kk][tn * 4 + j], acc[i][j]);
-    __syncthreads();
+  for (int i = 0; i < COPIES; ++i) {
+    const int row = row0 + i * ROW_STEP;
+    const bool is_x = row < BM;
+    const int r = is_x ? m0 + row : n0 + row - BM;
+    row_ok[i] = row < ROWS && r < (is_x ? M : n_end);
+    src[i] = (is_x ? x : w) + static_cast<size_t>(row_ok[i] ? r : 0) * K + col;
   }
+  auto load = [&](int stage, int kt) {
+    float* dst = stages + (stage * ROWS + row0) * LD + col;
+    const int k0 = kt * BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < COPIES; ++i) {
+      if (ROWS % ROW_STEP != 0 && row0 + i * ROW_STEP >= ROWS) continue;
+      float* d = dst + i * ROW_STEP * LD;
+      if constexpr (VEC) {
+        const bool ok = row_ok[i] && k0 + col < K;
+        cp_async_16(d, src[i] + (ok ? k0 : 0), ok);
+      } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + tm * 4 + i, c = n0 + tn * 4 + j;
-      if (r < M && c < N) y[static_cast<size_t>(r) * N + c] = bias != nullptr ? __fadd_rn(acc[i][j], bias[c]) : acc[i][j];
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row_ok[i] && k0 + col + e < K;
+          cp_async_4z(d + e, src[i] + (ok ? k0 + e : 0), ok);
+        }
+      }
+    }
+  };
+
+  float acc[RT][CT] = {};
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // stage kt has landed
+    __syncthreads();              // and every thread is done with stage kt - 1, whose buffer is refilled next
+    if (kt + STAGES - 1 < k_tiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    cp_async_commit();
+    const float* xs = stages + ((kt % STAGES) * ROWS + tr) * LD;
+    const float* ws = stages + ((kt % STAGES) * ROWS + BM + tc) * LD;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 a[RT], b[CT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = *reinterpret_cast<const float4*>(xs + i * TR * LD + kk);
+#pragma unroll
+      for (int j = 0; j < CT; ++j) b[j] = *reinterpret_cast<const float4*>(ws + j * TC * LD + kk);
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          float v = acc[i][j];
+          v = __fmaf_rn(a[i].x, b[j].x, v);
+          v = __fmaf_rn(a[i].y, b[j].y, v);
+          v = __fmaf_rn(a[i].z, b[j].z, v);
+          acc[i][j] = __fmaf_rn(a[i].w, b[j].w, v);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int r = m0 + tr + i * TR, c = n0 + tc + j * TC;
+      if (r < M && c < n_end) y[static_cast<size_t>(r) * N + c] = bias != nullptr ? __fadd_rn(acc[i][j], bias[c]) : acc[i][j];
     }
 }
 
@@ -201,6 +292,49 @@ int launch_16(const void* x, const void* w, const void* bias, void* y, int M, in
   }
 }
 
+// `blocks` strips of the N columns (at least N / BN of them) a row tile.
+template <int TR, int RT, int TC, int CT, int BK, int STAGES, bool VEC>
+int launch_f32_as(const float* x, const float* w, const float* bias, float* y, int M, int N, int K, int blocks,
+                  cudaStream_t s) {
+  constexpr int BM = TR * RT, BN = TC * CT, BYTES = STAGES * (BM + BN) * (BK + 4) * 4;
+  static hopper::SmemLimit limit;
+  if (const int e = limit.ensure(linear_f32_kernel<TR, RT, TC, CT, BK, STAGES, VEC>, BYTES)) return e;
+  const dim3 grid(std::max(blocks, (N + BN - 1) / BN), (M + BM - 1) / BM);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  linear_f32_kernel<TR, RT, TC, CT, BK, STAGES, VEC><<<grid, TR * TC, BYTES, s>>>(x, w, bias, y, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TR, int RT, int TC, int CT, int BK, int STAGES>
+int launch_f32_tile(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, int blocks,
+                    cudaStream_t s) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* yf = static_cast<float*>(y);
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return vec ? launch_f32_as<TR, RT, TC, CT, BK, STAGES, true>(xf, wf, bf, yf, M, N, K, blocks, s)
+             : launch_f32_as<TR, RT, TC, CT, BK, STAGES, false>(xf, wf, bf, yf, M, N, K, blocks, s);
+}
+
+// The tile follows the rows (one row tile up to 80 rows, tiles of 80 past them) and the columns a
+// streaming multiprocessor would get (N / SM_COUNT); none of it touches the order of a sum.
+int launch_f32(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, cudaStream_t st) {
+  const int per_sm = (N + SM_COUNT - 1) / SM_COUNT;
+  switch (std::min((M + 15) / 16, 5)) {
+    case 1:  // a strip of 8 columns a block, one sum a thread; 16; 24 in 132 strips, 2 x 2 sums a thread
+      if (per_sm <= 8) return launch_f32_tile<16, 1, 8, 1, 64, 8>(x, w, bias, y, M, N, K, 0, st);
+      if (per_sm <= 16) return launch_f32_tile<8, 2, 16, 1, 64, 8>(x, w, bias, y, M, N, K, 0, st);
+      return launch_f32_tile<8, 2, 12, 2, 64, 8>(x, w, bias, y, M, N, K, SM_COUNT, st);
+    case 2: return launch_f32_tile<16, 2, 8, 1, 64, 8>(x, w, bias, y, M, N, K, 0, st);
+    case 3: return launch_f32_tile<16, 3, 8, 1, 64, 6>(x, w, bias, y, M, N, K, 0, st);
+    case 4: return launch_f32_tile<16, 4, 8, 1, 32, 8>(x, w, bias, y, M, N, K, 0, st);
+    default:  // 80 rows: 8 columns a block, 5 sums a thread; past 8 columns an SM, 132 strips of up to 18, 5 x 3
+      if (per_sm <= 8) return launch_f32_tile<16, 5, 8, 1, 32, 6>(x, w, bias, y, M, N, K, 0, st);
+      return launch_f32_tile<16, 5, 6, 3, 32, 6>(x, w, bias, y, M, N, K, SM_COUNT, st);
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns 0 or a cudaError_t. Contiguous x (M, K), w
@@ -213,11 +347,6 @@ extern "C" int launch_linear(const void* x, const void* w, const void* bias, voi
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    linear_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x), static_cast<const float*>(w),
-                                            static_cast<const float*>(bias), static_cast<float*>(y), M, N, K);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (dtype == 0) return launch_f32(x, w, bias, y, M, N, K, st);
   return dtype == 1 ? launch_16<__nv_bfloat16>(x, w, bias, y, M, N, K, st) : launch_16<__half>(x, w, bias, y, M, N, K, st);
 }

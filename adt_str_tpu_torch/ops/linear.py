@@ -11,6 +11,16 @@ products call `linear` (`models/decode.py`, `fixed_order=True` in
 projections and the teacher-forced decoder of training and its eval loss
 run `linear_plain`, cuBLAS.
 
+The sum's order, for bf16 and fp16: one tensor-core product of 16 k a
+step, k ascending, rounded to the element type, then the bias added and
+rounded; for fp32: `acc = 0`, one `fma(x[r, k], W[c, k], acc)` a k in
+ascending order, then `acc + b[c]`, all in fp32. The fp32 route (the
+`compute_dtype: float32` configs' decode) runs each output's chain of K
+FMAs on the CUDA cores: a block owns a strip of columns and every row up to
+80, a thread 1-15 of the chains side by side, x's and W's k stages streamed
+through a cp.async ring; the strips follow N (8 or 16 columns a block, or
+132 strips split evenly, as the columns an SM would get), never M's bits.
+
 `linear` is the wrapper the decode step calls:
 - a CPU tensor runs `linear_plain`;
 - a CUDA tensor on the inference path (no autograd graph being recorded)

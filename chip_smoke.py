@@ -44,8 +44,11 @@ line:
    the self-attention also as the decode step reads it (`valid_keys`, the
    valid cache rows only), bit-equal to the masked read of the whole cache
    at decode steps 0-511; the same kernels at fp32 at the fp32 serving
-   config's decode step (`phase_repairs_fp32`: the fused LayerNorm, FFN 1's
-   product, attention_rows' split-key design self, cross and beam cross);
+   config's decode step (`phase_repairs_fp32`: the fused LayerNorm, every
+   product of the step and the beam's in-projection, each within 1e-5 of
+   fp64 and its rows bit-equal at 1-64 (beam 1-16 items), attention_rows'
+   split-key design self, cross and beam cross; each batch-invariance row
+   also with the library call's own device time, `library_device_ms`);
    and (`phase_domain_kernels`) the variants that take what the shipped
    configs do not send: K1's any_hop route (44.1 kHz hop 441, 22.05 kHz
    hop 220) and long_hop route (48 kHz hop 960) at B = 16, each bit-equal
@@ -277,13 +280,14 @@ Any failed phase raises: no `ok` line and a nonzero exit.
 
 `python3 chip_smoke.py --compare LABEL=DIR [LABEL=DIR ...] --order
 LABEL,LABEL,...` runs none of that: it measures the decode step's
-LayerNorm (and the fused add, where a tree has it), product and attention
-kernels of several trees (the roots of `git archive`s, each building into
-its own `build/kernels/`) and their decode loops (the serving config's,
-and the d-2,048, 2-head and fp32 configs' device ms a step, and the fp32
-TMIDT-fused-ffn step, where the tree has them), one process a run in the
-given order, and groups the runs by bit-equal outputs on seeded inputs
-(LayerNorms, products, attentions, greedy and beam tokens;
+LayerNorm (and the fused add, where a tree has it), product (bf16 and
+fp32) and attention kernels of several trees (the roots of `git
+archive`s, each building into its own `build/kernels/`) and their decode
+loops (the serving config's, and the d-2,048, 2-head and fp32 configs'
+device ms a step, and the fp32 TMIDT-fused-ffn step, where the tree has
+them), one process a run in the given order, and groups the runs by
+bit-equal outputs on seeded inputs (LayerNorms, products in bf16 and fp32,
+attentions, greedy and beam tokens at bf16 and on the fp32 serving config;
 `compare_trees`).
 
 `python3 chip_smoke.py --fp32-drift` runs none of it either: the 3xTF32
@@ -691,10 +695,11 @@ def rows_invariant(fn, inputs: tuple, counts, row_dims: tuple) -> dict:
 
 def time_repair(fn, plain, library, inputs: list, flops: list, n_bytes: float) -> dict:
     """A batch-invariance kernel's times over the staged inputs: kernel,
-    device, plain version, library call, and the least time the card could
+    device, plain version, library call (host-timed, and its own device
+    kernels by name: `library_device_ms`), and the least time the card could
     take."""
     res = {"ms": median_ms(fn, inputs), "device_ms": device_ms(fn, inputs), "plain_ms": median_ms(plain, inputs),
-           "library_ms": median_ms(library, inputs)}
+           "library_ms": median_ms(library, inputs), "library_device_ms": device_ms(library, inputs)}
     res["bound_ms"], res["bound_by"] = bound(flops, n_bytes)
     return res
 
@@ -4021,16 +4026,30 @@ def phase_repairs_fp16(gen, cfg: FrameworkConfig) -> dict:
     }
 
 
+# the fp32 decode step's products (models/decode.py, models/transformer.py): key: (what, N, K)
+FP32_PRODUCTS = {"decode": ("FFN linear1", 3072, 768), "decode_ffn2": ("FFN linear2", 768, 3072),
+                 "decode_in_projection": ("self in-projection", 2304, 768),
+                 "decode_projection": ("768 -> 768 projection", 768, 768),
+                 "decode_generator": ("generator", 1400, 768)}
+
+
 def phase_repairs_fp32(gen, cfg: FrameworkConfig) -> dict:
     """The batch-invariance kernels at fp32 at the serving bucket's decode
     step (the fp32 serving config's widths: d 768, 6 heads of 128): the
-    fused LayerNorm, the FFN 1 product, and attention_rows' split-key design
-    over the self cache (masked, and the valid keys alone) and the cross
-    rows, greedy and beam's 5 rows an item."""
+    fused LayerNorm, every product of the step (`FP32_PRODUCTS`: FFN 1 as
+    `decode`, each within 1e-5 of fp64, rows bit-equal at 1-64) and the
+    beam's in-projection at 5 rows an item (1-16 items), and attention_rows'
+    split-key design over the self cache (masked, and the valid keys alone)
+    and the cross rows, greedy and beam's 5 rows an item."""
     bucket, L, S, f32 = main_path_bucket(cfg), cfg.inference.max_length, 246, torch.float32
+    linear = {key: phase_linear(gen, bucket, n, k, f"fp32 decode {what}, bucket {bucket}", dtype=f32)
+              for key, (what, n, k) in FP32_PRODUCTS.items()}
+    linear["beam"] = phase_linear(gen, bucket * BEAM_SIZE, 2304, 768,
+                                  f"fp32 beam in-projection, {bucket} items x {BEAM_SIZE}", counts=(1, 2, 8, 16),
+                                  rows_per=BEAM_SIZE, dtype=f32)
     return {
         "add_layer_norm": phase_add_layer_norm(gen, bucket, f"fp32 decode step, bucket {bucket}", dtype=f32),
-        "linear": phase_linear(gen, bucket, 3072, 768, f"fp32 decode FFN linear1, bucket {bucket}", dtype=f32),
+        "linear": linear,
         "attention_rows_self": phase_attention_rows(gen, bucket, 1, L, L // 2, f"fp32 decode self, bucket {bucket}",
                                                     dtype=f32),
         "attention_rows_cross": phase_attention_rows(gen, bucket, 1, S, None, f"fp32 decode cross, bucket {bucket}",
@@ -5047,6 +5066,11 @@ for name, (m, n, k, per) in linear_shapes.items():
     counts = (1, 2, 8, 16) if per > 1 else (1, 2, 4, 8, 16, 32, 64)
     res = cs.phase_linear(gen, m, n, k, name, counts=counts, rows_per=per)
     out["linear"][name] = {key: res[key] for key in keys}
+out["linear_fp32"] = {}
+for name, (m, n, k, per) in linear_shapes.items():  # the fp32 route at the same shapes
+    counts = (1, 2, 8, 16) if per > 1 else (1, 2, 4, 8, 16, 32, 64)
+    res = cs.phase_linear(gen, m, n, k, "fp32 " + name, counts=counts, rows_per=per, dtype=torch.float32)
+    out["linear_fp32"][name] = {key: res[key] for key in keys + ("fp32_max_rel_err", "library_device_ms") if key in res}
 for name, (b, tq, tk, step, counts) in attention_shapes.items():
     res = cs.phase_attention_rows(gen, b, tq, tk, step, name, counts=tuple(counts))
     out["attention_rows"][name] = {key: res[key] for key in keys + ("valid_keys",) if key in res}
@@ -5080,12 +5104,26 @@ with torch.inference_mode():
     kept["greedy tokens"] = greedy_decode_from_memory(model, memory, cfg.inference.max_length).cpu()
     kept["beam tokens"] = cs.beam_decode(1.0, cs.BEAM_SIZE)(model, memory, cfg.inference.max_length,
                                                             cfg.tokenizer.BOS_token, cfg.tokenizer.EOS_token).cpu()
+    # the fp32 route: the products at the same shapes, and the fp32 serving config's greedy and beam tokens
+    g32 = torch.Generator(device="cuda").manual_seed(4321)
+    for name, (m, n, k, per) in linear_shapes.items():
+        x = torch.randn(m, k, generator=g32, device="cuda")
+        w = torch.randn(n, k, generator=g32, device="cuda") / k ** 0.5
+        b = 0.1 * torch.randn(n, generator=g32, device="cuda")
+        kept["linear fp32 " + name] = linear_ops.linear(x, w, b).cpu()
+    cfg32 = cs.load_config(cs.SERVING_YAML, show=False, model=cs.FP32)
+    model32 = ADTModel(cfg32.model, seed=cs.SEED, device="cuda")
+    memory32 = model32.encode(torch.randn(16, cfg32.shared.chunk_samples, generator=g32, device="cuda") * 0.3)
+    bos, eos = cfg32.tokenizer.BOS_token, cfg32.tokenizer.EOS_token
+    kept["fp32 greedy tokens"] = greedy_decode_from_memory(model32, memory32, cfg32.inference.max_length).cpu()
+    kept["fp32 beam tokens"] = cs.beam_decode(1.0, cs.BEAM_SIZE)(model32, memory32, cfg32.inference.max_length,
+                                                                 bos, eos).cpu()
 torch.save(kept, sys.argv[2])
 
 
 def decode_device(cfg, steps=64):
-    # wall and device ms a step of a `steps`-step greedy decode at bucket 16 (torch.profiler), and the
-    # attention_rows kernels' device ms a step by name
+    # wall and device ms a step of a `steps`-step greedy decode at bucket 16 (torch.profiler), the
+    # attention_rows kernels' device ms a step by name, and every kernel's device ms and launches a step
     m = ADTModel(cfg.model, seed=cs.SEED, device="cuda")
     wave = torch.randn(16, cfg.shared.chunk_samples, generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 2),
                        device="cuda") * 0.3
@@ -5102,10 +5140,18 @@ def decode_device(cfg, steps=64):
             greedy_decode_from_memory(m, memory, steps + 1, bos, eos)
             torch.cuda.synchronize()
     ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+
+    def name(e):
+        return e.key.replace("(anonymous namespace)::", "").split("(")[0]
+
     return {"wall_ms_per_step": start.elapsed_time(end) / steps,
             "device_ms_per_step": sum(e.device_time_total for e in ev) / 1e3 / steps,
-            "attention_rows_ms_per_step": {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
-                                           e.device_time_total / 1e3 / steps for e in ev if "attention_rows" in e.key}}
+            "attention_rows_ms_per_step": {name(e): e.device_time_total / 1e3 / steps for e in ev
+                                           if "attention_rows" in e.key},
+            # every kernel's device ms and launches a step, largest first (a step's split by kernel)
+            "by_kernel": [{"kernel": name(e)[:100], "ms_per_step": e.device_time_total / 1e3 / steps,
+                           "launches_per_step": e.count / steps}
+                          for e in sorted(ev, key=lambda e: -e.device_time_total)]}
 
 
 # the widths and the fp32 config past the bf16 serving config, where the tree has them
@@ -5158,10 +5204,11 @@ def token_difference(a: torch.Tensor, b: torch.Tensor) -> dict:
 
 def compare_trees(argv: list[str]) -> int:
     """`--compare LABEL=DIR ... --order LABEL,...`: one JSON line a run (its
-    kernels' checks and times, its decode loop), then one line that groups
-    the runs by bit-equal outputs on fixed seeded inputs (each product, each
-    attention, one batch's greedy tokens) and gives how each run's tokens
-    differ from the first run's. Every run is compared, two runs of one tree
+    kernels' checks and times, the products in bf16 and fp32, its decode
+    loops), then one line that groups the runs by bit-equal outputs on fixed
+    seeded inputs (each product in bf16 and fp32, each attention, one
+    batch's greedy and beam tokens at bf16 and on the fp32 serving config)
+    and gives how each run's tokens differ from the first run's. Every run is compared, two runs of one tree
     too, so a run whose bits follow what ran before shows."""
     import argparse
 
@@ -5189,10 +5236,14 @@ def compare_trees(argv: list[str]) -> int:
     print(json.dumps({"card": smi, "order": order,
                       "bit_equal_groups": {name: equal_groups(runs, name) for name in runs[first]},
                       "greedy_tokens_against": first,
-                      "greedy_tokens": {run: token_difference(runs[first]["greedy tokens"], kept["greedy tokens"])
-                                        for run, kept in runs.items() if run != first},
-                      "beam_tokens": {run: bool(torch.equal(runs[first]["beam tokens"], kept["beam tokens"]))
-                                      for run, kept in runs.items() if run != first}}), flush=True)
+                      **{f"{p}greedy_tokens": {run: token_difference(runs[first][f"{q}greedy tokens"],
+                                                                     kept[f"{q}greedy tokens"])
+                                               for run, kept in runs.items() if run != first}
+                         for p, q in (("", ""), ("fp32_", "fp32 "))},
+                      **{f"{p}beam_tokens": {run: bool(torch.equal(runs[first][f"{q}beam tokens"],
+                                                                   kept[f"{q}beam tokens"]))
+                                             for run, kept in runs.items() if run != first}
+                         for p, q in (("", ""), ("fp32_", "fp32 "))}}), flush=True)
     return 0
 
 
@@ -5532,7 +5583,11 @@ def main() -> int:
                                                      and p != "training-fp32-fused-ffn"],
         "the fp32, 2-head and d-2,048 decode paths launch attention_rows' split-key design":
             all(by_path[p]["attention_rows_split"] for p in split_paths),
-        "no path launches a retired kernel (CUDA-core K5, FMA K4, CUDA-core attention_rows)": not retired},
+        "no path launches a retired kernel (CUDA-core K5, FMA K4, CUDA-core attention_rows)": not retired,
+        "the fp32 decode paths launch the product kernel": all(by_path[p]["linear"] for p in ("serving-fp32",
+                                                                                              "invariance-fp32")),
+        "every fp32 product row ran the strip design": all(
+            n.startswith("void linear_f32_kernel<") for r in repairs_fp32["linear"].values() for n in r["device_ms"])},
         {"tf32_paths": tf32_paths, "retired": retired})
 
     def entry(kname, source, replaces, shape, res):
@@ -5645,7 +5700,11 @@ def main() -> int:
                  "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:105 linear",
                  f"decode FFN linear1, bucket {bucket}: ({bucket}, 768) x (3072, 768)^T bf16",
                  repairs["linear"]["decode"]),
-         "fp16": at_shape(repairs_fp16["linear"]), "fp32": at_shape(repairs_fp32["linear"])},
+         "fp16": at_shape(repairs_fp16["linear"]),
+         "fp32": {"source": "adt_str_tpu_torch/csrc/linear.cu linear_f32_kernel (strips of columns, chains of FMAs)",
+                  "launches": by_path["serving-fp32"]["linear"] + by_path["invariance-fp32"]["linear"],
+                  **at_shape(repairs_fp32["linear"]["decode"]),
+                  "other_shapes": {k: at_shape(v) for k, v in repairs_fp32["linear"].items() if k != "decode"}}},
         {**entry("attention_rows", "adt_str_tpu_torch/csrc/attention_rows.cu",
                  "none (no pallas_call; a batch-invariance repair): adt_str_tpu/models/transformer.py:223 "
                  "attention_core",

@@ -779,25 +779,34 @@ def _linear_inputs(m, n, k, dtype, device, seed=0):
 
 # bf16 against the fp32 product rounded as the plain version rounds it (the
 # product to bf16, then the bias): the sums run in other orders, so a rounding
-# may flip: 1 ulp of the product plus 1 of the output; fp32: 1e-5 of max(1, |y|)
+# may flip: 1 ulp of the product plus 1 of the output; fp32: 1e-5 of max(1, |y|),
+# also from an x that starts 4 bytes off 16-byte alignment (the 4-byte copies)
+# and, where K % 8 != 0 (which bf16 does not take), fp32 alone.
 @pytest.mark.parametrize("m, n, k", [(1, 3072, 768), (16, 2304, 768), (80, 1400, 768), (3936, 768, 3072),
                                      (5, 70, 40), (130, 129, 264), (16, 768, 768), (16, 768, 3072),
                                      (16, 1400, 768), (80, 2304, 768), (17, 777, 768), (33, 70, 3072),
-                                     (79, 1400, 3072), (320, 768, 768), (321, 2304, 768)])
+                                     (79, 1400, 3072), (320, 768, 768), (321, 2304, 768), (3, 50, 777),
+                                     (16, 768, 766), (80, 130, 13)])
 def test_linear_kernel_matches_the_fp32_product(cuda, m, n, k):
-    x, w, b = _linear_inputs(m, n, k, torch.bfloat16, cuda)
     before = linear_ops.linear.launches
+    x32, w32, b32 = _linear_inputs(m, n, k, torch.float32, cuda, seed=1)
+    shifted = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)  # 4 bytes past a 16-byte boundary
+    shifted.copy_(x32)
     with torch.inference_mode():
-        out = linear_ops.linear(x, w, b)
-        x32, w32, b32 = _linear_inputs(m, n, k, torch.float32, cuda, seed=1)
+        if k % 8 == 0:
+            x, w, b = _linear_inputs(m, n, k, torch.bfloat16, cuda)
+            out = linear_ops.linear(x, w, b)
         out32 = linear_ops.linear(x32, w32, b32)
+        out32_shifted = linear_ops.linear(shifted, w32, b32)
     torch.cuda.synchronize()
-    assert linear_ops.linear.launches == before + 2
-    prod = (x.float() @ w.float().T).to(torch.bfloat16)
-    ref = (prod + b).float()
-    assert bool(((out.float() - ref).abs() <= _bf16_ulp(prod) + _bf16_ulp(ref)).all())
+    assert linear_ops.linear.launches == before + 2 + (k % 8 == 0)
+    if k % 8 == 0:
+        prod = (x.float() @ w.float().T).to(torch.bfloat16)
+        ref = (prod + b).float()
+        assert bool(((out.float() - ref).abs() <= _bf16_ulp(prod) + _bf16_ulp(ref)).all())
     ref32 = torch.addmm(b32.double(), x32.double(), w32.double().T)
     assert ((out32.double() - ref32).abs() / ref32.abs().clamp(min=1.0)).max().item() <= 1e-5
+    assert torch.equal(out32_shifted, out32)  # the same sums, whichever copies staged them
 
 
 def test_linear_kernel_takes_fp32_parameters_as_the_model_passes_them(cuda):
@@ -818,14 +827,34 @@ def test_linear_kernel_takes_fp32_parameters_as_the_model_passes_them(cuda):
 
 def test_linear_kernel_rows_bit_equal_at_every_row_count(cuda):
     """The decode step's and the beam's rows (up to 64 x 5) and the encoder's
-    chunks of 246 frames."""
-    for rows_per, n, k in ((1, 3072, 768), (1, 768, 3072), (1, 1400, 768), (5, 2304, 768), (5, 768, 768),
-                           (246, 768, 3072)):
-        x, w, b = _linear_inputs(64 * rows_per, n, k, torch.bfloat16, cuda, seed=rows_per)
+    chunks of 246 frames; in fp32 the five products of the decode step and
+    the beam's in-projection."""
+    cases = [(torch.bfloat16, rows_per, n, k) for rows_per, n, k in (
+        (1, 3072, 768), (1, 768, 3072), (1, 1400, 768), (5, 2304, 768), (5, 768, 768), (246, 768, 3072))]
+    cases += [(torch.float32, rows_per, n, k) for rows_per, n, k in (
+        (1, 2304, 768), (1, 768, 768), (1, 3072, 768), (1, 768, 3072), (1, 1400, 768), (5, 2304, 768))]
+    for dtype, rows_per, n, k in cases:
+        x, w, b = _linear_inputs(64 * rows_per, n, k, dtype, cuda, seed=rows_per)
         with torch.inference_mode():
             full = linear_ops.linear(x, w, b)
             for r in ROW_COUNTS:
-                assert torch.equal(linear_ops.linear(x[: r * rows_per].clone(), w, b), full[: r * rows_per]), (rows_per, r)
+                assert torch.equal(linear_ops.linear(x[: r * rows_per].clone(), w, b),
+                                   full[: r * rows_per]), (dtype, rows_per, n, k, r)
+
+
+@pytest.mark.parametrize("n, k", [(2304, 768), (768, 768), (3072, 768), (768, 3072), (1400, 768), (777, 776)])
+def test_linear_fp32_rows_bit_equal_across_row_tiles(cuda, n, k):
+    """The fp32 route keeps one order of each sum whatever tile it runs in:
+    M = 1 and 16 (one 16-row tile), 80 (one tile of 80) and 321 (five tiles
+    of 80 and one row past them) give the same rows' bits, with and without
+    a bias."""
+    x, w, b = _linear_inputs(321, n, k, torch.float32, cuda, seed=n + k)
+    with torch.inference_mode():
+        for bias in (b, None):
+            full = linear_ops.linear(x, w, bias)
+            for m in (1, 16, 80):
+                assert torch.equal(linear_ops.linear(x[:m].clone(), w, bias), full[:m]), (m, bias is None)
+            assert torch.equal(linear_ops.linear(x[240:].clone(), w, bias), full[240:])
 
 
 def test_linear_kernel_rejects_what_it_cannot_hold(cuda):

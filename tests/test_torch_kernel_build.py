@@ -6,7 +6,9 @@ headers (`csrc/*.cuh`) and the flags: an edit to a header must rebuild every
 kernel and never load a stale library. `chip_smoke._group` must file the
 port's own GEMMs (K4) under their kernel, not under the library GEMMs, and
 `chip_smoke.device_time_by_group` must fail when a kernel that a profiled
-call launched has no device time in the trace.
+call launched has no device time in the trace. The kernel probes
+(`ops/*_probe.py`) edit the shipped sources' text, so each edit's anchor
+must still be found there.
 """
 
 import sys
@@ -153,3 +155,17 @@ def test_device_time_check_fails_when_a_launched_kernel_is_not_in_the_trace(miss
     events = [e for e in _EVENTS if "log_mel" not in e["name"]] if missing == "log_mel" else _EVENTS
     with pytest.raises(RuntimeError, match=f"no device time for \\['{missing}'\\]"):
         _chip_smoke().device_time_by_group(events, {"log_mel": 1, "place_notes": 1, missing: 12})
+
+
+@pytest.mark.parametrize("probe", ["place_notes_probe", "linear_probe"])
+def test_probe_edits_find_their_anchors(probe):
+    """Each kernel probe builds its variants by editing the shipped source's
+    text: every edit's anchor must appear in it exactly once, so an edit of
+    the kernel that moves an anchor fails here and not on the card."""
+    import importlib
+
+    mod = importlib.import_module(f"adt_str_tpu_torch.ops.{probe}")
+    source = (_build.CSRC / f"{probe.removesuffix('_probe')}.cu").read_text()
+    for name, edits in mod.EDITS.items():
+        for anchor, _ in edits:
+            assert source.count(anchor) == 1, (name, anchor)
