@@ -50,14 +50,20 @@ run one after the other.
 from __future__ import annotations
 
 import contextlib
+import copy
+import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
 from adt_str_tpu_torch.models import transformer as T
 from adt_str_tpu_torch.models.adt import ADTModel
+from adt_str_tpu_torch.ops import attention_rows
+from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
+from adt_str_tpu_torch.ops.cuda_attention import NEG_MASK
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 
 
@@ -188,6 +194,134 @@ def greedy_decode(
     each row finishes)."""
     memory = model.encode(wave)
     return greedy_decode_from_memory(model, memory, max_length, start_token, end_token)
+
+
+class _Tensors(nn.Module):
+    """Named tensors held as buffers."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
+
+
+def _encoder_copy(model: ADTModel) -> ADTModel:
+    """A copy of `model` without its decoder, whose parameters are buffers:
+    `encode` as the model runs it, with nothing for autograd to record."""
+    decoder = model.decoder
+    try:
+        del model.decoder
+        enc = copy.deepcopy(model)
+    finally:
+        model.decoder = decoder
+    for mod in enc.modules():
+        for name, p in list(mod._parameters.items()):
+            del mod._parameters[name]
+            mod.register_buffer(name, None if p is None else p.detach())
+    return enc
+
+
+class GreedyProgram(nn.Module):
+    """`greedy_decode` as one program that `torch.export` traces
+    (`scripts/export_serving.py`): (B, samples) audio -> (B, max_length)
+    int32 tokens, the same tokens as `greedy_decode(model, ...)`.
+
+    The loop is `torch.while_loop` with the eager loop's data-dependent exit,
+    `step < max_length - 1` and not every row finished. Its carries are the
+    step (a 0-d int64 tensor), the tokens, the finished rows and each
+    layer's self K and V caches, written with `index_copy` (a new cache a
+    step, where the eager loop writes in place). Its body is `decode_step`
+    with a tensor step: the position row taken with `index_select`, and
+    self-attention over the whole cache with the mask that `valid_keys =
+    step + 1` stands for (`attention_rows.keys_mask`), so the kernel reads
+    the masked keys too, whose probabilities are 0. The decoder's weights
+    are held already cast to the compute dtype, as the eager wrappers cast
+    them on each call, so the loop body casts no weight; the encoder is a
+    copy of the model's. Every tensor is a buffer. The kernels are recorded
+    as the custom ops of `adt_str_tpu_torch.ops`."""
+
+    def __init__(self, model: ADTModel, max_length: int, start_token: int = 2, end_token: int = 3):
+        super().__init__()
+        if model.tp is not None:
+            raise ValueError("decoding runs a model built whole: load a tensor-parallel run's checkpoint (written "
+                             "whole) into an ADTModel without tp")
+        cfg, compute = model.config, model.compute_dtype
+        d = cfg.d_model
+        self.max_length, self.start_token, self.end_token = int(max_length), int(start_token), int(end_token)
+        self.nhead, self.compute = cfg.nhead, compute
+        self.encoder = _encoder_copy(model)
+
+        def cast(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().to(compute).clone(memory_format=torch.contiguous_format)
+
+        def same(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().clone(memory_format=torch.contiguous_format)
+
+        layers = model.decoder.decoder.layers
+        self.layers = nn.ModuleList(_Tensors(
+            in_w=cast(l.self_attn.in_proj_weight), in_b=cast(l.self_attn.in_proj_bias),
+            out_w=cast(l.self_attn.out_proj.weight), out_b=cast(l.self_attn.out_proj.bias),
+            q_w=cast(l.multihead_attn.in_proj_weight[:d]), q_b=cast(l.multihead_attn.in_proj_bias[:d]),
+            k_w=cast(l.multihead_attn.in_proj_weight[d : 2 * d]), k_b=cast(l.multihead_attn.in_proj_bias[d : 2 * d]),
+            v_w=cast(l.multihead_attn.in_proj_weight[2 * d :]), v_b=cast(l.multihead_attn.in_proj_bias[2 * d :]),
+            cross_w=cast(l.multihead_attn.out_proj.weight), cross_b=cast(l.multihead_attn.out_proj.bias),
+            ff1_w=cast(l.linear1.weight), ff1_b=cast(l.linear1.bias), ff2_w=cast(l.linear2.weight),
+            ff2_b=cast(l.linear2.bias), n1_w=same(l.norm1.weight), n1_b=same(l.norm1.bias),
+            n2_w=same(l.norm2.weight), n2_b=same(l.norm2.bias), n3_w=same(l.norm3.weight), n3_b=same(l.norm3.bias),
+        ) for l in layers)
+        self.eps = [(l.norm1.eps, l.norm2.eps, l.norm3.eps) for l in layers]
+        self.head = _Tensors(emb=cast(model.decoder.tgt_tok_emb.embedding.weight),
+                             scale=torch.tensor(math.sqrt(d), dtype=compute), pe=cast(model.pe),
+                             gen_w=cast(model.decoder.generator.weight), gen_b=cast(model.decoder.generator.bias))
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        memory = self.encoder.encode(wave).to(self.compute)
+        B, dev, H, n = wave.shape[0], wave.device, self.nhead, self.max_length
+        cross = [T.split_heads(linear_ops.linear_plain(memory, w[0], w[1]), H).contiguous()
+                 for l in self.layers for w in ((l.k_w, l.k_b), (l.v_w, l.v_b))]
+        hd = cross[0].shape[-1]
+        caches = [torch.zeros((B, H, n, hd), dtype=self.compute, device=dev) for _ in cross]
+        tokens = torch.cat([torch.full((B, 1), self.start_token, dtype=torch.long, device=dev),
+                            torch.full((B, n - 1), self.end_token, dtype=torch.long, device=dev)], dim=1)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        step = torch.zeros((), dtype=torch.long, device=dev)
+        positions = torch.arange(n, device=dev)
+
+        def cond(step, tokens, finished, *caches):
+            return (step < n - 1) & ~finished.all()
+
+        def body(step, tokens, finished, *caches):
+            at = step.view(1)
+            logits, caches = self._step(tokens.index_select(1, at)[:, 0], at, caches, cross,
+                                        torch.where(positions > step, NEG_MASK, 0.0)[None, None, None, :])
+            next_token = torch.where(finished, self.end_token, logits.argmax(dim=-1))
+            tokens = tokens.index_copy(1, at + 1, next_token[:, None])
+            return (step + 1, tokens, finished | (next_token == self.end_token), *caches)
+
+        return torch.while_loop(cond, body, (step, tokens, finished, *caches))[1].to(torch.int32)
+
+    def _step(self, token, at, caches, cross, mask) -> tuple[torch.Tensor, list]:
+        """`decode_step` at the position `at` ((1,) int64) -> (B, vocab)
+        logits and the self caches with this step's K and V written in."""
+        H, head = self.nhead, self.head
+        x = torch.nn.functional.embedding(token, head.emb) * head.scale + head.pe.index_select(0, at)
+        x = x[:, None, :]
+        d = x.shape[-1]
+        written = []
+        for li, (w, (eps1, eps2, eps3)) in enumerate(zip(self.layers, self.eps)):
+            xw = linear_ops.linear(x, w.in_w, w.in_b)
+            k = caches[2 * li].index_copy(2, at, T.split_heads(xw[..., d : 2 * d], H))
+            v = caches[2 * li + 1].index_copy(2, at, T.split_heads(xw[..., 2 * d :], H))
+            written += [k, v]
+            attn = attention_rows.attention(T.split_heads(xw[..., :d], H), k, v, mask)
+            x = ln_ops.add_layer_norm(x, linear_ops.linear(T.merge_heads(attn), w.out_w, w.out_b), w.n1_w, w.n1_b, eps1)
+            qc = T.split_heads(linear_ops.linear(x, w.q_w, w.q_b), H)
+            c = attention_rows.attention(qc, cross[2 * li], cross[2 * li + 1], None)
+            x = ln_ops.add_layer_norm(x, linear_ops.linear(T.merge_heads(c), w.cross_w, w.cross_b), w.n2_w, w.n2_b,
+                                      eps2)
+            h = torch.nn.functional.gelu(linear_ops.linear(x, w.ff1_w, w.ff1_b))
+            x = ln_ops.add_layer_norm(x, linear_ops.linear(h, w.ff2_w, w.ff2_b), w.n3_w, w.n3_b, eps3)
+        return linear_ops.linear(x, head.gen_w, head.gen_b)[:, 0, :], written
 
 
 @torch.inference_mode()

@@ -15,6 +15,13 @@ point returns `cudaGetLastError()`, which `check` raises on. `launch` calls
 an entry point on a device's current stream, and `records_grad` says when a
 wrapper must leave the call to autograd (no kernel here has a backward).
 
+`register_op` makes a kernel a PyTorch custom op in the `adt_str_tpu_torch`
+namespace, so `torch.export` records it in a graph: the kernels that
+greedy decoding launches are registered when their modules are imported
+(`import adt_str_tpu_torch.ops` imports them all). A wrapper calls its op
+only while `torch.compiler.is_exporting()`; the eager path calls the kernel
+directly.
+
 Only the sources in the repo are compiled: no PyTorch headers (the build
 takes seconds, not minutes) and no library of finished kernels.
 """
@@ -118,6 +125,22 @@ def launch(device: torch.device, fn: Callable[..., int], *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+NAMESPACE = "adt_str_tpu_torch"
+
+
+def register_op(name: str, fn: Callable, fake: Callable):
+    """`fn` as the op `torch.ops.adt_str_tpu_torch.<name>`: pure (it mutates
+    no input) and without a backward. `fn` launches its kernel on CUDA
+    tensors (raising where the kernel does) and runs the plain version on
+    CPU tensors, never the one in place of the other; `fake` takes the same
+    arguments and returns empty outputs of the real shapes and dtypes, read
+    from the inputs' shapes alone (a symbolic batch included), touching no
+    data, library or device cache. Returns the op, callable as `fn` is."""
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", fn, mutates_args=())
+    op.register_fake(fake)
+    return op
 
 
 def records_grad(*tensors: Optional[torch.Tensor]) -> bool:

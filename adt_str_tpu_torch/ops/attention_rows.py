@@ -40,7 +40,11 @@ underflows to 0 in fp32, and a product with 0 adds nothing).
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `attention_plain` under autograd: the kernel has no backward.
 `attention.launches` counts the mma design's launches, `attention_split.launches`
-the split-key design's (one count a call of its three passes).
+the split-key design's (one count a call of its three passes). While
+`torch.export` traces, `attention` records the op of the design,
+`adt_str_tpu_torch::attention_rows` or `::attention_rows_split`, over every
+key with `valid_keys` made a mask (`keys_mask`): the kernel then reads the
+masked keys too, whose probabilities are 0.
 """
 
 from __future__ import annotations
@@ -207,19 +211,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
     broadcastable to (B, H, Tq, Tk) or None, or `valid_keys` (see the module
     docstring) -> (B, H, Tq, hd) in q's dtype; see the module docstring for
     which version runs."""
+    if torch.compiler.is_exporting():
+        mask = keys_mask(mask, valid_keys, k.shape[2], q.device)
+        return DESIGN_OPS[kernel_for(q.dtype, q.shape[3], k.shape[2])](q, k, v, mask)
     if q.is_cpu or _build.records_grad(q, k, v):
         return attention_plain(q, k, v, mask, valid_keys)
-    if not q.is_cuda:
-        raise ValueError(f"attention runs on cpu or cuda tensors, not {q.device}")
-    n_keys = _check(q, k, v, mask, valid_keys)
-    if kernel_for(q.dtype, q.shape[3], n_keys) == "split":
-        return attention_split(q, k, v, mask, valid_keys)
-    out = _launch(q, k, v, mask, n_keys, 0)
-    attention.launches += 1
-    return out
-
-
-attention.launches = 0
+    return _run_cuda(q, k, v, mask, valid_keys, None)
 
 
 def attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -229,15 +226,41 @@ def attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Opt
     and under autograd; on the card it raises on inputs of the mma design."""
     if q.is_cpu or _build.records_grad(q, k, v):
         return attention_plain(q, k, v, mask, valid_keys)
+    return _run_cuda(q, k, v, mask, valid_keys, "split")
+
+
+def _run_cuda(q, k, v, mask, valid_keys, design: Optional[str]) -> torch.Tensor:
+    """One call of the design `kernel_for` picks on CUDA tensors, counted on
+    its wrapper (`attention` for "mma", `attention_split` for "split");
+    raises unless it is `design` (None: either)."""
     if not q.is_cuda:
         raise ValueError(f"attention runs on cpu or cuda tensors, not {q.device}")
     n_keys = _check(q, k, v, mask, valid_keys)
-    if kernel_for(q.dtype, q.shape[3], n_keys) != "split":
-        raise ValueError(f"the split-key attention_rows kernel does not take {q.dtype} at head dim {q.shape[3]} over "
-                         f"{n_keys} keys: the mma design does (`attention`)")
-    out = _launch(q, k, v, mask, n_keys, keys_per_split(q.shape[3]))
-    attention_split.launches += 1
+    picked = kernel_for(q.dtype, q.shape[3], n_keys)
+    if design is not None and picked != design:
+        name = {"mma": "mma", "split": "split-key"}[design]
+        raise ValueError(f"the {name} attention_rows kernel does not take {q.dtype} at head dim {q.shape[3]} over "
+                         f"{n_keys} keys: the {picked} design does")
+    if picked == "split":
+        out = _launch(q, k, v, mask, n_keys, keys_per_split(q.shape[3]))
+        attention_split.launches += 1
+    else:
+        out = _launch(q, k, v, mask, n_keys, 0)
+        attention.launches += 1
     return out
 
 
-attention_split.launches = 0
+attention.launches = attention_split.launches = 0
+
+
+def _design_op(design: str):
+    def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        return attention_plain(q, k, v, mask) if q.is_cpu else _run_cuda(q, k, v, mask, None, design)
+
+    return run
+
+
+# `torch.ops.adt_str_tpu_torch.attention_rows` (the mma design) and `.attention_rows_split`: what `attention`
+# records while exporting, by the design `kernel_for` picks for all Tk keys (a `valid_keys` becomes its mask)
+DESIGN_OPS = {design: _build.register_op(name, _design_op(design), lambda q, k, v, mask: q.new_empty(q.shape))
+              for design, name in (("mma", "attention_rows"), ("split", "attention_rows_split"))}

@@ -39,7 +39,10 @@ at every head dim that is a multiple of 128, with no upper limit
 
 `FusedAttention` is the autograd Function around the two (the mask gets no
 gradient, as in JAX). Each wrapper's `launches` counts the launches of its
-own kernel.
+own kernel. While `torch.export` traces, the forward wrappers record the op
+of the route (`adt_str_tpu_torch::fused_attention`, `::fused_attention_d256`,
+`::fused_attention_tf32`, `::fused_attention_wide`), which runs the kernel
+on CUDA tensors and `attention_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -257,55 +261,25 @@ def fused_attention(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tenso
     the head-dim-128 tensor-core kernel's launches; the others count on
     their own wrappers), `attention_plain` for CPU tensors."""
     B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    if torch.compiler.is_exporting():
+        return FORWARD_OPS[kernel_for(q.dtype, D)](q, k, v, mask, n_virtual)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
-    route = kernel_for(q.dtype, D)
-    if route == "tf32x3":
-        return fused_attention_tf32(q, k, v, mask, n_virtual)
-    if route == "hopper256":
-        return fused_attention_d256(q, k, v, mask, n_virtual)
-    if route == "wide":
-        return fused_attention_wide(q, k, v, mask, n_virtual)
-    out, lse = _launch_fwd(_lib().launch_attention_fwd, "attention_fwd", q, k, v, mask, n_virtual)
-    fused_attention.launches += 1
-    return out, lse
-
-
-fused_attention.launches = 0
+    return _forward(kernel_for(q.dtype, D), q, k, v, mask, n_virtual)
 
 
 def fused_attention_d256(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """K5f on the tensor cores at head dim 256 (`csrc/attention.cu` at D
     256, bf16 or fp16; `fused_attention` sends those inputs here);
     `attention_plain` for CPU tensors."""
-    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask, n_virtual)
-    if kernel_for(q.dtype, D) != "hopper256":
-        raise ValueError(f"the head-dim-256 attention kernels do not take {q.dtype} at D={D}")
-    out, lse = _launch_fwd(_lib().launch_attention_fwd, "attention_fwd", q, k, v, mask, n_virtual)
-    fused_attention_d256.launches += 1
-    return out, lse
-
-
-fused_attention_d256.launches = 0
+    return _route("hopper256", q, k, v, mask, n_virtual)
 
 
 def fused_attention_tf32(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """K5f in fp32 on the tensor cores (`csrc/attention_tf32.cu`: every
     product in 3xTF32 on mma.sync, fp32 at every head dim; `fused_attention`
     sends those inputs here); `attention_plain` for CPU tensors."""
-    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask, n_virtual)
-    if kernel_for(q.dtype, D) != "tf32x3":
-        raise ValueError(f"the 3xTF32 attention kernels do not take {q.dtype} at D={D}")
-    out, lse = _launch_fwd(_tf32_lib().launch_attention_tf32_fwd, "attention_tf32_fwd", q, k, v, mask, n_virtual)
-    fused_attention_tf32.launches += 1
-    return out, lse
-
-
-fused_attention_tf32.launches = 0
+    return _route("tf32x3", q, k, v, mask, n_virtual)
 
 
 def fused_attention_wide(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -313,17 +287,68 @@ def fused_attention_wide(q, k, v, mask=None, n_virtual: int = 0) -> tuple[torch.
     bf16 or fp16, the head dim streamed 64 columns a stage, out formed 128
     columns at a time; `fused_attention` sends those inputs here);
     `attention_plain` for CPU tensors."""
-    B, H, Tq, Tk, D = _check(q, k, v, mask, n_virtual)
+    return _route("wide", q, k, v, mask, n_virtual)
+
+
+fused_attention.launches = fused_attention_d256.launches = fused_attention_tf32.launches = 0
+fused_attention_wide.launches = 0
+
+# each K5f route: its wrapper (which counts its launches), the kernels it refuses under, and its entry point
+FORWARD_ROUTES = {
+    "hopper": (fused_attention, "the head-dim-128 attention kernels", lambda: _lib().launch_attention_fwd,
+               "attention_fwd"),
+    "hopper256": (fused_attention_d256, "the head-dim-256 attention kernels", lambda: _lib().launch_attention_fwd,
+                  "attention_fwd"),
+    "tf32x3": (fused_attention_tf32, "the 3xTF32 attention kernels", lambda: _tf32_lib().launch_attention_tf32_fwd,
+               "attention_tf32_fwd"),
+    "wide": (fused_attention_wide, "the wide-head attention kernels", lambda: _wide_lib().launch_attention_wide_fwd,
+             "attention_wide_fwd"),
+}
+
+
+def _route(route: str, q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A route's wrapper: its op while exporting, else `_run_route`."""
+    if torch.compiler.is_exporting():
+        return FORWARD_OPS[route](q, k, v, mask, n_virtual)
+    return _run_route(route, q, k, v, mask, n_virtual)
+
+
+def _run_route(route: str, q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`attention_plain` for CPU tensors, else one launch of the route's
+    kernel (which must be the one `kernel_for` picks)."""
+    _check(q, k, v, mask, n_virtual)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, n_virtual)
-    if kernel_for(q.dtype, D) != "wide":
-        raise ValueError(f"the wide-head attention kernels do not take {q.dtype} at D={D}")
-    out, lse = _launch_fwd(_wide_lib().launch_attention_wide_fwd, "attention_wide_fwd", q, k, v, mask, n_virtual)
-    fused_attention_wide.launches += 1
+    return _forward(route, q, k, v, mask, n_virtual)
+
+
+def _route_op(route: str):
+    def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+            n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return _run_route(route, q, k, v, mask, n_virtual)
+
+    return run
+
+
+def _forward(route: str, q, k, v, mask, n_virtual: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of a checked route on CUDA tensors, counted on its wrapper."""
+    wrapper, name, entry, what = FORWARD_ROUTES[route]
+    if kernel_for(q.dtype, q.shape[3]) != route:
+        raise ValueError(f"{name} do not take {q.dtype} at D={q.shape[3]}")
+    out, lse = _launch_fwd(entry(), what, q, k, v, mask, n_virtual)
+    wrapper.launches += 1
     return out, lse
 
 
-fused_attention_wide.launches = 0
+def _forward_fake(q, k, v, mask, n_virtual):
+    B, H, Tq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, 1, Tq), dtype=torch.float32)
+
+
+# `torch.ops.adt_str_tpu_torch.fused_attention` and its `_d256`, `_tf32` and `_wide` routes (forward only): what
+# the wrappers record while exporting
+FORWARD_OPS = {route: _build.register_op(wrapper.__name__, _route_op(route), _forward_fake)
+               for route, (wrapper, *_) in FORWARD_ROUTES.items()}
 
 
 def _check_bwd(q, k, v, mask, out, lse, do) -> tuple[int, int, int, int, int]:

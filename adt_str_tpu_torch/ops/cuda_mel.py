@@ -15,13 +15,18 @@ memory: the 24 kHz model and CLAP's 48 kHz frontend), "any_hop" (the window
 fits, any hop: 44.1 kHz at hop 441, 22.05 kHz at hop 220; `log_mel_any_hop`)
 and "long_hop" (a window too large for shared memory, frames read from the
 wave in device memory: 48 kHz at hop 960; `log_mel_long_hop`). Each
-wrapper's `launches` counts the launches of its route.
+wrapper's `launches` counts the launches of its route. While `torch.export`
+traces, the wrappers record the route's op (`adt_str_tpu_torch::log_mel`,
+`::log_mel_any_hop`, `::log_mel_long_hop`), which runs the kernel on a CUDA
+wave and `log_mel_plain` on a CPU wave.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -231,6 +236,8 @@ def log_mel(wave: torch.Tensor, params: MelFrontendParams, trim: bool = True) ->
     """(B, T) wave -> (B, frames, n_mels) fp32 through K1: the CUDA kernel
     for a CUDA tensor, by the route `frames_route` picks (counted on that
     route's wrapper, `ROUTE_WRAPPERS`), `log_mel_plain` for a CPU tensor."""
+    if torch.compiler.is_exporting():
+        return _export_call(frames_route(params), wave, params, trim)
     route = _check(wave, params)
     if not route:
         return log_mel_plain(wave, params, trim)
@@ -243,6 +250,8 @@ def log_mel_any_hop(wave: torch.Tensor, params: MelFrontendParams, trim: bool = 
     """K1's "any_hop" route (the window in shared memory, 2-byte fragment
     loads), for the hops `frames_route` sends it; `log_mel_plain` for a CPU
     tensor."""
+    if torch.compiler.is_exporting():
+        return _export_call("any_hop", wave, params, trim)
     return _by_route(log_mel_any_hop, "any_hop", wave, params, trim)
 
 
@@ -250,6 +259,8 @@ def log_mel_long_hop(wave: torch.Tensor, params: MelFrontendParams, trim: bool =
     """K1's "long_hop" route (frames read from the wave in device memory),
     for the windows too large for shared memory; `log_mel_plain` for a CPU
     tensor."""
+    if torch.compiler.is_exporting():
+        return _export_call("long_hop", wave, params, trim)
     return _by_route(log_mel_long_hop, "long_hop", wave, params, trim)
 
 
@@ -269,6 +280,33 @@ def _by_route(wrapper, route: str, wave: torch.Tensor, params: MelFrontendParams
     out = _launch(wave, params, trim, route)
     wrapper.launches += 1
     return out
+
+
+def _route_op(route: str):
+    def run(wave: torch.Tensor, sample_rate: int, win_length: int, hop_length: int, n_mels: int, f_min: float,
+            f_max: Optional[float], log_floor: float, clamp_lo: float, clamp_hi: float, log_mode: str,
+            trim: bool) -> torch.Tensor:
+        params = MelFrontendParams(sample_rate, win_length, hop_length, n_mels, f_min, f_max, log_floor, clamp_lo,
+                                   clamp_hi, log_mode)
+        return _by_route(ROUTE_WRAPPERS[route], route, wave, params, trim)
+
+    return run
+
+
+def _route_fake(wave, sample_rate, win_length, hop_length, n_mels, f_min, f_max, log_floor, clamp_lo, clamp_hi,
+                log_mode, trim):
+    params = MelFrontendParams(sample_rate, win_length, hop_length, n_mels)
+    return wave.new_empty((wave.shape[0], _frame_range(params, wave.shape[1], trim)[1], n_mels), dtype=torch.float32)
+
+
+# `torch.ops.adt_str_tpu_torch.log_mel`, `.log_mel_any_hop` and `.log_mel_long_hop`: what the wrappers record
+# while exporting, the frontend's constants as scalars (the ops build the kernel's tables themselves)
+ROUTE_OPS = {route: _build.register_op(wrapper.__name__, _route_op(route), _route_fake)
+             for route, wrapper in ROUTE_WRAPPERS.items()}
+
+
+def _export_call(route: str, wave: torch.Tensor, params: MelFrontendParams, trim: bool) -> torch.Tensor:
+    return ROUTE_OPS[route](wave, *dataclasses.astuple(params), trim)
 
 
 def _launch(wave: torch.Tensor, params: MelFrontendParams, trim: bool, route: str) -> torch.Tensor:

@@ -19,6 +19,9 @@ call is bit-equal to `layer_norm(x + r)`) are the wrappers the model calls:
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs the plain version under autograd: the kernel has no backward.
 `layer_norm.launches` counts the kernel's launches from both wrappers.
+While `torch.export` traces, the wrappers record the ops
+`adt_str_tpu_torch::layer_norm` and `::add_layer_norm`, which run the kernel
+on CUDA tensors and the plain versions on CPU tensors.
 
 The decode step calls it 12 times a step, so its launch path is
 `_build.launch` (no device switch on the current device, the raw current
@@ -96,6 +99,8 @@ def _launch(x: torch.Tensor, r: Optional[torch.Tensor], weight: torch.Tensor, bi
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """(..., d) -> (..., d) in `x`'s dtype; see the module docstring for
     which version runs."""
+    if torch.compiler.is_exporting():
+        return layer_norm_op(x, weight, bias, eps)
     if x.is_cpu or _build.records_grad(x, weight, bias):
         return layer_norm_plain(x, weight, bias, eps)
     return _launch(x, None, weight, bias, eps)
@@ -105,9 +110,24 @@ def add_layer_norm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, bias:
                    eps: float) -> torch.Tensor:
     """`LayerNorm(x + r)`: (..., d) x and r of one dtype -> (..., d); see the
     module docstring for which version runs."""
+    if torch.compiler.is_exporting():
+        return add_layer_norm_op(x, r, weight, bias, eps)
     if x.is_cpu or _build.records_grad(x, r, weight, bias):
         return add_layer_norm_plain(x, r, weight, bias, eps)
     return _launch(x, r, weight, bias, eps)
 
 
 layer_norm.launches = 0
+
+
+def _run(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    return layer_norm_plain(x, weight, bias, eps) if x.is_cpu else _launch(x, None, weight, bias, eps)
+
+
+def _run_add(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    return add_layer_norm_plain(x, r, weight, bias, eps) if x.is_cpu else _launch(x, r, weight, bias, eps)
+
+
+# `torch.ops.adt_str_tpu_torch.layer_norm` and `.add_layer_norm`: what the wrappers record while exporting
+layer_norm_op = _build.register_op("layer_norm", _run, lambda x, weight, bias, eps: x.new_empty(x.shape))
+add_layer_norm_op = _build.register_op("add_layer_norm", _run_add, lambda x, r, weight, bias, eps: x.new_empty(x.shape))

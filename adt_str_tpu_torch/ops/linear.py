@@ -28,7 +28,9 @@ through a cp.async ring; the strips follow N (8 or 16 columns a block, or
   raises on anything else;
 - a CUDA tensor in training (grad enabled and an operand that requires it)
   runs `linear_plain` under autograd: the kernel has no backward.
-`linear.launches` counts kernel launches.
+`linear.launches` counts kernel launches. While `torch.export` traces,
+`linear` records the op `adt_str_tpu_torch::linear` (`linear_op`), which
+runs the kernel on CUDA tensors and `linear_plain` on CPU tensors.
 
 The decode step calls `linear` 25 times a step, so its launch path is kept
 short (`_build.launch`): no device switch when the tensor is on the current
@@ -70,8 +72,15 @@ def _lib() -> ctypes.CDLL:
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., K) x (N, K) weight (+ (N,) bias) -> (..., N) in `x`'s dtype; see
     the module docstring for which version runs."""
+    if torch.compiler.is_exporting():
+        return linear_op(x, weight, bias)
     if x.is_cpu or _build.records_grad(x, weight, bias):
         return linear_plain(x, weight, bias)
+    return _launch(x, weight, bias)
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the kernel on CUDA `x`, counted on `linear`."""
     if not x.is_cuda:
         raise ValueError(f"linear runs on cpu or cuda tensors, not {x.device}")
     K, N = x.shape[-1], weight.shape[0]
@@ -97,3 +106,11 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
 
 
 linear.launches = 0
+
+
+def _run(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return linear_plain(x, weight, bias) if x.is_cpu else _launch(x, weight, bias)
+
+
+# `torch.ops.adt_str_tpu_torch.linear`: what `linear` records while exporting
+linear_op = _build.register_op("linear", _run, lambda x, weight, bias: x.new_empty((*x.shape[:-1], weight.shape[0])))

@@ -250,6 +250,19 @@ line:
    K4 at fp16 and at d_ff 1000 and 1036 (padded in the wrapper), and the
    batch-invariance kernels at fp16 and attention_rows at 2 heads of 384
    (`phase_repairs_fp16`);
+   then (`phase_export_serving`) the compile-once serving export
+   (`scripts/export_serving.py`): the serving config exported at bucket
+   16 and at the symbolic batch in bf16 and at bucket 16 in fp32, and two
+   1+1-layer artifacts at d 768 for K1's any_hop and long_hop routes and
+   K5f at head dims 256 and 384 (64 tokens); each saved to bytes and run,
+   all in one fresh process that imports only `torch` and
+   `adt_str_tpu_torch.ops` (`scripts/run_artifact.py`), on the chunks of
+   the serving phase's requests (padded to the bucket with zero rows):
+   tokens bit-equal to the eager `greedy_decode`'s (the symbolic artifact
+   at 1, 16 and 64 rows), each op of an artifact's graph launched in its
+   run and every registered op in one; export, save and load seconds,
+   bytes, and wall and device ms a decode step (with the device kernels
+   that took most) of the artifact and of the eager loop at bucket 16;
 13. one `{"kernels": [...]}` line: each kernel variant (the TPU kernels'
    by route, dtype and core, then the three batch-invariance kernels) at
    the main-path shape named in its entry, with its launches in every
@@ -261,7 +274,8 @@ line:
    fsdp phase's steps, 2 x 2 grid and trainer, the youtube phase's batched
    decodes, the fp32 and long training steps, the fp32, long, 44.1 kHz
    and 48 kHz serving runs, the 3-head and fp16 training steps, the fp16
-   and 2-head serving runs and their alone-and-batched decodes);
+   and 2-head serving runs and their alone-and-batched decodes, and each
+   export_serving artifact's runs);
    K1's entry also holds its numbers at CLAP's frontend
    (`at_clap_frontend`), K5f's and K5b's at 3 heads (`at_3_heads`) and past
    512 keys (`past_512_keys`), K4's in its partial mode
@@ -354,7 +368,7 @@ from adt_str_tpu_torch.models.decode import (
     greedy_decode_from_memory,
     init_caches,
 )
-from adt_str_tpu_torch.ops import _build, attention_rows, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn
+from adt_str_tpu_torch.ops import _build, attention_rows, cuda_attention, cuda_ffn, cuda_mel, cuda_place, ffn, op_wrappers
 from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.dropout_hash import seed_from_key
@@ -366,7 +380,9 @@ from adt_str_tpu_torch.parallel import tensor_parallel as tp_lib
 from adt_str_tpu_torch.parallel import train_step as port_step
 from adt_str_tpu_torch.parallel.train_step import init_train_state, make_synth_train_step, make_train_step
 from adt_str_tpu_torch.serve import build_engine
+from adt_str_tpu_torch.scripts import export_serving as texport
 from adt_str_tpu_torch.scripts import youtube_drum_pipeline as youtube_demo
+from adt_str_tpu_torch.scripts.run_artifact import decode_steps, loop_figures
 from adt_str_tpu_torch.synth import render
 from adt_str_tpu_torch.synth.bank import N_BINS, OneShotBank, n_allowed_bins
 from adt_str_tpu_torch.training import checkpoint as trainer_ckpt
@@ -1504,9 +1520,7 @@ def decode_breakdown(model: ADTModel, cfg: FrameworkConfig, batch: int, decode=g
         tokens = decode(model, memory, max_len, cfg.tokenizer.BOS_token, eos)
         ev[2].record()
         torch.cuda.synchronize()
-        # the loop ran until the last row's first EOS (or the length budget)
-        first_eos = torch.where(tokens[:, 1:] == eos, torch.arange(1, max_len, device="cuda"), max_len)
-        steps = int(min(first_eos.min(dim=1).values.max().item(), max_len - 1))
+        steps = decode_steps(tokens, eos)
         out = {"bucket": bucket, "encode_ms": ev[0].elapsed_time(ev[1]), "decode_ms": ev[1].elapsed_time(ev[2]),
                "decode_steps": steps}
         out["ms_per_step"] = out["decode_ms"] / max(steps, 1)
@@ -3712,7 +3726,7 @@ def phase_fsdp() -> dict:
 
 YOUTUBE_SEC = 30.0
 YOUTUBE_HOP_SEC = 1.28
-YOUTUBE_ALONE = 4  # chunks decoded alone against their batch rows (a depth cut for the smoke's time)
+YOUTUBE_ALONE = 2  # chunks decoded alone against their batch rows (a depth cut for the smoke's time)
 YOUTUBE_SR = 44_100  # the WAV's own rate: the demo resamples it to the config's
 
 
@@ -4080,9 +4094,9 @@ def phase_training_variant(name: str, label: str, model: dict) -> dict:
 def greedy_alone_vs_batch(cfg: FrameworkConfig, batches: tuple = (16,), seed: int = SEED + 81) -> dict:
     """INVARIANCE_CHUNKS chunks decoded alone (bucket 1) and in batches of
     each of `batches` (`greedy_batches`) at `cfg` (seeded weights and
-    chunks): the tokens must be bit-equal."""
+    chunks), INVARIANCE_TOKENS tokens: the tokens must be bit-equal."""
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
-    n, L = INVARIANCE_CHUNKS, cfg.inference.max_length
+    n, L = INVARIANCE_CHUNKS, min(cfg.inference.max_length, INVARIANCE_TOKENS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pool = torch.randn(n + max(batches), cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
     counters = reset_counters()
@@ -4170,6 +4184,169 @@ def phase_wide_widths(gen, cfg: FrameworkConfig) -> dict:
                                                   or serving["launches"]["fused_attention_tf32"]),
     })
     return {"kernels": kernels, "serving": serving, "invariance": invariance}
+
+
+EXPORT_BUCKET = 16  # the fixed-batch artifacts' rows: the 3 requests' chunks, padded with zero rows as served
+EXPORT_POLY_ROWS = (1, 16, 64)  # the rows the symbolic-batch artifact serves, each held to the eager decode
+# The K1 and K5f routes the shipped widths do not take, each in an artifact at d_model 768 with the depth cut to
+# 1 + 1 layers and 64 tokens: K1's any_hop (44.1 kHz) with K5f at head dim 256 (3 heads), and K1's long_hop
+# (48 kHz, hop 960) with K5f past head dim 256 (2 heads of 384).
+EXPORT_ROUTES = {"44k1-d256": ({"sample_rate": SR_44K1}, {"nhead": 3, "d_query": 256}),
+                 "48k-hop960-d384": (LONG_HOP, {"nhead": 2, "d_query": 384})}
+EXPORT_ROUTE_MODEL = {"enc_layers": 1, "dec_layers": 1}
+EXPORT_ROUTE_TOKENS = 64
+EXPORT_ROUTE_ROWS = 4
+EXPORT_TIMEOUT = 600  # seconds the artifacts' process may take, every artifact together
+ARTIFACT_RUNNER = REPO / "adt_str_tpu_torch" / "scripts" / "run_artifact.py"
+
+
+def graph_ops(exported) -> set:
+    """The `adt_str_tpu_torch::` ops an exported program calls, its loop body's included."""
+    prefix = f"{_build.NAMESPACE}."
+    graphs = [m.graph for m in exported.graph_module.modules() if isinstance(m, torch.fx.GraphModule)]
+    return {str(n.target)[len(prefix):].split(".")[0] for g in graphs for n in g.nodes
+            if n.op == "call_function" and str(n.target).startswith(prefix)}
+
+
+def request_chunks(cfg: FrameworkConfig, rows: int) -> torch.Tensor:
+    """The chunks of the serving phase's N_REQUESTS requests at `cfg`'s rate,
+    cut to or padded with zero rows to `rows`, as the engine pads a bucket."""
+    chunk = cfg.shared.chunk_samples
+    chunks = np.stack([c for w in request_waves(cfg) for _, c, _ in chunk_wave(w, chunk)])[:rows]
+    return torch.from_numpy(np.concatenate([chunks, np.zeros((rows - len(chunks), chunk), np.float32)]))
+
+
+def phase_export_serving() -> dict:
+    """The compile-once serving export (`scripts/export_serving.py`): the
+    serving config exported at bucket 16 and at the symbolic batch in bf16,
+    and at bucket 16 in fp32, then the two cut-depth route artifacts; each
+    saved to bytes and run, all in one fresh process that imports only
+    `torch` and `adt_str_tpu_torch.ops` (`scripts/run_artifact.py`), on the
+    chunks of the serving phase's requests. That process starts before the
+    first export and runs each artifact once it is written (the exports
+    trace on the host, the runs use the card); it times its loops once the
+    exports are done, and the eager loop is timed after it ends. Tokens must
+    equal the eager `greedy_decode`'s on the same rows, bit for bit (the
+    symbolic artifact at 1, 16 and 64 rows); each op in an artifact's graph
+    must launch its kernel in the artifact's run, and every registered op
+    must in one of them. Export, save and load seconds, the bytes, and wall
+    and device ms a decode step of the artifact against the eager loop at
+    bucket 16."""
+    cfg = load_config(SERVING_YAML, show=False)
+    cfg32 = load_config(SERVING_YAML, show=False, model=FP32)
+    plans = [("bf16-bucket16", cfg, EXPORT_BUCKET, (EXPORT_BUCKET,)),
+             ("bf16-symbolic", cfg, None, EXPORT_POLY_ROWS),
+             ("fp32-bucket16", cfg32, EXPORT_BUCKET, (EXPORT_BUCKET,))]
+    for label, (shared, model_over) in EXPORT_ROUTES.items():
+        c = load_config(SERVING_YAML, show=False, shared=shared, model={**model_over, **EXPORT_ROUTE_MODEL},
+                        inference={"max_length": EXPORT_ROUTE_TOKENS})
+        plans.append((label, c, EXPORT_ROUTE_ROWS, (EXPORT_ROUTE_ROWS,)))
+    work = _build.BUILD_DIR.parent / "export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    done = work / "exports_done"
+    job = {"device": "cuda", "eos": cfg.tokenizer.EOS_token, "out": str(work / "tokens.pt"), "wait_s": EXPORT_TIMEOUT,
+           "timed_after": str(done), "artifacts": {}}
+    for label, c, batch, rows in plans:
+        runs = {f"rows{r}": str(work / f"{label}-rows{r}.pt") for r in rows}
+        for r in rows:
+            torch.save(request_chunks(c, r), runs[f"rows{r}"])
+        # the symbolic artifact's loop is timed as the fixed one's (the same program at the same rows)
+        timed = [f"rows{EXPORT_BUCKET}"] if batch == EXPORT_BUCKET else []
+        job["artifacts"][label] = {"path": str(work / f"{label}.pt2"), "runs": runs, "timed": timed}
+    (work / "job.json").write_text(json.dumps(job))
+    res = {"phase": "export_serving", "artifacts": {}}
+    models = {}
+    t_process = time.monotonic()
+    proc = subprocess.Popen([sys.executable, str(ARTIFACT_RUNNER), str(work / "job.json")], cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=str(REPO)), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        for label, c, batch, rows in plans:
+            key = (c.model, c.inference.max_length)
+            if key not in models:
+                models[key] = ADTModel(c.model, seed=SEED, device="cuda")
+            tok = c.tokenizer
+            t0 = time.monotonic()
+            exported = texport.build_exported(models[key], c.inference.max_length, tok.BOS_token, tok.EOS_token,
+                                              batch)
+            export_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            blob = texport.to_bytes(exported)
+            save_s = time.monotonic() - t0
+            path = Path(job["artifacts"][label]["path"])
+            path.with_suffix(".tmp").write_bytes(blob)
+            os.replace(path.with_suffix(".tmp"), path)  # whole, for the process that waits on it
+            loops = [n for n in exported.graph.nodes if n.target is torch.ops.higher_order.while_loop]
+            res["artifacts"][label] = {
+                "compute_dtype": c.model.compute_dtype, "batch": "symbolic" if batch is None else batch,
+                "max_length": c.inference.max_length, "layers": [c.model.enc_layers, c.model.dec_layers],
+                "heads": [c.model.nhead, c.model.d_query], "sample_rate": c.shared.sample_rate, "export_s": export_s,
+                "save_s": save_s, "artifact_bytes": len(blob), "ops": sorted(graph_ops(exported)),
+                "while_loops": len(loops)}
+            del exported, blob
+        done.write_text("")
+        stdout, stderr = proc.communicate(timeout=EXPORT_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    res["process_s"] = time.monotonic() - t_process
+    if proc.returncode != 0:
+        raise RuntimeError(f"export_serving: the artifacts' process failed:\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    tokens = torch.load(work / "tokens.pt", weights_only=True)
+    # the eager decode of the same rows, after the artifacts' process: the card is the eager loop's alone
+    eager: dict = {}
+    for label, c, batch, rows in plans:
+        model, max_len, tok = models[(c.model, c.inference.max_length)], c.inference.max_length, c.tokenizer
+        eager[label] = {}
+        for name in job["artifacts"][label]["runs"]:
+            if label == "bf16-symbolic" and name == f"rows{EXPORT_BUCKET}":
+                eager[label][name] = eager["bf16-bucket16"][name]  # the same model and rows
+                continue
+            wave = torch.load(job["artifacts"][label]["runs"][name], weights_only=True).cuda()
+
+            def decode(w):
+                return greedy_decode(model, w, max_len, tok.BOS_token, tok.EOS_token)
+
+            if name in job["artifacts"][label]["timed"]:
+                res["artifacts"][label]["eager_loop"], rows_out = loop_figures(decode, wave, tok.EOS_token)
+            else:
+                rows_out = decode(wave)
+            eager[label][name] = rows_out.cpu()
+    del models
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    res["process_port_modules"] = out["port_modules"]
+    launched, equal = {}, {}
+    for label, art in out["artifacts"].items():
+        mine = res["artifacts"][label]
+        mine["load_s"] = art["load_s"]
+        for name, run in art["runs"].items():
+            equal[f"{label} {name}"] = bool(torch.equal(tokens[label][name], eager[label][name]))
+            mine.setdefault("launches", {})[name] = {k: v for k, v in run["launches"].items() if v}
+            mine.setdefault("first_call_s", {})[name] = run["first_call_s"]
+            if "steps" in run:
+                mine["artifact_loop"] = {k: v for k, v in run.items() if k not in ("launches", "first_call_s")}
+            launched.update({op: launched.get(op, 0) + run["launches"][op] for op in run["launches"]})
+        mine["ops_launched"] = all(r["launches"][op] > 0 for r in art["runs"].values() for op in mine["ops"])
+    res["tokens_equal_eager"] = equal
+    # each artifact's launches, as every path's, by kernel (add_layer_norm counts on layer_norm)
+    res["by_path"] = {f"export_serving-{label}": {k: sum(r["launches"].get(k, 0) for r in art["runs"].values())
+                                                  for k in all_counters()}
+                      for label, art in out["artifacts"].items()}
+    emit({k: v for k, v in res.items() if k != "by_path"})
+    fail_unless("export_serving", {
+        "every artifact's tokens equal the eager greedy decode's": all(equal.values()),
+        "each op in an artifact's graph launched its kernel in the artifact's run":
+            all(a["ops_launched"] for a in res["artifacts"].values()),
+        "every registered op launched its kernel in an artifact's run": all(launched.get(op) for op in op_wrappers()),
+        "the artifacts' process imported no port module but adt_str_tpu_torch.ops": all(
+            m == "adt_str_tpu_torch" or m.startswith("adt_str_tpu_torch.ops") for m in out["port_modules"]),
+        "every artifact holds one while_loop": all(a["while_loops"] == 1 for a in res["artifacts"].values())},
+        {"launched": launched, "equal": equal})
+    return res
 
 
 def fail_unless(phase: str, checks: dict, detail="") -> None:
@@ -4468,6 +4645,9 @@ def batch_probe(cfg: FrameworkConfig) -> dict:
 
 
 INVARIANCE_CHUNKS = 4  # chunks decoded alone and in batches (a depth cut for the smoke's time)
+# tokens a chunk decodes alone and in a batch (a depth cut for the smoke's time: the configs take 512 or more;
+# the tokens must be equal at every step, and the kernel phases check the decode step's rows at 1-64 up to 512 keys)
+INVARIANCE_TOKENS = 128
 INVARIANCE_BATCHES = (2, 4, 8, 16, 64)
 INVARIANCE_BEAM_CHUNKS = 2
 INVARIANCE_BEAM_BATCH = 16
@@ -4506,7 +4686,8 @@ def phase_fp32_invariance(cfg: FrameworkConfig) -> dict:
     each of INVARIANCE_BATCHES, the tokens bit-equal."""
     t0 = time.monotonic()
     res = {"phase": "fp32_invariance", "compute_dtype": cfg.model.compute_dtype,
-           "max_length": cfg.inference.max_length, **greedy_alone_vs_batch(cfg, INVARIANCE_BATCHES, SEED + 82),
+           "max_length": min(cfg.inference.max_length, INVARIANCE_TOKENS),
+           **greedy_alone_vs_batch(cfg, INVARIANCE_BATCHES, SEED + 82),
            "wall_s": time.monotonic() - t0}
     emit(res)
     fail_unless("fp32_invariance", {
@@ -4521,7 +4702,8 @@ def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
     """A chunk's tokens on the card do not depend on the rows decoded beside
     it (the serving config at full width, K1, K5f and the batch-invariance
     kernels on, seeded random weights and chunks):
-    - greedy: INVARIANCE_CHUNKS chunks each decoded alone (bucket 1), then
+    - greedy: INVARIANCE_CHUNKS chunks each decoded alone (bucket 1) to
+      INVARIANCE_TOKENS tokens (beam too), then
       in batches of each of INVARIANCE_BATCHES (below 8: the chunks side by
       side; from 8: spread among other chunks); the tokens must be equal;
     - beam BEAM_SIZE: INVARIANCE_BEAM_CHUNKS chunks alone and spread in a
@@ -4533,7 +4715,7 @@ def phase_batch_invariance(cfg: FrameworkConfig) -> dict:
       after it, in this call; after, it must be empty."""
     t0 = time.monotonic()
     model = ADTModel(cfg.model, seed=SEED, device="cuda")
-    L, n = cfg.inference.max_length, INVARIANCE_CHUNKS
+    L, n = min(cfg.inference.max_length, INVARIANCE_TOKENS), INVARIANCE_CHUNKS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
     pool = torch.randn(n + max(INVARIANCE_BATCHES), cfg.shared.chunk_samples, generator=gen, device="cuda") * 0.3
     chunks, others = pool[:n], pool[n:]
@@ -5520,6 +5702,8 @@ def main() -> int:
     variants = phase_fp16_and_wide_heads(gen)
     # d and head dim 2,048: past the old limits of K5, LayerNorm and attention_rows
     wide = phase_wide_widths(gen, cfg)
+    # the compile-once serving export: artifacts run in a process of their own
+    export = phase_export_serving()
 
     def ranks_sum(per_rank: dict) -> dict:
         return {k: sum(n[k] for n in per_rank.values()) for k in all_counters()}
@@ -5558,7 +5742,8 @@ def main() -> int:
                **{f"training-{k}": r["launches"] for k, r in variants["training"].items()},
                **{f"serving-{k}": r["launches"] for k, r in variants["serving"].items()},
                **{f"invariance-{k}": r["launches"] for k, r in variants["invariance"].items()},
-               "serving-d2048": wide["serving"]["launches"], "invariance-d2048": wide["invariance"]["launches"]}
+               "serving-d2048": wide["serving"]["launches"], "invariance-d2048": wide["invariance"]["launches"],
+               **export["by_path"]}
     # the 3xTF32 K5 takes fp32 alone: no bf16 or fp16 path launches it, and every fp32 path does
     tf32_paths = {p: (n["fused_attention_tf32"], n["fused_attention_bwd_tf32"]) for p, n in by_path.items()
                   if "fp32" not in p and (n["fused_attention_tf32"] or n["fused_attention_bwd_tf32"])}

@@ -44,6 +44,7 @@ from adt_str_tpu_torch.models.convert import state_dict_from_jax_params
 from adt_str_tpu_torch.ops import attention_rows, cuda_attention, cuda_ffn, cuda_mel
 from adt_str_tpu_torch.ops import ffn as tffn
 from adt_str_tpu_torch.ops import mel as tmel
+from adt_str_tpu_torch.utils.misc import fp32_products
 from test_torch_model import jax_flags_on_memory
 from test_torch_train_step import assert_grads_close, jax_site_keys, jbatch, make_batch, tbatch
 
@@ -77,15 +78,38 @@ def test_k5_plain_fp32_matches_jax_vjp_of_the_interpret_kernel(Tq, Tk, D, causal
     mask = np.triu(np.full((Tq, Tk), -1e4, np.float32), k=1)[None, None] if causal else None
     jmask = None if mask is None else jnp.asarray(mask)
     ref, vjp = jax.vjp(lambda q, k, v: JT._flash_attention(q, k, v, jmask), jq, jk, jv)
-    ref_grads = vjp(jdo)
+    ref, ref_grads = np.asarray(ref), [np.asarray(g) for g in vjp(jdo)]
+    del vjp, jq, jk, jv, jdo  # the interpret kernel's residuals are freed before the port's graph is built
     tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
     assert cuda_attention.kernel_for(tq.dtype, D) == "tf32x3"
-    out = TT._flash_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
-    out.backward(tdo)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=OUT_TOL, rtol=0)
-    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads):
-        r = np.asarray(r)
-        np.testing.assert_allclose(t.grad.numpy(), r, atol=GRAD_TOL * np.abs(r).max(), rtol=0, err_msg=name)
+
+    @fp32_products  # true fp32 products, whatever matmul precision a test before this one left set
+    def port_side():
+        out = TT._flash_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
+        out.backward(tdo)
+        return out.detach().numpy()
+
+    out = port_side()
+    checks = [("out", out, ref, OUT_TOL)] + [(name, t.grad.numpy(), r, GRAD_TOL * np.abs(r).max())
+                                              for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads)]
+    for name, got, r, atol in checks:
+        try:
+            np.testing.assert_allclose(got, r, atol=atol, rtol=0, err_msg=name)
+        except AssertionError as fail:
+            raise AssertionError(f"{fail}\n{_k5_witness(tq, tk, tv, mask, out, ref)}") from None
+
+
+def _k5_witness(q, k, v, mask, out, ref) -> str:
+    """Which side of a failed K5 comparison moved: each side's output error
+    against the fp64 softmax of the same inputs, and the process settings
+    that choose a CPU product's precision and order."""
+    s = q.detach().double()[0, 0] @ k.detach().double()[0, 0].T / np.sqrt(q.shape[-1])
+    if mask is not None:
+        s = s + torch.from_numpy(mask[0, 0]).double()
+    exact = (torch.softmax(s, -1) @ v.detach().double()[0, 0]).numpy()
+    return (f"out against fp64: port {np.abs(out[0, 0] - exact).max():.3g}, JAX {np.abs(ref[0, 0] - exact).max():.3g}; "
+            f"torch matmul precision {torch.get_float32_matmul_precision()!r}, mkldnn fp32 "
+            f"{torch.backends.mkldnn.matmul.fp32_precision!r}, {torch.get_num_threads()} threads")
 
 
 def test_k5_tf32_wrappers_run_plain_for_cpu_tensors():

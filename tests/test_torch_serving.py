@@ -289,7 +289,8 @@ def test_port_imports_no_jax():
         "       'serve', 'clap.features', 'clap.audio_model', 'clap.text_model', 'clap.model', 'clap.convert',\n"
         "       'clap.curation', 'scripts.augment_data_with_clap', 'scripts.copy_originals_to_augmented',\n"
         "       'scripts.convert_augmented_to_hdf5', 'scripts.midi_parser', 'scripts.text_parser', 'data.lakh',\n"
-        "       'data.parsers', 'utils.midi_utils', 'ops.layer_norm', 'ops.linear', 'ops.attention_rows']\n"
+        "       'data.parsers', 'utils.midi_utils', 'ops.layer_norm', 'ops.linear', 'ops.attention_rows',\n"
+        "       'scripts.export_serving']\n"
         "missing = [m for m in new if 'adt_str_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('adt_str_tpu_torch')]))\n"
