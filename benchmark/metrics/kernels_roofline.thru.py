@@ -1,0 +1,1 @@
+from benchmark.metrics import kernels_roofline as read  # noqa: F401

@@ -1,0 +1,1 @@
+from benchmark.metrics import mfu as read  # noqa: F401

@@ -1,0 +1,1 @@
+from benchmark.metrics import peak_mem_gib as read  # noqa: F401
