@@ -13,6 +13,12 @@ JAX `lax.while_loop` becomes a Python loop with the same semantics:
 - the loop runs while `step < max_length - 1` and not every row finished;
   finished rows are filled with EOS.
 
+With spans on (`utils/spans.py`), a decode records `decode.encode` (the
+encoder and the cross K/V projection of `init_caches`), then each step's
+exit test, the host's wait for the device to say whether every row
+finished (`decode.exit_test`), and its dispatch (`decode.step`, id step:
+the step's ops, the token's choice and the writes).
+
 Beam search advances the B x K hypotheses together. Cache rows are never
 moved: the self caches are slot-inner, (L, B, H, max_len, K, head_dim), and
 each live beam knows, per position, which slot wrote the row of its
@@ -65,6 +71,7 @@ from adt_str_tpu_torch.ops import layer_norm as ln_ops
 from adt_str_tpu_torch.ops import linear as linear_ops
 from adt_str_tpu_torch.ops.cuda_attention import NEG_MASK
 from adt_str_tpu_torch.parallel.mesh import DataMesh
+from adt_str_tpu_torch.utils import spans
 
 
 class DecoderCaches(NamedTuple):
@@ -167,17 +174,33 @@ def greedy_decode_from_memory(
     end_token: int = 3,
 ) -> torch.Tensor:
     """(B, S, d) memory -> (B, max_length) int32 tokens on memory's device."""
-    B = memory.shape[0]
-    caches = init_caches(model, memory, max_length)
-    tokens = torch.full((B, max_length), end_token, dtype=torch.long, device=memory.device)
+    with spans.span("decode.encode"):
+        caches = init_caches(model, memory, max_length)
+    return _greedy_loop(model, caches, max_length, start_token, end_token)
+
+
+def _running(step: int, max_length: int, finished: torch.Tensor) -> bool:
+    """The loop's condition: `step < max_length - 1` and not every row
+    finished, the host waiting for the device on the second."""
+    if step >= max_length - 1:
+        return False
+    with spans.span("decode.exit_test"):
+        return not bool(finished.all())
+
+
+def _greedy_loop(model: ADTModel, caches: DecoderCaches, max_length: int, start_token: int,
+                 end_token: int) -> torch.Tensor:
+    B, dev = caches.k_cross.shape[1], caches.k_cross.device
+    tokens = torch.full((B, max_length), end_token, dtype=torch.long, device=dev)
     tokens[:, 0] = start_token
-    finished = torch.zeros(B, dtype=torch.bool, device=memory.device)
+    finished = torch.zeros(B, dtype=torch.bool, device=dev)
     step = 0
-    while step < max_length - 1 and not bool(finished.all()):
-        logits = decode_step(model, tokens[:, step], step, caches)
-        next_token = torch.where(finished, end_token, logits.argmax(dim=-1))
-        tokens[:, step + 1] = next_token
-        finished |= next_token == end_token
+    while _running(step, max_length, finished):
+        with spans.span("decode.step", step=step):
+            logits = decode_step(model, tokens[:, step], step, caches)
+            next_token = torch.where(finished, end_token, logits.argmax(dim=-1))
+            tokens[:, step + 1] = next_token
+            finished |= next_token == end_token
         step += 1
     return tokens.to(torch.int32)
 
@@ -192,8 +215,9 @@ def greedy_decode(
 ) -> torch.Tensor:
     """(B, samples) audio -> (B, max_length) int32 tokens (EOS-filled after
     each row finishes)."""
-    memory = model.encode(wave)
-    return greedy_decode_from_memory(model, memory, max_length, start_token, end_token)
+    with spans.span("decode.encode"):
+        caches = init_caches(model, model.encode(wave), max_length)
+    return _greedy_loop(model, caches, max_length, start_token, end_token)
 
 
 class _Tensors(nn.Module):
@@ -336,9 +360,9 @@ def beam_search_decode(
 ) -> torch.Tensor:
     """(B, samples) audio -> (B, max_length) int32 tokens of each item's best
     beam (EOS-filled after it finished); see the module docstring."""
-    memory = model.encode(wave)
-    return beam_search_decode_from_memory(model, memory, max_length, beam_size, start_token, end_token,
-                                          length_penalty)
+    with spans.span("decode.encode"):
+        caches = init_caches(model, model.encode(wave), max_length, beam_size=beam_size)
+    return _beam_loop(model, caches, max_length, beam_size, start_token, end_token, length_penalty)
 
 
 @torch.inference_mode()
@@ -352,9 +376,15 @@ def beam_search_decode_from_memory(
     length_penalty: float = 1.0,
 ) -> torch.Tensor:
     """(B, S, d) memory -> (B, max_length) int32 tokens on memory's device."""
-    B, dev = memory.shape[0], memory.device
+    with spans.span("decode.encode"):
+        caches = init_caches(model, memory, max_length, beam_size=beam_size)
+    return _beam_loop(model, caches, max_length, beam_size, start_token, end_token, length_penalty)
+
+
+def _beam_loop(model: ADTModel, caches: DecoderCaches, max_length: int, beam_size: int, start_token: int,
+               end_token: int, length_penalty: float) -> torch.Tensor:
+    B, dev = caches.k_cross.shape[1], caches.k_cross.device
     V, K, NEG = model.config.tgt_vocab_size, beam_size, -1e9
-    caches = init_caches(model, memory, max_length, beam_size=K)
     # slot-local token store: row b*K + k holds the token slot k consumed at each position
     tokens = torch.full((B * K, max_length), end_token, dtype=torch.long, device=dev)
     tokens[:, 0] = start_token
@@ -370,24 +400,25 @@ def beam_search_decode_from_memory(
         return lp if length_penalty == 0.0 else lp / torch.pow(ln.float(), length_penalty)
 
     step = 0
-    while step < max_length - 1 and not bool(finished.all()):
-        logits = decode_step(model, tokens[:, step], step, caches, anc=anc)
-        cand_lp = log_probs[:, None] + torch.log_softmax(logits.float(), dim=-1)  # (B*K, V)
-        act_score = torch.where(finished[:, None], NEG, score(cand_lp, (lengths + 1)[:, None]))
-        fin_score = torch.where(finished, score(log_probs, lengths), NEG)
-        cand_score = torch.cat([act_score.reshape(B, K * V), fin_score.reshape(B, K)], dim=1)
-        top = torch.sort(cand_score, dim=-1, descending=True, stable=True).indices[:, :K]  # (B, K)
-        is_fin = top >= K * V  # a finished beam carried over
-        beam_idx = torch.where(is_fin, top - K * V, top // V)
-        tok = torch.where(is_fin, end_token, top % V)
-        src = (items * K + beam_idx).reshape(-1)
-        tokens[:, step + 1] = tok.reshape(-1)
-        act_lp = torch.gather(cand_lp.reshape(B, K * V), 1, torch.clamp(top, max=K * V - 1))
-        log_probs = torch.where(is_fin, torch.gather(log_probs.reshape(B, K), 1, beam_idx), act_lp).reshape(-1)
-        lengths = lengths[src] + (~is_fin).reshape(-1).long()
-        finished = finished[src] | (tok.reshape(-1) == end_token)
-        anc = torch.gather(anc, 1, beam_idx[:, :, None].expand(B, K, max_length))
-        anc[:, :, step + 1] = slots  # the new position's row is the slot's own
+    while _running(step, max_length, finished):
+        with spans.span("decode.step", step=step):
+            logits = decode_step(model, tokens[:, step], step, caches, anc=anc)
+            cand_lp = log_probs[:, None] + torch.log_softmax(logits.float(), dim=-1)  # (B*K, V)
+            act_score = torch.where(finished[:, None], NEG, score(cand_lp, (lengths + 1)[:, None]))
+            fin_score = torch.where(finished, score(log_probs, lengths), NEG)
+            cand_score = torch.cat([act_score.reshape(B, K * V), fin_score.reshape(B, K)], dim=1)
+            top = torch.sort(cand_score, dim=-1, descending=True, stable=True).indices[:, :K]  # (B, K)
+            is_fin = top >= K * V  # a finished beam carried over
+            beam_idx = torch.where(is_fin, top - K * V, top // V)
+            tok = torch.where(is_fin, end_token, top % V)
+            src = (items * K + beam_idx).reshape(-1)
+            tokens[:, step + 1] = tok.reshape(-1)
+            act_lp = torch.gather(cand_lp.reshape(B, K * V), 1, torch.clamp(top, max=K * V - 1))
+            log_probs = torch.where(is_fin, torch.gather(log_probs.reshape(B, K), 1, beam_idx), act_lp).reshape(-1)
+            lengths = lengths[src] + (~is_fin).reshape(-1).long()
+            finished = finished[src] | (tok.reshape(-1) == end_token)
+            anc = torch.gather(anc, 1, beam_idx[:, :, None].expand(B, K, max_length))
+            anc[:, :, step + 1] = slots  # the new position's row is the slot's own
         step += 1
     final = score(log_probs, lengths).reshape(B, K)
     best = torch.sort(final, dim=-1, descending=True, stable=True).indices[:, 0]

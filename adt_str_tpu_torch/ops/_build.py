@@ -22,17 +22,26 @@ greedy decoding launches are registered when their modules are imported
 only while `torch.compiler.is_exporting()`; the eager path calls the kernel
 directly.
 
+With spans on (`utils/spans.py`), each library's first load records
+`kernels.load` (ids library, built: whether nvcc ran), over the wait for
+nvcc and the library's load, and a build adds one to the counter
+`kernels.built`.
+This module does not import the spans module: a process that runs an
+exported program loads `ops` alone, and has no spans to record.
+
 Only the sources in the repo are compiled: no PyTorch headers (the build
 takes seconds, not minutes) and no library of finished kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Callable, Optional
@@ -104,8 +113,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             out, tmp, proc = _start(name)
-            _finish(name, out, tmp, proc)
-            lib = _libs[name] = ctypes.CDLL(str(out))
+            spans = sys.modules.get("adt_str_tpu_torch.utils.spans")
+            with spans.span("kernels.load", library=name, built=proc is not None) if spans else \
+                    contextlib.nullcontext():
+                _finish(name, out, tmp, proc)
+                lib = _libs[name] = ctypes.CDLL(str(out))
+            if spans and proc is not None:
+                spans.count("kernels.built")
         return lib
 
 

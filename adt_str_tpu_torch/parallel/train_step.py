@@ -50,6 +50,12 @@ them, puts the shards back, and reduce-scatters the gradients of the
 data-sharded leaves (one flat reduce-scatter, the same scaling and
 transport dtype as the all-reduce above, which the replicated leaves keep);
 the optimizer then updates the shards. The eval steps gather too.
+
+With spans on (`utils/spans.py`), a training step records `train.step`
+(id step) around `train.render` (the synthesis, where the step renders),
+`train.forward`, `train.backward` and `train.optimizer` (the update, its
+application and the gradients' norm); the ranks' reduction of the
+gradients is `train.step`'s own time.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from adt_str_tpu_torch.parallel import fsdp as fsdp_lib
 from adt_str_tpu_torch.parallel.mesh import DataMesh
 from adt_str_tpu_torch.synth.render import RenderDraws, SynthStatics, check_bins_loaded, render_batch
 from adt_str_tpu_torch.training.optimizer import OptState, Optimizer, apply_updates
+from adt_str_tpu_torch.utils import spans
 
 
 @dataclass
@@ -172,13 +179,15 @@ def _update(state: TrainState, opt: Optimizer, wavs, tokens, lengths, site_keys,
 
     layout = getattr(model, "fsdp", None)
     with fsdp_lib.gathered(model):  # the whole weights for the forward and backward passes
-        if dp is None:
-            loss = loss_fn("mean")
-            reported = loss.detach()
-        else:
-            mesh, comm_dtype, ddp = dp
-            loss, reported = _global_mean(mesh, loss_fn, ddp)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with spans.span("train.forward"):
+            if dp is None:
+                loss = loss_fn("mean")
+                reported = loss.detach()
+            else:
+                mesh, comm_dtype, ddp = dp
+                loss, reported = _global_mean(mesh, loss_fn, ddp)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         del loss
     if dp is not None:
         scale = 1.0 / mesh.world if ddp else None
@@ -187,9 +196,10 @@ def _update(state: TrainState, opt: Optimizer, wavs, tokens, lengths, site_keys,
         else:
             grads = allreduce_grads(mesh, list(grads), comm_dtype, scale)
     grads = dict(zip(params, grads))
-    updates, opt_state = opt.update(grads, state.opt_state, params)
-    apply_updates(params, updates)
-    metrics = {"loss": reported, "grad_norm": opt.grad_norm(grads)}
+    with spans.span("train.optimizer"):
+        updates, opt_state = opt.update(grads, state.opt_state, params)
+        apply_updates(params, updates)
+        metrics = {"loss": reported, "grad_norm": opt.grad_norm(grads)}
     if opt.skip_nonfinite > 0:
         metrics["notfinite_total"] = opt_state.total_notfinite
     return TrainState(model, opt_state, state.step + 1), metrics
@@ -209,7 +219,8 @@ def make_train_step(config: ModelConfig, opt: Optimizer, device=None, mesh=None,
 
     def step(state: TrainState, batch: dict, site_keys) -> tuple[TrainState, dict]:
         _check(state.model, config, device, mesh)
-        return _update(state, opt, batch["wavs"].to(device), *_tokens_on(batch, device), site_keys, dp)
+        with spans.span("train.step", step=state.step):
+            return _update(state, opt, batch["wavs"].to(device), *_tokens_on(batch, device), site_keys, dp)
 
     return step
 
@@ -229,9 +240,10 @@ def make_synth_train_step(config: ModelConfig, synth_config: SynthConfig, static
 
     def step(state: TrainState, batch: dict, draws: RenderDraws, site_keys) -> tuple[TrainState, dict]:
         _check(state.model, config, device, mesh)
-        with torch.no_grad():
-            wavs = render_batch(statics, batch["notes"], batch["note_mask"], draws, synth_config)
-        return _update(state, opt, wavs, *_tokens_on(batch, device), site_keys, dp)
+        with spans.span("train.step", step=state.step):
+            with spans.span("train.render"), torch.no_grad():
+                wavs = render_batch(statics, batch["notes"], batch["note_mask"], draws, synth_config)
+            return _update(state, opt, wavs, *_tokens_on(batch, device), site_keys, dp)
 
     return step
 

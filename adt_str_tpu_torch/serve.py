@@ -7,7 +7,11 @@ config's `inference.checkpoint_path`, wraps it in the micro-batching
 `serving/http.py`'s endpoints:
 
 - `GET  /healthz`        readiness
-- `GET  /stats`          micro-batching counters
+- `GET  /stats`          micro-batching counters: requests, batches, padded
+                         rows, `decode_seconds`, each bucket's batches, and
+                         `queue_wait_seconds`, the time requests waited in
+                         the queue summed over requests (over `n_requests`,
+                         the mean wait before a batch takes a request)
 - `POST /v1/transcribe`  audio body (WAV/FLAC/raw f32 PCM) -> notes JSON/MIDI
 
 With no `--device` and more than one visible card, the engine serves

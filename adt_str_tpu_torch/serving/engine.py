@@ -18,6 +18,15 @@ contract:
   `length_penalty`), the eval harness's beam, with the same buckets;
 - `close()` drains the queue so every accepted request is answered.
 
+`stats()` counts requests, batches, padded rows, the seconds spent
+decoding, each bucket's batches and `queue_wait_seconds`, the sum over
+requests of the time from `submit_chunk` to the dispatcher taking the
+request into a batch. With spans on (`utils/spans.py`) the dispatcher
+records `serve.collect`, and `serve.batch` (ids batch, bucket, rows)
+around the decode (`decode.*`), the tokens' copy to the host
+(`serve.tokens_out`) and the answers (`serve.answer`, whose futures'
+callbacks run on the dispatcher thread).
+
 Tokens come back to the host as numpy int32. With a `mesh`
 (`parallel/mesh.py:DataMesh` over this process's cards) every bucket must
 be divisible by its data axis, and each micro-batch decodes through the
@@ -26,6 +35,7 @@ sharded decoders (`models/decode.py`): each card its own rows.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -43,6 +53,7 @@ from adt_str_tpu_torch.evaluation.notes import decode_tokens_to_notes, merge_chu
 from adt_str_tpu_torch.models import decode as decode_lib
 from adt_str_tpu_torch.models.adt import ADTModel
 from adt_str_tpu_torch.parallel.mesh import DataMesh
+from adt_str_tpu_torch.utils import spans
 
 _SHUTDOWN = object()
 
@@ -55,6 +66,7 @@ class EngineStats:
     n_batches: int = 0
     n_padded_rows: int = 0
     decode_seconds: float = 0.0
+    queue_wait_seconds: float = 0.0  # summed over requests: from submit_chunk to a batch taking it
     occupancy: dict[int, int] = field(default_factory=dict)  # bucket -> batches
 
     def as_dict(self) -> dict:
@@ -63,6 +75,7 @@ class EngineStats:
             "n_batches": self.n_batches,
             "n_padded_rows": self.n_padded_rows,
             "decode_seconds": round(self.decode_seconds, 6),
+            "queue_wait_seconds": round(self.queue_wait_seconds, 6),
             "mean_batch": round(self.n_requests / self.n_batches, 3) if self.n_batches else 0.0,
             "occupancy": dict(sorted(self.occupancy.items())),
         }
@@ -116,6 +129,7 @@ class ServingEngine:
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self._stats = EngineStats()
         self._stats_lock = threading.Lock()
+        self._batch_ids = itertools.count()
         self._closed = False
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="adt-serving-dispatch", daemon=True
@@ -147,7 +161,7 @@ class ServingEngine:
         for b in self.buckets:
             silent = np.zeros((b, self.chunk_samples), np.float32)
             futs: list[Future] = [Future() for _ in range(b)]
-            self._run_batch([(silent[i], futs[i]) for i in range(b)])
+            self._run_batch([(silent[i], futs[i], None) for i in range(b)])
             futs[0].result()  # surface a failed warm-up
         return time.monotonic() - t0
 
@@ -165,7 +179,7 @@ class ServingEngine:
         if wave.shape[0] < self.chunk_samples:
             wave = np.pad(wave, (0, self.chunk_samples - wave.shape[0]))
         fut: Future = Future()
-        self._queue.put((wave, fut))
+        self._queue.put((wave, fut, time.monotonic()))
         return fut
 
     def transcribe(self, wave: np.ndarray, hop_sec: float | None = None) -> np.ndarray:
@@ -191,7 +205,7 @@ class ServingEngine:
         if self._closed:
             return
         self._closed = True
-        self._queue.put((_SHUTDOWN, None))
+        self._queue.put((_SHUTDOWN, None, None))
         self._thread.join(timeout=timeout)
 
     def __enter__(self) -> "ServingEngine":
@@ -223,7 +237,9 @@ class ServingEngine:
         else:
             tokens = decode_lib.greedy_decode(self._model, dev, max_length=self.max_length,
                                               start_token=bos, end_token=eos)
-        return tokens.cpu().numpy().astype(np.int32, copy=False)
+        with spans.span("serve.tokens_out"):
+            tokens = tokens.cpu()
+        return tokens.numpy().astype(np.int32, copy=False)
 
     def _collect_batch(self, first) -> tuple[list, bool]:
         """Drain the queue, then wait up to max_wait_s for stragglers; stop
@@ -231,6 +247,7 @@ class ServingEngine:
         batch = [first]
         cap = self.buckets[-1]
         deadline = time.monotonic() + self.max_wait_s
+        saw_shutdown = False
         while len(batch) < cap:
             try:
                 item = self._queue.get_nowait()
@@ -243,28 +260,38 @@ class ServingEngine:
                 except queue.Empty:
                     break
             if item[0] is _SHUTDOWN:
-                return batch, True
+                saw_shutdown = True
+                break
             batch.append(item)
-        return batch, False
+        self._add_wait(batch)
+        return batch, saw_shutdown
+
+    def _add_wait(self, items: list) -> None:
+        """Count the queue wait of requests the dispatcher just took."""
+        taken = time.monotonic()
+        with self._stats_lock:
+            self._stats.queue_wait_seconds += sum(taken - put for _, _, put in items)
 
     def _run_batch(self, batch: list) -> None:
         n = len(batch)
         bucket = next(b for b in self.buckets if b >= n)
-        waves = np.zeros((bucket, self.chunk_samples), np.float32)
-        for i, (wave, _) in enumerate(batch):
-            waves[i] = wave
-        t0 = time.monotonic()
-        try:
-            tokens = self._decode_device(waves)
-        except Exception as exc:  # propagate one failure to every waiter
-            for _, fut in batch:
-                if fut is not None and not fut.cancelled():
-                    fut.set_exception(exc)
-            return
-        dt = time.monotonic() - t0
-        for i, (_, fut) in enumerate(batch):
-            if fut is not None and not fut.cancelled():
-                fut.set_result(tokens[i])
+        with spans.span("serve.batch", batch=next(self._batch_ids), bucket=bucket, rows=n):
+            waves = np.zeros((bucket, self.chunk_samples), np.float32)
+            for i, (wave, _, _) in enumerate(batch):
+                waves[i] = wave
+            t0 = time.monotonic()
+            try:
+                tokens = self._decode_device(waves)
+            except Exception as exc:  # propagate one failure to every waiter
+                for _, fut, _ in batch:
+                    if fut is not None and not fut.cancelled():
+                        fut.set_exception(exc)
+                return
+            dt = time.monotonic() - t0
+            with spans.span("serve.answer"):
+                for i, (_, fut, _) in enumerate(batch):
+                    if fut is not None and not fut.cancelled():
+                        fut.set_result(tokens[i])
         with self._stats_lock:
             s = self._stats
             s.n_requests += n
@@ -283,6 +310,7 @@ class ServingEngine:
                 break
             if item[0] is not _SHUTDOWN:
                 leftovers.append(item)
+        self._add_wait(leftovers)
         cap = self.buckets[-1]
         while leftovers:
             self._run_batch(leftovers[:cap])
@@ -294,7 +322,8 @@ class ServingEngine:
             if item[0] is _SHUTDOWN:
                 self._drain_on_shutdown()
                 return
-            batch, saw_shutdown = self._collect_batch(item)
+            with spans.span("serve.collect"):
+                batch, saw_shutdown = self._collect_batch(item)
             self._run_batch(batch)
             if saw_shutdown:
                 self._drain_on_shutdown()

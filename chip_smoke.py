@@ -136,10 +136,7 @@ line:
    below the first, the slice's kernels launched exactly as often as the
    step calls them, and the first step's loss and grad_norm agree with the
    same step through the plain versions on the card. It reports the median
-   step time, the device-busy share of one profiled step (traced after a
-   warm-up step in the same profiler session) and where that step's device
-   time goes; it fails if a kernel that the step launched has no device
-   time in the trace;
+   step time;
 6. serving: the ENSTserving model (4+4 layers, d_model 768, vocab 1400)
    from seeded random weights, served by the port's HTTP server on
    127.0.0.1; 3 concurrent POSTs of 10 s of seeded raw f32 PCM must answer
@@ -159,7 +156,7 @@ line:
 7. bench: the port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with
    its whole workload prints its JSON line on a line of its own, with
    every window's time, the launches of K1, K2 and K3 in the timed
-   windows (once a step each) and the busy share of one profiled step;
+   windows (once a step each);
    one bench batch (48 note slots, the 192-row bank) rendered through K2
    and K3 must equal its plain-path render on the same draws;
 8. clap (`configs/preprocess/clap.yaml` at laion/clap-htsat-fused's widths,
@@ -1720,44 +1717,6 @@ def device_time_by_group(events: list, launched: dict) -> dict:
             "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def step_profile(fn, label: str) -> dict:
-    """Device time of one call of `fn` under torch.profiler, traced after an
-    untraced warm-up call in the same session (the first kernels of a
-    session can fall outside its trace): the busy share (kernel time over
-    host wall time; the profiler's own host cost makes the idle share an
-    upper bound) and the time by kernel group, which must hold every kernel
-    that the launch counters saw in the traced call (a trace that misses
-    one is taken again, and the third such trace raises)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    trace = _build.BUILD_DIR.parent / f"train_trace_{label}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    counters = kernel_counters()
-    for attempt in range(1, 4):  # a session now and then loses its device events: take it again, 3 times at most
-        torch.cuda.synchronize()
-        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-        with torch.profiler.profile(activities=acts, schedule=schedule,
-                                    on_trace_ready=lambda p: p.export_chrome_trace(str(trace))) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            before = {k: c.launches for k, c in counters.items()}
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
-            launched = {k: c.launches - before[k] for k, c in counters.items()}
-            prof.step()
-        try:
-            res = device_time_by_group(json.loads(trace.read_text()).get("traceEvents", []), launched)
-            break
-        except RuntimeError:
-            if attempt == 3:
-                raise
-    return {"wall_ms": wall_us / 1e3, "launched": launched, "attempts": attempt, **res,
-            # None: the profiler saw no device
-            "device_busy_share": res["device_busy_ms"] * 1e3 / wall_us if res["device_kernels"] else None}
-
-
 def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
     """A constant lr with no warmup: every one of the few updates applies."""
     return TrainingConfig(learning_rate=TRAIN_LR, warmup_ratio=0.0, lr_scheduler_type="constant",
@@ -1765,13 +1724,12 @@ def _constant_lr(cfg: FrameworkConfig) -> TrainingConfig:
 
 
 def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps: int = TRAIN_STEPS,
-                 tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True, lockstep: bool = False,
-                 ref32=None, trajectory: bool = False) -> dict:
+                 tol: dict = PARITY_TOL, plain_steps: int = 1, lockstep: bool = False, ref32=None,
+                 trajectory: bool = False) -> dict:
     """`steps` steps of `call(step, state, i) -> (state, metrics)` from
     `fresh() -> (step, state)`, each of the first `plain_steps` checked
     against the same step through the plain versions (from the same weights
-    and randomness) within `tol`, and the kernels' expected launches; with
-    `profile`, one more step traced (`step_profile`). The plain steps run
+    and randomness) within `tol`, and the kernels' expected launches. The plain steps run
     their own trajectory from the same initial weights, or with `lockstep`
     each from a copy of the kernel path's state before its step: in bf16
     or fp16 the two trajectories part after the first update (Adam's
@@ -1853,8 +1811,6 @@ def run_training(name: str, mc, per_step: dict, fresh, call, extra: dict, steps:
         res["vs_plain_each_step"] = each
     if trajectory:
         res["vs_plain_own_trajectory"] = gaps(own)
-    if profile:
-        res["profile_one_step"] = step_profile(lambda: call(step, state, steps), name)
     emit(res)
     if not all(math.isfinite(x) for x in losses + norms):
         raise RuntimeError(f"{name}: a loss or gradient norm is not finite")
@@ -1882,8 +1838,8 @@ def training_inputs(name: str, steps: int, tokens: int = TRAIN_TOKENS, **section
 
 
 def phase_training(name: str, label: str | None = None, steps: int = TRAIN_STEPS, tokens: int = TRAIN_TOKENS,
-                   tol: dict = PARITY_TOL, plain_steps: int = 1, profile: bool = True, lockstep: bool = False,
-                   trajectory: bool = False, **sections) -> dict:
+                   tol: dict = PARITY_TOL, plain_steps: int = 1, lockstep: bool = False, trajectory: bool = False,
+                   **sections) -> dict:
     """`steps` steps of one real-audio training configuration through its
     kernels (`training_inputs`; `label` names the run), held as
     `run_training` holds them; at fp16 with `lockstep`, beside the same
@@ -1904,7 +1860,7 @@ def phase_training(name: str, label: str | None = None, steps: int = TRAIN_STEPS
 
     return run_training(label or name, mc, per_step(mc, synth=False), fresh,
                         lambda step, state, i: step(state, batch, keys[i]),
-                        {"tokens": tokens, "chunk_samples": cfg.shared.chunk_samples}, steps, tol, plain_steps, profile,
+                        {"tokens": tokens, "chunk_samples": cfg.shared.chunk_samples}, steps, tol, plain_steps,
                         lockstep, ref32 if lockstep and mc.compute_dtype == "float16" else None, trajectory)
 
 
@@ -2289,8 +2245,7 @@ def phase_bench() -> dict:
     """The port's bench (`adt_str_tpu_torch/bench.py`'s `main`) with its
     whole workload: its JSON line on a line of its own, every window's time,
     the kernels' launches during the timed windows (K1, K2 and K3 once a
-    step) and the device-busy share of one profiled step; then one bench
-    batch (48 note slots, the 192-row bank) rendered through K2 and K3 must
+    step); then one bench batch (48 note slots, the 192-row bank) rendered through K2 and K3 must
     equal its render through the plain versions on the same draws."""
     counters = all_counters()  # a training step launches no batch-invariance kernel: expected 0
     t0 = time.monotonic()
@@ -2318,8 +2273,7 @@ def phase_bench() -> dict:
            "note_slots": notes.shape[1], "bank_rows": b.statics.waveforms.shape[0],
            "tokens": b.batch["tokens"].shape[1], "launches": launches, "peak_mem_gib": peak_gib,
            "render_equal_to_plain_path": bool(torch.equal(out, ref)),
-           "render_max_abs_err_vs_plain": (out - ref).abs().max().item(),
-           "profile_one_step": step_profile(b.run_step, "bench")}
+           "render_max_abs_err_vs_plain": (out - ref).abs().max().item()}
     emit(res)
     expected = {**dict.fromkeys(counters, 0), "log_mel": steps, "gather_blend": steps, "place_notes": steps}
     if launches != expected or not res["render_equal_to_plain_path"]:
@@ -3883,14 +3837,14 @@ def phase_training_fp32(name: str) -> dict:
     trajectories, every step held, while they pass."""
     flash = name == "flash"
     return phase_training(name, f"training-fp32-{name}", FP32_STEPS, tol=FP32_TOL, plain_steps=FP32_STEPS,
-                          profile=False, lockstep=flash, trajectory=flash, model=FP32)
+                          lockstep=flash, trajectory=flash, model=FP32)
 
 
 def phase_training_long() -> dict:
     """TMIDT-flash at `input_sec: 10.24` and 1,024 tokens (K5f and K5b on
     1,014 and 1,023 keys: encoder, decoder self, cross), LONG_STEPS steps at
     batch 64, held as the bf16 training phases are."""
-    return phase_training("flash", "training-long-flash", LONG_STEPS, LONG_TOKENS, profile=False, **LONG)
+    return phase_training("flash", "training-long-flash", LONG_STEPS, LONG_TOKENS, **LONG)
 
 
 def tokens_vs_plain(model: ADTModel, cfg: FrameworkConfig, chunks: torch.Tensor) -> dict:
@@ -4087,7 +4041,7 @@ def phase_training_variant(name: str, label: str, model: dict) -> dict:
     tokens), every step held at the bf16 rule (PARITY_TOL) to the plain
     path's step from the same weights (`lockstep`), and the variant's
     kernels launched as the step needs."""
-    return phase_training(name, label, VARIANT_STEPS, plain_steps=VARIANT_STEPS, profile=False, lockstep=True,
+    return phase_training(name, label, VARIANT_STEPS, plain_steps=VARIANT_STEPS, lockstep=True,
                           model=model)
 
 
@@ -5152,8 +5106,6 @@ def clap_curation_on_card(tmp: Path) -> dict:
         list(pool.map(lambda f: normalize(load_and_resample(f, CLAP_SR)), lib_files + ref_files))
     res["breakdown"] = {"decode_s": time.monotonic() - t0, **clap_breakdown(wrapper, lib_files)}
     res["breakdown"]["decode_ms_per_batch"] = res["breakdown"]["decode_s"] * 1e3 * CLAP_BATCH / (CLAP_LIBRARY + n_ref)
-    res["profile_encode"] = step_profile(lambda: clap_curation.encode_files(
-        wrapper, lib_files[: 4 * CLAP_BATCH], CLAP_SR, CLAP_BATCH), "clap_encode")
 
     # K1 against its plain version through the tower; the card against the CPU; the mesh; the text tower
     clips = [normalize(load_and_resample(f, CLAP_SR)) for f in lib_files[:CLAP_BATCH]]
